@@ -10,10 +10,14 @@ params)`` or loads a saved tree). The mapping:
   ``jnp.split(qkv, 3, -1)`` / ``jnp.split(kv, 2, -1)`` do;
 * ``LayerNorm_0``/``LayerNorm_1`` ``scale``/``bias`` → ``ln_attn``/
   ``ln_ffn`` ``weight``/``bias``; the final ``LayerNorm_0`` → ``ln_f``;
-* ``tok_emb.embedding``, ``pos_emb`` and ``lm_head.kernel`` carry over.
+* ``tok_emb.embedding``, ``pos_emb`` and ``lm_head.kernel`` carry over;
+* a tree trained with ``qkv_layout="bhld"`` (head-major einsum kernels
+  ``qkv_bhld [d, 3, h, e]``, ``q_bhld [d, h, e]``, ``kv_bhld [d, 2, hkv,
+  e]``, ``attn_out_bhld [h, e, d]``) is first mapped to the Dense kernels
+  the way the JAX package's ``bhld_to_blhd_params`` maps it. The port
+  needs no second compute layout: its kernels read q/k/v through strides.
 
-``model.load_state_dict`` then casts each tensor to the parameter's own
-dtype (bf16 Linear weights in a bf16 model, f32 elsewhere).
+Every parameter of the port is f32, as flax keeps them.
 """
 
 from __future__ import annotations
@@ -30,6 +34,26 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 
+def _bhld_block(bp: Mapping, d: int) -> Dict:
+    """One block's head-major kernels → the Dense kernels (a copy of
+    ``bhld_to_blhd_params``'s mapping, in numpy)."""
+    out = {k: v for k, v in bp.items() if not k.endswith("_bhld")}
+    if "qkv_bhld" in bp:
+        w = np.asarray(bp["qkv_bhld"])                 # [d, 3, h, e]
+        out["qkv"] = {"kernel": np.concatenate(
+            [w[:, t].reshape(d, -1) for t in range(3)], axis=1)}
+    if "q_bhld" in bp:
+        out["q_proj"] = {"kernel": np.asarray(bp["q_bhld"]).reshape(d, -1)}
+    if "kv_bhld" in bp:
+        w = np.asarray(bp["kv_bhld"])                  # [d, 2, hkv, e]
+        out["kv_proj"] = {"kernel": np.concatenate(
+            [w[:, t].reshape(d, -1) for t in range(2)], axis=1)}
+    if "attn_out_bhld" in bp:
+        w = np.asarray(bp["attn_out_bhld"])            # [h, e, d]
+        out["attn_out"] = {"kernel": w.reshape(-1, w.shape[-1])}
+    return out
+
+
 def params_from_flax(model, tree: Mapping) -> Dict[str, torch.Tensor]:
     """Flax TransformerLM ``params`` (numpy leaves) → a state dict for
     ``model`` (a :class:`chainermn_torch.models.TransformerLM` of the
@@ -43,7 +67,7 @@ def params_from_flax(model, tree: Mapping) -> Dict[str, torch.Tensor]:
     if model.pos_emb == "learned":
         sd["pos_embedding"] = _t(tree["pos_emb"])
     for i in range(model.n_layers):
-        bp = tree[f"block_{i}"]
+        bp = _bhld_block(tree[f"block_{i}"], model.d_model)
         pre = f"blocks.{i}."
         dense = {"attn_out": "attn_out", "ffn_in": "ffn_in",
                  "ffn_out": "ffn_out"}

@@ -1,11 +1,21 @@
-"""Decoder-only Transformer LM, restricted to what serving runs.
+"""Decoder-only Transformer LM: training and serving.
 
 Counterpart of ``chainermn_tpu/models/transformer.py``'s
-``TransformerBlock`` / ``TransformerLM`` / ``generate`` in the ``blhd``
-layout with the dense FFN: MHA (fused ``qkv``) or GQA/MQA (``q_proj`` +
-``kv_proj``), learned or rope positions, ``attention_window``,
-``attention="flash"`` (the CUDA kernel on the card, its plain version on
-the CPU) or ``"reference"``.
+``TransformerBlock`` / ``TransformerLM`` / ``generate`` /
+``lm_loss_with_aux`` in the ``blhd`` layout with the dense FFN: MHA
+(fused ``qkv``) or GQA/MQA (``q_proj`` + ``kv_proj``), learned or rope
+positions, ``attention_window``, ``attention="flash"`` (the CUDA kernels
+on the card, their plain versions on the CPU; differentiable) or
+``"reference"``, ``remat`` and ``return_hidden``.
+
+Parameters are f32 and the computation runs in ``dtype``, as flax's
+``param_dtype`` / ``dtype`` split does: every Dense layer, the embedding
+lookup and the attention projections cast their weights and inputs to
+``dtype``; LayerNorms compute in f32 with output in ``dtype``; the LM
+head stays f32. Training therefore keeps f32 weights, gradients and
+optimizer state. The serving engine runs on a snapshot with those
+weights stored in ``dtype`` once (:func:`compute_copy`), so a decode step
+does not cast them again; ``generate`` runs on the model itself.
 
 The JAX model's ``decode=True`` twin is :meth:`TransformerLM.forward_cached`
 here: it takes the KV cache as an explicit dict ``{"block_i": {"k", "v",
@@ -28,26 +38,37 @@ softmax in the cached paths.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from chainermn_torch.device import resolve_device
 from chainermn_torch.ops.flash_attention import flash_attention
 from chainermn_torch.ops.rotary import apply_rope
 
 __all__ = ["TransformerBlock", "TransformerLM", "generate",
-           "dense_attention"]
+           "dense_attention", "compute_copy", "lm_loss_with_aux"]
 
 _LN_EPS = 1e-6   # flax LayerNorm's default (torch's is 1e-5)
 
 
-def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """Statistics in f32, result in x's dtype (flax LayerNorm(dtype=...))."""
+def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Statistics in f32, result in ``dtype`` (flax LayerNorm(dtype=...))."""
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps).to(x.dtype)
+                        ln.eps).to(dtype)
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to
+    ``dtype`` (a no-op on weights a serving copy already holds in it)."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
 def dense_attention(q, k, v, causal: bool = False,
@@ -93,7 +114,7 @@ class TransformerBlock(nn.Module):
         self.attention_window = attention_window
         self.pos_emb = pos_emb
         self.rope_theta = rope_theta
-        lin = dict(dtype=dtype, device=device)
+        lin = dict(device=device)      # f32 parameters; compute in dtype
         self.ln_attn = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
         if self.n_kv_heads == n_heads:
             self.qkv = nn.Linear(d_model, 3 * d_model, bias=False, **lin)
@@ -110,12 +131,12 @@ class TransformerBlock(nn.Module):
         """h = LN(x) → q [b, l, H, dh], k/v [b, l, Hkv, dh]; the fused
         outputs split into equal chunks as ``jnp.split`` does."""
         b, l, _ = x.shape
-        h = _layer_norm(self.ln_attn, x)
+        h = _layer_norm(self.ln_attn, x, self.dtype)
         if self.n_kv_heads == self.n_heads:
-            q, k, v = self.qkv(h).chunk(3, dim=-1)
+            q, k, v = _dense(self.qkv, h, self.dtype).chunk(3, dim=-1)
         else:
-            q = self.q_proj(h)
-            k, v = self.kv_proj(h).chunk(2, dim=-1)
+            q = _dense(self.q_proj, h, self.dtype)
+            k, v = _dense(self.kv_proj, h, self.dtype).chunk(2, dim=-1)
         return (q.reshape(b, l, self.n_heads, self.d_head),
                 k.reshape(b, l, self.n_kv_heads, self.d_head),
                 v.reshape(b, l, self.n_kv_heads, self.d_head))
@@ -134,10 +155,10 @@ class TransformerBlock(nn.Module):
 
     def _tail(self, x, att):
         b, l, _ = x.shape
-        x = x + self.attn_out(att.reshape(b, l, -1).to(self.dtype))
-        h = _layer_norm(self.ln_ffn, x)
-        y = F.gelu(self.ffn_in(h), approximate="tanh")
-        return x + self.ffn_out(y)
+        x = x + _dense(self.attn_out, att.reshape(b, l, -1), self.dtype)
+        h = _layer_norm(self.ln_ffn, x, self.dtype)
+        y = F.gelu(_dense(self.ffn_in, h, self.dtype), approximate="tanh")
+        return x + _dense(self.ffn_out, y, self.dtype)
 
     def forward(self, x, pos_offset=0):
         """Full forward. ``pos_offset``: scalar or per-row ``[b]``."""
@@ -245,12 +266,15 @@ def _positions(pos_offset, l: int, device) -> torch.Tensor:
 
 
 class TransformerLM(nn.Module):
-    """Causal LM: tokens ``[B, L]`` → logits ``[B, L, vocab]`` (f32).
+    """Causal LM: tokens ``[B, L]`` → logits ``[B, L, vocab]`` (f32), or
+    the final post-LN hidden states ``[B, L, d_model]`` in ``dtype`` with
+    ``return_hidden`` (the fused head+CE loss applies ``lm_head`` itself).
 
     Runs on ``device`` (default ``cuda``; raises without a GPU unless
-    ``device="cpu"``). Linear and embedding weights are kept in ``dtype``,
-    LayerNorms, learned positions and the LM head in f32 — the dtypes
-    the JAX model computes them in.
+    ``device="cpu"``). Every parameter is f32; the forward computes in
+    ``dtype`` where the JAX model does (see the module docstring).
+    ``remat`` recomputes each block's activations in the backward
+    (``torch.utils.checkpoint``, non-reentrant) while grad is enabled.
     """
 
     def __init__(self, vocab: int, d_model: int = 256, n_heads: int = 8,
@@ -259,7 +283,8 @@ class TransformerLM(nn.Module):
                  pos_emb: str = "learned", rope_theta: float = 10000.0,
                  attention_window: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
-                 attention: str = "flash", device=None):
+                 attention: str = "flash", remat: bool = False,
+                 return_hidden: bool = False, device=None):
         super().__init__()
         if pos_emb not in ("learned", "rope"):
             raise ValueError(f"pos_emb must be 'learned' or 'rope', got "
@@ -271,7 +296,8 @@ class TransformerLM(nn.Module):
         self.pos_emb, self.rope_theta = pos_emb, rope_theta
         self.attention_window = attention_window
         self.dtype, self.attention = dtype, attention
-        self.tok_emb = nn.Embedding(vocab, d_model, dtype=dtype, device=dev)
+        self.remat, self.return_hidden = remat, return_hidden
+        self.tok_emb = nn.Embedding(vocab, d_model, device=dev)
         if pos_emb == "learned":
             self.pos_embedding = nn.Parameter(
                 torch.randn(max_len, d_model, device=dev) * 0.02)
@@ -288,7 +314,8 @@ class TransformerLM(nn.Module):
         return self.lm_head.weight.device
 
     def _embed(self, tokens, pos_offset):
-        x = self.tok_emb(tokens.long())
+        # flax nn.Embed(dtype=...): the table is cast, then gathered
+        x = F.embedding(tokens.long(), self.tok_emb.weight.to(self.dtype))
         if self.pos_emb == "learned":
             idx = _positions(pos_offset, tokens.shape[1], tokens.device)
             # jnp.take's default fill mode: out-of-range rows read NaN
@@ -300,14 +327,24 @@ class TransformerLM(nn.Module):
         return x
 
     def _head(self, x):
-        x = _layer_norm(self.ln_f, x)
-        return self.lm_head(x.float())
+        return self.lm_head(_layer_norm(self.ln_f, x, self.dtype).float())
+
+    def forward_hidden(self, tokens, pos_offset=0):
+        """Final post-LN hidden states ``[B, L, d_model]`` in ``dtype``."""
+        x = self._embed(tokens, pos_offset)
+        remat = self.remat and torch.is_grad_enabled()
+        for blk in self.blocks:
+            if remat:
+                x = checkpoint(blk, x, pos_offset, use_reentrant=False)
+            else:
+                x = blk(x, pos_offset=pos_offset)
+        return _layer_norm(self.ln_f, x, self.dtype)
 
     def forward(self, tokens, pos_offset=0):
-        x = self._embed(tokens, pos_offset)
-        for blk in self.blocks:
-            x = blk(x, pos_offset=pos_offset)
-        return self._head(x)
+        h = self.forward_hidden(tokens, pos_offset)
+        if self.return_hidden:
+            return h
+        return self.lm_head(h.float())
 
     def forward_cached(self, tokens, cache, chunked: bool = False):
         """The decode twin: tokens ``[B, l]`` at each row's cache cursor;
@@ -316,6 +353,37 @@ class TransformerLM(nn.Module):
         for i, blk in enumerate(self.blocks):
             x = blk.forward_cached(x, cache[f"block_{i}"], chunked=chunked)
         return self._head(x)
+
+
+def compute_copy(model: TransformerLM) -> TransformerLM:
+    """A snapshot of ``model`` to serve from, whatever its dtype: Dense
+    and embedding weights stored in ``model.dtype`` (the cast the forward
+    would make on every call, made once); LayerNorms, learned positions
+    and the LM head in f32. It shares no storage with ``model`` and takes
+    no ``.grad``, so later updates of ``model`` do not reach it: push them
+    with ``load_state_dict``, which casts."""
+    cast = {id(p) for mod in model.modules()
+            if isinstance(mod, (nn.Linear, nn.Embedding))
+            and mod is not model.lm_head
+            for p in mod.parameters(recurse=False)}
+    memo = {id(p): nn.Parameter(
+        p.detach().to(model.dtype if id(p) in cast else p.dtype, copy=True),
+        requires_grad=False) for p in model.parameters()}
+    return copy.deepcopy(model, memo)
+
+
+def lm_loss_with_aux(model, x, y, train: bool = True, mutable=None,
+                     aux_weight: float = 0.01):
+    """Next-token cross-entropy on the f32 logits and argmax accuracy, in
+    the step-factory loss signature (``training/step.py``). The dense
+    model has no MoE load-balancing term, so the aux is 0."""
+    del train, mutable, aux_weight  # no dropout, no mutable state, no MoE
+    logits = model(x)
+    y = torch.as_tensor(y, device=logits.device).long()
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           y.reshape(-1))
+    acc = (logits.argmax(-1) == y).float().mean()
+    return loss, (acc, {})
 
 
 @torch.no_grad()

@@ -90,7 +90,9 @@ class Request:
 class Engine:
     """Single-threaded scheduler core: ``submit()`` queues, ``step()``
     advances one iteration, ``run_until_drained()`` loops until idle.
-    ``model`` must already live on ``device`` (default ``cuda``)."""
+    ``model`` must already live on ``device`` (default ``cuda``). The
+    engine serves a snapshot of its weights taken at construction; later
+    updates reach it only through ``engine.steps.load_params``."""
 
     def __init__(self, model, config: EngineConfig = EngineConfig(), *,
                  device=None, report: Optional[ServingReport] = None,

@@ -26,6 +26,7 @@ from typing import Dict, Optional
 import torch
 
 from chainermn_torch.device import resolve_device
+from chainermn_torch.models.transformer import compute_copy
 from chainermn_torch.serving.sampling import sample_tokens
 
 __all__ = ["cache_spec", "cache_bytes", "init_cache", "decode_apply",
@@ -216,9 +217,14 @@ class ServingStep:
     """The prefill/decode dispatches of one engine, owning its pages.
 
     ``model`` must already live on ``device`` (default ``cuda``; raises
-    without a GPU unless ``device="cpu"``). Each method runs eagerly
-    and returns device tensors; the engine pulls only integer token ids
-    to the host.
+    without a GPU unless ``device="cpu"``). The step serves a snapshot of
+    it taken here (:func:`~chainermn_torch.models.transformer.compute_copy`,
+    for every dtype): a bf16 model's f32 Dense and embedding weights are
+    cast once, not on every dispatch, and later in-place updates of
+    ``model`` (training steps, ``load_state_dict``) do not reach the
+    step; :meth:`load_params` is how new weights get in. Each method runs
+    eagerly and returns device tensors; the engine pulls only integer
+    token ids to the host.
     """
 
     def __init__(self, model, n_slots: int, capacity: int, *,
@@ -227,7 +233,7 @@ class ServingStep:
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, the serving "
                              f"step on {self.device}")
-        self.model = model
+        self.model = compute_copy(model)
         self.n_slots = int(n_slots)
         self.capacity = int(capacity)
         self.cache_dtype = cache_dtype or model.dtype
@@ -303,7 +309,9 @@ class ServingStep:
         return toks, keys
 
     def load_params(self, state_dict) -> None:
-        """Swap weights in place (same shapes; no page is touched)."""
+        """Swap the served weights in place (same shapes; no page is
+        touched), the one way to update them after construction. f32
+        weights are cast to the snapshot's dtypes."""
         self.model.load_state_dict(state_dict)
 
     def reset(self) -> None:

@@ -9,9 +9,10 @@ the final line:
 1. card — ``nvidia-smi`` name and power limit;
 2. build — every CUDA kernel of the port from ``chainermn_torch/csrc``,
    one ``nvcc`` per source, all started together;
-3. kernels — each kernel against its plain PyTorch version on the card
-   at the main path's shape and in the edge cases, then timed beside the
-   plain version and the one PyTorch call that computes the same
+3. kernels — each kernel (flash_fwd, flash_bwd, and the fused CE's
+   ce_fwd, ce_dh, ce_dw) against its plain PyTorch version on the card at
+   the main path's shape and in the edge cases, then timed beside the
+   plain version, its bound and the PyTorch call that computes the same
    function (a yardstick only; the port never calls it);
 4. slice — the port's ``Engine`` serves 16 greedy requests with the
    135M TransformerLM at full width (vocab 32768, d_model 768, 12
@@ -19,7 +20,17 @@ the final line:
    ``--seed``; launch counts are zeroed just before and read just after,
    and two streams are checked against an f32 full forward with plain
    attention on the card;
-5. a ``{"kernels": [...]}`` line, the card line, and last
+5. train — the same LM (f32 parameters, bf16 compute) trains through
+   ``create_communicator("pure_nccl")`` (one rank, NCCL),
+   ``create_multi_node_optimizer(AdamW(3e-4))`` and
+   ``make_data_parallel_train_step(loss_fn=fused_lm_loss,
+   scan_steps=4)`` at seq_len 2048, batch 4: one step's loss and
+   gradients on the kernel path are first held against the f32 plain
+   path (reference attention, unfused loss), then 3 warm-up and 3 timed
+   calls run with launch counts zeroed just before and read just after
+   (12 flash_fwd, 12 flash_bwd and one each of ce_fwd, ce_dh, ce_dw per
+   step), the losses must be finite and fall;
+6. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one, or when run
@@ -43,10 +54,45 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
-# stated tolerances: f32 kernels vs plain version, bf16 out and lse
+# stated tolerances. f32 kernels vs their plain versions:
+# |err| <= 1e-4 + 1e-4 |ref|.
 TOL_F32 = 1e-4
-TOL_BF16_OUT = 2e-2
+# bf16 outputs (flash out; dq, dk, dv; dh, dW). The kernel and its plain
+# version round an intermediate to bf16 (P, dS, the CE's dl) and then the
+# output. The intermediate is rounded from f32 values that differ in
+# their last bits (the forward's online softmax even rounds exp(s - m)
+# against a running max m), so one rounding may fall the other way: up
+# to 2^-8 of the largest term of an entry's sum, and the output rounding
+# then puts the two up to 2^-7 of the entry apart. That term is a row of
+# an input (v_j, k_j, q_i, h_n, W_v) scaled by P or dl, and it need not
+# be small where the entry is: the error vector follows that input row,
+# whose largest element is up to about 4 times its rms, so a rounding
+# moves a whole output vector by up to ~1.6e-2 of its rms. Each entry is
+# therefore held to its own value and to its own vector's scale, so that
+# small vectors (late keys of a causal backward, vocab rows with no
+# label) are checked as closely as large ones:
+#   |err| <= 2e-2 |ref| + 3e-2 rms(ref vector) + 1e-3 rms(ref tensor)
+# where a vector is the last axis (one head's D values of a row, one row
+# of dh or dW^T). The last term only covers entries whose exact value is
+# 0 and whose computed value is f32 cancellation noise (dq of a causal
+# row that sees one key: dP - D).
+TOL_BF16_REL = 2e-2
+TOL_BF16_VEC = 3e-2
+TOL_BF16_TENSOR = 1e-3
+# bf16 lse (flash) and CE lse / target logit: f32 statistics of exact
+# bf16 products, summed in another order
 TOL_BF16_LSE = 2e-3
+TOL_CE_BF16_STAT = 1e-3
+# an argmax may differ from the plain version's only where the plain
+# logits' top two are closer than this (f32 summation order decides)
+TOL_ARGMAX_GAP = 1e-4
+# one train step, kernel path (bf16 compute, fused loss) vs plain path
+# (f32 compute, reference attention, unfused loss) from the same f32
+# weights: loss within 0.02 of ~10.4, and each parameter's gradient
+# within 0.1 relative (L2) error: bf16 rounding of activations over 12
+# layers
+TOL_TRAIN_LOSS = 0.02
+TOL_TRAIN_GRAD = 0.1
 # served greedy token vs the f32 plain-attention full forward: the
 # token's logit must be within this of its row's max (bf16 drift over 12
 # layers; the logits' spread is about 0.6)
@@ -80,16 +126,19 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def causal_pairs(lq: int, lk: int, causal: bool) -> int:
+    """Visible (row, column) pairs of one head (top-left causal)."""
+    if not causal:
+        return lq * lk
+    return sum(min(i + 1, lk) for i in range(lq))
+
+
 def flash_bound_ms(b, lq, lk, hq, hkv, d, dtype, causal):
     """Least time for the attention forward on these inputs, and what
     bounds it: every visible (row, col) pair costs two length-D products
     (QK and PV, 2 ops per MAC); bytes are q, k, v and out once each plus
     the f32 lse."""
-    if causal:
-        pairs = sum(min(i + 1, lk) for i in range(lq))
-    else:
-        pairs = lq * lk
-    ops = 4 * d * pairs * b * hq
+    ops = 4 * d * causal_pairs(lq, lk, causal) * b * hq
     item = 2 if dtype == "bfloat16" else 4
     nbytes = (2 * b * lq * hq * d + 2 * b * lk * hkv * d) * item \
         + 4 * b * hq * lq
@@ -142,25 +191,23 @@ def check_kernels(gen):
         torch.cuda.synchronize()
         ref_out, ref_lse = flash_attention_reference(q, k, v, causal, None,
                                                      seg, window)
-        if dtype == torch.float32:
-            o_tol, l_tol, rtol = TOL_F32, TOL_F32, TOL_F32
-        else:
-            o_tol, l_tol, rtol = TOL_BF16_OUT, TOL_BF16_LSE, TOL_BF16_OUT
-        err_o = (out.float() - ref_out.float()).abs()
-        ok_o = bool((err_o <= o_tol + rtol * ref_out.float().abs()).all())
+        res_o = _close(out, ref_out, dtype)
+        ok_o = res_o[3]
         err_l = (lse - ref_lse).abs()
-        ok_l = bool((err_l <= l_tol + (rtol if dtype == torch.float32
-                                       else 0.0) * ref_lse.abs()).all())
+        if dtype == torch.float32:
+            ok_l = bool((err_l <= TOL_F32 + TOL_F32 * ref_lse.abs()).all())
+        else:
+            ok_l = bool((err_l <= TOL_BF16_LSE).all())
         if segs:
             ok_o = ok_o and bool((out[0, 7] == 0).all())
         print(f"kernel flash_fwd case={name} shape=[{b},{lq}|{lk},{hq}|"
-              f"{hkv},{d}] {str(dtype)[6:]} out_err={err_o.max().item():.3g}"
+              f"{hkv},{d}] {str(dtype)[6:]} {_fmt('out', res_o)}"
               f" lse_err={err_l.max().item():.3g} "
               f"{'ok' if ok_o and ok_l else 'FAIL'}", flush=True)
         if not (ok_o and ok_l):
             raise PhaseError(f"flash_fwd disagrees with its plain version "
                              f"in case {name}")
-        worst[name] = err_o.max().item()
+        worst[name] = res_o[0]
     return worst
 
 
@@ -182,6 +229,315 @@ def time_flash(gen):
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
     bound, bound_by = flash_bound_ms(b, l, l, h, h, d, "bfloat16", True)
     return ms, plain_ms, lib_ms, bound, bound_by
+
+
+def flash_bwd_bound_ms(b, l, h, d, dtype):
+    """Least time for the attention backward on these inputs: five
+    length-D products per visible pair (S, dP, dV, dK, dQ: 10 D ops);
+    bytes are q, k, v, out, dout read and dq, dk, dv written once, plus
+    the f32 lse and D rows."""
+    ops = 10 * d * causal_pairs(l, l, True) * b * h
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = 8 * b * l * h * d * item + 2 * 4 * b * h * l
+    t_ops, t_bytes = ops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ce_bound_ms(n, d, v, dtype, which: str):
+    """Least time for one CE kernel: the forward's head product is
+    2 N D V operations, dh and dW each recompute it and add a product of
+    the same size (4 N D V); bytes are h, W, the labels (and lse) read
+    and the kernel's outputs written once."""
+    item = 2 if dtype == "bfloat16" else 4
+    ops = (2 if which == "ce_fwd" else 4) * n * d * v
+    nbytes = (n * d + d * v) * item + 4 * n
+    nbytes += {"ce_fwd": 12 * n, "ce_dh": 4 * n + n * d * item,
+               "ce_dw": 4 * n + d * v * item}[which]
+    t_ops, t_bytes = ops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _close(got, ref, dtype):
+    """Hold a kernel's output against its plain version at the stated
+    tolerance for ``dtype`` (TOL_F32, or the bf16 rule above). Returns
+    (max abs error, rms of ref, worst error / tolerance, ok)."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    rms = r.pow(2).mean().sqrt()
+    if dtype == torch.float32:
+        tol = TOL_F32 + TOL_F32 * r.abs()
+    else:
+        tol = (TOL_BF16_REL * r.abs()
+               + TOL_BF16_VEC * r.pow(2).mean(-1, keepdim=True).sqrt()
+               + TOL_BF16_TENSOR * rms)
+    share = (err / tol.clamp_min(1e-30)).max().item()
+    return err.max().item(), rms.item(), share, share <= 1.0
+
+
+def _fmt(name, res):
+    """``name_err=… (rms …, share …)`` of a :func:`_close` result."""
+    return f"{name}_err={res[0]:.3g} (rms {res[1]:.3g}, share {res[2]:.3f})"
+
+
+def check_flash_bwd(gen):
+    """flash_bwd against its plain version (dq, dk, dv) in every listed
+    case, on the plain forward's out and lse; returns the max error at
+    the training shape."""
+    import torch
+
+    from chainermn_torch.ops.flash_attention import (
+        flash_attention_backward_reference, flash_attention_bwd_cuda,
+        flash_attention_reference)
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # name, b, lq, lk, hq, hkv, d, dtype, causal, window, segments
+        ("train", 4, 2048, 2048, 12, 12, 64, bf16, True, None, False),
+        ("gqa", 2, 1024, 1024, 12, 4, 64, bf16, True, None, False),
+        ("segments", 2, 300, 300, 4, 2, 64, bf16, True, None, True),
+        ("ragged", 1, 1000, 1000, 12, 12, 64, bf16, True, None, False),
+        ("f32", 2, 512, 512, 12, 12, 64, f32, True, None, False),
+        ("f32-noncausal-lq-ne-lk", 1, 200, 333, 4, 1, 40, f32, False, None,
+         False),
+        # beyond the TPU fused kernel's envelope (the split dq / dkv pair)
+        ("window-4096", 1, 4096, 4096, 12, 12, 64, bf16, True, 256, False),
+        ("causal-lq-ne-lk", 1, 1024, 3000, 12, 4, 64, bf16, True, None,
+         False),
+    ]
+    worst = 0.0
+    for (name, b, lq, lk, hq, hkv, d, dtype, causal, window,
+         segs) in cases:
+        q = rand(b, lq, hq, d, dtype=dtype)
+        k = rand(b, lk, hkv, d, dtype=dtype)
+        v = rand(b, lk, hkv, d, dtype=dtype)
+        dout = rand(b, lq, hq, d, dtype=dtype)
+        seg = None
+        if segs:
+            qs = torch.zeros(b, lq, dtype=torch.int32, device="cuda")
+            qs[:, lq // 2:] = 1
+            qs[0, 7] = -1                     # a row that matches no key
+            ks = torch.zeros(b, lk, dtype=torch.int32, device="cuda")
+            ks[:, lk // 2:] = 1
+            seg = (qs, ks)
+        out, lse = flash_attention_reference(q, k, v, causal, None, seg,
+                                             window)
+        got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, None,
+                                       seg, window)
+        torch.cuda.synchronize()
+        ref = flash_attention_backward_reference(q, k, v, out, lse, dout,
+                                                 causal, None, seg, window)
+        res = [_close(g, r, dtype) for g, r in zip(got, ref)]
+        ok = all(r[3] for r in res)
+        if segs:
+            ok = ok and bool((got[0][0, 7] == 0).all())
+        print(f"kernel flash_bwd case={name} shape=[{b},{lq}|{lk},{hq}|"
+              f"{hkv},{d}] {str(dtype)[6:]} window={window} "
+              + " ".join(_fmt(n, r) for n, r in zip(("dq", "dk", "dv"), res))
+              + f" {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise PhaseError(f"flash_bwd disagrees with its plain version "
+                             f"in case {name}")
+        if name == "train":
+            worst = max(r[0] for r in res)
+            # the check must see an error confined to late keys, whose dk
+            # and dv are the smallest of a causal backward
+            bad = got[1].clone()
+            bad[:, 3 * lk // 4:] *= 1.3
+            share = _close(bad, ref[1], dtype)[2]
+            print(f"kernel flash_bwd check sees dk x1.3 on the last quarter "
+                  f"of keys: share {share:.3f}", flush=True)
+            if share <= 1.0:
+                raise PhaseError("the flash_bwd check misses a 30% error "
+                                 "on late keys")
+            del bad
+        del q, k, v, dout, out, lse, got, ref
+    return worst
+
+
+def ce_inputs(gen, n, d, v, dtype, ties=False):
+    import torch
+
+    if ties:
+        # small integers make every logit exact; each head row v >= v/2
+        # repeats row v - v/2, so every row's max is attained twice
+        h = torch.randint(-2, 3, (n, d), device="cuda", generator=gen)
+        half = torch.randint(-2, 3, (v // 2, d), device="cuda",
+                             generator=gen)
+        wt = torch.cat([half, half])
+        h, wt = h.to(dtype), wt.to(dtype)
+    else:
+        # post-LayerNorm hidden states (std 1) and a head that gives the
+        # logits a std of about 0.1 sqrt(D) (2.8 at D = 768): a peaked
+        # softmax, so the softmax term of dh and dW is not swamped by the
+        # one-hot term and a wrong p or lse shows
+        h = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+        wt = (torch.randn(v, d, device="cuda", generator=gen) * 0.1).to(
+            dtype)
+    y = torch.randint(0, v, (n,), device="cuda", generator=gen,
+                      dtype=torch.int32)
+    return h, wt, y
+
+
+def check_fused_ce(gen):
+    """ce_fwd, ce_dh and ce_dw against their plain versions in every
+    listed case; returns each kernel's max error at the training
+    shape."""
+    import torch
+
+    from chainermn_torch.ops.fused_ce import (
+        ce_dh_cuda, ce_dh_reference, ce_dw_cuda, ce_dw_reference,
+        ce_forward_cuda, ce_forward_reference)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # name, n, d, v, dtype, ties
+        ("train", 8192, 768, 32768, bf16, False),
+        ("ragged", 8000, 768, 30000, bf16, False),
+        ("f32", 1000, 256, 5000, f32, False),
+        ("ties", 512, 64, 1000, bf16, True),
+    ]
+    worst = {}
+    for name, n, d, v, dtype, ties in cases:
+        h, wt, y = ce_inputs(gen, n, d, v, dtype, ties)
+        lse, tl, am = ce_forward_cuda(h, wt, y)
+        dh = ce_dh_cuda(h, wt, y, lse)
+        dwt = ce_dw_cuda(h, wt, y, lse)
+        torch.cuda.synchronize()
+        r_lse, r_tl, r_am = ce_forward_reference(h, wt, y)
+        # the backward plain versions take the plain forward's lse
+        r_dh = ce_dh_reference(h, wt, y, r_lse)
+        r_dw = ce_dw_reference(h, wt, y, r_lse)
+        res_dh = _close(dh, r_dh, dtype)
+        res_dw = _close(dwt, r_dw, dtype)
+        # the softmax term alone at the rows with no label in this batch
+        # (dW^T there is sum_n p h_n): its own share, printed
+        nolabel = torch.ones(v, dtype=torch.bool, device="cuda")
+        nolabel[y.long()] = False
+        res_sw = _close(dwt[nolabel], r_dw[nolabel], dtype)
+        stat_rel = TOL_F32 if dtype == f32 else 0.0
+        stat_abs = TOL_F32 if dtype == f32 else TOL_CE_BF16_STAT
+        e_lse = (lse - r_lse).abs().max().item()
+        e_tl = (tl - r_tl).abs().max().item()
+        ok_lse = bool(((lse - r_lse).abs()
+                       <= stat_abs + stat_rel * r_lse.abs()).all())
+        ok_tl = bool(((tl - r_tl).abs()
+                      <= stat_abs + stat_rel * r_tl.abs()).all())
+        logits = h.float() @ wt.float().t()
+        top2 = logits.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        del logits
+        bad_am = int(((am != r_am) & (gap >= TOL_ARGMAX_GAP)).sum().item())
+        ok = (ok_lse and ok_tl and res_dh[3] and res_dw[3] and res_sw[3]
+              and bad_am == 0)
+        if ties:
+            # first index on ties: every row's argmax is in the first half
+            ok = ok and bool((am < v // 2).all()) and bool(
+                (am == r_am).all())
+        print(f"kernel fused_ce case={name} [{n},{d}]x[{d},{v}] "
+              f"{str(dtype)[6:]} lse_err={e_lse:.3g} tl_err={e_tl:.3g} "
+              f"argmax_mismatch={int((am != r_am).sum().item())} "
+              f"{_fmt('dh', res_dh)} {_fmt('dw', res_dw)} "
+              f"{_fmt('dw_nolabel', res_sw)} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise PhaseError(f"fused CE kernels disagree with their plain "
+                             f"versions in case {name}")
+        if name == "train":
+            worst = {"ce_fwd": max(e_lse, e_tl), "ce_dh": res_dh[0],
+                     "ce_dw": res_dw[0]}
+            # the check must see dh and dW built from the neighbouring
+            # row's lse
+            shares = [_close(fn(h, wt, y, r_lse.roll(1)), r, dtype)[2]
+                      for fn, r in ((ce_dh_reference, r_dh),
+                                    (ce_dw_reference, r_dw))]
+            print(f"kernel fused_ce check sees the neighbouring row's lse: "
+                  f"dh share {shares[0]:.3f}, dw share {shares[1]:.3f}",
+                  flush=True)
+            if min(shares) <= 1.0:
+                raise PhaseError("the fused CE check misses a shifted lse")
+        del h, wt, y, lse, tl, am, dh, dwt, r_lse, r_tl, r_am, r_dh, r_dw
+        del nolabel
+    return worst
+
+
+def time_training_kernels(gen):
+    """Each kernel at the training step's shape beside its plain version,
+    its bound and a PyTorch yardstick the port never calls: SDPA forward
+    and its autograd backward; for the CE, ``F.cross_entropy(h @ W, y)``
+    forward and its backward (two calls, one time each)."""
+    import torch
+    import torch.nn.functional as F
+
+    from chainermn_torch.ops.flash_attention import (
+        flash_attention_backward_reference, flash_attention_bwd_cuda,
+        flash_attention_cuda, flash_attention_reference)
+    from chainermn_torch.ops.fused_ce import (
+        ce_dh_cuda, ce_dh_reference, ce_dw_cuda, ce_dw_reference,
+        ce_forward_cuda, ce_forward_reference)
+
+    rows = {}
+    b, l, hh, d = 4, 2048, 12, 64
+    q, k, v, dout = (torch.randn(b, l, hh, d, device="cuda", generator=gen)
+                     .to(torch.bfloat16) for _ in range(4))
+    out, lse = flash_attention_cuda(q, k, v, True)
+    ms = cuda_time_ms(lambda: flash_attention_cuda(q, k, v, True))
+    plain = cuda_time_ms(lambda: flash_attention_reference(q, k, v, True),
+                         iters=3)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib = cuda_time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    bound, by = flash_bound_ms(b, l, l, hh, hh, d, "bfloat16", True)
+    rows["flash_fwd"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=bound, bound_by=by)
+
+    ms = cuda_time_ms(
+        lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, True))
+    plain = cuda_time_ms(lambda: flash_attention_backward_reference(
+        q, k, v, out, lse, dout, True), iters=3)
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do_t = dout.transpose(1, 2)
+    lib = cuda_time_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qt, kt, vt), do_t, retain_graph=True))
+    bound, by = flash_bwd_bound_ms(b, l, hh, d, "bfloat16")
+    rows["flash_bwd"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=bound, bound_by=by)
+    del q, k, v, dout, out, lse, qt, kt, vt, o_sdpa, do_t
+
+    n, dm, vocab = 8192, 768, 32768
+    h, wt, y = ce_inputs(gen, n, dm, vocab, torch.bfloat16)
+    lse = ce_forward_cuda(h, wt, y)[0]
+    hl = h.detach().requires_grad_()
+    wl = wt.detach().requires_grad_()
+
+    def lib_fwd():
+        return F.cross_entropy((hl @ wl.t()).float(), y.long())
+
+    loss = lib_fwd()
+    lib_f = cuda_time_ms(lib_fwd, iters=5)
+    lib_b = cuda_time_ms(lambda: torch.autograd.grad(
+        loss, (hl, wl), retain_graph=True), iters=5)
+    for name, kern, ref, lib in (
+            ("ce_fwd", lambda: ce_forward_cuda(h, wt, y),
+             lambda: ce_forward_reference(h, wt, y), lib_f),
+            ("ce_dh", lambda: ce_dh_cuda(h, wt, y, lse),
+             lambda: ce_dh_reference(h, wt, y, lse), lib_b),
+            ("ce_dw", lambda: ce_dw_cuda(h, wt, y, lse),
+             lambda: ce_dw_reference(h, wt, y, lse), lib_b)):
+        bound, by = ce_bound_ms(n, dm, vocab, "bfloat16", name)
+        rows[name] = dict(ms=cuda_time_ms(kern, iters=5, warmup=1),
+                          plain_ms=cuda_time_ms(ref, iters=3, warmup=1),
+                          library_ms=lib, bound_ms=bound, bound_by=by)
+    del h, wt, y, lse, hl, wl, loss
+    torch.cuda.empty_cache()
+    return rows
 
 
 def build_model(seed: int, dtype, attention: str):
@@ -284,24 +640,83 @@ def profile_serving(model, prompts, out_dir: str, card: str) -> None:
     finally:
         for name, fn in originals.items():
             setattr(kv_cache.ServingStep, name, fn)
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "serve_trace.json"))
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    lines = [f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  "
-             f"{e.key[:110]}" for e in kernels]
-    with open(os.path.join(out_dir, "serve_kernels.txt"), "w") as fh:
-        fh.write(f"# {card}; profiled wall {wall:.4f} s; device busy "
-                 f"{busy_us / 1e3:.3f} ms\n" + "\n".join(lines) + "\n")
+    busy_us = write_kernel_table(prof, out_dir, "serve", card, wall)
     print(f"profile: wall {wall:.4f} s (profiler on), device busy "
           f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / wall:.4f} of wall; "
           + ", ".join(f"{k} {n}x {t * 1e3:.2f} ms"
                       for k, (n, t) in spent.items())
           + f" ({card})", flush=True)
+
+
+def write_kernel_table(prof, out_dir: str, stem: str, card: str,
+                       wall: float) -> float:
+    """Write ``{stem}_trace.json`` and ``{stem}_kernels.txt`` (device time
+    by kernel) into ``out_dir``, print the top rows; returns the device
+    busy time in microseconds."""
+    import torch
+
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, f"{stem}_trace.json"))
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # a record_function range (the optimizer's "Optimizer.step#...") also
+    # shows on the device timeline under its host name; it spans kernels
+    # already counted, so only names with no host event are kernels
+    host = {e.key for e in events if e.device_type != cuda}
+    kernels = [e for e in events
+               if e.device_type == cuda and e.key not in host]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    lines = [f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  "
+             f"{e.key[:110]}" for e in kernels]
+    with open(os.path.join(out_dir, f"{stem}_kernels.txt"), "w") as fh:
+        fh.write(f"# {card}; profiled wall {wall:.4f} s; device busy "
+                 f"{busy_us / 1e3:.3f} ms\n" + "\n".join(lines) + "\n")
     for line in lines[:12]:
-        print(f"profile kernel: {line}", flush=True)
+        print(f"profile {stem} kernel: {line}", flush=True)
+    return busy_us
+
+
+def profile_training(seed: int, out_dir: str, card: str) -> None:
+    """One more train call (4 steps) after a warm-up, under
+    torch.profiler: the device's busy share and the kernels that take
+    the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chainermn_torch.comm import create_communicator
+    from chainermn_torch.ops.fused_ce import fused_lm_loss
+    from chainermn_torch.optimizers import create_multi_node_optimizer
+    from chainermn_torch.training.step import make_data_parallel_train_step
+
+    comm = create_communicator("pure_nccl")
+    model = build_model(seed, torch.bfloat16, "flash")
+    opt = create_multi_node_optimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4), comm)
+    k = TRAIN["scan_steps"]
+    step = make_data_parallel_train_step(model, opt, comm,
+                                         loss_fn=fused_lm_loss, scan_steps=k)
+    toks = train_tokens(seed)
+    xs = torch.as_tensor(toks[:, :-1], device="cuda")[None].expand(
+        k, -1, -1).contiguous()
+    ys = torch.as_tensor(toks[:, 1:], device="cuda")[None].expand(
+        k, -1, -1).contiguous()
+    step(xs, ys)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(xs, ys)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = write_kernel_table(prof, out_dir, "train", card, wall)
+    print(f"profile train: wall {wall:.4f} s for {k} steps (profiler on), "
+          f"device busy {busy_us / 1e3:.3f} ms = "
+          f"{busy_us / 1e6 / wall:.4f} of wall ({card})", flush=True)
+    comm.finalize()
+    del model, opt
+    torch.cuda.empty_cache()
 
 
 def check_streams(model, reqs, prompts, seed: int) -> float:
@@ -337,12 +752,150 @@ def check_streams(model, reqs, prompts, seed: int) -> float:
     return worst
 
 
+TRAIN = dict(batch=4, seq_len=2048, scan_steps=4, warmup_calls=3,
+             timed_calls=3)
+
+
+def train_tokens(seed: int):
+    """One seeded token batch [batch, seq_len + 1], as tools/bench_lm.py
+    makes it."""
+    import numpy as np
+
+    return np.random.RandomState(seed).randint(
+        0, 32768, size=(TRAIN["batch"], TRAIN["seq_len"] + 1)).astype(
+            np.int32)
+
+
+def check_train_grads(model, toks):
+    """One step's loss and gradients on the kernel path (bf16 compute,
+    flash kernels, fused CE kernels) against the f32 plain path
+    (reference attention, unfused loss) from the same weights, on the
+    training batch. Returns (loss gap, worst relative gradient error, the
+    kernels launched by the kernel path's forward and backward)."""
+    import torch
+
+    from chainermn_torch.models.transformer import lm_loss_with_aux
+    from chainermn_torch.ops import _cuda
+    from chainermn_torch.ops.fused_ce import fused_lm_loss
+
+    x = torch.as_tensor(toks[:, :-1], device="cuda").long()
+    y = torch.as_tensor(toks[:, 1:], device="cuda").long()
+    model.zero_grad(set_to_none=True)
+    _cuda.reset_launches()
+    loss, _ = fused_lm_loss(model, x, y)
+    loss.backward()
+    launched = _cuda.launches()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    ref = build_model(0, torch.float32, "reference")
+    ref.load_state_dict(model.state_dict())
+    # the plain path keeps f32 [rows, 12, 2048, 2048] scores per layer for
+    # its backward, so it takes the batch in two halves of equal token
+    # count, each loss weighted 1/2: its gradients are the whole batch's
+    half = x.shape[0] // 2
+    ref_loss = 0.0
+    for rows in (slice(0, half), slice(half, None)):
+        part, _ = lm_loss_with_aux(ref, x[rows], y[rows])
+        (part / 2).backward()
+        ref_loss += part.item() / 2
+    worst, worst_name = 0.0, ""
+    for n, p in ref.named_parameters():
+        g = grads[n].float()
+        if not torch.isfinite(g).all():
+            raise PhaseError(f"non-finite gradient for {n} on the kernel "
+                             "path")
+        rel = ((g - p.grad).norm() / p.grad.norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, n
+    gap = abs(loss.item() - ref_loss)
+    del ref, grads
+    torch.cuda.empty_cache()
+    print(f"train check [{x.shape[0]}, {x.shape[1]}]: loss kernel path "
+          f"{loss.item():.6f}, plain f32 path {ref_loss:.6f} (gap "
+          f"{gap:.6f}, tolerance {TOL_TRAIN_LOSS}); worst relative gradient "
+          f"error {worst:.5f} ({worst_name}, tolerance {TOL_TRAIN_GRAD}); "
+          f"forward and backward launches {launched}", flush=True)
+    if gap > TOL_TRAIN_LOSS or worst > TOL_TRAIN_GRAD:
+        raise PhaseError("the kernel path's train step disagrees with the "
+                         "plain path")
+    want = {"flash_fwd": 12, "flash_bwd": 12, "ce_fwd": 1, "ce_dh": 1,
+            "ce_dw": 1}
+    if any(launched[name] != n for name, n in want.items()):
+        raise PhaseError(f"the kernel path's step launched {launched}, "
+                         f"expected {want}")
+    return gap, worst, launched
+
+
+def train(seed: int, card: str):
+    """The port's training path through its normal entry points. Launch
+    counts are zeroed just before the timed calls and read just after."""
+    import torch
+
+    from chainermn_torch.comm import create_communicator
+    from chainermn_torch.ops import _cuda
+    from chainermn_torch.ops.fused_ce import fused_lm_loss
+    from chainermn_torch.optimizers import create_multi_node_optimizer
+    from chainermn_torch.training.step import make_data_parallel_train_step
+
+    comm = create_communicator("pure_nccl")
+    model = build_model(seed, torch.bfloat16, "flash")
+    comm.bcast_data(model)
+    toks = train_tokens(seed)
+    check = check_train_grads(model, toks)
+    # optax.adamw's defaults (decay 1e-4 on every leaf), not torch's
+    opt = create_multi_node_optimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4), comm)
+    k = TRAIN["scan_steps"]
+    step = make_data_parallel_train_step(model, opt, comm,
+                                         loss_fn=fused_lm_loss, scan_steps=k)
+    xs = torch.as_tensor(toks[:, :-1], device="cuda")[None].expand(
+        k, -1, -1).contiguous()
+    ys = torch.as_tensor(toks[:, 1:], device="cuda")[None].expand(
+        k, -1, -1).contiguous()
+    losses = []
+    for _ in range(TRAIN["warmup_calls"]):
+        losses.append(step(xs, ys)["main/loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN["timed_calls"]):
+        m = step(xs, ys)
+        losses.append(m["main/loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _cuda.launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.cat(losses).tolist()
+    n_steps = TRAIN["timed_calls"] * k
+    want = {"flash_fwd": 12 * n_steps, "flash_bwd": 12 * n_steps,
+            "ce_fwd": n_steps, "ce_dh": n_steps, "ce_dw": n_steps}
+    tokens_per_s = n_steps * TRAIN["batch"] * comm.size * TRAIN[
+        "seq_len"] / dt
+    print(f"train: {n_steps} timed steps in {dt:.4f} s, "
+          f"{dt / n_steps * 1e3:.3f} ms/step, tokens/s per chip "
+          f"{tokens_per_s:.1f}, peak memory "
+          f"{peak / 2 ** 30:.3f} GiB, losses {[round(x, 4) for x in losses]}"
+          f", launches {counts} ({card})", flush=True)
+    comm.finalize()
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise PhaseError("a training loss is not finite")
+    if not losses[-1] < losses[0]:
+        raise PhaseError(f"the loss did not fall: {losses[0]} -> "
+                         f"{losses[-1]}")
+    if any(counts[name] != n for name, n in want.items()):
+        raise PhaseError(f"launch counts {counts}, expected {want}")
+    return counts, check
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one more served run into DIR "
-                         "(chrome trace and kernel table)")
+                    help="also profile one more served run and one more "
+                         "train call into DIR (chrome traces and kernel "
+                         "tables)")
     args = ap.parse_args(argv)
 
     import torch
@@ -372,10 +925,18 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     worst = check_kernels(gen)
+    worst["flash_bwd"] = check_flash_bwd(gen)
+    worst.update(check_fused_ce(gen))
     ms, plain_ms, lib_ms, bound, bound_by = time_flash(gen)
     print(f"time flash_fwd [2,2048,12,64] bf16 causal: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
           f"{bound:.4f} ms, bound by {bound_by} ({card})", flush=True)
+    times = time_training_kernels(gen)
+    for name, row in times.items():
+        print(f"time {name} (training shape): kernel {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms,"
+              f" bound by {row['bound_by']} ({card})", flush=True)
 
     model = build_model(args.seed, torch.bfloat16, "flash")
     prompts = prompts_for(args.seed, model.vocab)
@@ -397,15 +958,32 @@ def main(argv=None) -> int:
     del eng
     if args.profile:
         profile_serving(model, prompts, args.profile, card)
+    del model
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "chainermn_torch/csrc/flash_fwd.cu",
-        "replaces": "chainermn_tpu/ops/flash_attention.py:168",
-        "launches": counts["flash_fwd"],
-        "max_abs_err": worst["prefill"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": bound_by, "library_ms": lib_ms}]}), flush=True)
+    train_counts, _ = train(args.seed, card)
+    if args.profile:
+        profile_training(args.seed, args.profile, card)
+
+    sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:168"),
+               "flash_bwd": ("flash_bwd.cu", "flash_attention.py:399"),
+               "ce_fwd": ("fused_ce.cu", "fused_ce.py:58"),
+               "ce_dh": ("fused_ce.cu", "fused_ce.py:103"),
+               "ce_dw": ("fused_ce.cu", "fused_ce.py:126")}
+    errs = {"flash_fwd": worst["prefill"], **{
+        name: worst[name] for name in sources if name != "flash_fwd"}}
+    kernels = []
+    for name, (src, tpu) in sources.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"chainermn_torch/csrc/{src}",
+            "replaces": f"chainermn_tpu/ops/{tpu}",
+            # serving and training both drive flash_fwd: its count is
+            # the sum of the two main-path runs
+            "launches": train_counts[name] + (counts["flash_fwd"]
+                                              if name == "flash_fwd" else 0),
+            "max_abs_err": errs[name], **times[name]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""Port parity: chainermn_torch's flash-attention forward (its plain
-PyTorch version, which CPU tensors run) against the JAX package's
-flash_attention, whose Pallas kernel runs in interpret mode on the CPU.
+"""Port parity: chainermn_torch's flash-attention forward and backward
+(the plain PyTorch versions, which CPU tensors run) against the JAX
+package's flash_attention, whose Pallas kernels run in interpret mode on
+the CPU.
 
 Inputs are made with numpy from a seed and fed to both. Tolerance: f32
 at rtol = atol = 1e-4 (the two sum in different orders: tiled online
@@ -12,14 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from chainermn_tpu.ops.flash_attention import _flash_fwd
 from chainermn_tpu.ops.flash_attention import flash_attention as jax_flash
 from chainermn_torch.ops import _cuda
-from chainermn_torch.ops.flash_attention import (flash_attention,
-                                                 flash_attention_cuda,
-                                                 flash_attention_reference)
+from chainermn_torch.ops.flash_attention import (
+    flash_attention, flash_attention_backward_reference,
+    flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_reference)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -114,10 +116,95 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     assert _cuda.launches()["flash_fwd"] == before
 
 
+# name: (b, lq, lk, hq, hkv, d, causal, window, segments)
+BWD_CASES = {
+    "mha-causal": (2, 64, 64, 4, 4, 16, True, None, False),
+    "mha-noncausal": (2, 64, 64, 4, 4, 16, False, None, False),
+    "gqa": (2, 64, 64, 4, 2, 16, True, None, False),
+    "mqa": (1, 64, 64, 4, 1, 16, True, None, False),
+    "window": (1, 64, 64, 4, 2, 16, True, 24, False),
+    "segments": (2, 64, 64, 4, 2, 16, True, None, True),
+    "ragged-100": (1, 100, 100, 4, 4, 16, True, None, False),
+    "noncausal-lq-ne-lk": (1, 40, 72, 4, 2, 16, False, None, False),
+    "causal-lq-ne-lk": (1, 40, 72, 4, 2, 16, True, None, False),
+}
+
+
+def _bwd_inputs(b, lq, lk, hq, hkv, d, segments, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, lq, hq, d).astype(np.float32)
+    k = rng.randn(b, lk, hkv, d).astype(np.float32)
+    v = rng.randn(b, lk, hkv, d).astype(np.float32)
+    do = rng.randn(b, lq, hq, d).astype(np.float32)
+    seg = None
+    if segments:
+        kv_seg = np.zeros((b, lk), np.int32)
+        kv_seg[:, lk // 2:] = 1
+        q_seg = np.zeros((b, lq), np.int32)
+        q_seg[:, lq // 2:] = 1
+        q_seg[0, 5] = -1        # a query row that matches no key at all
+        seg = (q_seg, kv_seg)
+    return q, k, v, do, seg
+
+
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_backward_matches_jax_grad_of_pallas_kernel(name):
+    """dq, dk, dv of the port's differentiable entry (the plain backward
+    on CPU tensors) against ``jax.vjp`` of the JAX flash_attention, whose
+    backward runs the fused or the split Pallas kernels in interpret
+    mode; f32 at 1e-4."""
+    b, lq, lk, hq, hkv, d, causal, window, segments = BWD_CASES[name]
+    q, k, v, do, seg = _bwd_inputs(b, lq, lk, hq, hkv, d, segments)
+    jseg = None if seg is None else tuple(jnp.asarray(s) for s in seg)
+    _, vjp = jax.vjp(
+        lambda q_, k_, v_: jax_flash(q_, k_, v_, causal, None, 1024, 1024,
+                                     None, jseg, window),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = flash_attention(
+        qt, kt, vt, causal=causal, window=window,
+        segment_ids=None if seg is None else tuple(
+            torch.from_numpy(s) for s in seg))
+    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g.numpy(), r, **TOL)
+    if segments:
+        # the row that matches no key gets exactly zero gradient
+        assert (got[0][0, 5] == 0).all()
+
+
+def test_backward_reference_sums_gqa_groups_and_casts_like_the_kernel():
+    """The plain backward on its own: GQA dk/dv are the per-query-head
+    gradients summed over each group, returned in the inputs' dtype."""
+    q, k, v, do, _ = _bwd_inputs(1, 32, 32, 4, 2, 16, False, seed=3)
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = flash_attention_reference(qt, kt, vt, True)
+    dq, dk, dv = flash_attention_backward_reference(qt, kt, vt, out, lse,
+                                                    dot, True)
+    kr, vr = (x.repeat_interleave(2, dim=2).requires_grad_()
+              for x in (kt, vt))
+    qr = qt.clone().requires_grad_()
+    out_r, _ = flash_attention_reference(qr, kr, vr, True)
+    gq, gk, gv = torch.autograd.grad(out_r, (qr, kr, vr), dot)
+    torch.testing.assert_close(dq, gq, **TOL)
+    torch.testing.assert_close(dk, gk.reshape(1, 32, 2, 2, 16).sum(3), **TOL)
+    torch.testing.assert_close(dv, gv.reshape(1, 32, 2, 2, 16).sum(3), **TOL)
+    bf = [x.to(torch.bfloat16) for x in (qt, kt, vt)]
+    ob, lb = flash_attention_reference(*bf, True)
+    grads = flash_attention_backward_reference(*bf, ob, lb,
+                                               dot.to(torch.bfloat16), True)
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors_and_bad_arguments():
     q = torch.zeros(1, 8, 2, 8)
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_cuda(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_bwd_cuda(q, q, q, q, torch.zeros(1, 2, 8), q,
+                                 causal=True)
     with pytest.raises(ValueError, match="requires causal"):
         flash_attention(q, q, q, causal=False, window=4)
     with pytest.raises(ValueError, match="multiple of kv heads"):

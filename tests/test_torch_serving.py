@@ -174,3 +174,38 @@ def test_serving_report_matches_the_jax_report():
         return rep.json()          # NaN fields compare as text
 
     assert drive(ServingReport) == drive(JaxReport)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_engine_serves_a_snapshot_that_only_load_params_updates(dtype):
+    """Whatever the model's dtype, the engine serves the weights it saw
+    at construction: it shares no storage with the model and takes no
+    .grad, an in-place update of the model does not reach it, and
+    load_params (which casts) does."""
+    torch.manual_seed(3)
+    tm = TransformerLM(**CFG, dtype=dtype, device="cpu")
+    tm.lm_head.weight.grad = torch.ones_like(tm.lm_head.weight)
+    cfg = EngineConfig(**BASE)
+    prompts = _prompts(seed=4)[:3]
+
+    def streams(eng):
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run_until_drained()
+        return [r.tokens for r in reqs]
+
+    eng = Engine(tm, cfg, device="cpu")
+    snap = eng.steps.model
+    ptrs = {p.data_ptr() for p in tm.parameters()}
+    assert all(p.grad is None and p.data_ptr() not in ptrs
+               for p in snap.parameters())
+    assert snap.blocks[0].q_proj.weight.dtype == dtype
+    assert snap.lm_head.weight.dtype == torch.float32
+    before = streams(eng)
+    with torch.no_grad():
+        tm.lm_head.weight.neg_()
+    assert streams(eng) == before
+    fresh = streams(Engine(tm, cfg, device="cpu"))
+    assert fresh != before
+    eng.steps.load_params(tm.state_dict())
+    assert streams(eng) == fresh

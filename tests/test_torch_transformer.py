@@ -22,7 +22,8 @@ from chainermn_tpu.models.transformer import TransformerLM as JaxLM
 from chainermn_tpu.models.transformer import generate as jax_generate
 from chainermn_tpu.serving import kv_cache as jkv
 from chainermn_torch.models.convert import params_from_flax
-from chainermn_torch.models.transformer import TransformerLM, generate
+from chainermn_torch.models.transformer import (TransformerLM, compute_copy,
+                                                generate)
 from chainermn_torch.serving import kv_cache as tkv
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -273,14 +274,22 @@ def test_gelu_is_the_tanh_approximation():
 
 def test_lm_head_runs_in_f32_in_a_bf16_model():
     """bf16 model: the head's weight and logits stay f32 in both
-    frameworks; logits agree to bf16 drift (0.05) over 2 layers."""
+    frameworks; logits agree to bf16 drift (0.05) over 2 layers. Every
+    parameter is f32 (flax's param_dtype); the serving copy stores the
+    Dense and embedding weights in bf16, the head in f32."""
     cfg = _cfg("mha-rope")
     jm = JaxLM(**cfg, dtype=jnp.bfloat16)
     params = jax.tree_util.tree_map(np.asarray, _pair("mha-rope")[1])
     tm = TransformerLM(**cfg, dtype=torch.bfloat16, device="cpu")
     tm.load_state_dict(params_from_flax(tm, params))
-    assert tm.lm_head.weight.dtype == torch.float32
-    assert tm.blocks[0].qkv.weight.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in tm.parameters())
+    twin = compute_copy(tm)
+    assert twin.lm_head.weight.dtype == torch.float32
+    assert twin.blocks[0].qkv.weight.dtype == torch.bfloat16
+    assert twin.tok_emb.weight.dtype == torch.bfloat16
+    with torch.no_grad():
+        assert torch.equal(twin(torch.from_numpy(_tokens((1, 10), seed=9))),
+                           tm(torch.from_numpy(_tokens((1, 10), seed=9))))
     toks = _tokens((1, 10), seed=9)
     ref = jm.apply({"params": params}, toks)
     with torch.no_grad():
