@@ -3,10 +3,12 @@
 Each kernel source under ``chainermn_torch/csrc/`` exposes a plain
 ``extern "C"`` launcher. It is compiled at first use with ``nvcc`` into a
 shared library under ``build/chainermn_torch/`` beside the package (a
-directory ``.gitignore`` lists), named by a hash of its source so an edit
-rebuilds, and loaded with ``ctypes``. Nothing here runs at import time:
-the CPU tests import every module of the port on a machine with no
-``nvcc`` and no card.
+directory ``.gitignore`` lists), named by a hash of its source, the
+``csrc/`` headers it includes and the flags, so an edit rebuilds, and
+loaded with ``ctypes``. ptxas's report of each build (registers and
+spill bytes per kernel) is kept beside the library. Nothing here runs at
+import time: the CPU tests import every module of the port on a machine
+with no ``nvcc`` and no card.
 
 There is no fallback. A missing compiler, a failed build or a launch
 that returns an error raises; a caller that wants the plain PyTorch
@@ -15,19 +17,21 @@ version passes CPU tensors.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
-__all__ = ["SOURCES", "KERNELS", "build", "build_all", "library",
-           "launches", "reset_launches", "launch_flash_fwd",
+__all__ = ["SOURCES", "KERNELS", "build", "build_all", "library", "variant",
+           "ptxas_usage", "launches", "reset_launches", "launch_flash_fwd",
            "launch_flash_bwd", "launch_ce_fwd", "launch_ce_dh",
            "launch_ce_dw"]
 
@@ -43,9 +47,13 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
 KERNELS = ("flash_fwd", "flash_bwd", "ce_fwd", "ce_dh", "ce_dw")
 
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC")
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_libs: Dict[str, ctypes.CDLL] = {}
+#: a build: library name and extra ``-D`` defines (empty: as shipped)
+Build = Tuple[str, Tuple[str, ...]]
+
+_libs: Dict[Build, ctypes.CDLL] = {}
+_variants: Dict[str, Tuple[str, ...]] = {}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -62,21 +70,41 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def _headers(src: Path) -> List[Path]:
+    """The ``csrc/`` headers ``src`` includes with ``#include "..."``,
+    and theirs, each once."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        text = todo.pop().read_text()
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            path = _CSRC / inc
+            if path.is_file() and path not in found:
+                found.append(path)
+                todo.append(path)
+    return sorted(found)
+
+
+def _target(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """The library's path, named by a hash of its source, the headers it
+    includes, the flags and the defines, so that an edit to any
+    rebuilds."""
     src = _CSRC / SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
+    parts = [src.read_bytes()] + [h.read_bytes() for h in _headers(src)]
+    parts.append(" ".join(_NVCC_FLAGS + defines).encode())
+    digest = hashlib.sha1(b"".join(parts)).hexdigest()[:12]
     return _BUILD / f"lib{name}-{digest}.so"
 
 
-def _start(name: str):
-    """Start one nvcc for ``name``; returns (process or None, target)."""
-    out = _target(name)
+def _start(name: str, defines: Tuple[str, ...] = ()):
+    """Start one nvcc for a build; returns (process or None, target)."""
+    out = _target(name, defines)
     if out.is_file():
         return None, out
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[name])]
+    cmd = [_nvcc(), *_NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+           str(tmp), str(_CSRC / SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return (proc, tmp), out
@@ -90,34 +118,87 @@ def _finish(name: str, started, out: Path) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".ptxas.txt").write_text(log)
     os.replace(tmp, out)
 
 
-def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
-    """Compile every named library, one ``nvcc`` per source, all started
-    together. Returns the seconds each build took (0 when cached)."""
+def build_all(names: Iterable[str] = tuple(SOURCES),
+              variants: Iterable[Build] = ()) -> Dict[str, float]:
+    """Compile every named library as shipped and every (name, defines)
+    variant, one ``nvcc`` per build, all started together. Returns the
+    seconds each build took (0 when cached), keyed by name, with a
+    variant's defines appended."""
     t0 = time.perf_counter()
-    jobs = {name: _start(name) for name in names}
+    builds = [(name, ()) for name in names] + [
+        (name, tuple(defines)) for name, defines in variants]
+    jobs = {b: _start(*b) for b in builds}
     took = {}
-    for name, (started, out) in jobs.items():
+    for (name, defines), (started, out) in jobs.items():
         _finish(name, started, out)
-        took[name] = 0.0 if started is None else time.perf_counter() - t0
+        key = " ".join((name,) + tuple(f"-D{d}" for d in defines))
+        took[key] = 0.0 if started is None else time.perf_counter() - t0
     return took
 
 
-def build(name: str) -> Path:
-    started, out = _start(name)
+def build(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    started, out = _start(name, defines)
     _finish(name, started, out)
     return out
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library ``name`` (built if needed)."""
-    lib = _libs.get(name)
+    """The loaded shared library ``name`` (built if needed): as shipped,
+    or the build that an enclosing :func:`variant` selects."""
+    key = (name, _variants.get(name, ()))
+    lib = _libs.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _libs[name] = lib
+        lib = ctypes.CDLL(str(build(*key)))
+        _libs[key] = lib
     return lib
+
+
+@contextlib.contextmanager
+def variant(name: str, defines: Iterable[str]):
+    """Inside the block, the launchers of library ``name`` call its build
+    with the extra ``-D`` ``defines``: a variant timed beside the shipped
+    build (as ``chip_smoke.py`` times the flash kernels' register
+    caps)."""
+    _variants[name] = tuple(defines)
+    try:
+        yield
+    finally:
+        del _variants[name]
+
+
+def parse_ptxas(report: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``
+    output: ``{mangled name: {"registers", "spill_stores",
+    "spill_loads"}}``."""
+    usage: Dict[str, Dict[str, int]] = {}
+    entry = props = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props is not None:
+            usage.setdefault(props, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            usage.setdefault(entry, {})["registers"] = int(m.group(1))
+    return {k: v for k, v in usage.items() if "registers" in v}
+
+
+def ptxas_usage(name: str, defines: Tuple[str, ...] = ()
+                ) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_ptxas` of a build's kept report (built if needed)."""
+    out = build(name, defines)
+    return parse_ptxas(out.with_suffix(".ptxas.txt").read_text())
 
 
 def launches() -> Dict[str, int]:

@@ -27,7 +27,11 @@ Semantics carried over from the TPU kernel:
   gets exactly zero gradient.
 
 TPU tiling rules (``_fit_block``, ``_padded_len``, the 128-lane scratch)
-have no counterpart: the CUDA kernel masks ragged lengths itself.
+have no counterpart: the CUDA kernels mask ragged lengths themselves.
+Both kernels take every head dim that is a multiple of 8 up to 128, in
+float32 (CUDA-core FMAs, exact to f32 rounding) and bfloat16 (tensor
+cores: ``mma.sync`` fed by ``ldmatrix`` and a ``cp.async`` ring, the head
+dim padded to a multiple of 16 in shared memory).
 
 :func:`flash_attention` returns through a ``torch.autograd.Function``
 that dispatches on the tensors' device: CUDA tensors go to the kernels
@@ -132,10 +136,13 @@ def flash_attention_reference(q, k, v, causal: bool = False,
 
 
 def _aligned(x: torch.Tensor) -> bool:
-    """The kernel's vector loads need 16-byte aligned rows: a contiguous
-    last dim and every other stride a multiple of 4 elements."""
+    """The kernels copy rows 16 bytes at a time (``cp.async`` for bf16,
+    float4 loads for f32), so they read a tensor in place only if its last
+    dim is contiguous, its base is 16-byte aligned and every other stride
+    is a multiple of 16 bytes: 8 bf16 or 4 f32 elements."""
     return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(s % 4 == 0 for s in x.stride()[:-1]))
+            and all(s * x.element_size() % 16 == 0
+                    for s in x.stride()[:-1]))
 
 
 def flash_attention_cuda(q, k, v, causal: bool = False,
@@ -156,13 +163,17 @@ def flash_attention_cuda(q, k, v, causal: bool = False,
     lk, hkv = k.shape[1], k.shape[2]
     if d % 8 or d > 128:
         raise ValueError(f"head dim {d} must be a multiple of 8, <= 128")
+    scale = d ** -0.5 if scale is None else float(scale)
+    if scale < 0:
+        # the kernel folds the scale into its exponent and needs it >= 0:
+        # (-q)·kᵀ·|scale| gives the same logits, exactly
+        q, scale = -q, -scale
     # an unaligned view (rare: an odd slice) is copied; the model's q/k/v
     # are read in place
     q, k, v = (x if _aligned(x) else x.contiguous() for x in (q, k, v))
     qs, ks = _segments_i32(segment_ids, b, lq, lk, q.device)
     out = torch.empty((b, lq, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
-    scale = d ** -0.5 if scale is None else float(scale)
     _cuda.launch_flash_fwd(q, k, v, out, lse, qs, ks, scale, causal,
                            0 if window is None else int(window))
     return out, lse
@@ -212,10 +223,6 @@ def _segments_i32(segment_ids, b, lq, lk, device):
     return qs, ks
 
 
-#: head dims csrc/flash_bwd.cu is compiled for
-BWD_HEAD_DIMS = (8, 16, 32, 40, 64, 128)
-
-
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = False,
                              scale: Optional[float] = None,
                              segment_ids=None,
@@ -235,9 +242,8 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = False,
                         f"of one dtype, got {[x.dtype for x in tensors]}")
     b, lq, hq, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash backward is built for head dims "
-                         f"{BWD_HEAD_DIMS}, got {d}")
+    if d % 8 or d > 128:
+        raise ValueError(f"head dim {d} must be a multiple of 8, <= 128")
     if dout.shape != q.shape or out.shape != q.shape:
         raise ValueError("out and dout must have q's shape")
     q, k, v, dout = (x if _aligned(x) else x.contiguous()

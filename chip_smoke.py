@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``chainermn_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--profile DIR]
 
 Phases, each printed on its own line; any failure exits non-zero before
 the final line:
 
 1. card — ``nvidia-smi`` name and power limit;
 2. build — every CUDA kernel of the port from ``chainermn_torch/csrc``,
-   one ``nvcc`` per source, all started together;
+   one ``nvcc`` per source, all started together; then the tensor-core
+   (``HMMA``) instructions in the two flash libraries' SASS, which must
+   not be 0, and ptxas's registers and spill bytes of their d-64
+   tensor-core kernels (the main path's); the two flash sources are also
+   built with those kernels' register caps lifted;
 3. kernels — each kernel (flash_fwd, flash_bwd, and the fused CE's
    ce_fwd, ce_dh, ce_dw) against its plain PyTorch version on the card at
-   the main path's shape and in the edge cases, then timed beside the
-   plain version, its bound and the PyTorch call that computes the same
-   function (a yardstick only; the port never calls it);
+   the main path's shape and in the edge cases (bf16 and f32), then timed
+   beside the plain version, its bound and the PyTorch call that computes
+   the same function (a yardstick only, the port never calls it; SDPA is
+   first held against the plain versions): flash at the serving and
+   training shapes and at the split backward's cases (a window; causal
+   Lq != Lk); then the two flash kernels with their register caps
+   lifted, timed beside the shipped builds;
 4. slice — the port's ``Engine`` serves 16 greedy requests with the
    135M TransformerLM at full width (vocab 32768, d_model 768, 12
    layers, 12 heads, d_ff 3072, rope, bf16) and random weights from
@@ -93,6 +101,11 @@ TOL_ARGMAX_GAP = 1e-4
 # layers
 TOL_TRAIN_LOSS = 0.02
 TOL_TRAIN_GRAD = 0.1
+# SDPA, the flash kernels' yardstick, vs their plain versions before it is
+# timed: relative L2 error of out, dq, dk, dv. It is the same function in
+# another rounding (bf16 P, its own summation order); a wrong mask
+# alignment or head map is off by O(1)
+TOL_YARDSTICK = 2e-2
 # served greedy token vs the f32 plain-attention full forward: the
 # token's logit must be within this of its row's max (bf16 drift over 12
 # layers; the logits' spread is about 0.6)
@@ -111,40 +124,93 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_time_ms(fn, iters: int = 10, warmup: int = 10,
+                 runs: int = 5) -> float:
+    """The median over ``runs`` runs of the mean CUDA-event time of
+    ``iters`` calls, after ``warmup`` calls. Kernels, plain versions and
+    yardsticks are all timed so; the warm-ups cover SDPA's default cuDNN
+    backend, which builds its execution plans over its first calls (three
+    warm-ups left one run's backward at 4x its usual time)."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[runs // 2]
 
 
-def causal_pairs(lq: int, lk: int, causal: bool) -> int:
-    """Visible (row, column) pairs of one head (top-left causal)."""
+def visible_pairs(b, lq, lk, hq, causal, window=None) -> int:
+    """Visible (row, column) pairs over every batch row and query head:
+    row i sees the columns j < lk with j <= i (top-left causal) and
+    j > i - window (sliding window); without causal, all lk."""
     if not causal:
-        return lq * lk
-    return sum(min(i + 1, lk) for i in range(lq))
+        return b * hq * lq * lk
+    per_head = 0
+    for i in range(lq):
+        lo = 0 if window is None else max(0, i - window + 1)
+        per_head += max(0, min(i, lk - 1) - lo + 1)
+    return b * hq * per_head
 
 
-def flash_bound_ms(b, lq, lk, hq, hkv, d, dtype, causal):
-    """Least time for the attention forward on these inputs, and what
-    bounds it: every visible (row, col) pair costs two length-D products
-    (QK and PV, 2 ops per MAC); bytes are q, k, v and out once each plus
-    the f32 lse."""
-    ops = 4 * d * causal_pairs(lq, lk, causal) * b * hq
-    item = 2 if dtype == "bfloat16" else 4
-    nbytes = (2 * b * lq * hq * d + 2 * b * lk * hkv * d) * item \
-        + 4 * b * hq * lq
+def visible_cols(lq, lk, causal) -> int:
+    """Key columns that some row sees: without causal, all lk; with it,
+    the columns j < lq (row i < lk sees its own column i, and a sliding
+    window keeps that column, so a window leaves the span whole)."""
+    return min(lq, lk) if causal else lk
+
+
+def _bound(ops, nbytes, dtype):
     t_ops, t_bytes = ops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_bound_ms(b, lq, lk, hq, hkv, d, dtype, causal, window=None):
+    """Least time for the attention forward on these inputs, and what
+    bounds it: every visible (row, col) pair costs two length-D products
+    (QK and PV, 2 ops per MAC); bytes are q and out (Hq heads), the k and
+    v rows some row sees (Hkv heads) once each, plus the f32 lse."""
+    ops = 4 * d * visible_pairs(b, lq, lk, hq, causal, window)
+    item = 2 if dtype == "bfloat16" else 4
+    cols = visible_cols(lq, lk, causal)
+    nbytes = (2 * b * lq * hq * d + 2 * b * cols * hkv * d) * item \
+        + 4 * b * hq * lq
+    return _bound(ops, nbytes, dtype)
+
+
+# bf16 cases of the tensor-core paths beyond the main shapes, forward and
+# backward: name, b, lq, lk, hq, hkv, d, dtype, causal, window, segments
+BF16_EDGE_CASES = [
+    (name, b, lq, lk, hq, hkv, d, "bfloat16", causal, window, False)
+    for name, b, lq, lk, hq, hkv, d, causal, window in (
+        ("window37-d32", 1, 300, 300, 4, 2, 32, True, 37),
+        ("mqa-d8", 1, 70, 70, 4, 1, 8, True, None),
+        ("noncausal-65-150-d128", 1, 65, 150, 2, 2, 128, False, None),
+        ("d40", 1, 200, 200, 4, 2, 40, True, None),
+        ("d48", 1, 200, 200, 4, 2, 48, True, None),
+        ("d96", 1, 200, 200, 4, 2, 96, True, None))]
+# the cases the TPU package sends to the split backward (`_fa_bwd_dq_kernel`
+# / `_fa_bwd_dkv_kernel`): a window, and causal with Lq != Lk
+SPLIT_CASES = [
+    ("window-4096", 1, 4096, 4096, 12, 12, 64, "bfloat16", True, 256, False),
+    ("causal-lq-ne-lk", 1, 1024, 3000, 12, 4, 64, "bfloat16", True, None,
+     False),
+]
+
+
+def _dtype(name):
+    import torch
+
+    return getattr(torch, name) if isinstance(name, str) else name
 
 
 def check_kernels(gen):
@@ -158,24 +224,25 @@ def check_kernels(gen):
     def rand(*shape, dtype):
         return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
 
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
         # name, b, lq, lk, hq, hkv, d, dtype, causal, window, segments
-        ("prefill", 2, 2048, 2048, 12, 12, 64, torch.bfloat16, True, None,
+        ("prefill", 2, 2048, 2048, 12, 12, 64, bf16, True, None, False),
+        ("gqa", 2, 512, 512, 12, 4, 64, bf16, True, None, False),
+        ("window", 1, 1024, 1024, 12, 12, 64, bf16, True, 256, False),
+        ("segments", 2, 300, 300, 4, 2, 64, bf16, True, None, True),
+        ("ragged", 1, 1000, 1000, 12, 12, 64, bf16, True, None, False),
+        ("f32", 2, 512, 512, 12, 12, 64, f32, True, None, False),
+        ("f32-noncausal-d40", 1, 200, 333, 4, 1, 40, f32, False, None,
          False),
-        ("gqa", 2, 512, 512, 12, 4, 64, torch.bfloat16, True, None, False),
-        ("window", 1, 1024, 1024, 12, 12, 64, torch.bfloat16, True, 256,
-         False),
-        ("segments", 2, 300, 300, 4, 2, 64, torch.bfloat16, True, None,
-         True),
-        ("ragged", 1, 1000, 1000, 12, 12, 64, torch.bfloat16, True, None,
-         False),
-        ("f32", 2, 512, 512, 12, 12, 64, torch.float32, True, None, False),
-        ("f32-noncausal-d40", 1, 200, 333, 4, 1, 40, torch.float32, False,
-         None, False),
+        *BF16_EDGE_CASES,
+        # the shapes of the split backward's cases (rows 3-4), timed below
+        *SPLIT_CASES,
     ]
     worst = {}
     for (name, b, lq, lk, hq, hkv, d, dtype, causal, window,
          segs) in cases:
+        dtype = _dtype(dtype)
         q = rand(b, lq, hq, d, dtype=dtype)
         k = rand(b, lk, hkv, d, dtype=dtype)
         v = rand(b, lk, hkv, d, dtype=dtype)
@@ -211,37 +278,201 @@ def check_kernels(gen):
     return worst
 
 
-def time_flash(gen):
+def _rel_l2(got, ref) -> float:
+    return ((got.float() - ref.float()).norm()
+            / ref.float().norm().clamp_min(1e-30)).item()
+
+
+def time_flash_case(gen, b, lq, lk, hq, hkv, d, causal, window=None,
+                    backward=True):
+    """flash_fwd (and flash_bwd) at one bf16 shape beside their plain
+    versions, their bounds and SDPA (its forward on inputs that need no
+    gradient, and its backward through autograd): a yardstick the port
+    never calls. SDPA gets ``is_causal`` (top-left aligned for Lq != Lk,
+    as the kernels) or, for a window, a boolean band mask, and
+    ``enable_gqa`` where Hq != Hkv.
+    Before timing, its output and gradients are held against the plain
+    versions (relative L2 error <= TOL_YARDSTICK), so that it computes the
+    same function. Returns ``{kernel: row}``."""
     import torch
     import torch.nn.functional as F
 
     from chainermn_torch.ops.flash_attention import (
+        flash_attention_backward_reference, flash_attention_bwd_cuda,
         flash_attention_cuda, flash_attention_reference)
 
-    b, l, h, d = 2, 2048, 12, 64
-    q, k, v = (torch.randn(b, l, h, d, device="cuda", generator=gen)
-               .to(torch.bfloat16) for _ in range(3))
-    ms = cuda_time_ms(lambda: flash_attention_cuda(q, k, v, True))
-    plain_ms = cuda_time_ms(
-        lambda: flash_attention_reference(q, k, v, True), iters=5)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = cuda_time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    bound, bound_by = flash_bound_ms(b, l, l, h, h, d, "bfloat16", True)
-    return ms, plain_ms, lib_ms, bound, bound_by
+    q, dout = (torch.randn(b, lq, hq, d, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, lk, hkv, d, device="cuda", generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    kw = {"enable_gqa": True} if hq != hkv else {}
+    if window is None:
+        kw["is_causal"] = causal
+    else:
+        rows = torch.arange(lq, device="cuda")[:, None]
+        cols = torch.arange(lk, device="cuda")[None, :]
+        kw["attn_mask"] = (cols <= rows) & (rows - cols < window)
+    qd, kd, vd = (x.transpose(1, 2) for x in (q, k, v))
+    qt, kt, vt = (x.detach().requires_grad_() for x in (qd, kd, vd))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qd, kd, vd, **kw)
+
+    # the graph only for the backward yardstick
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    do_t = dout.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_sdpa, (qt, kt, vt), do_t,
+                                   retain_graph=True)
+
+    ref_out, ref_lse = flash_attention_reference(q, k, v, causal, None, None,
+                                                 window)
+    errs = [_rel_l2(sdpa().transpose(1, 2), ref_out)]
+    if backward:
+        ref_g = flash_attention_backward_reference(
+            q, k, v, ref_out, ref_lse, dout, causal, None, None, window)
+        errs += [_rel_l2(g.transpose(1, 2), r)
+                 for g, r in zip(sdpa_bwd(), ref_g)]
+        del ref_g
+    if max(errs) > TOL_YARDSTICK:
+        raise PhaseError(f"SDPA is not the kernels' function at [{b},{lq}|"
+                         f"{lk},{hq}|{hkv},{d}] window={window}: relative "
+                         f"errors {errs}")
+    rows = {"flash_fwd": dict(
+        ms=cuda_time_ms(lambda: flash_attention_cuda(q, k, v, causal, None,
+                                                     None, window)),
+        plain_ms=cuda_time_ms(lambda: flash_attention_reference(
+            q, k, v, causal, None, None, window), iters=3, warmup=1),
+        library_ms=cuda_time_ms(sdpa),
+        **dict(zip(("bound_ms", "bound_by"), flash_bound_ms(
+            b, lq, lk, hq, hkv, d, "bfloat16", causal, window))))}
+    if backward:
+        out, lse = flash_attention_cuda(q, k, v, causal, None, None, window)
+        rows["flash_bwd"] = dict(
+            ms=cuda_time_ms(lambda: flash_attention_bwd_cuda(
+                q, k, v, out, lse, dout, causal, None, None, window)),
+            plain_ms=cuda_time_ms(lambda: flash_attention_backward_reference(
+                q, k, v, out, lse, dout, causal, None, None, window),
+                iters=3, warmup=1),
+            library_ms=cuda_time_ms(sdpa_bwd),
+            **dict(zip(("bound_ms", "bound_by"), flash_bwd_bound_ms(
+                b, lq, lk, hq, hkv, d, "bfloat16", causal, window))))
+    print(f"yardstick SDPA [{b},{lq}|{lk},{hq}|{hkv},{d}] window={window} "
+          f"({type(o_sdpa.grad_fn).__name__}): relative L2 error vs the "
+          f"plain versions (out, dq, dk, dv) "
+          + " ".join(f"{e:.3g}" for e in errs), flush=True)
+    del q, k, v, dout, qd, kd, vd, qt, kt, vt, o_sdpa, do_t, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    return rows
 
 
-def flash_bwd_bound_ms(b, l, h, d, dtype):
+def count_hmma(card: str) -> None:
+    """Print the tensor-core instructions (``HMMA``) in the SASS of the
+    two flash libraries, read with ``cuobjdump --dump-sass``; raises if
+    either has none (its bf16 products would not run on the tensor
+    cores)."""
+    from chainermn_torch.ops import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    counts = {}
+    for name in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run([tool, "--dump-sass", str(_cuda.build(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts[name] = sum("HMMA" in line for line in sass.splitlines())
+    print(f"sass: HMMA instructions {json.dumps(counts)} ({card})",
+          flush=True)
+    if not all(counts.values()):
+        raise PhaseError(f"a flash library has no HMMA instruction: "
+                         f"{counts}")
+
+
+#: the flash builds with the register caps of their d <= 64 tensor-core
+#: kernels lifted, timed beside the shipped builds
+LIFTED_CAPS = {"flash_fwd": ("FLASH_FWD_MIN_CTAS=1",),
+               "flash_bwd": ("FLASH_BWD_MIN_CTAS=1",)}
+
+
+def mma64_usage(name: str, defines=()) -> dict:
+    """ptxas's registers and spill bytes of the d-64 tensor-core kernel
+    (``flash_fwd_mma<64>`` or ``flash_bwd_mma<64>``) of a flash build."""
+    from chainermn_torch.ops import _cuda
+
+    usage = _cuda.ptxas_usage(name, tuple(defines))
+    found = [u for fn, u in usage.items() if f"{name}_mmaILi64E" in fn]
+    if len(found) != 1:
+        raise PhaseError(f"ptxas reports {len(found)} {name}_mma<64> "
+                         f"kernels in {sorted(usage)}")
+    return found[0]
+
+
+def _usage(u: dict) -> str:
+    return (f"{u['registers']} registers, spill stores "
+            f"{u['spill_stores']} B, loads {u['spill_loads']} B")
+
+
+def compare_launch_bounds(gen, card: str) -> None:
+    """flash_fwd and flash_bwd at the training shape [4, 2048, 12, 64]
+    bf16 causal, built as shipped (registers capped so that 4 forward / 3
+    backward CTAs fit an SM at d <= 64) and with the cap lifted, timed in
+    the order shipped, lifted, lifted, shipped, each beside ptxas's
+    registers and spill bytes. The lifted build's outputs are first held
+    against the shipped build's at the bf16 rule."""
+    import torch
+
+    from chainermn_torch.ops import _cuda
+    from chainermn_torch.ops.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+
+    q, k, v, dout = (torch.randn(4, 2048, 12, 64, device="cuda",
+                                 generator=gen).to(torch.bfloat16)
+                     for _ in range(4))
+    out, lse = flash_attention_cuda(q, k, v, True)
+    calls = {"flash_fwd": lambda: flash_attention_cuda(q, k, v, True),
+             "flash_bwd": lambda: flash_attention_bwd_cuda(
+                 q, k, v, out, lse, dout, True)}
+    for name, call in calls.items():
+        lifted = LIFTED_CAPS[name]
+        shipped = call()
+        with _cuda.variant(name, lifted):
+            got = call()
+        res = [_close(g, r, torch.bfloat16) for g, r in zip(got, shipped)
+               if g.dtype == torch.bfloat16]
+        ms = {"shipped": [], "lifted": []}
+        for which in ("shipped", "lifted", "lifted", "shipped"):
+            if which == "lifted":
+                with _cuda.variant(name, lifted):
+                    ms[which].append(cuda_time_ms(call))
+            else:
+                ms[which].append(cuda_time_ms(call))
+        print(f"launch bounds {name} [4,2048,12,64] bf16 causal: shipped "
+              f"{_usage(mma64_usage(name))}, ms "
+              + " ".join(f"{t:.4f}" for t in ms["shipped"])
+              + f"; lifted ({' '.join(lifted)}) "
+              f"{_usage(mma64_usage(name, lifted))}, ms "
+              + " ".join(f"{t:.4f}" for t in ms["lifted"])
+              + f"; lifted vs shipped share "
+              f"{max(r[2] for r in res):.3f} ({card})", flush=True)
+        if not all(r[3] for r in res):
+            raise PhaseError(f"{name} with its register cap lifted "
+                             "disagrees with the shipped build")
+        del shipped, got
+    del q, k, v, dout, out, lse
+
+
+def flash_bwd_bound_ms(b, lq, lk, hq, hkv, d, dtype, causal, window=None):
     """Least time for the attention backward on these inputs: five
     length-D products per visible pair (S, dP, dV, dK, dQ: 10 D ops);
-    bytes are q, k, v, out, dout read and dq, dk, dv written once, plus
-    the f32 lse and D rows."""
-    ops = 10 * d * causal_pairs(l, l, True) * b * h
+    bytes are q, out, dout read and dq written (Hq heads), the k and v
+    rows some row sees read and all of dk, dv written (Hkv heads) once
+    each, plus the f32 lse and D rows."""
+    ops = 10 * d * visible_pairs(b, lq, lk, hq, causal, window)
     item = 2 if dtype == "bfloat16" else 4
-    nbytes = 8 * b * l * h * d * item + 2 * 4 * b * h * l
-    t_ops, t_bytes = ops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    cols = visible_cols(lq, lk, causal)
+    nbytes = (4 * b * lq * hq * d + 2 * b * (cols + lk) * hkv * d) * item \
+        + 2 * 4 * b * hq * lq
+    return _bound(ops, nbytes, dtype)
 
 
 def ce_bound_ms(n, d, v, dtype, which: str):
@@ -254,9 +485,7 @@ def ce_bound_ms(n, d, v, dtype, which: str):
     nbytes = (n * d + d * v) * item + 4 * n
     nbytes += {"ce_fwd": 12 * n, "ce_dh": 4 * n + n * d * item,
                "ce_dw": 4 * n + d * v * item}[which]
-    t_ops, t_bytes = ops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return _bound(ops, nbytes, dtype)
 
 
 def _close(got, ref, dtype):
@@ -306,14 +535,14 @@ def check_flash_bwd(gen):
         ("f32", 2, 512, 512, 12, 12, 64, f32, True, None, False),
         ("f32-noncausal-lq-ne-lk", 1, 200, 333, 4, 1, 40, f32, False, None,
          False),
+        *BF16_EDGE_CASES,
         # beyond the TPU fused kernel's envelope (the split dq / dkv pair)
-        ("window-4096", 1, 4096, 4096, 12, 12, 64, bf16, True, 256, False),
-        ("causal-lq-ne-lk", 1, 1024, 3000, 12, 4, 64, bf16, True, None,
-         False),
+        *SPLIT_CASES,
     ]
     worst = 0.0
     for (name, b, lq, lk, hq, hkv, d, dtype, causal, window,
          segs) in cases:
+        dtype = _dtype(dtype)
         q = rand(b, lq, hq, d, dtype=dtype)
         k = rand(b, lk, hkv, d, dtype=dtype)
         v = rand(b, lk, hkv, d, dtype=dtype)
@@ -475,41 +704,11 @@ def time_training_kernels(gen):
     import torch
     import torch.nn.functional as F
 
-    from chainermn_torch.ops.flash_attention import (
-        flash_attention_backward_reference, flash_attention_bwd_cuda,
-        flash_attention_cuda, flash_attention_reference)
     from chainermn_torch.ops.fused_ce import (
         ce_dh_cuda, ce_dh_reference, ce_dw_cuda, ce_dw_reference,
         ce_forward_cuda, ce_forward_reference)
 
-    rows = {}
-    b, l, hh, d = 4, 2048, 12, 64
-    q, k, v, dout = (torch.randn(b, l, hh, d, device="cuda", generator=gen)
-                     .to(torch.bfloat16) for _ in range(4))
-    out, lse = flash_attention_cuda(q, k, v, True)
-    ms = cuda_time_ms(lambda: flash_attention_cuda(q, k, v, True))
-    plain = cuda_time_ms(lambda: flash_attention_reference(q, k, v, True),
-                         iters=3)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    lib = cuda_time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    bound, by = flash_bound_ms(b, l, l, hh, hh, d, "bfloat16", True)
-    rows["flash_fwd"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=bound, bound_by=by)
-
-    ms = cuda_time_ms(
-        lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, True))
-    plain = cuda_time_ms(lambda: flash_attention_backward_reference(
-        q, k, v, out, lse, dout, True), iters=3)
-    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    do_t = dout.transpose(1, 2)
-    lib = cuda_time_ms(lambda: torch.autograd.grad(
-        o_sdpa, (qt, kt, vt), do_t, retain_graph=True))
-    bound, by = flash_bwd_bound_ms(b, l, hh, d, "bfloat16")
-    rows["flash_bwd"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=bound, bound_by=by)
-    del q, k, v, dout, out, lse, qt, kt, vt, o_sdpa, do_t
+    rows = time_flash_case(gen, 4, 2048, 2048, 12, 12, 64, True)
 
     n, dm, vocab = 8192, 768, 32768
     h, wt, y = ce_inputs(gen, n, dm, vocab, torch.bfloat16)
@@ -518,9 +717,10 @@ def time_training_kernels(gen):
     wl = wt.detach().requires_grad_()
 
     def lib_fwd():
-        return F.cross_entropy((hl @ wl.t()).float(), y.long())
+        return F.cross_entropy((h @ wt.t()).float(), y.long())
 
-    loss = lib_fwd()
+    # the graph only for the backward yardstick
+    loss = F.cross_entropy((hl @ wl.t()).float(), y.long())
     lib_f = cuda_time_ms(lib_fwd, iters=5)
     lib_b = cuda_time_ms(lambda: torch.autograd.grad(
         loss, (hl, wl), retain_graph=True), iters=5)
@@ -532,7 +732,7 @@ def time_training_kernels(gen):
             ("ce_dw", lambda: ce_dw_cuda(h, wt, y, lse),
              lambda: ce_dw_reference(h, wt, y, lse), lib_b)):
         bound, by = ce_bound_ms(n, dm, vocab, "bfloat16", name)
-        rows[name] = dict(ms=cuda_time_ms(kern, iters=5, warmup=1),
+        rows[name] = dict(ms=cuda_time_ms(kern, iters=5, warmup=2),
                           plain_ms=cuda_time_ms(ref, iters=3, warmup=1),
                           library_ms=lib, bound_ms=bound, bound_by=by)
     del h, wt, y, lse, hl, wl, loss
@@ -919,24 +1119,39 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
 
     t0 = time.perf_counter()
-    took = _cuda.build_all()
+    took = _cuda.build_all(variants=LIFTED_CAPS.items())
     print(f"build: {json.dumps(took)} total "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    count_hmma(card)
+    print("ptxas: " + "; ".join(
+        f"{name}_mma<64> {_usage(mma64_usage(name))}"
+        for name in ("flash_fwd", "flash_bwd")) + f" ({card})", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     worst = check_kernels(gen)
     worst["flash_bwd"] = check_flash_bwd(gen)
     worst.update(check_fused_ce(gen))
-    ms, plain_ms, lib_ms, bound, bound_by = time_flash(gen)
-    print(f"time flash_fwd [2,2048,12,64] bf16 causal: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-          f"{bound:.4f} ms, bound by {bound_by} ({card})", flush=True)
-    times = time_training_kernels(gen)
-    for name, row in times.items():
-        print(f"time {name} (training shape): kernel {row['ms']:.4f} ms, "
+    def show(name, where, row):
+        print(f"time {name} ({where}): kernel {row['ms']:.4f} ms, "
               f"plain {row['plain_ms']:.4f} ms, library "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms,"
               f" bound by {row['bound_by']} ({card})", flush=True)
+
+    row = time_flash_case(gen, 2, 2048, 2048, 12, 12, 64, True,
+                          backward=False)["flash_fwd"]
+    show("flash_fwd", "serving shape [2,2048,12,64] bf16 causal", row)
+    # rows 3-4 of the kernel table: the split backward's cases, which
+    # flash_bwd computes
+    for (case, b, lq, lk, hq, hkv, d, _, causal, window,
+         _) in SPLIT_CASES:
+        for name, row in time_flash_case(gen, b, lq, lk, hq, hkv, d, causal,
+                                         window).items():
+            show(name, f"case={case} [{b},{lq}|{lk},{hq}|{hkv},{d}] bf16 "
+                       f"window={window}", row)
+    times = time_training_kernels(gen)
+    for name, row in times.items():
+        show(name, "training shape", row)
+    compare_launch_bounds(gen, card)
 
     model = build_model(args.seed, torch.bfloat16, "flash")
     prompts = prompts_for(args.seed, model.vocab)

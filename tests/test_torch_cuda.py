@@ -49,6 +49,21 @@ CASES = {
                      True),
     "noncausal-lq-ne-lk-d128": (1, 65, 150, 2, 2, 128, torch.float32,
                                 False, None, False),
+    "d48-f32": (1, 200, 200, 4, 2, 48, torch.float32, True, None, False),
+    "d96-f32": (1, 200, 200, 4, 2, 96, torch.float32, True, None, False),
+    # the tensor-core (bf16) paths beyond d 64 and the plain causal mask
+    "window-bf16-d32": (1, 300, 300, 4, 2, 32, torch.bfloat16, True, 37,
+                        False),
+    "segments-bf16": (2, 130, 130, 4, 2, 64, torch.bfloat16, True, None,
+                      True),
+    "mqa-bf16-d8": (1, 70, 70, 4, 1, 8, torch.bfloat16, True, None, False),
+    "noncausal-lq-ne-lk-d128-bf16": (1, 65, 150, 2, 2, 128, torch.bfloat16,
+                                     False, None, False),
+    "d40-bf16": (1, 200, 200, 4, 2, 40, torch.bfloat16, True, None, False),
+    "d48-bf16": (1, 200, 200, 4, 2, 48, torch.bfloat16, True, None, False),
+    "d96-bf16": (1, 200, 200, 4, 2, 96, torch.bfloat16, True, None, False),
+    "ragged-1000-bf16": (1, 1000, 1000, 4, 4, 64, torch.bfloat16, True,
+                         None, False),
 }
 
 
@@ -160,6 +175,26 @@ def test_flash_bwd_matches_plain_version(cuda, name):
             _assert_bf16_close(g, r)
     if segments:
         assert (got[0][0, 3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_negative_scale_matches_plain_version(cuda, dtype):
+    """The forward kernel folds a non-negative scale into its exponent;
+    the wrapper runs a negative one as (-q)·kᵀ·|scale|."""
+    q, k, v, do, _ = _qkv(cuda, 1, 130, 130, 4, 2, 64, dtype, False)
+    out, lse = flash_attention_cuda(q, k, v, True, -0.1)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, True, -0.1)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_reference(q, k, v, True, -0.1)
+    ref = flash_attention_backward_reference(q, k, v, out, lse, do, True,
+                                             -0.1)
+    for g, r in zip((out, *got), (ref_out, *ref)):
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+        else:
+            _assert_bf16_close(g, r)
+    tol = 1e-4 if dtype == torch.float32 else 2e-3
+    torch.testing.assert_close(lse, ref_lse, rtol=tol, atol=tol)
 
 
 def test_gradient_flows_through_the_cuda_flash_path(cuda):

@@ -127,6 +127,8 @@ BWD_CASES = {
     "ragged-100": (1, 100, 100, 4, 4, 16, True, None, False),
     "noncausal-lq-ne-lk": (1, 40, 72, 4, 2, 16, False, None, False),
     "causal-lq-ne-lk": (1, 40, 72, 4, 2, 16, True, None, False),
+    # a head dim the CUDA backward takes since its tensor-core rewrite
+    "d48": (1, 48, 48, 4, 2, 48, True, None, False),
 }
 
 
@@ -196,6 +198,75 @@ def test_backward_reference_sums_gqa_groups_and_casts_like_the_kernel():
     grads = flash_attention_backward_reference(*bf, ob, lb,
                                                dot.to(torch.bfloat16), True)
     assert all(g.dtype == torch.bfloat16 for g in grads)
+
+
+# name: (b, lq, lk, hq, causal, window)
+PAIR_CASES = {
+    "causal": (2, 70, 70, 3, True, None),
+    "noncausal-lq-ne-lk": (1, 40, 72, 2, False, None),
+    "causal-lq-lt-lk": (1, 40, 72, 2, True, None),
+    # few rows, many keys: bound by bytes, of which the K/V rows past
+    # the last query row are no part
+    "causal-lq-lt-lk-bytes": (1, 16, 3000, 2, True, None),
+    "causal-lq-gt-lk": (1, 90, 33, 2, True, None),
+    "window": (1, 100, 100, 3, True, 24),
+    "window-lq-gt-lk": (2, 130, 50, 1, True, 7),
+    "window-lq-lt-lk": (1, 40, 300, 2, True, 9),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAIR_CASES))
+def test_smoke_pair_count_matches_the_plain_keep_mask(name):
+    """``chip_smoke.visible_pairs`` and ``visible_cols``, which the
+    kernels' bounds are computed from, count the pairs and the key
+    columns the plain version keeps (causal, window and Lq != Lk), the
+    pairs summed over batch rows and query heads; the bounds read K/V
+    only at those columns and write all of dk, dv."""
+    import chip_smoke
+    from chainermn_torch.ops.flash_attention import _scores
+
+    b, lq, lk, hq, causal, window = PAIR_CASES[name]
+    q = torch.zeros(b, lq, hq, 8)
+    k = torch.zeros(b, lk, 1, 8)
+    keep = _scores(q, k, causal, None, None, window)[1]
+    want = int(keep.expand(b, hq, lq, lk).sum())
+    cols = int(keep.reshape(-1, lk).any(0).sum())
+    assert chip_smoke.visible_pairs(b, lq, lk, hq, causal, window) == want
+    assert chip_smoke.visible_cols(lq, lk, causal) == cols
+    # 4 (forward) and 10 (backward) D operations per pair against q/out
+    # (Hq heads) and k/v (Hkv heads) in bytes
+    for per_pair, nbytes, bound_ms in (
+            (4, (2 * b * lq * hq * 8 + 2 * b * cols * 8) * 2
+             + 4 * b * hq * lq, chip_smoke.flash_bound_ms),
+            (10, (4 * b * lq * hq * 8 + 2 * b * (cols + lk) * 8) * 2
+             + 8 * b * hq * lq, chip_smoke.flash_bwd_bound_ms)):
+        ops_ms = per_pair * 8 * want / chip_smoke.PEAK_FLOPS["bfloat16"] * 1e3
+        bytes_ms = nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3
+        bound, by = bound_ms(b, lq, lk, hq, 1, 8, "bfloat16", causal, window)
+        assert bound == pytest.approx(max(ops_ms, bytes_ms), rel=1e-12)
+        assert by == ("operations" if ops_ms >= bytes_ms else "bytes")
+    if name == "causal-lq-lt-lk-bytes":
+        assert cols == lq and by == "bytes"
+
+
+@pytest.mark.parametrize("n_kv_heads", [4, 2])
+def test_model_qkv_views_are_read_in_place(n_kv_heads):
+    """The bf16 kernels copy rows 16 bytes at a time; the model's q/k/v,
+    views of its fused projection, meet that rule, so the wrapper reads
+    them in place rather than copying."""
+    from chainermn_torch.models.transformer import TransformerLM
+    from chainermn_torch.ops.flash_attention import _aligned
+
+    model = TransformerLM(vocab=64, d_model=64, n_heads=4, n_layers=1,
+                          n_kv_heads=n_kv_heads, d_ff=128, max_len=32,
+                          pos_emb="rope", dtype=torch.bfloat16, device="cpu")
+    x = torch.randn(2, 16, 64)
+    q, k, v = model.blocks[0]._project(x)
+    assert v.dtype == torch.bfloat16 and v._base is not None   # a view
+    assert all(_aligned(t) for t in (q, k, v))
+    # a bf16 row stride that is not a multiple of 8 elements is refused
+    assert not _aligned(torch.zeros(2, 16, 4, 20, dtype=torch.bfloat16)
+                        [..., :16])
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_bad_arguments():
