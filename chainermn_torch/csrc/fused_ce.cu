@@ -6,37 +6,58 @@
 //              of h . W, the target logit and the first-index argmax;
 //   ce_dh   <- `_dh_kernel` (`_bwd_rule`): dh = (softmax - onehot) . W^T;
 //   ce_dw   <- `_dw_kernel` (`_bwd_rule`): dW = h^T . (softmax - onehot),
-// the softmax rebuilt per tile from the forward's lse. dh and dW leave the
-// kernels unscaled, in the input dtype; the wrapper multiplies by dloss / N
-// as `_bwd_rule` does.
+// the softmax rebuilt per tile from the forward's lse, dl = softmax - onehot
+// rounded to the operands' dtype before the second product (the TPU kernel's
+// `dl.astype`). dh and dW leave the kernels unscaled, in the input dtype; the
+// wrapper multiplies by dloss / N as `_bwd_rule` does.
 //
 // The head is passed transposed, wt [V, D] row-major (the port's
 // `lm_head.weight` as it lies), h [N, D] row-major, labels int32 [N].
 //
-// What bounds it: at the training shape (N = 8192, D = 768, V = 32768, bf16)
-// the three kernels do 2 N D V = 412 GFLOP (forward) and 4 N D V = 825 GFLOP
-// each (dh, dW: the logits are recomputed) against ~63 MB of h and W, so they
-// are bound by the tensor cores' operations. The design keeps every [rows,
-// vocab] logits tile in shared memory and runs the bf16 products on the
-// tensor cores through `wmma` 16x16x16 fragments with f32 accumulation (f32
-// inputs take plain FMAs on the CUDA cores: that path exists for testing).
-// TPU tile rules do not carry over: rows are not padded to a block (ragged N
-// and V are masked here), vocab need not divide a tile, and the TPU's
-// [256, 768] f32 dh scratch, too large for one SM, becomes a [32, D] f32
-// accumulator in shared memory:
-//   ce_fwd: one CTA per 64 rows sweeps the vocabulary in 128-column tiles
-//           with an online max / sum-exp / target / argmax per row;
-//   ce_dh:  one CTA per 32 rows sweeps the vocabulary; per tile it rebuilds
-//           dl = softmax - onehot once and adds dl . wt into dh, D in
-//           64-column chunks;
-//   ce_dw:  one CTA per 32 vocabulary rows sweeps all rows in 64-row tiles
-//           and adds dl^T . h into its [32, D] slice of dW.
+// What bounds them: at the training shape (N = 8192, D = 768, V = 32768,
+// bf16) the forward does 2 N D V = 412 GFLOP and dh and dW 4 N D V = 825
+// GFLOP each (the logits are recomputed) against ~63 MB of h and W: all
+// three are bound by the tensor cores' operations, 0.417 and 0.834 ms at the
+// 989 TFLOP/s bf16 peak. f32 inputs take plain FMAs on the CUDA cores (a
+// testing path: its 1e-4 contract is tighter than TF32).
+//
+// ce_fwd (bf16 and f32) and the f32 dh / dW: one CTA per block of rows
+// sweeps the other operand with `wmma` 16x16x16 tiles (f32: FMAs) through a
+// logits tile in shared memory; the f32 dh / dW accumulators live in shared
+// memory too. Simple and unpipelined.
+//
+// bf16 dh and dW, one kernel (`ce_bwd_mma`) for both, mirror images:
+// * each CTA owns BM rows of the output and keeps that block of the
+//   resident operand R in shared memory for its whole life (dh: h rows with
+//   their lse and labels; dW: rows of W^T), copied once with cp.async;
+// * it streams the other operand T (dh: W^T rows; dW: h rows with their lse
+//   and labels) in tiles of BS full-width rows through a two-stage cp.async
+//   ring (zero-filled past the ragged edge): the next tile's copy runs under
+//   this tile's math, and every streamed byte serves both products;
+// * S = R . T^T [BM, BS] (the accumulating output's rows as its rows) runs
+//   on `mma.sync.m16n8k16` (bf16 in, f32 accumulate) fed by `ldmatrix`, each
+//   warp a 32 x 16 piece over 1/KS of D; the partial sums meet in shared
+//   memory in a fixed order;
+// * dl = ex2((S - lse) log2 e) - onehot, 0 outside N x V, rounded to bf16
+//   into a small [BM, BS] tile, the A operand of the second product;
+// * acc[BM, D] += dl . T on `mma.sync` with T read by `ldmatrix.trans`; the
+//   f32 accumulator stays in registers (32 rows x 96 columns a warp) and is
+//   rounded and written once at the end.
+// Layouts (`BwdLayout`): D <= 768 takes 64 rows, 16 warps and a 128-register
+// cap (-DCE_BWD_ROWS=32: 32 rows, 8 warps, 255 registers, twice the L2
+// traffic; `chip_smoke.py` times both); wider D takes 32 rows and 16-row
+// tiles and splits the accumulator's columns in 768-wide chunks over
+// blockIdx.y, each chunk recomputing S. D is zero-padded in shared memory,
+// so every D that is a multiple of 8 up to 1536 runs.
 // No atomics: each output element is owned by one CTA, so the results are
-// reproducible run to run. Simple and unpipelined; TMA and wgmma come later.
+// reproducible run to run. Not used yet: `wgmma` and TMA, which would read
+// each operand once per warpgroup in hardware instead of once per warp.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -175,10 +196,6 @@ template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // ROWS x COLS slab of a row-major global matrix (row stride `lds`) into
 // shared memory (row stride `ldd`), 16 bytes at a time; rows >= nrows and
@@ -510,6 +527,299 @@ int dw(const void* h, const void* wt, const int* y, const float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------- bf16 dh / dW: mma.sync
+
+// A tile layout of `ce_bwd_mma`: BM resident rows, BS streamed rows per
+// tile, NW warps, WN 8-column blocks of the accumulator per warp, S in
+// pieces of 32 x PN per warp.
+template <int BM_, int BS_, int NW_, int WN_, int PN_>
+struct BwdLayout {
+  static constexpr int BM = BM_, BS = BS_, NW = NW_, WN = WN_, PN = PN_;
+  static constexpr int NT = NW * 32;
+  static constexpr int RG = BM / 32;          // 32-row groups of the acc
+  static constexpr int CG = NW / RG;          // column groups of the acc
+  static constexpr int CW = CG * WN * 8;      // acc columns per CTA
+  static constexpr int NP = RG * (BS / PN);   // 32 x PN pieces of S
+  static constexpr int KS = NW / NP;          // depth slices of S
+  static constexpr int LDL = BS + 8;          // dl tile row stride
+  static_assert(BM % 32 == 0 && BS % PN == 0 && PN % 16 == 0 &&
+                    WN % 2 == 0 && NW % RG == 0 && NW % NP == 0,
+                "the pieces of S and of the acc must split over the warps");
+  // D zero-padded so that the KS depth slices are whole 16-deep steps
+  static int width(int D) { return round_up(D, 16 * KS); }
+  static int smem(int D) {
+    const int ld = width(D) + 8;  // +16 bytes: conflict-free ldmatrix rows
+    return (BM + 2 * BS) * ld * 2 + (KS - 1) * BM * BS * 4 + BM * LDL * 2 +
+           (BM + 2 * BS) * 8;
+  }
+};
+
+// the main path's layout, and the one `chip_smoke.py` times beside it
+#ifndef CE_BWD_ROWS
+#define CE_BWD_ROWS 64
+#endif
+#if CE_BWD_ROWS == 32
+using Narrow = BwdLayout<32, 32, 8, 12, 16>;   // 255 registers a thread
+#else
+using Narrow = BwdLayout<64, 32, 16, 12, 16>;  // 128 registers a thread
+#endif
+// D > 768: two tile rows fit no more; 768-column chunks of the acc
+using Wide = BwdLayout<32, 16, 16, 6, 16>;
+
+// ROWS rows of a row-major [*, D] bf16 matrix into shared memory (row
+// stride ld, W columns), 16 bytes per cp.async; rows >= nrows and columns
+// >= D are zero-filled
+template <int NT, int ROWS>
+__device__ __forceinline__ void load_rows_async(bf16* dst, int ld,
+                                                const bf16* src, int D,
+                                                int nrows, int W) {
+  const int chunks = W / 8;
+  for (int idx = threadIdx.x; idx < ROWS * chunks; idx += NT) {
+    const int r = idx / chunks;
+    const int c = (idx - r * chunks) * 8;
+    const bool ok = r < nrows && c < D;
+    cp_async16(dst + r * ld + c,
+               ok ? src + static_cast<long long>(r) * D + c : src, ok);
+  }
+}
+
+// dh (DW false): R = h [N, D], T = wt [V, D], out = dh [N, D];
+// dW (DW true):  R = wt [V, D], T = h [N, D], out = dW^T [V, D].
+// lse and labels belong to the rows of h. Grid: (nR / BM, chunks of CW
+// acc columns); W is D padded (`BwdLayout::width`).
+template <bool DW, typename L>
+__global__ void __launch_bounds__(L::NT, 1)
+    ce_bwd_mma(const bf16* __restrict__ rsrc, int nR,
+               const bf16* __restrict__ tsrc, int nT, const int* y,
+               const float* lse, bf16* out, int D, int W) {
+  constexpr int BM = L::BM, BS = L::BS, NP = L::NP, KS = L::KS;
+  constexpr int WN = L::WN, LDL = L::LDL, NT = L::NT;
+  constexpr int NB = L::PN / 8;  // 8-column blocks of an S piece
+  extern __shared__ float4 smem4[];
+  const int LD = W + 8;
+  bf16* sR = reinterpret_cast<bf16*>(smem4);
+  bf16* sT = sR + BM * LD;  // [2][BS][LD]
+  // partial S of depth slices 1.., [KS - 1][NP][2 NB][32] float4 in
+  // accumulator order: each lane stores and loads its own 8 NB values
+  float4* sP = reinterpret_cast<float4*>(sT + 2 * BS * LD);
+  bf16* sDl = reinterpret_cast<bf16*>(sP + (KS - 1) * BM * BS / 4);
+  float* sLse = reinterpret_cast<float*>(sDl + BM * LDL);  // dh: [BM]
+  int* sY = reinterpret_cast<int*>(sLse + BM + 2 * BS);    // dW: [2][BS]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;    // accumulator row (and row + 8)
+  const int tig = lane % 4;  // accumulator columns 2 tig, 2 tig + 1
+  const int lr = lane % 8;   // ldmatrix: row within an 8x8 matrix
+  const int li = lane / 8;   // ldmatrix: which of the four matrices
+  const int r0 = blockIdx.x * BM;
+  const int nt = (nT + BS - 1) / BS;
+
+  // the tile's lse and labels (dW: they follow the streamed h rows)
+  auto load_tile = [&](int t, int st) {
+    const int t0 = t * BS;
+    load_rows_async<NT, BS>(sT + st * BS * LD, LD,
+                            tsrc + static_cast<long long>(t0) * D, D,
+                            nT - t0, W);
+    if (DW) {
+      for (int j = threadIdx.x; j < BS; j += NT) {
+        const bool ok = t0 + j < nT;
+        cp_async4(sLse + st * BS + j, ok ? lse + t0 + j : lse, ok);
+        cp_async4(sY + st * BS + j, ok ? y + t0 + j : y, ok);
+      }
+    }
+  };
+
+  load_rows_async<NT, BM>(sR, LD, rsrc + static_cast<long long>(r0) * D, D,
+                          nR - r0, W);
+  if (!DW) {
+    for (int i = threadIdx.x; i < BM; i += NT) {
+      const bool ok = r0 + i < nR;
+      sLse[i] = ok ? lse[r0 + i] : 0.f;
+      sY[i] = ok ? y[r0 + i] : -1;
+    }
+  }
+  load_tile(0, 0);
+  cp_async_commit();
+
+  // S: this warp's 32 x PN piece and depth slice
+  const int piece = warp % NP, slice = warp / NP;
+  const int pr = (piece / (BS / L::PN)) * 32;
+  const int pc = (piece % (BS / L::PN)) * L::PN;
+  const int kd = W / KS;
+  // acc: this warp's 32 rows and WN * 8 columns
+  const int rg = warp / L::CG;
+  const int cb = blockIdx.y * L::CW + (warp % L::CG) * WN * 8;
+
+  float acc[2][WN][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < WN; ++j)
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+
+  for (int t = 0; t < nt; ++t) {
+    const int st = t & 1;
+    const int t0 = t * BS;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t + 1 < nt) {
+      load_tile(t + 1, st ^ 1);
+      cp_async_commit();
+    }
+    const bf16* tT = sT + st * BS * LD;
+
+    float s[2][NB][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        s[mt][nb][0] = s[mt][nb][1] = s[mt][nb][2] = s[mt][nb][3] = 0.f;
+    const bf16* pa =
+        sR + (pr + (lane & 15)) * LD + slice * kd + (lane >> 4) * 8;
+    const bf16* pb =
+        tT + (pc + lr + (li >> 1) * 8) * LD + slice * kd + (li & 1) * 8;
+#pragma unroll 4
+    for (int k = 0; k < kd; k += 16) {
+      unsigned a[2][4], b[NB / 2][4];
+#pragma unroll
+      for (int jb = 0; jb < NB / 2; ++jb) ldsm_x4(b[jb], pb + jb * 16 * LD + k);
+      ldsm_x4(a[0], pa + k);
+      ldsm_x4(a[1], pa + 16 * LD + k);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int jb = 0; jb < NB / 2; ++jb) {
+          mma_bf16(s[mt][2 * jb], a[mt], b[jb][0], b[jb][1]);
+          mma_bf16(s[mt][2 * jb + 1], a[mt], b[jb][2], b[jb][3]);
+        }
+    }
+    constexpr int PQ = 2 * NB;  // float4 of a piece per lane
+    float4* part = sP + piece * PQ * 32 + lane;
+    if (slice > 0) {
+#pragma unroll
+      for (int q = 0; q < PQ; ++q) {
+        const float* v = s[q / NB][q % NB];
+        part[(slice - 1) * NP * PQ * 32 + q * 32] =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    __syncthreads();  // partial sums stored
+
+    if (slice == 0) {
+#pragma unroll
+      for (int ks = 1; ks < KS; ++ks)
+#pragma unroll
+        for (int q = 0; q < PQ; ++q) {
+          const float4 v = part[(ks - 1) * NP * PQ * 32 + q * 32];
+          float* o = s[q / NB][q % NB];
+          o[0] += v.x;
+          o[1] += v.y;
+          o[2] += v.z;
+          o[3] += v.w;
+        }
+      // dl = exp(S - lse) - onehot, 0 outside N x V, rounded to bf16
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = pr + mt * 16 + g + 8 * hf;  // tile row (R row)
+          const bool row_ok = r0 + i < nR;
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb) {
+            const int j = pc + nb * 8 + tig * 2;  // tile column (T row)
+            float d[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int jj = j + e;
+              const float x = s[mt][nb][2 * hf + e];
+              const float l = DW ? sLse[st * BS + jj] : sLse[i];
+              const int lab = DW ? sY[st * BS + jj] : sY[i];
+              const int v = DW ? r0 + i : t0 + jj;  // vocabulary row
+              d[e] = row_ok && t0 + jj < nT
+                         ? ex2(fmaf(x, LOG2E, -l * LOG2E)) -
+                               (lab == v ? 1.f : 0.f)
+                         : 0.f;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(sDl + i * LDL + j) =
+                __floats2bfloat162_rn(d[0], d[1]);
+          }
+        }
+    }
+    __syncthreads();  // dl stored
+
+    // acc += dl . T: dl through ldmatrix, T through ldmatrix.trans
+    const bf16* pl = sDl + (rg * 32 + (lane & 15)) * LDL + (lane >> 4) * 8;
+    const bf16* pt = tT + (lr + (li & 1) * 8) * LD + cb + (li >> 1) * 8;
+#pragma unroll
+    for (int k = 0; k < BS; k += 16) {
+      unsigned a0[4], a1[4];
+      ldsm_x4(a0, pl + k);
+      ldsm_x4(a1, pl + 16 * LDL + k);
+#pragma unroll
+      for (int jp = 0; jp < WN / 2; ++jp) {
+        if (cb + jp * 16 < W) {  // warp-uniform: a chunk past the padding
+          unsigned b[4];
+          ldsm_x4_t(b, pt + k * LD + jp * 16);
+          mma_bf16(acc[0][2 * jp], a0, b[0], b[1]);
+          mma_bf16(acc[0][2 * jp + 1], a0, b[2], b[3]);
+          mma_bf16(acc[1][2 * jp], a1, b[0], b[1]);
+          mma_bf16(acc[1][2 * jp + 1], a1, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = r0 + rg * 32 + mt * 16 + g + 8 * hf;
+      if (row >= nR) continue;
+      bf16* orow = out + static_cast<long long>(row) * D;
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+        const int col = cb + j * 8 + tig * 2;
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(acc[mt][j][2 * hf],
+                                    acc[mt][j][2 * hf + 1]);
+      }
+    }
+}
+
+template <bool DW, typename L>
+int launch_bwd(const bf16* r, int nR, const bf16* t, int nT, const int* y,
+               const float* lse, bf16* out, int D, cudaStream_t st) {
+  const int W = L::width(D);
+  const int smem = L::smem(D);
+  int err = set_smem(ce_bwd_mma<DW, L>, smem);
+  if (err) return err;
+  const dim3 grid((nR + L::BM - 1) / L::BM, (W + L::CW - 1) / L::CW);
+  ce_bwd_mma<DW, L><<<grid, L::NT, smem, st>>>(r, nR, t, nT, y, lse, out, D,
+                                              W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool narrow(int D) { return Narrow::width(D) <= Narrow::CW; }
+
+int bwd_mma_smem(int D) {
+  return narrow(D) ? Narrow::smem(D) : Wide::smem(D);
+}
+
+template <bool DW>
+int bwd_mma(const void* h, const void* wt, const int* y, const float* lse,
+            void* out, int N, int D, int V, cudaStream_t st) {
+  const bf16* hb = static_cast<const bf16*>(h);
+  const bf16* wb = static_cast<const bf16*>(wt);
+  const bf16* r = DW ? wb : hb;
+  const bf16* t = DW ? hb : wb;
+  const int nR = DW ? V : N, nT = DW ? N : V;
+  bf16* o = static_cast<bf16*>(out);
+  if (narrow(D)) return launch_bwd<DW, Narrow>(r, nR, t, nT, y, lse, o, D, st);
+  return launch_bwd<DW, Wide>(r, nR, t, nT, y, lse, o, D, st);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (h and wt alike); every tensor
@@ -517,8 +827,8 @@ int dw(const void* h, const void* wt, const int* y, const float* lse,
 extern "C" int chainermn_ce_smem(int which, int dtype, int D) {
   const bool bf = dtype == 1;
   if (which == 0) return bf ? fwd_smem<__nv_bfloat16>() : fwd_smem<float>();
-  if (which == 1) return bf ? dh_smem<__nv_bfloat16>(D) : dh_smem<float>(D);
-  return bf ? dw_smem<__nv_bfloat16>(D) : dw_smem<float>(D);
+  if (bf) return bwd_mma_smem(D);
+  return which == 1 ? dh_smem<float>(D) : dw_smem<float>(D);
 }
 
 extern "C" int chainermn_ce_fwd(const void* h, const void* wt, const int* y,
@@ -539,7 +849,7 @@ extern "C" int chainermn_ce_dh(const void* h, const void* wt, const int* y,
   if (dtype == 0 && shapes_ok<float>(N, D, V))
     return dh<float>(h, wt, y, lse, dh_out, N, D, V, st);
   if (dtype == 1 && shapes_ok<__nv_bfloat16>(N, D, V))
-    return dh<__nv_bfloat16>(h, wt, y, lse, dh_out, N, D, V, st);
+    return bwd_mma<false>(h, wt, y, lse, dh_out, N, D, V, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -550,6 +860,6 @@ extern "C" int chainermn_ce_dw(const void* h, const void* wt, const int* y,
   if (dtype == 0 && shapes_ok<float>(N, D, V))
     return dw<float>(h, wt, y, lse, dwt_out, N, D, V, st);
   if (dtype == 1 && shapes_ok<__nv_bfloat16>(N, D, V))
-    return dw<__nv_bfloat16>(h, wt, y, lse, dwt_out, N, D, V, st);
+    return bwd_mma<true>(h, wt, y, lse, dwt_out, N, D, V, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,8 +16,11 @@ kernel, y ``[N]`` labels → ``(loss, acc)`` scalars:
 
 The TPU tile rules (rows padded to ``block_rows``, ``v % block_v == 0``,
 the ``bv_dw <= 1024`` halving) do not carry over: the CUDA kernels
-(``csrc/fused_ce.cu``) mask ragged N and V themselves. ``block_rows`` and
-``block_v`` stay in the signature for parity and are not used.
+(``csrc/fused_ce.cu``) mask ragged N and V themselves; D is a multiple of
+16 bytes of the dtype and, for the bf16 dh and dW, at most 1536 (the
+shared memory their tiles take, checked through ``ce_smem_bytes``).
+``block_rows`` and ``block_v`` stay in the signature for parity and are
+not used.
 
 CUDA tensors run the kernels; CPU tensors run the plain versions
 (:func:`ce_forward_reference`, :func:`ce_dh_reference`,

@@ -9,10 +9,12 @@ the final line:
 1. card — ``nvidia-smi`` name and power limit;
 2. build — every CUDA kernel of the port from ``chainermn_torch/csrc``,
    one ``nvcc`` per source, all started together; then the tensor-core
-   (``HMMA``) instructions in the two flash libraries' SASS, which must
-   not be 0, and ptxas's registers and spill bytes of their d-64
-   tensor-core kernels (the main path's); the two flash sources are also
-   built with those kernels' register caps lifted;
+   (``HMMA``) instructions in the SASS of the two flash libraries and of
+   the fused CE, none of which may be 0, and ptxas's registers and spill
+   bytes of the main path's tensor-core kernels (flash at d 64, the bf16
+   CE backward at D 768); the two flash sources are also built with those
+   kernels' register caps lifted, and the fused CE with its backward's
+   other row layout (``CE_LAYOUT``);
 3. kernels — each kernel (flash_fwd, flash_bwd, and the fused CE's
    ce_fwd, ce_dh, ce_dw) against its plain PyTorch version on the card at
    the main path's shape and in the edge cases (bf16 and f32), then timed
@@ -20,8 +22,10 @@ the final line:
    the same function (a yardstick only, the port never calls it; SDPA is
    first held against the plain versions): flash at the serving and
    training shapes and at the split backward's cases (a window; causal
-   Lq != Lk); then the two flash kernels with their register caps
-   lifted, timed beside the shipped builds;
+   Lq != Lk); ce_dh + ce_dw together beside the one backward call of the
+   yardstick (``pair`` line); then the two flash kernels with their
+   register caps lifted, and the CE backward in its other row layout,
+   each timed beside the shipped build;
 4. slice — the port's ``Engine`` serves 16 greedy requests with the
    135M TransformerLM at full width (vocab 32768, d_model 768, 12
    layers, 12 heads, d_ff 3072, rope, bf16) and random weights from
@@ -369,14 +373,14 @@ def time_flash_case(gen, b, lq, lk, hq, hkv, d, causal, window=None,
 
 def count_hmma(card: str) -> None:
     """Print the tensor-core instructions (``HMMA``) in the SASS of the
-    two flash libraries, read with ``cuobjdump --dump-sass``; raises if
-    either has none (its bf16 products would not run on the tensor
-    cores)."""
+    two flash libraries and the fused CE, read with ``cuobjdump
+    --dump-sass``; raises if any has none (its bf16 products would not
+    run on the tensor cores)."""
     from chainermn_torch.ops import _cuda
 
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     counts = {}
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "fused_ce"):
         sass = subprocess.run([tool, "--dump-sass", str(_cuda.build(name))],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
@@ -384,7 +388,7 @@ def count_hmma(card: str) -> None:
     print(f"sass: HMMA instructions {json.dumps(counts)} ({card})",
           flush=True)
     if not all(counts.values()):
-        raise PhaseError(f"a flash library has no HMMA instruction: "
+        raise PhaseError(f"a kernel library has no HMMA instruction: "
                          f"{counts}")
 
 
@@ -405,6 +409,34 @@ def mma64_usage(name: str, defines=()) -> dict:
         raise PhaseError(f"ptxas reports {len(found)} {name}_mma<64> "
                          f"kernels in {sorted(usage)}")
     return found[0]
+
+
+#: the fused CE built with its bf16 backward's other row layout (32 rows,
+#: 8 warps, 255 registers; shipped: 64 rows, 16 warps, 128 registers),
+#: timed beside the shipped build
+CE_LAYOUT = ("CE_BWD_ROWS=32",)
+
+
+def ce_bwd_usage(defines=()) -> dict:
+    """ptxas's registers and spill bytes of the bf16 CE backward kernels
+    in the layout that runs D <= 768 (``ce_bwd_mma<dW?, Narrow>``, whose
+    tiles are 32 streamed rows; the wider layout's are 16) of a fused_ce
+    build: ``{"ce_dh": ..., "ce_dw": ...}``."""
+    import re
+
+    from chainermn_torch.ops import _cuda
+
+    usage = _cuda.ptxas_usage("fused_ce", tuple(defines))
+    out = {}
+    for name, flag in (("ce_dh", "ILb0E"), ("ce_dw", "ILb1E")):
+        found = [u for fn, u in usage.items()
+                 if re.search(rf"ce_bwd_mma{flag}\w*BwdLayoutILi\d+ELi32E",
+                              fn)]
+        if len(found) != 1:
+            raise PhaseError(f"ptxas reports {len(found)} {name} kernels "
+                             f"for D <= 768 in {sorted(usage)}")
+        out[name] = found[0]
+    return out
 
 
 def _usage(u: dict) -> str:
@@ -459,6 +491,50 @@ def compare_launch_bounds(gen, card: str) -> None:
                              "disagrees with the shipped build")
         del shipped, got
     del q, k, v, dout, out, lse
+
+
+def compare_ce_layouts(gen, card: str) -> None:
+    """ce_dh and ce_dw at the training shape [8192, 768] x [768, 32768]
+    bf16 in the shipped row layout and in ``CE_LAYOUT``, timed in the
+    order shipped, other, other, shipped, each beside ptxas's registers
+    and spill bytes. The other layout's outputs are first held against
+    the shipped build's at the bf16 rule."""
+    import torch
+
+    from chainermn_torch.ops import _cuda
+    from chainermn_torch.ops.fused_ce import (ce_dh_cuda, ce_dw_cuda,
+                                              ce_forward_cuda)
+
+    h, wt, y = ce_inputs(gen, 8192, 768, 32768, torch.bfloat16)
+    lse = ce_forward_cuda(h, wt, y)[0]
+    shipped_use, other_use = ce_bwd_usage(), ce_bwd_usage(CE_LAYOUT)
+    for name, fn in (("ce_dh", ce_dh_cuda), ("ce_dw", ce_dw_cuda)):
+        shipped = fn(h, wt, y, lse)
+        with _cuda.variant("fused_ce", CE_LAYOUT):
+            other = fn(h, wt, y, lse)
+        share = _close(other, shipped, torch.bfloat16)[2]
+        ms = {"shipped": [], "other": []}
+        for which in ("shipped", "other", "other", "shipped"):
+            if which == "other":
+                with _cuda.variant("fused_ce", CE_LAYOUT):
+                    ms[which].append(cuda_time_ms(
+                        lambda: fn(h, wt, y, lse), iters=5, warmup=2))
+            else:
+                ms[which].append(cuda_time_ms(lambda: fn(h, wt, y, lse),
+                                              iters=5, warmup=2))
+        print(f"ce layouts {name} [8192,768]x[768,32768] bf16: shipped (64 "
+              f"rows, 16 warps) {_usage(shipped_use[name])}, ms "
+              + " ".join(f"{t:.4f}" for t in ms["shipped"])
+              + f"; {' '.join(CE_LAYOUT)} (32 rows, 8 warps) "
+              f"{_usage(other_use[name])}, ms "
+              + " ".join(f"{t:.4f}" for t in ms["other"])
+              + f"; other vs shipped share {share:.3f} ({card})", flush=True)
+        if share > 1.0:
+            raise PhaseError(f"{name} in the layout {CE_LAYOUT} disagrees "
+                             "with the shipped build")
+        del shipped, other
+    del h, wt, y, lse
+    torch.cuda.empty_cache()
 
 
 def flash_bwd_bound_ms(b, lq, lk, hq, hkv, d, dtype, causal, window=None):
@@ -631,6 +707,10 @@ def check_fused_ce(gen):
         ("ragged", 8000, 768, 30000, bf16, False),
         ("f32", 1000, 256, 5000, f32, False),
         ("ties", 512, 64, 1000, bf16, True),
+        # the bf16 backward beyond the main width: two 768-column chunks of
+        # its accumulator (D 1024), and D zero-padded to a whole slice
+        ("d1024-chunked", 1000, 1024, 3001, bf16, False),
+        ("d200-padded", 777, 200, 5003, bf16, False),
     ]
     worst = {}
     for name, n, d, v, dtype, ties in cases:
@@ -645,6 +725,9 @@ def check_fused_ce(gen):
         r_dw = ce_dw_reference(h, wt, y, r_lse)
         res_dh = _close(dh, r_dh, dtype)
         res_dw = _close(dwt, r_dw, dtype)
+        # no atomics: a second call gives the same bits
+        same = (torch.equal(dh, ce_dh_cuda(h, wt, y, lse))
+                and torch.equal(dwt, ce_dw_cuda(h, wt, y, lse)))
         # the softmax term alone at the rows with no label in this batch
         # (dW^T there is sum_n p h_n): its own share, printed
         nolabel = torch.ones(v, dtype=torch.bool, device="cuda")
@@ -664,7 +747,7 @@ def check_fused_ce(gen):
         del logits
         bad_am = int(((am != r_am) & (gap >= TOL_ARGMAX_GAP)).sum().item())
         ok = (ok_lse and ok_tl and res_dh[3] and res_dw[3] and res_sw[3]
-              and bad_am == 0)
+              and bad_am == 0 and same)
         if ties:
             # first index on ties: every row's argmax is in the first half
             ok = ok and bool((am < v // 2).all()) and bool(
@@ -673,7 +756,8 @@ def check_fused_ce(gen):
               f"{str(dtype)[6:]} lse_err={e_lse:.3g} tl_err={e_tl:.3g} "
               f"argmax_mismatch={int((am != r_am).sum().item())} "
               f"{_fmt('dh', res_dh)} {_fmt('dw', res_dw)} "
-              f"{_fmt('dw_nolabel', res_sw)} {'ok' if ok else 'FAIL'}",
+              f"{_fmt('dw_nolabel', res_sw)} repeat_bitwise={same} "
+              f"{'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
             raise PhaseError(f"fused CE kernels disagree with their plain "
@@ -700,7 +784,10 @@ def time_training_kernels(gen):
     """Each kernel at the training step's shape beside its plain version,
     its bound and a PyTorch yardstick the port never calls: SDPA forward
     and its autograd backward; for the CE, ``F.cross_entropy(h @ W, y)``
-    forward and its backward (two calls, one time each)."""
+    forward and its backward (dh and dW in one call, so also timed
+    against ce_dh + ce_dw together). Returns ``({kernel: row}, pair)``,
+    pair the ms of ce_dh + ce_dw, of the backward call and their
+    bound."""
     import torch
     import torch.nn.functional as F
 
@@ -735,9 +822,14 @@ def time_training_kernels(gen):
         rows[name] = dict(ms=cuda_time_ms(kern, iters=5, warmup=2),
                           plain_ms=cuda_time_ms(ref, iters=3, warmup=1),
                           library_ms=lib, bound_ms=bound, bound_by=by)
+    pair = dict(ms=cuda_time_ms(lambda: (ce_dh_cuda(h, wt, y, lse),
+                                         ce_dw_cuda(h, wt, y, lse)),
+                                iters=5, warmup=2),
+                library_ms=lib_b,
+                bound_ms=rows["ce_dh"]["bound_ms"] + rows["ce_dw"]["bound_ms"])
     del h, wt, y, lse, hl, wl, loss
     torch.cuda.empty_cache()
-    return rows
+    return rows, pair
 
 
 def build_model(seed: int, dtype, attention: str):
@@ -1119,13 +1211,17 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
 
     t0 = time.perf_counter()
-    took = _cuda.build_all(variants=LIFTED_CAPS.items())
+    took = _cuda.build_all(variants=[*LIFTED_CAPS.items(),
+                                     ("fused_ce", CE_LAYOUT)])
     print(f"build: {json.dumps(took)} total "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     count_hmma(card)
     print("ptxas: " + "; ".join(
-        f"{name}_mma<64> {_usage(mma64_usage(name))}"
-        for name in ("flash_fwd", "flash_bwd")) + f" ({card})", flush=True)
+        [f"{name}_mma<64> {_usage(mma64_usage(name))}"
+         for name in ("flash_fwd", "flash_bwd")]
+        + [f"{name} bf16 D <= 768 {_usage(u)}"
+           for name, u in ce_bwd_usage().items()]) + f" ({card})",
+        flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     worst = check_kernels(gen)
@@ -1148,10 +1244,16 @@ def main(argv=None) -> int:
                                          window).items():
             show(name, f"case={case} [{b},{lq}|{lk},{hq}|{hkv},{d}] bf16 "
                        f"window={window}", row)
-    times = time_training_kernels(gen)
+    times, pair = time_training_kernels(gen)
     for name, row in times.items():
         show(name, "training shape", row)
+    print(f"pair ce_dh + ce_dw (training shape): kernels {pair['ms']:.4f} "
+          f"ms, F.cross_entropy backward (dh and dW in one call) "
+          f"{pair['library_ms']:.4f} ms, ratio "
+          f"{pair['ms'] / pair['library_ms']:.3f}, bound "
+          f"{pair['bound_ms']:.4f} ms ({card})", flush=True)
     compare_launch_bounds(gen, card)
+    compare_ce_layouts(gen, card)
 
     model = build_model(args.seed, torch.bfloat16, "flash")
     prompts = prompts_for(args.seed, model.vocab)

@@ -1,6 +1,7 @@
 """The port's kernel build helpers (``chainermn_torch.ops._cuda``) that run
 without ``nvcc``: which headers name a library, and the ptxas report."""
 
+import re
 import shutil
 
 import pytest
@@ -9,25 +10,47 @@ from chainermn_torch.ops import _cuda
 
 
 def test_each_source_hashes_only_the_headers_it_includes():
+    """flash_common.cuh includes mma_sync.cuh, so the flash sources hash
+    both; fused_ce.cu includes only mma_sync.cuh."""
     assert [h.name for h in _cuda._headers(_cuda._CSRC / "flash_fwd.cu")] \
-        == ["flash_common.cuh"]
+        == ["flash_common.cuh", "mma_sync.cuh"]
     assert [h.name for h in _cuda._headers(_cuda._CSRC / "flash_bwd.cu")] \
-        == ["flash_common.cuh"]
-    assert _cuda._headers(_cuda._CSRC / "fused_ce.cu") == []
+        == ["flash_common.cuh", "mma_sync.cuh"]
+    assert [h.name for h in _cuda._headers(_cuda._CSRC / "fused_ce.cu")] \
+        == ["mma_sync.cuh"]
 
 
+@pytest.mark.parametrize("header, renamed", [
+    ("flash_common.cuh", {"flash_fwd", "flash_bwd"}),
+    ("mma_sync.cuh", {"flash_fwd", "flash_bwd", "fused_ce"}),
+])
 def test_a_header_edit_renames_only_the_libraries_that_include_it(
-        tmp_path, monkeypatch):
+        tmp_path, monkeypatch, header, renamed):
     csrc = tmp_path / "csrc"
     shutil.copytree(_cuda._CSRC, csrc)
     monkeypatch.setattr(_cuda, "_CSRC", csrc)
     before = {name: _cuda._target(name) for name in _cuda.SOURCES}
-    header = csrc / "flash_common.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
+    path = csrc / header
+    path.write_text(path.read_text() + "\n// edited\n")
     after = {name: _cuda._target(name) for name in _cuda.SOURCES}
-    assert after["fused_ce"] == before["fused_ce"]
-    assert after["flash_fwd"] != before["flash_fwd"]
-    assert after["flash_bwd"] != before["flash_bwd"]
+    assert {name for name in _cuda.SOURCES
+            if after[name] != before[name]} == renamed
+
+
+def test_the_tensor_core_helpers_are_defined_once():
+    """The PTX wrappers live in mma_sync.cuh only: flash_common.cuh and
+    fused_ce.cu include it and define none of them again."""
+    helpers = ("smem_u32", "cp_async16", "cp_async4", "cp_async_commit",
+               "cp_async_wait", "ldsm_x4", "ldsm_x4_t", "mma_bf16", "ex2",
+               "pack_bf16")
+    for fn in helpers:
+        pattern = re.compile(r"__device__\s+__forceinline__\s+\w+\s+"
+                             + fn + r"\(")
+        defined = [name for name in ("mma_sync.cuh", "flash_common.cuh",
+                                     "fused_ce.cu", "flash_fwd.cu",
+                                     "flash_bwd.cu")
+                   if pattern.search((_cuda._CSRC / name).read_text())]
+        assert defined == ["mma_sync.cuh"], (fn, defined)
 
 
 def test_a_variant_build_has_its_own_library():
@@ -62,6 +85,19 @@ def test_ptxas_report_gives_registers_and_spills_per_kernel():
                           "spill_loads": 12}
     assert usage[fma] == {"registers": 72, "spill_stores": 0,
                           "spill_loads": 0}
+
+
+def test_the_ce_backward_layout_can_be_chosen_by_a_define():
+    """``chip_smoke.py`` builds fused_ce.cu with the define it names for
+    the CE backward's other row layout; the source must honour it."""
+    import chip_smoke
+
+    (define,) = chip_smoke.CE_LAYOUT
+    macro, value = define.split("=")
+    text = (_cuda._CSRC / "fused_ce.cu").read_text()
+    assert f"#ifndef {macro}" in text
+    assert f"#if {macro} == {value}" in text
+    assert _cuda._target("fused_ce", (define,)) != _cuda._target("fused_ce")
 
 
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd"])

@@ -223,6 +223,15 @@ CE_CASES = {
     "f32-ragged": (100, 32, 300, torch.float32, False),
     "bf16": (200, 64, 1000, torch.bfloat16, False),
     "bf16-ties": (64, 32, 512, torch.bfloat16, True),
+    # the bf16 backward's tensor-core kernel: the widest D of one pass,
+    # two 768-column chunks of its accumulator (D 776: the second chunk
+    # nearly all padding; D 1536: the widest D that fits shared memory),
+    # D zero-padded; ragged N, V
+    "bf16-d768": (100, 768, 300, torch.bfloat16, False),
+    "bf16-d776-chunked": (90, 776, 500, torch.bfloat16, False),
+    "bf16-d1024-chunked": (150, 1024, 700, torch.bfloat16, False),
+    "bf16-d1536-widest": (70, 1536, 400, torch.bfloat16, False),
+    "bf16-d200-padded": (77, 200, 1003, torch.bfloat16, False),
 }
 
 
@@ -265,6 +274,28 @@ def test_fused_ce_kernels_match_plain_versions(cuda, name):
             torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
         else:
             _assert_bf16_close(got, ref)
+
+
+@pytest.mark.parametrize("name", ["bf16-d768", "bf16-d1024-chunked",
+                                  "f32-ragged"])
+def test_fused_ce_backward_is_bitwise_reproducible(cuda, name):
+    """No atomics: each output element is owned by one CTA, so two calls
+    on the same inputs give the same bits."""
+    h, wt, y = _ce_inputs(cuda, *CE_CASES[name])
+    lse = ce_forward_cuda(h, wt, y)[0]
+    for fn in (ce_dh_cuda, ce_dw_cuda):
+        first, second = fn(h, wt, y, lse), fn(h, wt, y, lse)
+        torch.cuda.synchronize()
+        assert first.abs().max() > 0
+        assert torch.equal(first, second)
+
+
+def test_fused_ce_backward_refuses_d_past_shared_memory(cuda):
+    h, wt, y = _ce_inputs(cuda, 8, 1544, 16, torch.bfloat16, False)
+    lse = ce_forward_cuda(h, wt, y)[0]
+    for fn in (ce_dh_cuda, ce_dw_cuda):
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(h, wt, y, lse)
 
 
 def test_fused_ce_head_differentiates_through_the_kernels(cuda):
