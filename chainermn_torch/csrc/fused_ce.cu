@@ -1,5 +1,5 @@
 // Fused LM head + softmax cross-entropy for Hopper (sm_90a), plain C ABI
-// for ctypes: three kernels, the logits never reach device memory.
+// for ctypes: the logits never reach device memory.
 //
 // Replaces the TPU kernels of chainermn_tpu/ops/fused_ce.py:
 //   ce_fwd  <- `_fwd_kernel` (launched by `_run_fwd`): per row the logsumexp
@@ -12,19 +12,45 @@
 // wrapper multiplies by dloss / N as `_bwd_rule` does.
 //
 // The head is passed transposed, wt [V, D] row-major (the port's
-// `lm_head.weight` as it lies), h [N, D] row-major, labels int32 [N].
+// `lm_head.weight` as it lies), h [N, D] row-major, labels int32 [N]; h and
+// wt start on 16-byte boundaries (the wrapper checks).
 //
 // What bounds them: at the training shape (N = 8192, D = 768, V = 32768,
 // bf16) the forward does 2 N D V = 412 GFLOP and dh and dW 4 N D V = 825
 // GFLOP each (the logits are recomputed) against ~63 MB of h and W: all
 // three are bound by the tensor cores' operations, 0.417 and 0.834 ms at the
 // 989 TFLOP/s bf16 peak. f32 inputs take plain FMAs on the CUDA cores (a
-// testing path: its 1e-4 contract is tighter than TF32).
+// testing path: its 1e-4 contract is tighter than TF32); the f32 kernels
+// sweep the other operand through shared-memory tiles, unpipelined.
 //
-// ce_fwd (bf16 and f32) and the f32 dh / dW: one CTA per block of rows
-// sweeps the other operand with `wmma` 16x16x16 tiles (f32: FMAs) through a
-// logits tile in shared memory; the f32 dh / dW accumulators live in shared
-// memory too. Simple and unpipelined.
+// bf16 forward (`ce_fwd_wgmma`), warp-specialised:
+// * a CTA owns 128 rows of h (two consumer warpgroups of 64) and one range
+//   of the vocabulary, walked in tiles of 256 columns; the host splits the
+//   vocabulary into S ranges of whole tiles so that (row blocks x S) CTAs
+//   fill the SMs (S = 2 at the training shape: 128 CTAs), no range empty;
+// * one producer thread issues TMA loads of the h box [128 x 64] and the W
+//   box [256 x 64] per 64-deep step of D, 128-byte swizzled, into a ring
+//   of 4 stages (48 KB each, shared memory fixed whatever D is); an
+//   mbarrier per stage counts the bytes in, another the 8 consumer warps
+//   out; TMA zero-fills past N, V and D;
+// * each consumer warpgroup runs wgmma.m64n256k16 (bf16 in, f32
+//   accumulate) from descriptors of the swizzled boxes; the 64 x 256 f32
+//   logits tile stays in registers (128 a thread, registers handed over
+//   from the producer with setmaxnreg), one step's products in flight
+//   while the next stage is awaited;
+// * the epilogue reads the tile where it lies: a quad of lanes holds a
+//   row's 256 columns, so its max, first-index argmax, sum of
+//   ex2((x - m) log2 e) and target logit need only shuffles inside the
+//   quad; they fold into the row's running (m, s, t, a) with strictly
+//   greater updates (the first tile wins ties); columns >= V read -inf;
+// * each CTA writes its rows' partial (m, s, t, a) to a workspace of S x N
+//   entries; a second small kernel (`ce_fwd_combine`) on the same stream
+//   combines them in range order: lse = M + log sum s_i exp(m_i - M),
+//   tl = sum t_i, am from the lowest range with m_i = M. No atomics: two
+//   calls give the same bits.
+// The TMA descriptors encode the base pointers, so the host builds them per
+// call with cuTensorMapEncodeTiled, looked up through
+// cudaGetDriverEntryPointByVersion so that the library needs no -lcuda.
 //
 // bf16 dh and dW, one kernel (`ce_bwd_mma`) for both, mirror images:
 // * each CTA owns BM rows of the output and keeps that block of the
@@ -50,18 +76,14 @@
 // blockIdx.y, each chunk recomputing S. D is zero-padded in shared memory,
 // so every D that is a multiple of 8 up to 1536 runs.
 // No atomics: each output element is owned by one CTA, so the results are
-// reproducible run to run. Not used yet: `wgmma` and TMA, which would read
-// each operand once per warpgroup in hardware instead of once per warp.
+// reproducible run to run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
-
 #include "mma_sync.cuh"
+#include "wgmma.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
@@ -86,19 +108,8 @@ __device__ __forceinline__ int at<ColMajor>(int i, int j, int ld) {
   return j * ld + i;
 }
 
-template <typename L>
-struct WmmaLayout;
-template <>
-struct WmmaLayout<RowMajor> {
-  using type = wmma::row_major;
-};
-template <>
-struct WmmaLayout<ColMajor> {
-  using type = wmma::col_major;
-};
-
 // A BM x BN f32 accumulator tile spread over the CTA: C += A . B with the
-// operands in shared memory. bf16 runs on the tensor cores, f32 on FMAs.
+// f32 operands in shared memory, on FMAs.
 template <typename T, int BM, int BN, typename LA, typename LB>
 struct Tile;
 
@@ -137,57 +148,6 @@ struct Tile<float, BM, BN, LA, LB> {
       for (int k = 0; k < K; ++k)
         t = fmaf(a[at<LA>(m, k, lda)], b[at<LB>(k, n, ldb)], t);
       acc[i] = t;
-    }
-  }
-};
-
-template <int BM, int BN, typename LA, typename LB>
-struct Tile<__nv_bfloat16, BM, BN, LA, LB> {
-  static constexpr int NBN = BN / 16;
-  static constexpr int NB = (BM / 16) * NBN;
-  static constexpr int PER = NB / NWARPS;
-  static_assert(BM % 16 == 0 && BN % 16 == 0 && NB % NWARPS == 0,
-                "16x16 blocks must split evenly over the warps");
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[PER];
-
-  __device__ static int blk_m(int i) {
-    return ((threadIdx.x / 32) + i * NWARPS) / NBN * 16;
-  }
-  __device__ static int blk_n(int i) {
-    return ((threadIdx.x / 32) + i * NWARPS) % NBN * 16;
-  }
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) wmma::fill_fragment(acc[i], 0.f);
-  }
-  __device__ void load(const float* c, int ldc) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i)
-      wmma::load_matrix_sync(acc[i], c + blk_m(i) * ldc + blk_n(i), ldc,
-                             wmma::mem_row_major);
-  }
-  __device__ void store(float* c, int ldc) const {
-#pragma unroll
-    for (int i = 0; i < PER; ++i)
-      wmma::store_matrix_sync(c + blk_m(i) * ldc + blk_n(i), acc[i], ldc,
-                              wmma::mem_row_major);
-  }
-  template <int K>
-  __device__ void mma(const __nv_bfloat16* a, int lda,
-                      const __nv_bfloat16* b, int ldb) {
-    static_assert(K % 16 == 0, "depth must be a multiple of 16");
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   typename WmmaLayout<LA>::type> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                   typename WmmaLayout<LB>::type> fb;
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        wmma::load_matrix_sync(fa, a + at<LA>(blk_m(i), kk, lda), lda);
-        wmma::load_matrix_sync(fb, b + at<LB>(kk, blk_n(i), ldb), ldb);
-        wmma::mma_sync(acc[i], fa, fb, acc[i]);
-      }
     }
   }
 };
@@ -239,7 +199,7 @@ __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// ---------------------------------------------------------------- forward
+// ------------------------------------------------------------ f32 forward
 
 constexpr int F_BM = 64, F_BN = 128;
 
@@ -820,25 +780,336 @@ int bwd_mma(const void* h, const void* wt, const int* y, const float* lse,
   return launch_bwd<DW, Wide>(r, nR, t, nT, y, lse, o, D, st);
 }
 
+// ------------------------------------------------- bf16 forward: wgmma
+
+// The tile of `ce_fwd_wgmma`: BM rows of h (two consumer warpgroups of 64),
+// BN vocabulary columns, BK-deep steps of D (one 128-byte swizzle row of
+// bf16), a ring of STAGES (h box + W box) in shared memory.
+struct Fwd {
+  static constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
+  static constexpr int CONSUMERS = 2;                 // warpgroups
+  static constexpr int THREADS = (CONSUMERS + 1) * 128;
+  static constexpr int A_BYTES = BM * BK * 2;         // 16 KB
+  static constexpr int B_BYTES = BN * BK * 2;         // 32 KB
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // + 1024 to align the ring to the swizzle's 1024-byte pattern, + the
+  // full and empty barriers
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+  static constexpr int EMPTY_ARRIVALS = CONSUMERS * 4;  // one per warp
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+};
+static_assert(Fwd::BK * 2 == 128, "a box row is one 128-byte swizzle row");
+static_assert(Fwd::STAGE_BYTES % 1024 == 0 && Fwd::A_BYTES % 1024 == 0,
+              "every box starts on the swizzle's 1024-byte pattern");
+static_assert(Fwd::PRODUCER_REGS * 128 + Fwd::CONSUMER_REGS * 128 *
+                      Fwd::CONSUMERS <= 65536,
+              "the warpgroups' registers fit the SM");
+
+// One CTA: rows [blockIdx.x * BM, +BM) against vocabulary tiles
+// [blockIdx.y * per, +per) (the last range may be shorter). Writes the
+// rows' partial (m, s, t, a) to part[4][S][N] (a as int bits).
+__global__ void __launch_bounds__(Fwd::THREADS, 1)
+    ce_fwd_wgmma(const __grid_constant__ CUtensorMap tm_h,
+                 const __grid_constant__ CUtensorMap tm_w,
+                 const int* __restrict__ y, float* __restrict__ part, int N,
+                 int D, int V, int per) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t full = ring + Fwd::STAGES * Fwd::STAGE_BYTES;
+  const uint32_t empty = full + Fwd::STAGES * 8;
+  const int wg = threadIdx.x / 128;
+  const int row0 = blockIdx.x * Fwd::BM;
+  const int tiles = (V + Fwd::BN - 1) / Fwd::BN;
+  const int t_lo = blockIdx.y * per;
+  const int t_hi = min(tiles, t_lo + per);
+  const int ksteps = (D + Fwd::BK - 1) / Fwd::BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Fwd::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, Fwd::EMPTY_ARRIVALS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == Fwd::CONSUMERS) {
+    // ---- producer: one thread keeps the ring full
+    setmaxnreg_dec<Fwd::PRODUCER_REGS>();
+    if (threadIdx.x == Fwd::CONSUMERS * 128) {
+      tma_prefetch(&tm_h);
+      tma_prefetch(&tm_w);
+      int stage = 0;
+      unsigned phase = 0;
+      for (int t = t_lo; t < t_hi; ++t) {
+        for (int k = 0; k < ksteps; ++k) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          const uint32_t bar = full + 8 * stage;
+          const uint32_t sa = ring + stage * Fwd::STAGE_BYTES;
+          mbar_arrive_expect_tx(bar, Fwd::STAGE_BYTES);
+          tma_load_2d(sa, &tm_h, k * Fwd::BK, row0, bar);
+          tma_load_2d(sa + Fwd::A_BYTES, &tm_w, k * Fwd::BK, t * Fwd::BN,
+                      bar);
+          if (++stage == Fwd::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows each, the logits tile in registers
+    setmaxnreg_inc<Fwd::CONSUMER_REGS>();
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int q = lane % 4;  // columns 8 j + 2 q (+1) of every 8-block
+    const unsigned quad = 0xFu << (lane & ~3);
+    int rows[2], lab[2], a[2];
+    float m[2], s[2], tl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rows[r] = row0 + wg * 64 + warp * 16 + lane / 4 + 8 * r;
+      lab[r] = rows[r] < N ? y[rows[r]] : -1;
+      m[r] = -INFINITY;
+      s[r] = tl[r] = 0.f;
+      a[r] = 0;
+    }
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+    int stage = 0;
+    unsigned phase = 0;
+    // this warpgroup's 64 rows of the h box
+    const uint32_t a_off = wg * 64 * 128;
+    for (int t = t_lo; t < t_hi; ++t) {
+      int prev = 0;
+      for (int k = 0; k < ksteps; ++k) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t sa = ring + stage * Fwd::STAGE_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < Fwd::BK / 16; ++kk)
+          wgmma_m64n256k16_bf16(acc, smem_desc_sw128(sa + a_off + kk * 32),
+                                smem_desc_sw128(sa + Fwd::A_BYTES + kk * 32),
+                                (k | kk) != 0);
+        wgmma_commit();
+        if (k > 0) {
+          // the previous step's products are done: release its stage
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(empty + 8 * prev);
+        }
+        prev = stage;
+        if (++stage == Fwd::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty + 8 * prev);
+
+      const int v0 = t * Fwd::BN;
+      if (v0 + Fwd::BN > V) {
+#pragma unroll
+        for (int i = 0; i < 128; ++i)
+          if (v0 + 8 * (i / 4) + 2 * q + i % 2 >= V) acc[i] = -INFINITY;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        if (mx > m[r]) {  // the same in all four lanes of the quad
+          // first column of the tile attaining the max (jnp.argmax's rule)
+          int first = 1 << 30;
+#pragma unroll
+          for (int j = 31; j >= 0; --j) {
+            if (acc[4 * j + 2 * r + 1] == mx) first = 8 * j + 2 * q + 1;
+            if (acc[4 * j + 2 * r] == mx) first = 8 * j + 2 * q;
+          }
+          first = min(first, __shfl_xor_sync(quad, first, 1));
+          first = min(first, __shfl_xor_sync(quad, first, 2));
+          a[r] = v0 + first;  // strictly greater: an earlier tile keeps ties
+          s[r] *= ex2((m[r] - mx) * LOG2E);
+          m[r] = mx;
+        }
+        const float mb = m[r] * LOG2E;
+        float se = 0.f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          se += ex2(fmaf(acc[4 * j + 2 * r], LOG2E, -mb)) +
+                ex2(fmaf(acc[4 * j + 2 * r + 1], LOG2E, -mb));
+        se += __shfl_xor_sync(0xffffffffu, se, 1);
+        se += __shfl_xor_sync(0xffffffffu, se, 2);
+        s[r] += se;
+        const int yl = lab[r] - v0;
+        if (yl >= 0 && yl < Fwd::BN && lab[r] < V) {
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            if (8 * j + 2 * q == yl) tl[r] += acc[4 * j + 2 * r];
+            if (8 * j + 2 * q + 1 == yl) tl[r] += acc[4 * j + 2 * r + 1];
+          }
+        }
+      }
+    }
+    // the target logit sits in one lane of the quad
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tl[r] += __shfl_xor_sync(0xffffffffu, tl[r], 1);
+      tl[r] += __shfl_xor_sync(0xffffffffu, tl[r], 2);
+    }
+    if (q == 0) {
+      const size_t sn = static_cast<size_t>(gridDim.y) * N;
+      int* part_a = reinterpret_cast<int*>(part + 3 * sn);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] >= N) continue;
+        const size_t at = static_cast<size_t>(blockIdx.y) * N + rows[r];
+        part[at] = m[r];
+        part[sn + at] = s[r];
+        part[2 * sn + at] = tl[r];
+        part_a[at] = a[r];
+      }
+    }
+  }
+}
+
+// one thread per row: the S ranges' partials, combined in range order
+__global__ void ce_fwd_combine(const float* __restrict__ part, int S, int N,
+                               float* lse, float* tl, int* am) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= N) return;
+  const size_t sn = static_cast<size_t>(S) * N;
+  const int* part_a = reinterpret_cast<const int*>(part + 3 * sn);
+  float mx = -INFINITY;
+  int arg = 0;
+  for (int i = 0; i < S; ++i) {
+    const float mi = part[static_cast<size_t>(i) * N + row];
+    if (mi > mx) {  // strictly greater: the lowest range keeps ties
+      mx = mi;
+      arg = part_a[static_cast<size_t>(i) * N + row];
+    }
+  }
+  float sum = 0.f, t = 0.f;
+  for (int i = 0; i < S; ++i) {
+    const size_t at = static_cast<size_t>(i) * N + row;
+    sum += part[sn + at] * expf(part[at] - mx);
+    t += part[2 * sn + at];
+  }
+  lse[row] = mx + logf(sum);
+  tl[row] = t;
+  am[row] = arg;
+}
+
+// cuTensorMapEncodeTiled's signature (cuda.h, CUDA 12), looked up at run
+// time so that the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the encoder, looked up once; null with *err set on failure
+EncodeTiled encode_tiled(int* err) {
+  static int status = 0;
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found != cudaDriverEntryPointSuccess)
+      e = cudaErrorSymbolNotFound;
+    status = static_cast<int>(e);
+    return e == cudaSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  *err = status;
+  return fn;
+}
+
+// the tensor map of a row-major bf16 [rows, D] matrix in boxes of
+// [box_rows, BK], 128-byte swizzled, zero-filled outside; returns 0, or a
+// negated CUresult
+int encode_rows(EncodeTiled enc, CUtensorMap* map, const void* base,
+                int rows, int D, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[2] = {Fwd::BK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<void*>(base), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return -static_cast<int>(r);
+}
+
+int fwd_bf16(const void* h, const void* wt, const int* y, float* lse,
+             float* tl, int* am, float* part, int S, int N, int D, int V,
+             cudaStream_t st) {
+  const int tiles = (V + Fwd::BN - 1) / Fwd::BN;
+  const int per = (tiles + S - 1) / S;
+  // S ranges of `per` tiles must cover the vocabulary with none empty
+  if (S < 1 || S > tiles || (S - 1) * per >= tiles || part == nullptr ||
+      (reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(wt)) %
+          16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = 0;
+  const EncodeTiled enc = encode_tiled(&err);
+  if (enc == nullptr) return err ? err : static_cast<int>(cudaErrorUnknown);
+  CUtensorMap tm_h, tm_w;
+  if ((err = encode_rows(enc, &tm_h, h, N, D, Fwd::BM))) return err;
+  if ((err = encode_rows(enc, &tm_w, wt, V, D, Fwd::BN))) return err;
+  if ((err = set_smem(ce_fwd_wgmma, Fwd::SMEM))) return err;
+  const dim3 grid((N + Fwd::BM - 1) / Fwd::BM, S);
+  ce_fwd_wgmma<<<grid, Fwd::THREADS, Fwd::SMEM, st>>>(tm_h, tm_w, y, part,
+                                                      N, D, V, per);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  ce_fwd_combine<<<(N + 255) / 256, 256, 0, st>>>(part, S, N, lse, tl, am);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (h and wt alike); every tensor
-// contiguous. Each returns the launch's cudaError_t (0 on success).
+// contiguous. Each returns the launch's cudaError_t (0 on success); the
+// bf16 forward returns a negated CUresult when a tensor map is refused.
 extern "C" int chainermn_ce_smem(int which, int dtype, int D) {
   const bool bf = dtype == 1;
-  if (which == 0) return bf ? fwd_smem<__nv_bfloat16>() : fwd_smem<float>();
+  if (which == 0) return bf ? Fwd::SMEM : fwd_smem<float>();
   if (bf) return bwd_mma_smem(D);
   return which == 1 ? dh_smem<float>(D) : dw_smem<float>(D);
 }
 
+// the bf16 forward's tile: 0 rows of h per CTA, 1 vocabulary columns per
+// tile, 2 depth of one pipeline step
+extern "C" int chainermn_ce_fwd_tile(int which) {
+  return which == 0 ? Fwd::BM : which == 1 ? Fwd::BN : Fwd::BK;
+}
+
+// bf16: `part` is an f32 workspace of 4 x splits x N entries and `splits`
+// the number of vocabulary ranges (see chainermn_ce_fwd_tile); f32 takes
+// neither (one CTA sweeps the whole vocabulary)
 extern "C" int chainermn_ce_fwd(const void* h, const void* wt, const int* y,
-                                float* lse, float* tl, int* am, int dtype,
-                                int N, int D, int V, void* stream) {
+                                float* lse, float* tl, int* am, float* part,
+                                int splits, int dtype, int N, int D, int V,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && shapes_ok<float>(N, D, V))
     return fwd<float>(h, wt, y, lse, tl, am, N, D, V, st);
   if (dtype == 1 && shapes_ok<__nv_bfloat16>(N, D, V))
-    return fwd<__nv_bfloat16>(h, wt, y, lse, tl, am, N, D, V, st);
+    return fwd_bf16(h, wt, y, lse, tl, am, part, splits, N, D, V, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -32,8 +32,8 @@ import torch
 
 __all__ = ["SOURCES", "KERNELS", "build", "build_all", "library", "variant",
            "ptxas_usage", "launches", "reset_launches", "launch_flash_fwd",
-           "launch_flash_bwd", "launch_ce_fwd", "launch_ce_dh",
-           "launch_ce_dw"]
+           "launch_flash_bwd", "ce_fwd_tile", "launch_ce_fwd",
+           "launch_ce_dh", "launch_ce_dw"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -212,11 +212,16 @@ def reset_launches() -> None:
 
 
 def _launched(err: int, name: str) -> None:
-    """Raise if a launcher returned a CUDA error code, else count the
+    """Raise if a launcher returned an error code (a cudaError_t, or a
+    negated CUresult from building a TMA descriptor), else count the
     launch: the one place a kernel's count goes up."""
-    if err != 0:
+    if err > 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")
+    if err < 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cuTensorMapEncodeTiled returned CUresult "
+                           f"{-err}")
     _launches[name] += 1
 
 
@@ -286,7 +291,7 @@ def launch_flash_bwd(q, k, v, dout, lse, dr, q_seg, kv_seg, dq_acc, dk, dv,
     _launched(err, "flash_bwd")
 
 
-_CE_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+_CE_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
 _CE_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
@@ -299,15 +304,25 @@ def ce_smem_bytes(which: int, dtype: torch.dtype, d: int) -> int:
     return int(fn(which, DTYPES[dtype], d))
 
 
-def launch_ce_fwd(h, wt, y, lse, tl, am) -> None:
+def ce_fwd_tile() -> Tuple[int, int, int]:
+    """The bf16 forward's tile: (rows of h per CTA, vocabulary columns
+    per tile, depth of one pipeline step)."""
+    fn = _bind("fused_ce", "chainermn_ce_fwd_tile", [ctypes.c_int])
+    return int(fn(0)), int(fn(1)), int(fn(2))
+
+
+def launch_ce_fwd(h, wt, y, lse, tl, am, part=None, splits: int = 1
+                  ) -> None:
     """``chainermn_ce_fwd``: h ``[N, D]``, wt ``[V, D]``, y int32 ``[N]``
     → lse, tl f32 ``[N]``, am int32 ``[N]`` (validated by
-    ``ops.fused_ce``)."""
+    ``ops.fused_ce``). bf16 also takes ``part``, an f32 workspace of
+    ``4 x splits x N`` entries, and the number of vocabulary ranges; the
+    forward and the combine of its ranges count as one launch."""
     fn = _bind("fused_ce", "chainermn_ce_fwd", _CE_FWD_ARGTYPES)
     n, d = h.shape
     err = fn(h.data_ptr(), wt.data_ptr(), y.data_ptr(), lse.data_ptr(),
-             tl.data_ptr(), am.data_ptr(), DTYPES[h.dtype], n, d,
-             wt.shape[0], _stream(h))
+             tl.data_ptr(), am.data_ptr(), _ptr(part), splits,
+             DTYPES[h.dtype], n, d, wt.shape[0], _stream(h))
     _launched(err, "ce_fwd")
 
 

@@ -18,9 +18,16 @@ The TPU tile rules (rows padded to ``block_rows``, ``v % block_v == 0``,
 the ``bv_dw <= 1024`` halving) do not carry over: the CUDA kernels
 (``csrc/fused_ce.cu``) mask ragged N and V themselves; D is a multiple of
 16 bytes of the dtype and, for the bf16 dh and dW, at most 1536 (the
-shared memory their tiles take, checked through ``ce_smem_bytes``).
-``block_rows`` and ``block_v`` stay in the signature for parity and are
-not used.
+shared memory their tiles take, checked through ``ce_smem_bytes``); h and
+the head start on 16-byte boundaries (the kernels read them 16 bytes at a
+time or by TMA). ``block_rows`` and ``block_v`` stay in the signature for
+parity and are not used.
+
+The bf16 forward splits the vocabulary into ranges of whole tiles so that
+its CTAs fill the card (:func:`ce_fwd_splits`); each range leaves a
+partial (max, sum of exp, target logit, argmax) per row, which a second
+kernel combines in range order (plain versions
+:func:`ce_fwd_partial_reference` and :func:`ce_fwd_combine_reference`).
 
 CUDA tensors run the kernels; CPU tensors run the plain versions
 (:func:`ce_forward_reference`, :func:`ce_dh_reference`,
@@ -30,6 +37,7 @@ back.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -38,7 +46,9 @@ from chainermn_torch.ops import _cuda
 
 __all__ = ["fused_ce_head", "fused_lm_loss", "ce_forward_reference",
            "ce_dh_reference", "ce_dw_reference", "ce_forward_cuda",
-           "ce_dh_cuda", "ce_dw_cuda"]
+           "ce_dh_cuda", "ce_dw_cuda", "ce_fwd_splits", "ce_fwd_plan",
+           "ce_fwd_cuda_plan",
+           "ce_fwd_partial_reference", "ce_fwd_combine_reference"]
 
 # smem the kernels may use per block on an H100 (227 KB)
 _MAX_SMEM = 232448
@@ -62,6 +72,66 @@ def ce_forward_reference(h, wt, y) -> Tuple[torch.Tensor, ...]:
                                         [:, None])[:, 0],
                      torch.zeros_like(lse))
     return lse, tl, logits.argmax(-1).to(torch.int32)
+
+
+def ce_fwd_partial_reference(h, wt, y, lo: int, hi: int
+                             ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of one vocabulary range [lo, hi) of the bf16
+    forward: per row (max logit m, sum of exp(logit - m), target logit or
+    0 when the label is outside the range, first index attaining m), each
+    ``[N]`` (f32, f32, f32, int32)."""
+    logits = _logits(h, wt[lo:hi])
+    m = logits.max(-1).values
+    s = torch.exp(logits - m[:, None]).sum(-1)
+    yl = y.long() - lo
+    hit = (yl >= 0) & (yl < hi - lo)
+    t = torch.where(hit, logits.gather(1, yl.clamp(0, hi - lo - 1)
+                                       [:, None])[:, 0], torch.zeros_like(m))
+    return m, s, t, (lo + logits.argmax(-1)).to(torch.int32)
+
+
+def ce_fwd_combine_reference(m, s, t, a) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the combine: the ranges' partials ``[S, N]`` in
+    vocabulary order → (lse, target logit, argmax) ``[N]``. The argmax
+    comes from the lowest range whose max is the row's, so the first index
+    still wins ties."""
+    mx = m.max(0).values
+    lse = mx + torch.log((s * torch.exp(m - mx)).sum(0))
+    first = (m == mx).int().argmax(0)            # lowest such range
+    return lse, t.sum(0), a.gather(0, first[None])[0]
+
+
+def ce_fwd_splits(n: int, v: int, sms: int, block_rows: int = 128,
+                  block_v: int = 256) -> Tuple[int, int]:
+    """Vocabulary ranges of the bf16 forward: (S, tiles per range). One
+    CTA runs per (block of ``block_rows`` rows, range) and one fits an
+    SM; a CTA takes about one tile's time per tile of its range plus one
+    to fill its pipeline, so S minimises ceil(blocks S / sms) (ceil(tiles
+    / S) + 1), the smallest S on a tie. S is then shrunk so that ranges
+    of whole tiles leave none empty."""
+    return _splits(-(-n // block_rows), -(-v // block_v), sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _splits(blocks: int, tiles: int, sms: int) -> Tuple[int, int]:
+    best = min(range(1, tiles + 1),
+               key=lambda s: (-(-blocks * s // sms) * (-(-tiles // s) + 1), s))
+    per = -(-tiles // best)
+    return -(-tiles // per), per
+
+
+def ce_fwd_plan(n: int, d: int, v: int, sms: int, block_rows: int = 128,
+                block_v: int = 256, block_d: int = 64) -> dict:
+    """The bf16 forward's launch at these shapes: vocabulary ranges,
+    tiles per range, the grid (row blocks, ranges), and the bytes its TMA
+    boxes move into shared memory (every box whole, zero-fill included:
+    each CTA loads its h block again for every vocabulary tile)."""
+    splits, per = ce_fwd_splits(n, v, sms, block_rows, block_v)
+    blocks = -(-n // block_rows)
+    steps = -(-v // block_v) * -(-d // block_d)
+    return dict(splits=splits, per=per, grid=(blocks, splits),
+                smem_bytes=blocks * steps * (block_rows + block_v)
+                * block_d * 2)
 
 
 def _dl(h, wt, y, lse):
@@ -104,19 +174,41 @@ def _check_cuda(h, wt, y, which: int):
     if smem > _MAX_SMEM:
         raise ValueError(f"D = {d} needs {smem} bytes of shared memory, "
                          f"more than a block has ({_MAX_SMEM})")
-    return (h.contiguous(), wt.contiguous(),
-            y.to(torch.int32).contiguous())
+    h, wt = h.contiguous(), wt.contiguous()
+    for name, x in (("h", h), ("the head", wt)):
+        # the kernels read rows 16 bytes at a time or by TMA; a copy of
+        # the head would cost 50 MB per call, so refuse instead
+        if x.data_ptr() % 16:
+            raise ValueError(
+                f"{name} starts {x.data_ptr() % 16} bytes past a 16-byte "
+                f"boundary (storage offset {x.storage_offset()} elements); "
+                f"the fused CE kernels need 16-byte aligned operands")
+    return h, wt, y.to(torch.int32).contiguous()
 
 
 def ce_forward_cuda(h, wt, y):
     """``csrc/fused_ce.cu`` forward → (lse, target logit, argmax)."""
     h, wt, y = _check_cuda(h, wt, y, 0)
-    n = h.shape[0]
+    (n, d), v = h.shape, wt.shape[0]
     lse = torch.empty(n, dtype=torch.float32, device=h.device)
     tl = torch.empty_like(lse)
     am = torch.empty(n, dtype=torch.int32, device=h.device)
-    _cuda.launch_ce_fwd(h, wt, y, lse, tl, am)
+    if h.dtype == torch.float32:
+        _cuda.launch_ce_fwd(h, wt, y, lse, tl, am)
+    else:
+        splits = ce_fwd_cuda_plan(n, d, v, h.device)["splits"]
+        part = torch.empty(4, splits, n, dtype=torch.float32,
+                           device=h.device)
+        _cuda.launch_ce_fwd(h, wt, y, lse, tl, am, part, splits)
     return lse, tl, am
+
+
+def ce_fwd_cuda_plan(n: int, d: int, v: int, device="cuda") -> dict:
+    """:func:`ce_fwd_plan` with the card's SM count and the kernel's
+    tile: the launch ``ce_forward_cuda`` makes at these shapes."""
+    bm, bn, bk = _cuda.ce_fwd_tile()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return ce_fwd_plan(n, d, v, sms, bm, bn, bk)
 
 
 def ce_dh_cuda(h, wt, y, lse):

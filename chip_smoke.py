@@ -9,23 +9,27 @@ the final line:
 1. card — ``nvidia-smi`` name and power limit;
 2. build — every CUDA kernel of the port from ``chainermn_torch/csrc``,
    one ``nvcc`` per source, all started together; then the tensor-core
-   (``HMMA``) instructions in the SASS of the two flash libraries and of
-   the fused CE, none of which may be 0, and ptxas's registers and spill
-   bytes of the main path's tensor-core kernels (flash at d 64, the bf16
-   CE backward at D 768); the two flash sources are also built with those
-   kernels' register caps lifted, and the fused CE with its backward's
-   other row layout (``CE_LAYOUT``);
+   instructions in the SASS of the two flash libraries and of the fused
+   CE (``HMMA``, from mma.sync, none of which may be 0; ``HGMMA``, from
+   wgmma, which the fused CE's forward must have), and ptxas's registers
+   and spill bytes of the main path's tensor-core kernels (flash at d 64,
+   the bf16 CE forward, the bf16 CE backward at D 768); the two flash
+   sources are also built with those kernels' register caps lifted, and
+   the fused CE with its backward's other row layout (``CE_LAYOUT``);
 3. kernels — each kernel (flash_fwd, flash_bwd, and the fused CE's
    ce_fwd, ce_dh, ce_dw) against its plain PyTorch version on the card at
-   the main path's shape and in the edge cases (bf16 and f32), then timed
+   the main path's shape and in the edge cases (bf16 and f32; for the CE
+   forward one row, V under one tile, ties across its vocabulary ranges
+   and D 1544; a second CE call must give the same bits), then timed
    beside the plain version, its bound and the PyTorch call that computes
    the same function (a yardstick only, the port never calls it; SDPA is
    first held against the plain versions): flash at the serving and
    training shapes and at the split backward's cases (a window; causal
-   Lq != Lk); ce_dh + ce_dw together beside the one backward call of the
-   yardstick (``pair`` line); then the two flash kernels with their
-   register caps lifted, and the CE backward in its other row layout,
-   each timed beside the shipped build;
+   Lq != Lk); ce_fwd with its vocabulary ranges, grid and the bytes its
+   TMA boxes move into shared memory; ce_dh + ce_dw together beside the
+   one backward call of the yardstick (``pair`` line); then the two flash
+   kernels with their register caps lifted, and the CE backward in its
+   other row layout, each timed beside the shipped build;
 4. slice — the port's ``Engine`` serves 16 greedy requests with the
    135M TransformerLM at full width (vocab 32768, d_model 768, 12
    layers, 12 heads, d_ff 3072, rope, bf16) and random weights from
@@ -371,11 +375,13 @@ def time_flash_case(gen, b, lq, lk, hq, hkv, d, causal, window=None,
     return rows
 
 
-def count_hmma(card: str) -> None:
-    """Print the tensor-core instructions (``HMMA``) in the SASS of the
-    two flash libraries and the fused CE, read with ``cuobjdump
-    --dump-sass``; raises if any has none (its bf16 products would not
-    run on the tensor cores)."""
+def count_tensor_core_ops(card: str) -> None:
+    """Print the tensor-core instructions in the SASS of the two flash
+    libraries and the fused CE, read with ``cuobjdump --dump-sass``:
+    ``HMMA`` (mma.sync) and ``HGMMA`` (wgmma, which ``HMMA`` does not
+    match). Raises if a library has no ``HMMA`` (its bf16 mma.sync
+    products would not run on the tensor cores) or the fused CE no
+    ``HGMMA`` (its bf16 forward)."""
     from chainermn_torch.ops import _cuda
 
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
@@ -383,12 +389,16 @@ def count_hmma(card: str) -> None:
     for name in ("flash_fwd", "flash_bwd", "fused_ce"):
         sass = subprocess.run([tool, "--dump-sass", str(_cuda.build(name))],
                               capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        counts[name] = sum("HMMA" in line for line in sass.splitlines())
-    print(f"sass: HMMA instructions {json.dumps(counts)} ({card})",
+                              check=True).stdout.splitlines()
+        counts[name] = {op: sum(op in line for line in sass)
+                        for op in ("HMMA", "HGMMA")}
+    print(f"sass: tensor-core instructions {json.dumps(counts)} ({card})",
           flush=True)
-    if not all(counts.values()):
+    if not all(c["HMMA"] for c in counts.values()):
         raise PhaseError(f"a kernel library has no HMMA instruction: "
+                         f"{counts}")
+    if not counts["fused_ce"]["HGMMA"]:
+        raise PhaseError(f"the fused CE has no HGMMA instruction: "
                          f"{counts}")
 
 
@@ -437,6 +447,19 @@ def ce_bwd_usage(defines=()) -> dict:
                              f"for D <= 768 in {sorted(usage)}")
         out[name] = found[0]
     return out
+
+
+def ce_fwd_usage() -> dict:
+    """ptxas's registers and spill bytes of the bf16 CE forward
+    (``ce_fwd_wgmma``; the registers at launch, before its warpgroups
+    trade them with setmaxnreg)."""
+    from chainermn_torch.ops import _cuda
+
+    found = [u for fn, u in _cuda.ptxas_usage("fused_ce").items()
+             if "ce_fwd_wgmma" in fn]
+    if len(found) != 1:
+        raise PhaseError(f"ptxas reports {len(found)} ce_fwd_wgmma kernels")
+    return found[0]
 
 
 def _usage(u: dict) -> str:
@@ -692,47 +715,46 @@ def ce_inputs(gen, n, d, v, dtype, ties=False):
 
 def check_fused_ce(gen):
     """ce_fwd, ce_dh and ce_dw against their plain versions in every
-    listed case; returns each kernel's max error at the training
-    shape."""
+    listed case (the forward alone past the backward's widest D); a
+    second call must give the same bits. Returns each kernel's max error
+    at the training shape."""
     import torch
 
     from chainermn_torch.ops.fused_ce import (
         ce_dh_cuda, ce_dh_reference, ce_dw_cuda, ce_dw_reference,
-        ce_forward_cuda, ce_forward_reference)
+        ce_forward_cuda, ce_forward_reference, ce_fwd_cuda_plan)
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        # name, n, d, v, dtype, ties
-        ("train", 8192, 768, 32768, bf16, False),
-        ("ragged", 8000, 768, 30000, bf16, False),
-        ("f32", 1000, 256, 5000, f32, False),
-        ("ties", 512, 64, 1000, bf16, True),
+        # name, n, d, v, dtype, ties, backward
+        ("train", 8192, 768, 32768, bf16, False, True),
+        ("ragged", 8000, 768, 30000, bf16, False, True),
+        ("f32", 1000, 256, 5000, f32, False, True),
+        ("ties", 512, 64, 1000, bf16, True, True),
         # the bf16 backward beyond the main width: two 768-column chunks of
         # its accumulator (D 1024), and D zero-padded to a whole slice
-        ("d1024-chunked", 1000, 1024, 3001, bf16, False),
-        ("d200-padded", 777, 200, 5003, bf16, False),
+        ("d1024-chunked", 1000, 1024, 3001, bf16, False, True),
+        ("d200-padded", 777, 200, 5003, bf16, False, True),
+        # the bf16 forward's edges: one row (every tile its own vocabulary
+        # range), V under one tile, ties whose two columns v and v + V/2
+        # lie in different ranges, D past the backward's 1536
+        ("n1", 1, 768, 32768, bf16, False, True),
+        ("v-below-a-tile", 300, 768, 100, bf16, False, True),
+        ("ties-across-ranges", 512, 64, 4096, bf16, True, True),
+        ("d1544-forward", 70, 1544, 3000, bf16, False, False),
     ]
     worst = {}
-    for name, n, d, v, dtype, ties in cases:
+    for name, n, d, v, dtype, ties, backward in cases:
         h, wt, y = ce_inputs(gen, n, d, v, dtype, ties)
         lse, tl, am = ce_forward_cuda(h, wt, y)
-        dh = ce_dh_cuda(h, wt, y, lse)
-        dwt = ce_dw_cuda(h, wt, y, lse)
+        if backward:
+            dh = ce_dh_cuda(h, wt, y, lse)
+            dwt = ce_dw_cuda(h, wt, y, lse)
         torch.cuda.synchronize()
         r_lse, r_tl, r_am = ce_forward_reference(h, wt, y)
-        # the backward plain versions take the plain forward's lse
-        r_dh = ce_dh_reference(h, wt, y, r_lse)
-        r_dw = ce_dw_reference(h, wt, y, r_lse)
-        res_dh = _close(dh, r_dh, dtype)
-        res_dw = _close(dwt, r_dw, dtype)
         # no atomics: a second call gives the same bits
-        same = (torch.equal(dh, ce_dh_cuda(h, wt, y, lse))
-                and torch.equal(dwt, ce_dw_cuda(h, wt, y, lse)))
-        # the softmax term alone at the rows with no label in this batch
-        # (dW^T there is sum_n p h_n): its own share, printed
-        nolabel = torch.ones(v, dtype=torch.bool, device="cuda")
-        nolabel[y.long()] = False
-        res_sw = _close(dwt[nolabel], r_dw[nolabel], dtype)
+        same = all(torch.equal(a, b) for a, b in
+                   zip((lse, tl, am), ce_forward_cuda(h, wt, y)))
         stat_rel = TOL_F32 if dtype == f32 else 0.0
         stat_abs = TOL_F32 if dtype == f32 else TOL_CE_BF16_STAT
         e_lse = (lse - r_lse).abs().max().item()
@@ -746,18 +768,36 @@ def check_fused_ce(gen):
         gap = top2[:, 0] - top2[:, 1]
         del logits
         bad_am = int(((am != r_am) & (gap >= TOL_ARGMAX_GAP)).sum().item())
-        ok = (ok_lse and ok_tl and res_dh[3] and res_dw[3] and res_sw[3]
-              and bad_am == 0 and same)
+        ok = ok_lse and ok_tl and bad_am == 0
         if ties:
             # first index on ties: every row's argmax is in the first half
             ok = ok and bool((am < v // 2).all()) and bool(
                 (am == r_am).all())
-        print(f"kernel fused_ce case={name} [{n},{d}]x[{d},{v}] "
-              f"{str(dtype)[6:]} lse_err={e_lse:.3g} tl_err={e_tl:.3g} "
-              f"argmax_mismatch={int((am != r_am).sum().item())} "
-              f"{_fmt('dh', res_dh)} {_fmt('dw', res_dw)} "
-              f"{_fmt('dw_nolabel', res_sw)} repeat_bitwise={same} "
-              f"{'ok' if ok else 'FAIL'}",
+        ranges = (f" ranges={ce_fwd_cuda_plan(n, d, v)['splits']}"
+                  if dtype == bf16 else "")
+        line = (f"kernel fused_ce case={name} [{n},{d}]x[{d},{v}] "
+                f"{str(dtype)[6:]}{ranges} lse_err={e_lse:.3g} "
+                f"tl_err={e_tl:.3g} "
+                f"argmax_mismatch={int((am != r_am).sum().item())} ")
+        if backward:
+            # the backward plain versions take the plain forward's lse
+            r_dh = ce_dh_reference(h, wt, y, r_lse)
+            r_dw = ce_dw_reference(h, wt, y, r_lse)
+            res_dh = _close(dh, r_dh, dtype)
+            res_dw = _close(dwt, r_dw, dtype)
+            same = same and (torch.equal(dh, ce_dh_cuda(h, wt, y, lse))
+                             and torch.equal(dwt, ce_dw_cuda(h, wt, y, lse)))
+            # the softmax term alone at the rows with no label in this
+            # batch (dW^T there is sum_n p h_n): its own share, printed
+            nolabel = torch.ones(v, dtype=torch.bool, device="cuda")
+            nolabel[y.long()] = False
+            res_sw = (_close(dwt[nolabel], r_dw[nolabel], dtype)
+                      if nolabel.any() else (0.0, 0.0, 0.0, True))
+            ok = ok and res_dh[3] and res_dw[3] and res_sw[3]
+            line += (f"{_fmt('dh', res_dh)} {_fmt('dw', res_dw)} "
+                     f"{_fmt('dw_nolabel', res_sw)} ")
+        ok = ok and same
+        print(line + f"repeat_bitwise={same} {'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
             raise PhaseError(f"fused CE kernels disagree with their plain "
@@ -775,8 +815,9 @@ def check_fused_ce(gen):
                   flush=True)
             if min(shares) <= 1.0:
                 raise PhaseError("the fused CE check misses a shifted lse")
-        del h, wt, y, lse, tl, am, dh, dwt, r_lse, r_tl, r_am, r_dh, r_dw
-        del nolabel
+        del h, wt, y, lse, tl, am, r_lse, r_tl, r_am
+        if backward:
+            del dh, dwt, r_dh, r_dw, nolabel
     return worst
 
 
@@ -1202,6 +1243,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
     from chainermn_torch.ops import _cuda
+    from chainermn_torch.ops.fused_ce import ce_fwd_cuda_plan
 
     # f32 products in full f32 (the reference forward's precision)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1215,10 +1257,11 @@ def main(argv=None) -> int:
                                      ("fused_ce", CE_LAYOUT)])
     print(f"build: {json.dumps(took)} total "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    count_hmma(card)
+    count_tensor_core_ops(card)
     print("ptxas: " + "; ".join(
         [f"{name}_mma<64> {_usage(mma64_usage(name))}"
          for name in ("flash_fwd", "flash_bwd")]
+        + [f"ce_fwd bf16 (wgmma) {_usage(ce_fwd_usage())}"]
         + [f"{name} bf16 D <= 768 {_usage(u)}"
            for name, u in ce_bwd_usage().items()]) + f" ({card})",
         flush=True)
@@ -1227,11 +1270,11 @@ def main(argv=None) -> int:
     worst = check_kernels(gen)
     worst["flash_bwd"] = check_flash_bwd(gen)
     worst.update(check_fused_ce(gen))
-    def show(name, where, row):
+    def show(name, where, row, extra=""):
         print(f"time {name} ({where}): kernel {row['ms']:.4f} ms, "
               f"plain {row['plain_ms']:.4f} ms, library "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms,"
-              f" bound by {row['bound_by']} ({card})", flush=True)
+              f" bound by {row['bound_by']}{extra} ({card})", flush=True)
 
     row = time_flash_case(gen, 2, 2048, 2048, 12, 12, 64, True,
                           backward=False)["flash_fwd"]
@@ -1245,8 +1288,15 @@ def main(argv=None) -> int:
             show(name, f"case={case} [{b},{lq}|{lk},{hq}|{hkv},{d}] bf16 "
                        f"window={window}", row)
     times, pair = time_training_kernels(gen)
+    plan = ce_fwd_cuda_plan(8192, 768, 32768)
     for name, row in times.items():
-        show(name, "training shape", row)
+        show(name, "training shape", row, "" if name != "ce_fwd" else (
+            f", tile {'x'.join(map(str, _cuda.ce_fwd_tile()))} (rows x "
+            f"columns x depth), vocabulary ranges S={plan['splits']} of "
+            f"{plan['per']} "
+            f"tiles, grid {plan['grid'][0]}x{plan['grid'][1]}, "
+            f"{plan['smem_bytes'] / 1e9:.3f} GB into shared memory "
+            f"({plan['smem_bytes'] / row['ms'] / 1e9:.1f} TB/s)"))
     print(f"pair ce_dh + ce_dw (training shape): kernels {pair['ms']:.4f} "
           f"ms, F.cross_entropy backward (dh and dW in one call) "
           f"{pair['library_ms']:.4f} ms, ratio "

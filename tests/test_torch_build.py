@@ -11,18 +11,19 @@ from chainermn_torch.ops import _cuda
 
 def test_each_source_hashes_only_the_headers_it_includes():
     """flash_common.cuh includes mma_sync.cuh, so the flash sources hash
-    both; fused_ce.cu includes only mma_sync.cuh."""
+    both; fused_ce.cu includes wgmma.cuh, which includes mma_sync.cuh."""
     assert [h.name for h in _cuda._headers(_cuda._CSRC / "flash_fwd.cu")] \
         == ["flash_common.cuh", "mma_sync.cuh"]
     assert [h.name for h in _cuda._headers(_cuda._CSRC / "flash_bwd.cu")] \
         == ["flash_common.cuh", "mma_sync.cuh"]
     assert [h.name for h in _cuda._headers(_cuda._CSRC / "fused_ce.cu")] \
-        == ["mma_sync.cuh"]
+        == ["mma_sync.cuh", "wgmma.cuh"]
 
 
 @pytest.mark.parametrize("header, renamed", [
     ("flash_common.cuh", {"flash_fwd", "flash_bwd"}),
     ("mma_sync.cuh", {"flash_fwd", "flash_bwd", "fused_ce"}),
+    ("wgmma.cuh", {"fused_ce"}),
 ])
 def test_a_header_edit_renames_only_the_libraries_that_include_it(
         tmp_path, monkeypatch, header, renamed):
@@ -37,20 +38,27 @@ def test_a_header_edit_renames_only_the_libraries_that_include_it(
             if after[name] != before[name]} == renamed
 
 
-def test_the_tensor_core_helpers_are_defined_once():
-    """The PTX wrappers live in mma_sync.cuh only: flash_common.cuh and
-    fused_ce.cu include it and define none of them again."""
-    helpers = ("smem_u32", "cp_async16", "cp_async4", "cp_async_commit",
-               "cp_async_wait", "ldsm_x4", "ldsm_x4_t", "mma_bf16", "ex2",
-               "pack_bf16")
+@pytest.mark.parametrize("header, helpers", [
+    ("mma_sync.cuh", ("smem_u32", "cp_async16", "cp_async4",
+                      "cp_async_commit", "cp_async_wait", "ldsm_x4",
+                      "ldsm_x4_t", "mma_bf16", "ex2", "pack_bf16")),
+    ("wgmma.cuh", ("mbar_init", "mbar_fence_init", "mbar_arrive",
+                   "mbar_arrive_expect_tx", "mbar_try_wait", "mbar_wait",
+                   "tma_prefetch", "tma_load_2d", "smem_desc_sw128",
+                   "wgmma_fence", "wgmma_commit", "wgmma_wait",
+                   "wgmma_m64n256k16_bf16", "setmaxnreg_dec",
+                   "setmaxnreg_inc")),
+])
+def test_the_tensor_core_helpers_are_defined_once(header, helpers):
+    """The PTX wrappers live in their header only (mma.sync's in
+    mma_sync.cuh, wgmma's, TMA's and the mbarriers' in wgmma.cuh): the
+    sources that include them define none of them again."""
     for fn in helpers:
         pattern = re.compile(r"__device__\s+__forceinline__\s+\w+\s+"
                              + fn + r"\(")
-        defined = [name for name in ("mma_sync.cuh", "flash_common.cuh",
-                                     "fused_ce.cu", "flash_fwd.cu",
-                                     "flash_bwd.cu")
-                   if pattern.search((_cuda._CSRC / name).read_text())]
-        assert defined == ["mma_sync.cuh"], (fn, defined)
+        defined = [path.name for path in sorted(_cuda._CSRC.iterdir())
+                   if pattern.search(path.read_text())]
+        assert defined == [header], (fn, defined)
 
 
 def test_a_variant_build_has_its_own_library():

@@ -298,6 +298,85 @@ def test_fused_ce_backward_refuses_d_past_shared_memory(cuda):
             fn(h, wt, y, lse)
 
 
+# the bf16 forward's edges (wgmma over TMA boxes, the vocabulary split
+# into ranges): name -> (n, d, v, dtype, ties)
+CE_FWD_CASES = {
+    # one row: one row block, so every 256-column tile is its own range
+    "bf16-n1": (1, 768, 32768, torch.bfloat16, False),
+    # V below one tile: columns past V masked in the only tile
+    "bf16-v-below-a-tile": (300, 768, 100, torch.bfloat16, False),
+    # 16 ranges of 256 columns: v and v + V/2 (equal) in different ranges
+    "bf16-ties-across-ranges": (512, 64, 4096, torch.bfloat16, True),
+    # D past the backward's 1536: the forward's shared memory is fixed
+    "bf16-d1544": (70, 1544, 3000, torch.bfloat16, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CE_FWD_CASES))
+def test_fused_ce_forward_matches_plain_version(cuda, name):
+    n, d, v, dtype, ties = CE_FWD_CASES[name]
+    h, wt, y = _ce_inputs(cuda, n, d, v, dtype, ties)
+    lse, tl, am = ce_forward_cuda(h, wt, y)
+    torch.cuda.synchronize()
+    r_lse, r_tl, r_am = ce_forward_reference(h, wt, y)
+    torch.testing.assert_close(lse, r_lse, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(tl, r_tl, rtol=1e-3, atol=1e-3)
+    assert torch.equal(am, r_am)
+    if ties:
+        assert (am < v // 2).all()
+
+
+@pytest.mark.parametrize("name", ["bf16-n1", "bf16-ties-across-ranges",
+                                  "bf16-d1544"])
+def test_fused_ce_forward_is_bitwise_reproducible(cuda, name):
+    """The ranges' partials are combined in a fixed order, no atomics:
+    two calls give the same bits."""
+    h, wt, y = _ce_inputs(cuda, *CE_FWD_CASES[name])
+    first, second = ce_forward_cuda(h, wt, y), ce_forward_cuda(h, wt, y)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("operand", ["h", "wt"])
+def test_fused_ce_kernels_refuse_unaligned_operands(cuda, operand):
+    """A contiguous view 3 elements into its storage passes every other
+    check; the kernels read 16 bytes at a time (and TMA), so each wrapper
+    refuses it before a launch instead of faulting on the card."""
+    n, d, v = 64, 64, 300
+    h, wt, y = _ce_inputs(cuda, n, d, v, torch.bfloat16, False)
+    lse = ce_forward_reference(h, wt, y)[0]
+    rows = n if operand == "h" else v
+    flat = torch.empty(3 + rows * d, dtype=torch.bfloat16, device=cuda)
+    view = flat[3:].view(rows, d)
+    view.copy_(h if operand == "h" else wt)
+    args = (view, wt) if operand == "h" else (h, view)
+    before = _cuda.launches()
+    for fn, extra in ((ce_forward_cuda, ()), (ce_dh_cuda, (lse,)),
+                      (ce_dw_cuda, (lse,))):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(*args, y, *extra)
+    assert _cuda.launches() == before
+
+
+def test_fused_lm_loss_launches_each_ce_kernel_once(cuda):
+    """The loss hands the kernels aligned h and head (no view the
+    alignment check refuses): one ce_fwd, ce_dh and ce_dw per step."""
+    torch.manual_seed(0)
+    model = TransformerLM(vocab=512, d_model=64, n_heads=4, n_layers=1,
+                          d_ff=128, max_len=64, pos_emb="rope",
+                          dtype=torch.bfloat16, device=cuda)
+    toks = torch.randint(0, 512, (2, 33), device=cuda)
+    before = _cuda.launches()
+    loss, _ = fused_lm_loss(model, toks[:, :-1], toks[:, 1:])
+    loss.backward()
+    torch.cuda.synchronize()
+    after = _cuda.launches()
+    assert [after[k] - before[k] for k in ("ce_fwd", "ce_dh", "ce_dw")] \
+        == [1, 1, 1]
+    assert torch.isfinite(loss)
+
+
 def test_fused_ce_head_differentiates_through_the_kernels(cuda):
     h, wt, y = _ce_inputs(cuda, 100, 32, 300, torch.float32, False)
     hl = h.clone().requires_grad_()

@@ -20,6 +20,9 @@ from chainermn_torch.ops import _cuda
 from chainermn_torch.ops.fused_ce import (ce_dh_reference, ce_dw_reference,
                                           ce_forward_cuda,
                                           ce_forward_reference,
+                                          ce_fwd_combine_reference,
+                                          ce_fwd_partial_reference,
+                                          ce_fwd_plan, ce_fwd_splits,
                                           fused_ce_head, fused_lm_loss)
 
 N, D, V = 96, 32, 256          # N not a multiple of the TPU row block
@@ -136,3 +139,76 @@ def test_fused_lm_loss_refuses_mutable_and_moe():
         fused_lm_loss(object(), x, x, mutable=("batch_stats",))
     with pytest.raises(ValueError, match="MoE"):
         fused_lm_loss(Moe(), x, x)
+
+
+def _ranges_forward(h, wt, y, width):
+    """ce_forward_reference's vocabulary cut into ranges of ``width``
+    columns (the last one ragged), each range's partials combined."""
+    v = wt.shape[0]
+    bounds = list(range(0, v, width)) + [v]
+    parts = [ce_fwd_partial_reference(h, wt, y, lo, hi)
+             for lo, hi in zip(bounds[:-1], bounds[1:])]
+    stacked = [torch.stack(p) for p in zip(*parts)]
+    return ce_fwd_combine_reference(*stacked), len(parts)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_vocabulary_ranges_combine_to_the_whole_forward(ties):
+    """The bf16 forward's split: 6 ranges of 48 columns (the last 16), so
+    columns v and v + V/2, equal under ties, fall in different ranges and
+    the first index must still win; a label in every range. The combined
+    partials equal the whole-vocabulary reference, and their loss and
+    accuracy equal JAX fused_ce_head's (Pallas, interpret mode)."""
+    h, w, y = _data(seed=6, ties=ties)
+    width = 48
+    y[:6] = np.arange(6) * width + 5
+    if ties:
+        y[N // 2:] = np.argmax(h[N // 2:] @ w, -1)  # half the rows right
+    ht, wt, yt = (torch.from_numpy(h), torch.from_numpy(w.T.copy()),
+                  torch.from_numpy(y))
+    (lse, tl, am), ranges = _ranges_forward(ht, wt, yt, width)
+    assert ranges == 6
+    r_lse, r_tl, r_am = ce_forward_reference(ht, wt, yt)
+    torch.testing.assert_close(lse, r_lse, **TOL)
+    torch.testing.assert_close(tl, r_tl, **TOL)
+    assert torch.equal(am, r_am)
+    if ties:
+        assert (am < V // 2).all()
+    loss, acc = jax_fused_ce_head(jnp.asarray(h), jnp.asarray(w),
+                                  jnp.asarray(y), BR, BV)
+    np.testing.assert_allclose((lse - tl).mean().item(), float(loss), **TOL)
+    assert (am.long() == yt.long()).float().mean().item() == float(acc)
+
+
+def test_a_range_without_the_label_adds_no_target_logit():
+    h, w, y = _data(seed=7)
+    ht, wt, yt = (torch.from_numpy(h), torch.from_numpy(w.T.copy()),
+                  torch.from_numpy(y))
+    m, s, t, a = ce_fwd_partial_reference(ht, wt, yt, 100, 140)
+    inside = (yt >= 100) & (yt < 140)
+    assert (t[~inside] == 0).all() and (t[inside] != 0).all()
+    assert ((a >= 100) & (a < 140)).all()
+    # one range is the whole forward
+    lse, tl, am = ce_fwd_combine_reference(
+        *(x[None] for x in ce_fwd_partial_reference(ht, wt, yt, 0, V)))
+    ref = ce_forward_reference(ht, wt, yt)
+    torch.testing.assert_close(lse, ref[0], **TOL)
+    assert torch.equal(tl, ref[1]) and torch.equal(am, ref[2])
+
+
+def test_vocabulary_split_fills_the_card_and_leaves_no_range_empty():
+    for sms in (132, 114, 8):
+        for n in (1, 2, 127, 128, 129, 1000, 8192, 10000, 65536):
+            for v in (1, 100, 255, 256, 257, 1000, 4097, 30000, 32768,
+                      50257):
+                s, per = ce_fwd_splits(n, v, sms)
+                tiles = -(-v // 256)
+                assert 1 <= s <= tiles, (sms, n, v, s)
+                assert (s - 1) * per < tiles <= s * per, (sms, n, v, s, per)
+    # the training shape: 64 row blocks x 2 ranges on 132 SMs
+    assert ce_fwd_splits(8192, 32768, 132) == (2, 64)
+    plan = ce_fwd_plan(8192, 768, 32768, 132)
+    assert plan["grid"] == (64, 2)
+    assert plan["smem_bytes"] == 64 * 128 * 12 * (128 + 256) * 64 * 2
+    # one row: every tile its own range
+    assert ce_fwd_splits(1, 32768, 132) == (128, 1)
