@@ -15,7 +15,7 @@ every collective is called by every rank with its own tensor.
 from __future__ import annotations
 
 import abc
-from typing import Any
+from typing import Any, List, Optional, Sequence
 
 
 class CommunicatorBase(abc.ABC):
@@ -81,15 +81,37 @@ class CommunicatorBase(abc.ABC):
     def recv(self, src: int, tag: int = 0):
         """Point-to-point receive."""
 
-    # -- object collectives ---------------------------------------------
+    # -- object collectives (picklable host objects) ---------------------
 
     @abc.abstractmethod
     def bcast_obj(self, obj: Any, root: int = 0) -> Any:
-        ...
+        """``root``'s object on every rank."""
+
+    @abc.abstractmethod
+    def gather_obj(self, obj: Any, root: int = 0) -> Optional[List[Any]]:
+        """Every rank's object in rank order on ``root``; None elsewhere."""
+
+    @abc.abstractmethod
+    def allgather_obj(self, obj: Any) -> List[Any]:
+        """Every rank's object in rank order, on every rank."""
 
     @abc.abstractmethod
     def allreduce_obj(self, obj: Any, op: str = "sum") -> Any:
-        ...
+        """Leafwise ``sum``/``mean``/``max``/``min`` of every rank's
+        object over nested dicts, lists and tuples."""
+
+    @abc.abstractmethod
+    def scatter_obj(self, objs: Optional[Sequence[Any]],
+                    root: int = 0) -> Any:
+        """``objs[rank]`` of ``root``'s list on each rank."""
+
+    @abc.abstractmethod
+    def send_obj(self, obj: Any, dest: int, tag: int = 0) -> None:
+        """Point-to-point send of one object."""
+
+    @abc.abstractmethod
+    def recv_obj(self, src: int, tag: int = 0) -> Any:
+        """The next object ``src`` sent to this rank with ``tag``."""
 
     # -- model-level ops ------------------------------------------------
 

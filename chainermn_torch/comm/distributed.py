@@ -19,15 +19,25 @@ bucket with one collective, casts back and, for ``op="mean"``, divides by
 the world size: the reference ``pure_nccl`` communicator's pack → NCCL
 all-reduce → unpack × 1/N.
 
+The object collectives (``bcast_obj``, ``gather_obj``, ``allgather_obj``,
+``allreduce_obj``, ``scatter_obj``, ``send_obj``, ``recv_obj``) pickle
+host objects over a gloo group that every communicator creates at
+construction, so objects never stage through NCCL or the GPU, and
+``send_obj``/``recv_obj`` keep their ``tag`` (gloo matches tags, NCCL
+ignores them).
+
 Waiting for later slices (``NotImplementedError``, ROADMAP.md queue 1
-item 2): ``split``, the object collectives, ``send``/``recv`` and the
-host-staged (``non_cuda_aware``) path.
+item 2): ``split``, array ``send``/``recv`` and the host-staged
+(``non_cuda_aware``) path.
 """
 
 from __future__ import annotations
 
+import functools
+import operator
 import os
-from typing import Any, Iterable, List, Optional
+import pickle
+from typing import Any, Iterable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -49,6 +59,10 @@ _LATER = ("waits for a later slice of the port (ROADMAP.md queue 1 item "
 
 _OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
         "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+# leaf reductions of allreduce_obj ("mean" is the sum over the count)
+_OBJ_OPS = {"sum": operator.add, "mean": operator.add, "max": max,
+            "min": min}
 
 
 def plan_buckets(sized_items, bucket_bytes):
@@ -77,6 +91,30 @@ def _tensors(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
     return [t for v in tree for t in _tensors(v)]
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts, lists and tuples of one
+    structure, as ``jax.tree_util.tree_map`` maps them (None is an empty
+    node); another structure raises ``ValueError``."""
+    first = trees[0]
+    if first is None:
+        if any(t is not None for t in trees):
+            raise ValueError("tree structures differ: None vs a value")
+        return None
+    if isinstance(first, (dict, list, tuple)):
+        if any(type(t) is not type(first) or len(t) != len(first)
+               for t in trees):
+            raise ValueError(f"tree structures differ: {trees!r}")
+        if isinstance(first, dict):
+            if any(t.keys() != first.keys() for t in trees):
+                raise ValueError(f"tree structures differ: {trees!r}")
+            return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+        out = [_tree_map(fn, *leaves) for leaves in zip(*trees)]
+        if isinstance(first, list):
+            return out
+        return type(first)(*out) if hasattr(first, "_fields") else tuple(out)
+    return fn(*trees)
 
 
 class DistributedCommunicator(CommunicatorBase):
@@ -114,6 +152,8 @@ class DistributedCommunicator(CommunicatorBase):
                                    % torch.cuda.device_count())
             torch.cuda.set_device(dev)
         self.device = dev
+        # the object plane: a gloo group over every rank (collective call)
+        self._host = dist.new_group(backend="gloo")
         self.allreduce_grad_dtype = allreduce_grad_dtype
         self.name = "pure_nccl"
 
@@ -180,11 +220,89 @@ class DistributedCommunicator(CommunicatorBase):
     def recv(self, src: int, tag: int = 0):
         raise NotImplementedError(f"recv {_LATER}")
 
+    # -- object collectives (pickled over the gloo host group) ----------
+
     def bcast_obj(self, obj: Any, root: int = 0) -> Any:
-        raise NotImplementedError(f"object collectives {_LATER}")
+        self._check_root(root)
+        if self._size == 1:
+            return obj
+        box = [obj if self._rank == root else None]
+        dist.broadcast_object_list(box, src=root, group=self._host)
+        return box[0]
+
+    def gather_obj(self, obj: Any, root: int = 0) -> Optional[List[Any]]:
+        self._check_root(root)
+        if self._size == 1:
+            return [obj]
+        out = [None] * self._size if self._rank == root else None
+        dist.gather_object(obj, out, dst=root, group=self._host)
+        return out
+
+    def allgather_obj(self, obj: Any) -> List[Any]:
+        if self._size == 1:
+            return [obj]
+        out = [None] * self._size
+        dist.all_gather_object(out, obj, group=self._host)
+        return out
 
     def allreduce_obj(self, obj: Any, op: str = "sum") -> Any:
-        raise NotImplementedError(f"object collectives {_LATER}")
+        """Leafwise reduction of every rank's object (nested dicts, lists
+        and tuples; any other value is a leaf). ``mean`` divides the sum
+        by the rank count, so int leaves become floats."""
+        if op not in _OBJ_OPS:
+            raise ValueError(f"unsupported allreduce_obj op: {op!r}")
+        objs = self.allgather_obj(obj)
+        out = functools.reduce(
+            lambda a, b: _tree_map(_OBJ_OPS[op], a, b), objs)
+        if op == "mean":
+            out = _tree_map(lambda x: x / len(objs), out)
+        return out
+
+    def scatter_obj(self, objs: Optional[Sequence[Any]],
+                    root: int = 0) -> Any:
+        self._check_root(root)
+        if self._rank == root and (objs is None
+                                   or len(objs) != self._size):
+            raise ValueError(f"scatter_obj needs one object per rank "
+                             f"({self._size}) on the root")
+        if self._size == 1:
+            return objs[0]
+        out = [None]
+        dist.scatter_object_list(
+            out, list(objs) if self._rank == root else None, src=root,
+            group=self._host)
+        return objs[root] if self._rank == root else out[0]
+
+    def _check_peer(self, peer: int) -> None:
+        if self._size == 1:
+            raise RuntimeError("point-to-point with a single rank has no "
+                               "peer")
+        self._check_root(peer)
+        if peer == self._rank:
+            raise ValueError(f"rank {peer} cannot message itself")
+
+    def send_obj(self, obj: Any, dest: int, tag: int = 0) -> None:
+        """Send ``obj`` to ``dest``: its pickled length, then its bytes,
+        both under ``tag``. Messages of one tag arrive in order. Like the
+        reference's MPI send (and unlike the JAX package's key-value
+        store), it returns once ``dest`` has posted the matching
+        :meth:`recv_obj`."""
+        self._check_peer(dest)
+        payload = torch.frombuffer(
+            bytearray(pickle.dumps(obj, pickle.HIGHEST_PROTOCOL)),
+            dtype=torch.uint8)
+        dist.send(torch.tensor([payload.numel()], dtype=torch.int64), dest,
+                  group=self._host, tag=tag)
+        dist.send(payload, dest, group=self._host, tag=tag)
+
+    def recv_obj(self, src: int, tag: int = 0) -> Any:
+        self._check_peer(src)
+        n = torch.empty(1, dtype=torch.int64)
+        dist.recv(n, src, group=self._host, tag=tag)
+        payload = torch.empty(int(n), dtype=torch.uint8)
+        dist.recv(payload, src, group=self._host, tag=tag)
+        # bytes a rank of this job pickled in send_obj
+        return pickle.loads(payload.numpy().tobytes())
 
     # -- model-level ops ------------------------------------------------
 
@@ -246,7 +364,12 @@ class DistributedCommunicator(CommunicatorBase):
             dist.barrier()
 
     def finalize(self) -> None:
-        """Destroy the process group if this communicator created it."""
-        if self._owns_group and dist.is_initialized():
-            dist.destroy_process_group()
+        """Destroy the host group, and the process group if this
+        communicator created it."""
+        if dist.is_initialized():
+            if self._owns_group:
+                dist.destroy_process_group()
+            elif self._host is not None:
+                dist.destroy_process_group(self._host)
         self._owns_group = False
+        self._host = None

@@ -1,10 +1,26 @@
-"""Parameters of the JAX package's TransformerLM → the port's state dict.
+"""Parameters of the JAX package's flax models → the port's state dicts.
 
 The input is the flax ``params`` tree with numpy leaves (the port never
 imports JAX; a caller converts with ``jax.tree_util.tree_map(np.asarray,
-params)`` or loads a saved tree). The mapping:
+params)`` or loads a saved tree).
 
-* Dense ``kernel [in, out]`` → ``Linear.weight [out, in]``; ``bias`` as is;
+:func:`convert_layer` maps one flax layer onto its torch module:
+
+* ``dense``: Dense ``kernel [in, out]`` → ``Linear.weight [out, in]``;
+  ``bias`` as is;
+* ``embed``: Embed ``embedding`` → ``Embedding.weight``;
+* ``layer_norm``: LayerNorm ``scale``/``bias`` → ``weight``/``bias``;
+* ``conv``: Conv ``kernel`` HWIO (any number of spatial axes) → OIHW;
+* ``batch_norm``: BatchNorm ``scale``/``bias`` and its ``batch_stats``
+  ``mean``/``var`` → ``weight``/``bias``/``running_mean``/
+  ``running_var`` (plus torch's ``num_batches_tracked``, 0, which flax
+  does not keep). This maps parameters only; batch-norm training
+  semantics come with the ResNet slice (ROADMAP.md queue 1 item 5).
+
+:func:`mlp_params_from_flax` converts the MLP. :func:`params_from_flax`
+converts the TransformerLM:
+
+* Dense and LayerNorm layers as above;
 * fused ``qkv`` and GQA ``kv_proj`` stay fused: the port splits their
   OUTPUT into equal chunks along the last axis, exactly as
   ``jnp.split(qkv, 3, -1)`` / ``jnp.split(kv, 2, -1)`` do;
@@ -22,16 +38,78 @@ Every parameter of the port is f32, as flax keeps them.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax"]
+__all__ = ["convert_layer", "params_from_flax", "mlp_params_from_flax"]
 
 
 def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def _bias(p: Mapping) -> Dict[str, torch.Tensor]:
+    return {"bias": _t(p["bias"])} if "bias" in p else {}
+
+
+def _affine(p: Mapping) -> Dict[str, torch.Tensor]:
+    scale = {"weight": _t(p["scale"])} if "scale" in p else {}
+    return {**scale, **_bias(p)}
+
+
+def _dense(p, stats):
+    return {"weight": _t(p["kernel"]).T.contiguous(), **_bias(p)}
+
+
+def _conv(p, stats):
+    k = np.asarray(p["kernel"])            # [*spatial, in/groups, out]
+    n = k.ndim
+    return {"weight": _t(np.transpose(k, (n - 1, n - 2, *range(n - 2)))),
+            **_bias(p)}
+
+
+def _batch_norm(p, stats):
+    if stats is None:
+        raise ValueError("batch_norm needs the layer's batch_stats")
+    return {**_affine(p), "running_mean": _t(stats["mean"]),
+            "running_var": _t(stats["var"]),
+            "num_batches_tracked": torch.tensor(0)}
+
+
+_LAYERS = {
+    "dense": _dense,
+    "embed": lambda p, stats: {"weight": _t(p["embedding"])},
+    "layer_norm": lambda p, stats: _affine(p),
+    "conv": _conv,
+    "batch_norm": _batch_norm,
+}
+
+
+def convert_layer(kind: str, params: Mapping,
+                  batch_stats: Optional[Mapping] = None,
+                  prefix: str = "") -> Dict[str, torch.Tensor]:
+    """One flax layer's ``params`` (and, for ``batch_norm``, its
+    ``batch_stats``) → the state-dict entries of the torch module at
+    ``prefix`` (e.g. ``"blocks.0.qkv."``). ``kind`` is one of ``dense``,
+    ``embed``, ``layer_norm``, ``conv``, ``batch_norm``; the mapping is in
+    the module docstring."""
+    if kind not in _LAYERS:
+        raise ValueError(f"unknown layer kind {kind!r}; expected one of "
+                         f"{sorted(_LAYERS)}")
+    return {prefix + k: v
+            for k, v in _LAYERS[kind](params, batch_stats).items()}
+
+
+def mlp_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax MLP ``params`` (``Dense_0``..``Dense_2``) → a state dict for
+    :class:`chainermn_torch.models.MLP` (``l1``..``l3``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(3):
+        sd.update(convert_layer("dense", tree[f"Dense_{i}"],
+                                prefix=f"l{i + 1}."))
+    return sd
 
 
 def _bhld_block(bp: Mapping, d: int) -> Dict:
@@ -58,12 +136,9 @@ def params_from_flax(model, tree: Mapping) -> Dict[str, torch.Tensor]:
     """Flax TransformerLM ``params`` (numpy leaves) → a state dict for
     ``model`` (a :class:`chainermn_torch.models.TransformerLM` of the
     same configuration)."""
-    sd: Dict[str, torch.Tensor] = {
-        "tok_emb.weight": _t(tree["tok_emb"]["embedding"]),
-        "ln_f.weight": _t(tree["LayerNorm_0"]["scale"]),
-        "ln_f.bias": _t(tree["LayerNorm_0"]["bias"]),
-        "lm_head.weight": _t(tree["lm_head"]["kernel"]).T.contiguous(),
-    }
+    sd = {**convert_layer("embed", tree["tok_emb"], prefix="tok_emb."),
+          **convert_layer("layer_norm", tree["LayerNorm_0"], prefix="ln_f."),
+          **convert_layer("dense", tree["lm_head"], prefix="lm_head.")}
     if model.pos_emb == "learned":
         sd["pos_embedding"] = _t(tree["pos_emb"])
     for i in range(model.n_layers):
@@ -76,11 +151,9 @@ def params_from_flax(model, tree: Mapping) -> Dict[str, torch.Tensor]:
         else:
             dense.update(q_proj="q_proj", kv_proj="kv_proj")
         for src, dst in dense.items():
-            sd[pre + dst + ".weight"] = _t(bp[src]["kernel"]).T.contiguous()
-            if "bias" in bp[src]:
-                sd[pre + dst + ".bias"] = _t(bp[src]["bias"])
+            sd.update(convert_layer("dense", bp[src], prefix=pre + dst + "."))
         for src, dst in (("LayerNorm_0", "ln_attn"),
                          ("LayerNorm_1", "ln_ffn")):
-            sd[pre + dst + ".weight"] = _t(bp[src]["scale"])
-            sd[pre + dst + ".bias"] = _t(bp[src]["bias"])
+            sd.update(convert_layer("layer_norm", bp[src],
+                                    prefix=pre + dst + "."))
     return sd

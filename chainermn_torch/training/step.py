@@ -15,6 +15,10 @@ K axis (the JAX package's ``lax.scan``, here a Python loop).
 ``grad_accum=N`` splits the batch into N micro-batches and averages
 their gradients, loss and accuracy; ``remat`` recomputes the loss's
 forward in the backward (``torch.utils.checkpoint``, non-reentrant).
+
+``make_eval_step`` is the counterpart of the JAX ``make_eval_step``: the
+loss and accuracy of each rank's batch under ``torch.no_grad()``,
+averaged over ranks (the JAX step's ``pmean`` over the mesh).
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["classifier_loss", "make_data_parallel_train_step"]
+__all__ = ["classifier_loss", "make_data_parallel_train_step",
+           "make_eval_step"]
 
 
 def classifier_loss(model, x, y, train: bool = True, mutable=None):
@@ -106,3 +111,24 @@ def make_data_parallel_train_step(model, optimizer, comm,
         return {"main/loss": m[0], "main/accuracy": m[1]}
 
     return step
+
+
+def make_eval_step(model, comm, loss_fn: Optional[Callable] = None):
+    """Build ``eval_step(x, y) -> {"validation/main/loss",
+    "validation/main/accuracy"}``: ``loss_fn`` (default
+    :func:`classifier_loss`) with ``train=False`` on this rank's batch,
+    without gradients, each metric the mean over ranks. The metrics stay
+    on the device."""
+    lf = loss_fn or classifier_loss
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def eval_step(x, y) -> Dict[str, torch.Tensor]:
+        x = torch.as_tensor(x, device=device)
+        y = torch.as_tensor(y, device=device)
+        loss, (acc, _) = lf(model, x, y, train=False)
+        m = comm.allreduce(torch.stack([loss.float(), acc.float()]), "mean")
+        return {"validation/main/loss": m[0],
+                "validation/main/accuracy": m[1]}
+
+    return eval_step

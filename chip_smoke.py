@@ -46,7 +46,16 @@ the final line:
    calls run with launch counts zeroed just before and read just after
    (12 flash_fwd, 12 flash_bwd and one each of ce_fwd, ce_dh, ce_dw per
    step), the losses must be finite and fall;
-6. a ``{"kernels": [...]}`` line, the card line, and last
+6. mnist — the port's MNIST example (``chainermn_torch.examples.
+   train_mnist``, config #1: communicator ``naive``, IDX files,
+   ``scatter_dataset``, Adam, ``Trainer`` with the multi-node evaluator
+   and rank-0 reports) trains the MLP at full width (784-1000-1000-10,
+   batch 256) for 2 epochs of 60,000 synthetic samples, one NCCL rank:
+   its first 8 losses must match the same steps on the CPU, validation
+   accuracy must pass 0.9, the loss must fall, and the MLP path must
+   launch no hand-written kernel (counts zeroed just before, read just
+   after);
+7. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one, or when run
@@ -118,6 +127,16 @@ TOL_YARDSTICK = 2e-2
 # token's logit must be within this of its row's max (bf16 drift over 12
 # layers; the logits' spread is about 0.6)
 TOL_LOGIT_GAP = 0.15
+# the MNIST MLP's first steps on the card vs the same steps on the CPU
+# (f32 everywhere, TF32 off): the two BLAS sum 784- and 1000-long dot
+# products in other orders (relative error ~1e-6), and Adam turns the
+# last bits of a gradient that cancels to ~1e-7 into part of a step for
+# a handful of weights, which moves the loss far less than this:
+#   |loss_card - loss_cpu| <= 1e-4 |loss_cpu|
+TOL_MNIST_LOSS_REL = 1e-4
+# the JAX package's own bar for the MNIST MLP
+# (tests/training_tests/test_end_to_end.py)
+MNIST_MIN_ACCURACY = 0.9
 
 
 class PhaseError(RuntimeError):
@@ -1222,13 +1241,127 @@ def train(seed: int, card: str):
     return counts, check
 
 
+MNIST = dict(n_train=60000, n_test=10000, epochs=2, batch=256, units=1000,
+             check_steps=8)
+
+
+def mnist(card: str, profile_dir=None):
+    """The port's MNIST example (config #1) through its entry points:
+    ``train_mnist.build_trainer`` (communicator ``naive``, IDX files
+    parsed by ``load_mnist``, ``scatter_dataset``, Adam 1e-3, the
+    multi-node evaluator, rank-0 reports) and ``Trainer.run``, at full
+    width (784-1000-1000-10, per-rank batch 256) for 2 epochs of 60,000
+    synthetic samples. The first steps are first run on the CPU from the
+    same parameters (``torch.manual_seed(0)``) and batches; launch counts
+    are zeroed just before the card's run and read just after. Then the
+    host's batch assembly (iterator and converter) is timed alone, and
+    with ``profile_dir`` 20 more steps run under torch.profiler."""
+    import tempfile
+
+    import torch
+
+    from chainermn_torch.datasets import save_mnist, synth_uint8
+    from chainermn_torch.examples import train_mnist
+    from chainermn_torch.ops import _cuda
+
+    k = MNIST["check_steps"]
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        data = os.path.join(d, "mnist-data")
+        save_mnist(data, *synth_uint8(MNIST["n_train"], seed=0), train=True)
+        save_mnist(data, *synth_uint8(MNIST["n_test"], seed=1), train=False)
+        argv = ["--communicator", "naive", "--epoch", str(MNIST["epochs"]),
+                "--unit", str(MNIST["units"]), "--batchsize",
+                str(MNIST["batch"]), "--data-dir", data, "--out", d]
+
+        trainer, _ = train_mnist.build_trainer(
+            train_mnist.parse_args(argv + ["--device", "cpu"]))
+        cpu = []
+        for _ in range(k):
+            trainer.updater.update()
+            cpu.append(float(trainer.updater.last_metrics["main/loss"]))
+        trainer.updater.comm.finalize()
+
+        trainer, _ = train_mnist.build_trainer(train_mnist.parse_args(argv))
+        comm = trainer.updater.comm
+        step, first = trainer.updater.step_fn, []
+
+        def recording_step(*arrays):
+            m = step(*arrays)
+            if len(first) < k:
+                first.append(m["main/loss"])   # stays on the device
+            return m
+
+        trainer.updater.step_fn = recording_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _cuda.launches()
+        peak = torch.cuda.max_memory_allocated()
+        steps = trainer.updater.iteration
+        upd = trainer.updater
+        t0 = time.perf_counter()
+        for _ in range(50):
+            upd.converter(next(upd.iterator))
+        host_ms = (time.perf_counter() - t0) / 50 * 1e3
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    upd.update()
+                torch.cuda.synchronize()
+                pwall = time.perf_counter() - t0
+            busy_us = write_kernel_table(prof, profile_dir, "mnist", card,
+                                         pwall)
+            print(f"profile mnist: wall {pwall:.4f} s for 20 steps "
+                  f"(profiler on), device busy {busy_us / 1e3:.3f} ms = "
+                  f"{busy_us / 1e6 / pwall:.4f} of wall ({card})",
+                  flush=True)
+        comm.finalize()
+    obs = trainer.observation
+    card_first = torch.stack(first).tolist()
+    err = max(abs(a - b) / abs(b) for a, b in zip(card_first, cpu))
+    print(f"mnist: {steps} steps ({MNIST['epochs']} epochs of "
+          f"{MNIST['n_train']}) in {wall:.4f} s, "
+          f"{wall / steps * 1e3:.3f} ms/step, samples/s per chip "
+          f"{steps * MNIST['batch'] * comm.size / wall:.1f}, peak memory "
+          f"{peak / 2 ** 30:.4f} GiB, host batch assembly {host_ms:.3f} "
+          f"ms/batch, final loss {obs['main/loss']:.6g}, "
+          f"validation accuracy {obs['validation/main/accuracy']:.4f}, "
+          f"first {k} losses card {[round(x, 6) for x in card_first]} cpu "
+          f"{[round(x, 6) for x in cpu]} worst relative difference "
+          f"{err:.2e}, launches {counts} ({card})", flush=True)
+    if err > TOL_MNIST_LOSS_REL:
+        raise PhaseError(f"the card's first {k} losses are {err:.2e} "
+                         f"(relative) from the CPU's, above "
+                         f"{TOL_MNIST_LOSS_REL}")
+    if not obs["validation/main/accuracy"] > MNIST_MIN_ACCURACY:
+        raise PhaseError(f"validation accuracy "
+                         f"{obs['validation/main/accuracy']} is not above "
+                         f"{MNIST_MIN_ACCURACY}")
+    if not obs["main/loss"] < card_first[0]:
+        raise PhaseError(f"the loss did not fall: {card_first[0]} -> "
+                         f"{obs['main/loss']}")
+    if any(counts.values()):
+        raise PhaseError(f"the MLP path launched hand-written kernels: "
+                         f"{counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one more served run and one more "
-                         "train call into DIR (chrome traces and kernel "
-                         "tables)")
+                    help="also profile one more served run, one more "
+                         "train call and 20 more MNIST steps into DIR "
+                         "(chrome traces and kernel tables)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1331,6 +1464,8 @@ def main(argv=None) -> int:
     train_counts, _ = train(args.seed, card)
     if args.profile:
         profile_training(args.seed, args.profile, card)
+    torch.cuda.empty_cache()
+    mnist_counts = mnist(card, args.profile)
 
     sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:168"),
                "flash_bwd": ("flash_bwd.cu", "flash_attention.py:399"),
@@ -1346,9 +1481,9 @@ def main(argv=None) -> int:
             "source": f"chainermn_torch/csrc/{src}",
             "replaces": f"chainermn_tpu/ops/{tpu}",
             # serving and training both drive flash_fwd: its count is
-            # the sum of the two main-path runs
-            "launches": train_counts[name] + (counts["flash_fwd"]
-                                              if name == "flash_fwd" else 0),
+            # the sum of the main-path runs (the MNIST run adds none)
+            "launches": train_counts[name] + mnist_counts[name] + (
+                counts["flash_fwd"] if name == "flash_fwd" else 0),
             "max_abs_err": errs[name], **times[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

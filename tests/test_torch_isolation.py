@@ -1,6 +1,7 @@
 """The port stands alone: no module of chainermn_torch, and not
 chip_smoke.py, imports JAX, flax, optax or chainermn_tpu, and the entry
-points refuse to fall back to the CPU when no GPU is present."""
+points (the MNIST example and the Trainer side among them) refuse to fall
+back to the CPU when no GPU is present."""
 
 import ast
 import os
@@ -13,6 +14,8 @@ import torch
 
 from chainermn_torch.comm import create_communicator
 from chainermn_torch.device import resolve_device
+from chainermn_torch.examples import train_mnist
+from chainermn_torch.models import MLP
 from chainermn_torch.models.transformer import TransformerLM
 from chainermn_torch.serving.engine import Engine, EngineConfig
 from chainermn_torch.serving.kv_cache import ServingStep
@@ -48,7 +51,10 @@ def test_importing_the_port_loads_no_jax_module():
     code = ("import sys, chainermn_torch, chainermn_torch.serving, "
             "chainermn_torch.models.convert, chainermn_torch.comm, "
             "chainermn_torch.optimizers, chainermn_torch.training, "
-            "chainermn_torch.ops.fused_ce, chip_smoke; "
+            "chainermn_torch.ops.fused_ce, chainermn_torch.datasets, "
+            "chainermn_torch.iterators, chainermn_torch.extensions, "
+            "chainermn_torch.resilience, chainermn_torch.models.mlp, "
+            "chainermn_torch.examples.train_mnist, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -79,3 +85,13 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
         Engine(model, EngineConfig(n_slots=2, capacity=8))
     eng = Engine(model, EngineConfig(n_slots=2, capacity=8), device="cpu")
     assert eng.device == torch.device("cpu")
+    # the MNIST slice: the model, and the example (its communicator)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MLP()
+    assert MLP(n_units=4, device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_mnist.main(["--epoch", "1", "--out", "unused"])
+    args = train_mnist.parse_args(["--device", "cpu", "--grad-reducer",
+                                   "auto"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        train_mnist.build_trainer(args)

@@ -6,16 +6,11 @@ Both sides get the same flax parameters (converted with
 ``params_from_flax``) and the same seeded numpy batches; the LM is small
 (2 layers, d_model 32, vocab 256, L 32). Tolerances are stated per test:
 f32 losses at 1e-4 and parameters at 1e-5 absolute unless a reason is
-given. The 2-rank tests run a real gloo world of two processes, the
-port's counterpart of ``tests/mp_harness.py``.
+given. The 2-rank tests run a real gloo world of two processes
+(``run_world`` in ``tests/test_torch_mp.py``).
 """
 
 import functools
-import os
-import socket
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -44,8 +39,8 @@ from chainermn_torch.ops.fused_ce import fused_lm_loss
 from chainermn_torch.optimizers import create_multi_node_optimizer
 from chainermn_torch.training import (classifier_loss,
                                       make_data_parallel_train_step)
+from tests.test_torch_mp import assert_ranks_ok, run_world
 
-REPO = Path(__file__).resolve().parents[1]
 TOL_LOSS = dict(rtol=1e-4, atol=1e-4)
 # parameters after a few AdamW steps: the two frameworks' gradients agree
 # to f32 summation order, and Adam's normalised update (about lr per
@@ -162,10 +157,15 @@ def test_size_one_communicator_topology_and_collectives(comm):
     assert torch.equal(grads[1], torch.full((2, 2), 2.0))
     comm.barrier()
     for call in (lambda: comm.split(0, 0), lambda: comm.send(x, 0),
-                 lambda: comm.recv(0), lambda: comm.bcast_obj(1),
-                 lambda: comm.allreduce_obj(1)):
+                 lambda: comm.recv(0)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # the object collectives of a world of one (2-3 ranks:
+    # tests/test_torch_objects.py)
+    assert comm.bcast_obj({"a": 1}) == {"a": 1}
+    assert comm.allreduce_obj(1) == 1 and comm.allreduce_obj(5, "mean") == 5
+    with pytest.raises(RuntimeError, match="no peer"):
+        comm.send_obj(1, 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_communicator("non_cuda_aware", device="cpu")
     with pytest.raises(ValueError, match="unknown communicator"):
@@ -179,14 +179,6 @@ def test_plan_buckets_is_the_jax_packages(bucket_bytes):
                                                                  40))]
     assert plan_buckets(items, bucket_bytes) == jax_plan_buckets(
         items, bucket_bytes)
-
-
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 _WORKER = r'''
@@ -265,39 +257,18 @@ for (n, p), q in zip(model.named_parameters(), ref.parameters()):
     torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6, msg=n)
 c16.finalize()
 comm.finalize()
-print(f"WORKER{rank} OK", flush=True)
+print(f"RANK{rank} OK", flush=True)
 '''
 
 
-def test_two_rank_gloo_world(tmp_path):
+def test_two_rank_gloo_world():
     """A real 2-process gloo world: ``allreduce_grad`` mean and sum over
     several flat buckets (exact: small integers), ``allreduce_grad_dtype``
     (bf16 on the wire, exact to bf16's rounding), ``allreduce``,
     ``allgather``, ``bcast``, ``bcast_data``, and two data-parallel steps
     on half the batch each against the full-batch steps in one process
     (1e-5)."""
-    script = tmp_path / "worker.py"
-    script.write_text(_WORKER)
-    port = _free_port()
-    procs = []
-    for rank in range(2):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
-                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2",
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen(
-            [sys.executable, str(script)], env=env, cwd=REPO,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=120)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0 and f"WORKER{rank} OK" in out, out[-3000:]
+    assert_ranks_ok(run_world(_WORKER, 2, timeout=120))
 
 
 # -- the optimizer wrapper ------------------------------------------------
