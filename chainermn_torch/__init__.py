@@ -10,7 +10,11 @@ dense TransformerLM (hand-written CUDA flash-attention forward,
 ``csrc/flash_bwd.cu``, fused LM-head cross-entropy ``csrc/fused_ce.cu``);
 the MNIST MLP (config #1) end to end through ``scatter_dataset``, the
 iterators, ``Trainer``, the multi-node evaluator and the reports
-(``python -m chainermn_torch.examples.train_mnist``).
+(``python -m chainermn_torch.examples.train_mnist``); ResNet-50 (config
+#2, ``python -m chainermn_torch.examples.train_imagenet``) and the CIFAR
+ResNet with ``MultiNodeBatchNormalization`` (config #3, ``python -m
+chainermn_torch.examples.train_cifar``) through the step's
+``mutable=("batch_stats",)``, with the native prefetching loader.
 """
 
 from chainermn_torch.comm import CommunicatorBase, create_communicator
@@ -19,7 +23,8 @@ from chainermn_torch.device import resolve_device
 from chainermn_torch.extensions import create_multi_node_evaluator
 from chainermn_torch.iterators import (create_multi_node_iterator,
                                        create_synchronized_iterator)
-from chainermn_torch.models import MLP
+from chainermn_torch.links import MultiNodeBatchNormalization
+from chainermn_torch.models import MLP, CifarResNet, ResNet50
 from chainermn_torch.models.transformer import (TransformerLM, generate,
                                                 lm_loss_with_aux)
 from chainermn_torch.ops.fused_ce import fused_lm_loss
@@ -29,7 +34,8 @@ from chainermn_torch.serving.kv_cache import ServingStep
 from chainermn_torch.training import (make_data_parallel_train_step,
                                       make_eval_step)
 
-__all__ = ["resolve_device", "TransformerLM", "MLP", "generate", "Engine",
+__all__ = ["resolve_device", "TransformerLM", "MLP", "ResNet50",
+           "CifarResNet", "MultiNodeBatchNormalization", "generate", "Engine",
            "EngineConfig", "ServingStep", "CommunicatorBase",
            "create_communicator", "create_multi_node_optimizer",
            "make_data_parallel_train_step", "make_eval_step",

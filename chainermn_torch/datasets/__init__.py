@@ -24,12 +24,16 @@ from chainermn_torch.datasets.standard_formats import (load_cifar, load_idx,
                                                        load_mnist,
                                                        save_cifar, save_idx,
                                                        save_mnist)
-from chainermn_torch.datasets.toy import (ArrayDataset, synth_uint8,
-                                          synthetic_cifar, synthetic_mnist,
+from chainermn_torch.datasets.image_folder import (ImageFolderDataset,
+                                                   write_image_folder)
+from chainermn_torch.datasets.toy import (ArrayDataset, synth_cifar_uint8,
+                                          synth_uint8, synthetic_cifar,
+                                          synthetic_mnist,
                                           synthetic_translation)
 
 __all__ = ["SubDataset", "ListDataset", "split_indices", "scatter_dataset",
            "create_empty_dataset", "ArrayDataset", "synth_uint8",
+           "synth_cifar_uint8", "ImageFolderDataset", "write_image_folder",
            "synthetic_mnist", "synthetic_cifar", "synthetic_translation",
            "load_idx", "save_idx", "load_mnist", "save_mnist", "load_cifar",
            "save_cifar"]

@@ -1,0 +1,149 @@
+"""Folder-of-images dataset: the reference ImageNet input path.
+
+The port's own copy of ``chainermn_tpu/datasets/image_folder.py`` (numpy,
+and PIL imported when a dataset is built, never at import time). Reference
+parity: upstream ``examples/imagenet/train_imagenet.py`` trains from a
+labeled-image list via ``chainer.datasets.LabeledImageDataset`` + a
+``PreprocessedDataset`` wrapper doing random-crop/center-crop (+ hflip)
+per sample. This module is the same contract on the standard on-disk
+layout (``root/<class_name>/*.jpg``): real image files decoded per access
+(PIL), composing with ``scatter_dataset``/``SubDataset``, the iterators
+and the trainer like any other dataset. JPEG decoding is host-CPU work;
+``train_imagenet --data-dir`` reads through it.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+__all__ = ["ImageFolderDataset", "write_image_folder"]
+
+_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
+
+
+class ImageFolderDataset:
+    """``root/<class>/<image>`` → ``(float32 [H, W, 3] in [0, 1], int32)``.
+
+    Args:
+      root: dataset directory; each subdirectory is one class (sorted
+        subdirectory names define the label ids, torchvision/keras
+        convention).
+      image_size: output side length (square crop).
+      train: True → resize shorter side to ``resize_to`` then RANDOM crop
+        + horizontal flip (upstream PreprocessedDataset's train branch);
+        False → deterministic center crop, no flip.
+      resize_to: shorter-side resize before cropping (default
+        ``image_size * 256 // 224``, the classic 256→224 recipe).
+      mean / std: optional per-channel normalization applied after the
+        [0, 1] scaling.
+      seed: base seed for the per-access crop/flip randomness; access
+        ``i`` uses ``seed + i`` epoch-independently, so distributed
+        shards stay reproducible without shared RNG state.
+    """
+
+    def __init__(self, root: str, image_size: int = 224,
+                 train: bool = True, resize_to: Optional[int] = None,
+                 mean: Optional[Sequence[float]] = None,
+                 std: Optional[Sequence[float]] = None, seed: int = 0):
+        from PIL import Image  # noqa: F401 — fail here, not per sample
+
+        if not os.path.isdir(root):
+            raise FileNotFoundError(f"dataset root {root!r} is not a "
+                                    "directory")
+        self.root = root
+        self.image_size = int(image_size)
+        self.resize_to = int(resize_to if resize_to is not None
+                             else image_size * 256 // 224)
+        if self.resize_to < self.image_size:
+            raise ValueError(
+                f"resize_to ({self.resize_to}) must be >= image_size "
+                f"({self.image_size})")
+        self.train = train
+        self.mean = None if mean is None else np.asarray(
+            mean, np.float32).reshape(1, 1, 3)
+        self.std = None if std is None else np.asarray(
+            std, np.float32).reshape(1, 1, 3)
+        self.seed = seed
+
+        self.classes = sorted(
+            d for d in os.listdir(root)
+            if os.path.isdir(os.path.join(root, d)))
+        if not self.classes:
+            raise ValueError(f"no class subdirectories under {root!r}")
+        self._samples: list = []
+        for label, cls in enumerate(self.classes):
+            cdir = os.path.join(root, cls)
+            for fn in sorted(os.listdir(cdir)):
+                if fn.lower().endswith(_EXTS):
+                    self._samples.append((os.path.join(cdir, fn), label))
+        if not self._samples:
+            raise ValueError(f"no image files under {root!r} "
+                             f"(extensions {_EXTS})")
+
+    def __len__(self) -> int:
+        return len(self._samples)
+
+    def _load(self, path: str) -> np.ndarray:
+        from PIL import Image
+
+        with Image.open(path) as im:
+            im = im.convert("RGB")
+            w, h = im.size
+            scale = self.resize_to / min(w, h)
+            if scale != 1.0:
+                im = im.resize((max(self.image_size, round(w * scale)),
+                                max(self.image_size, round(h * scale))),
+                               Image.BILINEAR)
+            return np.asarray(im, np.uint8)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, np.int32]:
+        path, label = self._samples[int(i)]
+        img = self._load(path)
+        h, w = img.shape[:2]
+        c = self.image_size
+        if self.train:
+            rng = np.random.RandomState(
+                (self.seed + int(i)) % (2 ** 31 - 1))
+            top = rng.randint(0, h - c + 1)
+            left = rng.randint(0, w - c + 1)
+            img = img[top:top + c, left:left + c]
+            if rng.randint(2):
+                img = img[:, ::-1]
+        else:
+            top, left = (h - c) // 2, (w - c) // 2
+            img = img[top:top + c, left:left + c]
+        x = np.ascontiguousarray(img, np.float32) / 255.0
+        if self.mean is not None:
+            x = x - self.mean
+        if self.std is not None:
+            x = x / self.std
+        return x, np.int32(label)
+
+
+def write_image_folder(root: str, n_classes: int, per_class: int,
+                       image_size: int = 256, seed: int = 0,
+                       fmt: str = "JPEG") -> int:
+    """Write a real folder-of-JPEG dataset (class-correlated content so
+    models can learn from it): a local stand-in for ImageNet's files,
+    which the reading path treats exactly like them. Returns the number
+    of files written."""
+    from PIL import Image
+
+    protos = np.random.RandomState(seed + 99).rand(
+        n_classes, image_size, image_size, 3)
+    rng = np.random.RandomState(seed)
+    n = 0
+    for c in range(n_classes):
+        cdir = os.path.join(root, f"class_{c:04d}")
+        os.makedirs(cdir, exist_ok=True)
+        for j in range(per_class):
+            img = protos[c] + 0.25 * rng.randn(image_size, image_size, 3)
+            arr = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+            ext = "jpg" if fmt.upper() == "JPEG" else fmt.lower()
+            Image.fromarray(arr).save(
+                os.path.join(cdir, f"img_{j:05d}.{ext}"), fmt.upper())
+            n += 1
+    return n

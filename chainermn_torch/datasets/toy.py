@@ -1,8 +1,9 @@
 """Self-contained datasets for examples and tests.
 
 The port's own copy of ``chainermn_tpu/datasets/toy.py`` (numpy only),
-plus :func:`synth_uint8`, the copy of
-``examples/mnist/make_mnist_dataset.py``'s generator. The same seed gives
+plus :func:`synth_uint8` and :func:`synth_cifar_uint8`, the copies of
+``examples/mnist/make_mnist_dataset.py``'s and
+``examples/cifar/make_cifar_dataset.py``'s generators. The same seed gives
 the same arrays as the JAX package, so the two packages train on the
 same data.
 
@@ -54,6 +55,19 @@ def synth_uint8(n: int, seed: int):
     rng = np.random.RandomState(seed)
     ys = rng.randint(0, 10, size=n)
     xs = protos[ys] + 0.3 * rng.randn(n, 28, 28)
+    xs = np.clip(xs, 0.0, 1.5) / 1.5
+    return (xs * 255).astype(np.uint8), ys.astype(np.uint8)
+
+
+def synth_cifar_uint8(n: int, n_classes: int, seed: int):
+    """The copy of ``examples/cifar/make_cifar_dataset.py``'s generator:
+    :func:`synthetic_cifar`'s prototype recipe (prototypes from
+    ``RandomState(54321)``) quantized to uint8 ``[n, 32, 32, 3]`` images
+    and uint8 labels, the input of ``save_cifar``."""
+    protos = np.random.RandomState(54321).rand(n_classes, 32, 32, 3)
+    rng = np.random.RandomState(seed)
+    ys = rng.randint(0, n_classes, size=n)
+    xs = protos[ys] + 0.3 * rng.randn(n, 32, 32, 3)
     xs = np.clip(xs, 0.0, 1.5) / 1.5
     return (xs * 255).astype(np.uint8), ys.astype(np.uint8)
 

@@ -14,11 +14,14 @@ params)`` or loads a saved tree).
 * ``batch_norm``: BatchNorm ``scale``/``bias`` and its ``batch_stats``
   ``mean``/``var`` → ``weight``/``bias``/``running_mean``/
   ``running_var`` (plus torch's ``num_batches_tracked``, 0, which flax
-  does not keep). This maps parameters only; batch-norm training
-  semantics come with the ResNet slice (ROADMAP.md queue 1 item 5).
+  does not keep, for ``torch.nn.BatchNorm2d``).
 
-:func:`mlp_params_from_flax` converts the MLP. :func:`params_from_flax`
-converts the TransformerLM:
+:func:`mlp_params_from_flax` converts the MLP.
+:func:`resnet_params_from_flax` converts a ResNet: each convolution,
+batch norm and dense layer of the port's model from the flax layer of the
+same path (the port's ``MultiNodeBatchNormalization`` keeps no
+``num_batches_tracked``, so that key is not emitted for it).
+:func:`params_from_flax` converts the TransformerLM:
 
 * Dense and LayerNorm layers as above;
 * fused ``qkv`` and GQA ``kv_proj`` stay fused: the port splits their
@@ -38,12 +41,13 @@ Every parameter of the port is f32, as flax keeps them.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["convert_layer", "params_from_flax", "mlp_params_from_flax"]
+__all__ = ["convert_layer", "params_from_flax", "mlp_params_from_flax",
+           "resnet_params_from_flax"]
 
 
 def _t(x) -> torch.Tensor:
@@ -109,6 +113,52 @@ def mlp_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     for i in range(3):
         sd.update(convert_layer("dense", tree[f"Dense_{i}"],
                                 prefix=f"l{i + 1}."))
+    return sd
+
+
+def _flax_path(name: str, kind: str, cross_replica: bool) -> List[str]:
+    """The flax path of the port's layer ``name``. With cross-replica
+    batch norm the JAX ResNet wraps each flax ``BatchNorm`` in a
+    ``MultiNodeBatchNormalization`` (auto-named like the ``BatchNorm`` it
+    replaces, or ``bn_init``/``norm_proj``) holding ``BatchNorm_0``."""
+    parts = name.split(".")
+    if kind == "batch_norm" and cross_replica:
+        last = parts[-1]
+        if last.startswith("BatchNorm_"):
+            parts[-1] = "MultiNodeBatchNormalization_" + last.split("_")[1]
+        parts.append("BatchNorm_0")
+    return parts
+
+
+def resnet_params_from_flax(model, params: Mapping,
+                            batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ResNet ``params`` and ``batch_stats`` (numpy leaves) → a state
+    dict for ``model`` (a :class:`chainermn_torch.models.resnet.ResNet` of
+    the same configuration). The tree says whether the flax model had
+    cross-replica batch norm (``bn_init`` then holds ``BatchNorm_0``);
+    either tree loads into a port model with or without ``comm``."""
+    from chainermn_torch.links import MultiNodeBatchNormalization
+    from chainermn_torch.models.resnet import Conv
+
+    cross = "BatchNorm_0" in params["bn_init"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, Conv):
+            kind = "conv"
+        elif isinstance(mod, MultiNodeBatchNormalization):
+            kind = "batch_norm"
+        elif isinstance(mod, torch.nn.Linear):
+            kind = "dense"
+        else:
+            continue
+        path = _flax_path(name, kind, cross)
+        p, s = params, batch_stats if kind == "batch_norm" else None
+        for part in path:
+            p = p[part]
+            s = None if s is None else s[part]
+        entries = convert_layer(kind, p, s, prefix=name + ".")
+        entries.pop(name + ".num_batches_tracked", None)
+        sd.update(entries)
     return sd
 
 

@@ -19,18 +19,28 @@ from torch import nn
 
 from chainermn_torch.device import resolve_device
 
-__all__ = ["MLP"]
+__all__ = ["MLP", "lecun_normal_", "flax_dense"]
 
 # flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal")
 # divides by the standard deviation of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
 
 
-def _flax_dense(n_in: int, n_out: int) -> nn.Linear:
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's ``lecun_normal`` in place: a normal of variance 1/fan_in
+    truncated at two standard deviations, drawn from torch's global
+    generator."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
+def flax_dense(n_in: int, n_out: int) -> nn.Linear:
+    """A ``Linear`` that starts as flax's ``Dense`` does (LeCun-normal
+    kernel, zero bias)."""
     layer = nn.Linear(n_in, n_out)
-    std = math.sqrt(1.0 / n_in) / _TRUNC_STD
+    lecun_normal_(layer.weight, n_in)
     with torch.no_grad():
-        nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std)
         layer.bias.zero_()
     return layer
 
@@ -43,9 +53,9 @@ class MLP(nn.Module):
     def __init__(self, n_units: int = 1000, n_out: int = 10, device=None):
         super().__init__()
         dev = resolve_device(device)
-        self.l1 = _flax_dense(28 * 28, n_units)
-        self.l2 = _flax_dense(n_units, n_units)
-        self.l3 = _flax_dense(n_units, n_out)
+        self.l1 = flax_dense(28 * 28, n_units)
+        self.l2 = flax_dense(n_units, n_units)
+        self.l3 = flax_dense(n_units, n_out)
         self.to(dev)
 
     @property

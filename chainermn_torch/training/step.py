@@ -16,29 +16,58 @@ K axis (the JAX package's ``lax.scan``, here a Python loop).
 their gradients, loss and accuracy; ``remat`` recomputes the loss's
 forward in the backward (``torch.utils.checkpoint``, non-reentrant).
 
+``mutable=("batch_stats",)`` trains a model with batch norm
+(:class:`~chainermn_torch.links.MultiNodeBatchNormalization`): its
+train-mode forwards update the running statistics in place, through the
+micro-batches in order under ``grad_accum`` (as the JAX step's scan
+carries them) and once per micro-batch under ``remat`` (the recomputed
+forward leaves them alone). After the optimizer step the statistics of
+every per-replica batch norm are all-reduced to their mean over the ranks
+in one flat f32 buffer: the JAX step's ``pmean`` of the varying
+``batch_stats``. A cross-replica batch norm's statistics already agree on
+every rank, and the JAX step leaves them alone too.
+
 ``make_eval_step`` is the counterpart of the JAX ``make_eval_step``: the
-loss and accuracy of each rank's batch under ``torch.no_grad()``,
-averaged over ranks (the JAX step's ``pmean`` over the mesh).
+loss and accuracy of each rank's batch under ``torch.no_grad()`` and
+with ``train=False`` (running statistics), averaged over ranks (the JAX
+step's ``pmean`` over the mesh).
 """
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from chainermn_torch.extensions import allreduce_persistent
+from chainermn_torch.links import batch_norm_layers, frozen_batch_stats
+
 __all__ = ["classifier_loss", "make_data_parallel_train_step",
            "make_eval_step"]
+
+
+def _accepts_train(model) -> bool:
+    """Whether ``model``'s ``forward`` declares ``train`` (batch norm and
+    dropout models), as the JAX ``_accepts_train`` asks of ``__call__``."""
+    try:
+        sig = inspect.signature(type(model).forward)
+    except (TypeError, ValueError):
+        return False
+    return "train" in sig.parameters
 
 
 def classifier_loss(model, x, y, train: bool = True, mutable=None):
     """Softmax cross-entropy and accuracy of an ``(x, y)`` classifier, in
     the step-factory loss signature ``loss_fn(model, x, y, train,
-    mutable) -> (loss, (acc, new_vars))``."""
-    del train, mutable
-    logits = model(x)
+    mutable) -> (loss, (acc, new_vars))``. ``train`` reaches every model
+    whose ``forward`` takes it; the batch statistics a train-mode forward
+    updates live in the model, so ``new_vars`` is empty."""
+    del mutable
+    logits = model(x, train=train) if _accepts_train(model) else model(x)
     loss = F.cross_entropy(logits.float(), y.long())
     acc = (logits.argmax(-1) == y).float().mean()
     return loss, (acc, {})
@@ -54,13 +83,18 @@ def make_data_parallel_train_step(model, optimizer, comm,
 
     ``optimizer`` should wrap the communicator
     (:func:`chainermn_torch.optimizers.create_multi_node_optimizer`);
-    each rank passes its own batch. ``mutable`` (batch-norm state) and
-    ``with_rng`` (dropout) wait for the ResNet and dropout slices
-    (ROADMAP.md queue 1)."""
+    each rank passes its own batch. ``mutable`` is ``("batch_stats",)``
+    for a model with batch norm (see the module docstring) and None
+    otherwise; ``with_rng`` (dropout) waits for the dropout slice
+    (ROADMAP.md queue 1 item 7)."""
+    bns = batch_norm_layers(model)
     if mutable:
-        raise NotImplementedError(
-            "mutable collections wait for the ResNet-50 slice of the port "
-            "(ROADMAP.md queue 1)")
+        if tuple(mutable) != ("batch_stats",):
+            raise ValueError(f"the port's one mutable collection is "
+                             f"'batch_stats', got {tuple(mutable)}")
+    elif bns:
+        raise ValueError("the model has batch statistics: pass "
+                         "mutable=('batch_stats',), as the JAX step needs")
     if with_rng:
         raise NotImplementedError(
             "with_rng waits for the dropout slice of the port (ROADMAP.md "
@@ -70,12 +104,19 @@ def make_data_parallel_train_step(model, optimizer, comm,
     lf = loss_fn or classifier_loss
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
+    # the per-replica statistics the JAX step pmeans
+    varying = [t for m in bns if m.comm is None
+               for t in (m.running_mean, m.running_var)]
+
+    def recompute_contexts():
+        return contextlib.nullcontext(), frozen_batch_stats(model)
 
     def loss_of(x, y):
         if remat:
-            return checkpoint(lambda a, b: lf(model, a, b, train=True), x,
-                              y, use_reentrant=False)
-        return lf(model, x, y, train=True)
+            return checkpoint(
+                lambda a, b: lf(model, a, b, train=True, mutable=mutable),
+                x, y, use_reentrant=False, context_fn=recompute_contexts)
+        return lf(model, x, y, train=True, mutable=mutable)
 
     def one_step(x, y):
         optimizer.zero_grad(set_to_none=True)
@@ -94,6 +135,8 @@ def make_data_parallel_train_step(model, optimizer, comm,
                     if p.grad is not None:
                         p.grad.div_(grad_accum)
         optimizer.step()
+        if varying:
+            allreduce_persistent(varying, comm)
         return comm.allreduce(torch.stack([loss_sum, acc_sum]) / grad_accum,
                               "mean")
 
@@ -116,7 +159,8 @@ def make_data_parallel_train_step(model, optimizer, comm,
 def make_eval_step(model, comm, loss_fn: Optional[Callable] = None):
     """Build ``eval_step(x, y) -> {"validation/main/loss",
     "validation/main/accuracy"}``: ``loss_fn`` (default
-    :func:`classifier_loss`) with ``train=False`` on this rank's batch,
+    :func:`classifier_loss`) with ``train=False`` (a batch-norm model
+    normalises with its running statistics) on this rank's batch,
     without gradients, each metric the mean over ranks. The metrics stay
     on the device."""
     lf = loss_fn or classifier_loss

@@ -55,7 +55,24 @@ the final line:
    accuracy must pass 0.9, the loss must fall, and the MLP path must
    launch no hand-written kernel (counts zeroed just before, read just
    after);
-7. a ``{"kernels": [...]}`` line, the card line, and last
+7. cifar — config #3 through the port's CIFAR example
+   (``chainermn_torch.examples.train_cifar``: CifarResNet-20 with
+   cross-replica batch norm over a one-rank NCCL group, CIFAR-100 binary
+   batches, per-rank batch 256, f32 with TF32 off, SGD 0.05 momentum 0.9,
+   ``Trainer``) for 3 epochs of 50,000 synthetic samples: its first 8
+   losses must match the same steps on the CPU, the loss must fall, the
+   final training accuracy must pass 0.9, and no hand-written kernel may
+   launch;
+8. resnet50 — config #2, ``bench.py``'s gated row through the port's
+   step (ResNet-50 bf16 with the space-to-depth stem, batch 256 at 224²,
+   SGD 0.1 momentum 0.9, ``mutable=("batch_stats",)``, ``scan_steps=8``,
+   3 warm-up and 4 timed calls on one seeded batch): first 2 steps at
+   batch 8 on the card held to the CPU, then images/s per chip, ms/step
+   and peak memory; the loss must be finite, every running statistic
+   finite and changed, and no hand-written kernel may launch; then
+   ``train_imagenet --loader`` for 8 iterations at batch 256 from a
+   file-backed uint8 set (images/s per chip, host batch assembly);
+9. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one, or when run
@@ -1241,28 +1258,95 @@ def train(seed: int, card: str):
     return counts, check
 
 
+def run_example(example, argv, k: int, card: str, profile_dir, stem: str):
+    """Drive a port example through its entry points:
+    ``example.build_trainer(example.parse_args(argv))`` and
+    ``Trainer.run``. Its first ``k`` steps are first run on the CPU from
+    the same parameters (each example seeds ``torch.manual_seed(0)``) and
+    batches; launch counts are zeroed just before the card's run and read
+    just after. Then the host's batch assembly (iterator and converter)
+    is timed alone, and with ``profile_dir`` 20 more steps run under
+    torch.profiler. Returns the run's numbers in a dict."""
+    import torch
+
+    from chainermn_torch.ops import _cuda
+
+    trainer, _ = example.build_trainer(
+        example.parse_args(argv + ["--device", "cpu"]))
+    cpu = []
+    for _ in range(k):
+        trainer.updater.update()
+        cpu.append(float(trainer.updater.last_metrics["main/loss"]))
+    trainer.updater.comm.finalize()
+
+    trainer, _ = example.build_trainer(example.parse_args(argv))
+    comm = trainer.updater.comm
+    step, first = trainer.updater.step_fn, []
+
+    def recording_step(*arrays):
+        m = step(*arrays)
+        if len(first) < k:
+            first.append(m["main/loss"])   # stays on the device
+        return m
+
+    trainer.updater.step_fn = recording_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launches()
+    peak = torch.cuda.max_memory_allocated()
+    upd = trainer.updater
+    steps = upd.iteration
+    t0 = time.perf_counter()
+    for _ in range(50):
+        upd.converter(next(upd.iterator))
+    host_ms = (time.perf_counter() - t0) / 50 * 1e3
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(20):
+                upd.update()
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        busy_us = write_kernel_table(prof, profile_dir, stem, card, pwall)
+        extra = ""
+        if stem != "mnist":
+            write_host_table(prof, profile_dir, stem, card, 20)
+            extra = "; device ms by kind " + ", ".join(
+                f"{g} {t:.3f}" for g, t in kernel_groups(prof).items())
+        print(f"profile {stem}: wall {pwall:.4f} s for 20 steps "
+              f"(profiler on), device busy {busy_us / 1e3:.3f} ms = "
+              f"{busy_us / 1e6 / pwall:.4f} of wall{extra} ({card})",
+              flush=True)
+    comm.finalize()
+    card_first = torch.stack(first).tolist()
+    return dict(obs=trainer.observation, cpu=cpu, card=card_first,
+                err=max(abs(a - b) / abs(b) for a, b in zip(card_first, cpu)),
+                wall=wall, steps=steps, counts=counts, peak=peak,
+                host_ms=host_ms, ranks=comm.size)
+
+
 MNIST = dict(n_train=60000, n_test=10000, epochs=2, batch=256, units=1000,
              check_steps=8)
 
 
 def mnist(card: str, profile_dir=None):
-    """The port's MNIST example (config #1) through its entry points:
-    ``train_mnist.build_trainer`` (communicator ``naive``, IDX files
-    parsed by ``load_mnist``, ``scatter_dataset``, Adam 1e-3, the
-    multi-node evaluator, rank-0 reports) and ``Trainer.run``, at full
-    width (784-1000-1000-10, per-rank batch 256) for 2 epochs of 60,000
-    synthetic samples. The first steps are first run on the CPU from the
-    same parameters (``torch.manual_seed(0)``) and batches; launch counts
-    are zeroed just before the card's run and read just after. Then the
-    host's batch assembly (iterator and converter) is timed alone, and
-    with ``profile_dir`` 20 more steps run under torch.profiler."""
+    """The port's MNIST example (config #1) through :func:`run_example`:
+    ``train_mnist`` (communicator ``naive``, IDX files parsed by
+    ``load_mnist``, ``scatter_dataset``, Adam 1e-3, the multi-node
+    evaluator, rank-0 reports) at full width (784-1000-1000-10, per-rank
+    batch 256) for 2 epochs of 60,000 synthetic samples."""
     import tempfile
-
-    import torch
 
     from chainermn_torch.datasets import save_mnist, synth_uint8
     from chainermn_torch.examples import train_mnist
-    from chainermn_torch.ops import _cuda
 
     k = MNIST["check_steps"]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
@@ -1273,73 +1357,22 @@ def mnist(card: str, profile_dir=None):
         argv = ["--communicator", "naive", "--epoch", str(MNIST["epochs"]),
                 "--unit", str(MNIST["units"]), "--batchsize",
                 str(MNIST["batch"]), "--data-dir", data, "--out", d]
-
-        trainer, _ = train_mnist.build_trainer(
-            train_mnist.parse_args(argv + ["--device", "cpu"]))
-        cpu = []
-        for _ in range(k):
-            trainer.updater.update()
-            cpu.append(float(trainer.updater.last_metrics["main/loss"]))
-        trainer.updater.comm.finalize()
-
-        trainer, _ = train_mnist.build_trainer(train_mnist.parse_args(argv))
-        comm = trainer.updater.comm
-        step, first = trainer.updater.step_fn, []
-
-        def recording_step(*arrays):
-            m = step(*arrays)
-            if len(first) < k:
-                first.append(m["main/loss"])   # stays on the device
-            return m
-
-        trainer.updater.step_fn = recording_step
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _cuda.reset_launches()
-        t0 = time.perf_counter()
-        trainer.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _cuda.launches()
-        peak = torch.cuda.max_memory_allocated()
-        steps = trainer.updater.iteration
-        upd = trainer.updater
-        t0 = time.perf_counter()
-        for _ in range(50):
-            upd.converter(next(upd.iterator))
-        host_ms = (time.perf_counter() - t0) / 50 * 1e3
-        if profile_dir:
-            from torch.profiler import ProfilerActivity, profile
-
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(20):
-                    upd.update()
-                torch.cuda.synchronize()
-                pwall = time.perf_counter() - t0
-            busy_us = write_kernel_table(prof, profile_dir, "mnist", card,
-                                         pwall)
-            print(f"profile mnist: wall {pwall:.4f} s for 20 steps "
-                  f"(profiler on), device busy {busy_us / 1e3:.3f} ms = "
-                  f"{busy_us / 1e6 / pwall:.4f} of wall ({card})",
-                  flush=True)
-        comm.finalize()
-    obs = trainer.observation
-    card_first = torch.stack(first).tolist()
-    err = max(abs(a - b) / abs(b) for a, b in zip(card_first, cpu))
+        r = run_example(train_mnist, argv, k, card, profile_dir, "mnist")
+    obs, card_first, counts, steps, wall = (r["obs"], r["card"],
+                                            r["counts"], r["steps"],
+                                            r["wall"])
     print(f"mnist: {steps} steps ({MNIST['epochs']} epochs of "
           f"{MNIST['n_train']}) in {wall:.4f} s, "
           f"{wall / steps * 1e3:.3f} ms/step, samples/s per chip "
-          f"{steps * MNIST['batch'] * comm.size / wall:.1f}, peak memory "
-          f"{peak / 2 ** 30:.4f} GiB, host batch assembly {host_ms:.3f} "
-          f"ms/batch, final loss {obs['main/loss']:.6g}, "
+          f"{steps * MNIST['batch'] * r['ranks'] / wall:.1f}, peak memory "
+          f"{r['peak'] / 2 ** 30:.4f} GiB, host batch assembly "
+          f"{r['host_ms']:.3f} ms/batch, final loss {obs['main/loss']:.6g}, "
           f"validation accuracy {obs['validation/main/accuracy']:.4f}, "
           f"first {k} losses card {[round(x, 6) for x in card_first]} cpu "
-          f"{[round(x, 6) for x in cpu]} worst relative difference "
-          f"{err:.2e}, launches {counts} ({card})", flush=True)
-    if err > TOL_MNIST_LOSS_REL:
-        raise PhaseError(f"the card's first {k} losses are {err:.2e} "
+          f"{[round(x, 6) for x in r['cpu']]} worst relative difference "
+          f"{r['err']:.2e}, launches {counts} ({card})", flush=True)
+    if r["err"] > TOL_MNIST_LOSS_REL:
+        raise PhaseError(f"the card's first {k} losses are {r['err']:.2e} "
                          f"(relative) from the CPU's, above "
                          f"{TOL_MNIST_LOSS_REL}")
     if not obs["validation/main/accuracy"] > MNIST_MIN_ACCURACY:
@@ -1355,13 +1388,386 @@ def mnist(card: str, profile_dir=None):
     return counts
 
 
+CIFAR = dict(n_train=50000, epochs=3, batch=256, depth=20, check_steps=8)
+# config #3's first 8 steps on the card vs the same steps on the CPU from
+# the same parameters and batches, f32 in f32 on both (TF32 off, the
+# example's choice): cuDNN may run a f32 3x3 convolution as Winograd or
+# FFT (~1e-5 relative error against oneDNN's direct sums), and 8 SGD
+# steps through 19 batch norms carry that 10-100x; a wrong gradient moves
+# the loss by more than 1e-2 within those steps:
+#   |loss_card - loss_cpu| <= 1e-3 |loss_cpu|
+TOL_CIFAR_LOSS_REL = 1e-3
+# the synthetic CIFAR-100 classes separate: the same configuration run on
+# the CPU ends its third epoch at training accuracy 1.0; the MNIST bar
+CIFAR_MIN_ACCURACY = 0.9
+# ResNet-50 bf16, 2 steps at batch 8 on the card vs the CPU from the same
+# parameters and batches: each device rounds every activation to bf16
+# after its own sums. On the CPU the bf16 model drifts from the f32 one
+# by 1.9e-4 in the loss and 6.4e-2 in the update (relative L2 over all
+# parameters) after 2 steps, and a single tensor's update by up to 0.85;
+# two bf16 runs differ by rounding in other places, within the same
+# bounds. A wrong convolution, padding or gradient on one device is off
+# by O(1):
+#   |loss_card - loss_cpu| <= 2e-3 |loss_cpu|
+#   |update_card - update_cpu| <= 0.2 |update_cpu| (all parameters)
+#   |stats_card - stats_cpu| <= 2e-2 |stats_cpu| (every running buffer)
+TOL_R50_LOSS_REL = 2e-3
+TOL_R50_UPDATE_REL = 0.2
+TOL_R50_STATS_REL = 2e-2
+RESNET50 = dict(batch=256, image=224, scan_steps=8, warmup_calls=3,
+                timed_calls=4, check_batch=8, check_steps=2,
+                loader_iterations=8, loader_n_train=2048)
+
+
+def write_host_table(prof, out_dir: str, stem: str, card: str,
+                     steps: int) -> None:
+    """Write ``{stem}_host.txt`` (host time by op, self CPU, per step)
+    into ``out_dir`` and print the top rows: where the host spends the
+    time the device waits for."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [e for e in prof.key_averages() if e.device_type != cuda]
+    ops.sort(key=lambda e: -e.self_cpu_time_total)
+    total = sum(e.self_cpu_time_total for e in ops)
+    lines = [f"{e.self_cpu_time_total / 1e3 / steps:9.3f} ms/step "
+             f"{e.count / steps:8.1f}x/step  {e.key[:90]}" for e in ops]
+    with open(os.path.join(out_dir, f"{stem}_host.txt"), "w") as fh:
+        fh.write(f"# {card}; host self time {total / 1e3 / steps:.3f} "
+                 f"ms/step over {steps} steps (profiler on)\n"
+                 + "\n".join(lines) + "\n")
+    for line in lines[:8]:
+        print(f"profile {stem} host: {line}", flush=True)
+
+
+def kernel_groups(prof) -> dict:
+    """Device ms of a profile by kind, from the kernel names: cuDNN/cuBLAS
+    convolutions and products, torch reductions (batch-norm statistics
+    and gradient sums), torch elementwise kernels (batch norm's casts and
+    arithmetic, ReLU, residual adds, pads), the optimizer's fused
+    multi-tensor kernels, NCCL, and the rest."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type != cuda}
+    groups = {"conv/gemm": 0.0, "reduce": 0.0, "elementwise": 0.0,
+              "optimizer": 0.0, "nccl": 0.0, "other": 0.0}
+    for e in events:
+        if e.device_type != cuda or e.key in host:
+            continue
+        name = e.key.lower()
+        if "nccl" in name:
+            kind = "nccl"
+        elif "multi_tensor_apply" in name:
+            kind = "optimizer"
+        elif any(t in name for t in ("xmma", "cudnn", "conv", "gemm",
+                                     "cutlass", "fprop", "dgrad", "wgrad",
+                                     "sm80_", "sm90_")):
+            kind = "conv/gemm"
+        elif "reduce" in name:
+            kind = "reduce"
+        elif "elementwise" in name:
+            kind = "elementwise"
+        else:
+            kind = "other"
+        groups[kind] += e.self_device_time_total / 1e3
+    return groups
+
+
+def cifar(card: str, profile_dir=None):
+    """Config #3 through :func:`run_example`: ``train_cifar``
+    (CifarResNet-20, CIFAR-100 layout, cross-replica batch norm over a
+    one-rank NCCL group, per-rank batch 256, f32, SGD 0.05 with momentum
+    0.9, binary batches parsed by ``load_cifar``) for 3 epochs of 50,000
+    synthetic samples (the CIFAR example's generator)."""
+    import tempfile
+
+    from chainermn_torch.datasets import save_cifar, synth_cifar_uint8
+    from chainermn_torch.examples import train_cifar
+
+    k = CIFAR["check_steps"]
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        data = os.path.join(d, "cifar-data")
+        save_cifar(data, *synth_cifar_uint8(CIFAR["n_train"], 100, seed=0),
+                   n_classes=100, train=True)
+        argv = ["--communicator", "pure_nccl", "--epoch",
+                str(CIFAR["epochs"]), "--depth", str(CIFAR["depth"]),
+                "--batchsize", str(CIFAR["batch"]), "--data-dir", data,
+                "--out", d]
+        r = run_example(train_cifar, argv, k, card, profile_dir, "cifar")
+    obs, card_first, counts, steps, wall = (r["obs"], r["card"],
+                                            r["counts"], r["steps"],
+                                            r["wall"])
+    print(f"cifar: CifarResNet-{CIFAR['depth']} with cross-replica batch "
+          f"norm, {steps} steps ({CIFAR['epochs']} epochs of "
+          f"{CIFAR['n_train']}, per-rank batch {CIFAR['batch']}, f32) in "
+          f"{wall:.4f} s, {wall / steps * 1e3:.3f} ms/step, samples/s per "
+          f"chip {steps * CIFAR['batch'] * r['ranks'] / wall:.1f}, peak "
+          f"memory {r['peak'] / 2 ** 30:.4f} GiB, host batch assembly "
+          f"{r['host_ms']:.3f} ms/batch, first loss {card_first[0]:.6g}, "
+          f"final loss {obs['main/loss']:.6g}, final training accuracy "
+          f"{obs['main/accuracy']:.4f}, first {k} losses card "
+          f"{[round(x, 6) for x in card_first]} cpu "
+          f"{[round(x, 6) for x in r['cpu']]} worst relative difference "
+          f"{r['err']:.2e} (tolerance {TOL_CIFAR_LOSS_REL}), launches "
+          f"{counts} ({card})", flush=True)
+    if r["err"] > TOL_CIFAR_LOSS_REL:
+        raise PhaseError(f"the card's first {k} CIFAR losses are "
+                         f"{r['err']:.2e} (relative) from the CPU's, above "
+                         f"{TOL_CIFAR_LOSS_REL}")
+    if not obs["main/loss"] < card_first[0]:
+        raise PhaseError(f"the CIFAR loss did not fall: {card_first[0]} -> "
+                         f"{obs['main/loss']}")
+    if not obs["main/accuracy"] > CIFAR_MIN_ACCURACY:
+        raise PhaseError(f"final CIFAR training accuracy "
+                         f"{obs['main/accuracy']} is not above "
+                         f"{CIFAR_MIN_ACCURACY}")
+    if any(counts.values()):
+        raise PhaseError(f"the ResNet path launched hand-written kernels: "
+                         f"{counts}")
+    return counts
+
+
+def _r50_check(seed: int):
+    """Two steps of ResNet-50 (bf16, space-to-depth, batch 8, 224²,
+    ``mutable``, SGD 0.1 momentum 0.9) through the port's step on the CPU
+    (a gloo world of one) and then on the card (NCCL), from the same
+    parameters (``torch.manual_seed(seed)``, drawn on the CPU) and
+    batches. Returns (worst relative loss difference, relative update
+    difference over all parameters, worst tensor and its difference,
+    worst relative running-statistic difference)."""
+    import torch
+
+    from chainermn_torch.comm import create_communicator
+    from chainermn_torch.models.resnet import ResNet50
+    from chainermn_torch.optimizers import create_multi_node_optimizer
+    from chainermn_torch.training.step import make_data_parallel_train_step
+
+    r = RESNET50
+    gen = torch.Generator().manual_seed(seed + 1)
+    shape = (r["check_steps"], r["check_batch"], r["image"], r["image"], 3)
+    xs = torch.rand(shape, generator=gen).to(torch.bfloat16)
+    ys = torch.randint(0, 1000, shape[:2], generator=gen)
+    out = {}
+    for device in ("cpu", "cuda"):
+        comm = create_communicator("pure_nccl", device=device)
+        torch.manual_seed(seed)
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                         space_to_depth=True, device=device)
+        init = {k: v.detach().cpu().clone()
+                for k, v in model.state_dict().items()}
+        opt = create_multi_node_optimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9), comm)
+        step = make_data_parallel_train_step(
+            model, opt, comm, mutable=("batch_stats",),
+            scan_steps=r["check_steps"])
+        losses = step(xs, ys)["main/loss"].tolist()
+        out[device] = (losses, {k: v.detach().cpu() for k, v in
+                                model.state_dict().items()})
+        names = [n for n, _ in model.named_parameters()]
+        comm.finalize()
+        del model, opt, step
+    (lc, sc), (lg, sg) = out["cpu"], out["cuda"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    num = den = 0.0
+    worst, worst_name = 0.0, ""
+    for n in names:
+        dc, dg = sc[n] - init[n], sg[n] - init[n]
+        num += ((dg - dc) ** 2).sum().item()
+        den += (dc ** 2).sum().item()
+        rel = ((dg - dc).norm() / dc.norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, n
+    stats = max(((sg[n] - sc[n]).norm() / sc[n].norm()).item()
+                for n in sc if "running" in n)
+    torch.cuda.empty_cache()
+    return lc, lg, loss_err, (num / den) ** 0.5, worst_name, worst, stats
+
+
+def resnet50(seed: int, card: str, profile_dir=None):
+    """Config #2, bench.py's gated row, through the port's step:
+    ``ResNet50(num_classes=1000, dtype=bf16, space_to_depth=True)``,
+    batch 256 at 224², SGD 0.1 with momentum 0.9 through
+    ``create_multi_node_optimizer``, ``mutable=("batch_stats",)``,
+    ``scan_steps=8``, one seeded uniform batch of 1000-class labels reused
+    (bench.py ``_bench_default``); 3 warm-up and 4 timed calls, each
+    ending in a pull of its last loss. Before it, :func:`_r50_check`
+    holds 2 steps on the card to the CPU; after it,
+    ``train_imagenet --loader`` runs 8 iterations at batch 256 from a
+    file-backed uint8 set under ``build/``. Launch counts are zeroed just
+    before the warm-ups and read after the timed calls."""
+    import tempfile
+
+    import torch
+
+    from chainermn_torch.comm import create_communicator
+    from chainermn_torch.examples import train_imagenet
+    from chainermn_torch.links import batch_norm_layers
+    from chainermn_torch.models.resnet import ResNet50
+    from chainermn_torch.ops import _cuda
+    from chainermn_torch.optimizers import create_multi_node_optimizer
+    from chainermn_torch.training.step import make_data_parallel_train_step
+
+    r = RESNET50
+    lc, lg, loss_err, upd_err, worst_name, worst, stats_err = _r50_check(
+        seed)
+    print(f"resnet50 check: 2 steps at batch {r['check_batch']}, "
+          f"{r['image']}², bf16: losses card {[round(x, 6) for x in lg]} "
+          f"cpu {[round(x, 6) for x in lc]}, worst relative loss "
+          f"difference {loss_err:.2e} (tolerance {TOL_R50_LOSS_REL}), "
+          f"relative update difference over all parameters {upd_err:.4f} "
+          f"(tolerance {TOL_R50_UPDATE_REL}; worst tensor {worst_name} "
+          f"{worst:.4f}), worst relative running-statistic difference "
+          f"{stats_err:.2e} (tolerance {TOL_R50_STATS_REL}) ({card})",
+          flush=True)
+    if (loss_err > TOL_R50_LOSS_REL or upd_err > TOL_R50_UPDATE_REL
+            or stats_err > TOL_R50_STATS_REL):
+        raise PhaseError("ResNet-50's steps on the card disagree with the "
+                         "CPU's")
+
+    # fixed shapes, as train_imagenet sets it: cuDNN times its algorithms
+    # once per shape
+    torch.backends.cudnn.benchmark = True
+    comm = create_communicator("pure_nccl")
+    torch.manual_seed(seed)
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                     space_to_depth=True)
+    comm.bcast_data(model)
+    opt = create_multi_node_optimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9), comm)
+    k = r["scan_steps"]
+    step = make_data_parallel_train_step(model, opt, comm,
+                                         mutable=("batch_stats",),
+                                         scan_steps=k)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    shape = (k, r["batch"], r["image"], r["image"], 3)
+    xs = torch.rand(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    ys = torch.randint(0, 1000, shape[:2], generator=gen, device="cuda")
+    bns = batch_norm_layers(model)
+    stats0 = [t.clone() for m in bns for t in (m.running_mean,
+                                               m.running_var)]
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(r["warmup_calls"]):
+        float(step(xs, ys)["main/loss"][-1])
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(r["timed_calls"]):
+        m = step(xs, ys)
+        last = float(m["main/loss"][-1])
+    dt = time.perf_counter() - t0
+    counts = _cuda.launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = r["timed_calls"] * k
+    ips = n_steps * r["batch"] * comm.size / dt
+    stats1 = [t for m_ in bns for t in (m_.running_mean, m_.running_var)]
+    stats_finite = all(torch.isfinite(t).all().item() for t in stats1)
+    stats_moved = sum(not torch.equal(a, b) for a, b in zip(stats0, stats1))
+    print(f"resnet50: ResNet50 bf16 space-to-depth, batch {r['batch']} at "
+          f"{r['image']}², scan_steps {k}: {n_steps} timed steps in "
+          f"{dt:.4f} s, {dt / n_steps * 1e3:.3f} ms/step, images/s per "
+          f"chip {ips / comm.size:.1f}, peak memory "
+          f"{peak / 2 ** 30:.3f} GiB, warm-up {warm:.2f} s, last loss "
+          f"{last:.6f} (finite {last == last and abs(last) < float('inf')}"
+          f"), running statistics finite {stats_finite} and "
+          f"{stats_moved} of {len(stats1)} buffers changed, launches "
+          f"{counts} ({card})", flush=True)
+    if not (last == last and abs(last) < float("inf")):
+        raise PhaseError("ResNet-50's loss is not finite")
+    if not stats_finite or stats_moved != len(stats1):
+        raise PhaseError(f"ResNet-50's running statistics: finite "
+                         f"{stats_finite}, {stats_moved} of {len(stats1)} "
+                         "changed")
+    if any(counts.values()):
+        raise PhaseError(f"the ResNet path launched hand-written kernels: "
+                         f"{counts}")
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(step(xs, ys)["main/loss"][-1])
+            pwall = time.perf_counter() - t0
+        busy_us = write_kernel_table(prof, profile_dir, "resnet50", card,
+                                     pwall)
+        write_host_table(prof, profile_dir, "resnet50", card, k)
+        groups = kernel_groups(prof)
+        print(f"profile resnet50: wall {pwall:.4f} s for {k} steps "
+              f"(profiler on), device busy {busy_us / 1e3:.3f} ms = "
+              f"{busy_us / 1e6 / pwall:.4f} of wall; device ms by kind "
+              + ", ".join(f"{g} {t:.3f} ({t * 1e3 / busy_us:.4f})"
+                          for g, t in groups.items()) + f" ({card})",
+              flush=True)
+    comm.finalize()
+    del model, opt, step, xs, ys, bns, stats0, stats1
+    torch.cuda.empty_cache()
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        args = train_imagenet.parse_args(
+            ["--loader", "--iterations", str(r["loader_iterations"]),
+             "--batchsize", str(r["batch"]), "--image-size",
+             str(r["image"]), "--n-train", str(r["loader_n_train"]),
+             "--out", d])
+        trainer, _ = train_imagenet.build_trainer(args)
+        comm = trainer.updater.comm
+        lstep, first_done = trainer.updater.step_fn, []
+
+        def timed_first(*arrays):
+            # one synchronise, after the first step only: the rest of the
+            # run is timed from there
+            m = lstep(*arrays)
+            if not first_done:
+                torch.cuda.synchronize()
+                first_done.append(time.perf_counter())
+            return m
+
+        trainer.updater.step_fn = timed_first
+        _cuda.reset_launches()
+        trainer.run()
+        torch.cuda.synchronize()
+        rest = time.perf_counter() - first_done[0]
+        loader_counts = _cuda.launches()
+        obs = trainer.observation
+        it = trainer.updater.iterator
+        t0 = time.perf_counter()
+        for _ in range(r["loader_iterations"]):
+            next(it)
+        host_ms = (time.perf_counter() - t0) / r["loader_iterations"] * 1e3
+        it.close()
+        comm.finalize()
+    lips = obs["iteration"] * r["batch"] * comm.size / obs["elapsed_time"]
+    steady = (obs["iteration"] - 1) * r["batch"] * comm.size / rest
+    print(f"resnet50 loader: train_imagenet --loader, {obs['iteration']} "
+          f"iterations at batch {r['batch']} from a file-backed uint8 set "
+          f"of {r['loader_n_train']} in {obs['elapsed_time']:.4f} s, "
+          f"images/s per chip {lips / comm.size:.1f} (the first iteration "
+          f"included), {steady / comm.size:.1f} over the last "
+          f"{obs['iteration'] - 1}, host batch assembly {host_ms:.3f} "
+          f"ms/batch (native gather and pinned copy), last loss "
+          f"{obs['main/loss']:.6f}, launches {loader_counts} ({card})",
+          flush=True)
+    if not obs["main/loss"] == obs["main/loss"]:
+        raise PhaseError("train_imagenet --loader's loss is not finite")
+    if any(loader_counts.values()):
+        raise PhaseError(f"the ResNet path launched hand-written kernels: "
+                         f"{loader_counts}")
+    return {name: counts[name] + loader_counts[name] for name in counts}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one more served run, one more "
-                         "train call and 20 more MNIST steps into DIR "
-                         "(chrome traces and kernel tables)")
+                         "train call, 20 more MNIST and CIFAR steps and "
+                         "one more ResNet-50 call into DIR (chrome traces "
+                         "and kernel tables)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1466,6 +1872,9 @@ def main(argv=None) -> int:
         profile_training(args.seed, args.profile, card)
     torch.cuda.empty_cache()
     mnist_counts = mnist(card, args.profile)
+    cifar_counts = cifar(card, args.profile)
+    torch.cuda.empty_cache()
+    r50_counts = resnet50(args.seed, card, args.profile)
 
     sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:168"),
                "flash_bwd": ("flash_bwd.cu", "flash_attention.py:399"),
@@ -1481,8 +1890,10 @@ def main(argv=None) -> int:
             "source": f"chainermn_torch/csrc/{src}",
             "replaces": f"chainermn_tpu/ops/{tpu}",
             # serving and training both drive flash_fwd: its count is
-            # the sum of the main-path runs (the MNIST run adds none)
-            "launches": train_counts[name] + mnist_counts[name] + (
+            # the sum of the main-path runs (the MNIST, CIFAR and ResNet-50
+            # runs add none)
+            "launches": train_counts[name] + mnist_counts[name]
+            + cifar_counts[name] + r50_counts[name] + (
                 counts["flash_fwd"] if name == "flash_fwd" else 0),
             "max_abs_err": errs[name], **times[name]})
     print(json.dumps({"kernels": kernels}), flush=True)

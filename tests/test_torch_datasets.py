@@ -1,9 +1,11 @@
 """The port's datasets against the JAX package's: ``split_indices`` over
 a grid, the IDX and CIFAR files each package writes read back by the
 other (byte-identical files, equal arrays), the synthetic sets, and
-``scatter_dataset`` in a real 2-rank gloo world in both storage modes.
-Everything here is integer indexing or exact file bytes: compared
-exactly."""
+``scatter_dataset`` in a real 2-rank gloo world in both storage modes;
+the CIFAR example's uint8 generator, the image-folder dataset and the
+native prefetching loader against the JAX package's. Everything here is
+integer indexing, exact file bytes or the same decode of the same files:
+compared exactly."""
 
 import importlib.util
 import pickle
@@ -206,3 +208,94 @@ def test_scatter_dataset_two_ranks_both_storage_modes(tmp_path):
     assert got[1]["sends"] == []
     sends = got[0]["sends"]
     assert set(sends) == {1} and len(sends) >= 2 * 3
+
+
+@pytest.mark.parametrize("n_classes,seed", [(100, 0), (10, 3)])
+def test_synth_cifar_uint8_is_the_cifar_examples(n_classes, seed):
+    """``synth_cifar_uint8`` gives ``examples/cifar/make_cifar_dataset.py``
+    ``synth_uint8``'s images and labels for a seed, exactly."""
+    spec = importlib.util.spec_from_file_location(
+        "make_cifar_dataset", REPO / "examples/cifar/make_cifar_dataset.py")
+    mk = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mk)
+    got = port.synth_cifar_uint8(257, n_classes, seed)
+    want = mk.synth_uint8(257, n_classes, seed)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.uint8
+        np.testing.assert_array_equal(a, b)
+    assert got[0].shape == (257, 32, 32, 3)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_image_folder_reads_what_write_image_folder_wrote(tmp_path, train):
+    """``write_image_folder`` writes real JPEG files (3 classes x 4); the
+    port's ``ImageFolderDataset`` reads every one with its class label,
+    as the JAX package's reads the same folder (equal arrays: the same
+    decode, crop and flip for each access)."""
+    from chainermn_tpu.datasets import ImageFolderDataset as JaxFolder
+
+    root = str(tmp_path / "imgs")
+    assert port.write_image_folder(root, n_classes=3, per_class=4,
+                                   image_size=40, seed=1) == 12
+    ds = port.ImageFolderDataset(root, image_size=32, train=train, seed=3)
+    want = JaxFolder(root, image_size=32, train=train, seed=3)
+    assert len(ds) == 12 and ds.classes == want.classes
+    assert [int(ds[i][1]) for i in range(12)] == [0] * 4 + [1] * 4 + [2] * 4
+    for i in range(12):
+        x, y = ds[i]
+        assert x.shape == (32, 32, 3) and x.dtype == np.float32
+        assert 0.0 <= x.min() and x.max() <= 1.0
+        wx, wy = want[i]
+        np.testing.assert_array_equal(x, wx)
+        assert y == wy
+    with pytest.raises(FileNotFoundError):
+        port.ImageFolderDataset(str(tmp_path / "missing"))
+
+
+@pytest.mark.parametrize("shuffle,epochs,depth", [(True, 2, 2),
+                                                  (False, 1, 4)])
+def test_prefetching_loader_draws_the_jax_loaders_batches(shuffle, epochs,
+                                                          depth):
+    """The port's ``PrefetchingLoader`` (its own native build, numpy
+    batches for the CPU) gives the JAX loader's batches for a seed, in
+    order, with the same epoch counters; rows stay paired with their
+    labels (uint8 images, int32 labels, a ragged tail dropped)."""
+    from chainermn_tpu.training.loader import PrefetchingLoader as JaxLoader
+    from chainermn_torch.training.loader import PrefetchingLoader
+
+    rs = np.random.RandomState(0)
+    xs = rs.randint(0, 256, size=(70, 4, 4, 3)).astype(np.uint8)
+    ys = np.arange(70, dtype=np.int32)
+    got = PrefetchingLoader(xs, ys, 16, shuffle=shuffle, seed=7,
+                            epochs=epochs, depth=depth, device="cpu")
+    want = JaxLoader(xs, ys, 16, shuffle=shuffle, seed=7, epochs=epochs,
+                     depth=depth)
+    n = 0
+    for (gx, gy), (wx, wy) in zip(got, want):
+        assert isinstance(gx, np.ndarray) and gx.dtype == np.uint8
+        np.testing.assert_array_equal(gx, wx)
+        np.testing.assert_array_equal(gy, wy)
+        np.testing.assert_array_equal(gx, xs[gy])
+        assert (got.epoch, got.is_new_epoch) == (want.epoch,
+                                                 want.is_new_epoch)
+        n += 1
+    assert n == 4 * epochs and got.epoch == epochs
+    with pytest.raises(StopIteration):
+        next(got)
+    got.close()
+    want.close()
+    with pytest.raises(ValueError, match="exceeds"):
+        PrefetchingLoader(xs, ys, 71, device="cpu")
+
+
+def test_the_native_library_builds_into_build_from_the_ports_source():
+    """``ops/native.py`` compiles ``csrc/chainermn_native.cpp`` into
+    ``build/chainermn_torch/`` under a name that hashes the source, never
+    into ``native/``."""
+    from chainermn_torch.ops import native
+
+    lib = native.get_lib()
+    path = Path(lib._name)
+    assert path.parent == REPO / "build" / "chainermn_torch"
+    assert path.name.startswith("libchainermn_native-") and path.is_file()
+    assert native.get_lib() is lib

@@ -26,20 +26,29 @@ from chainermn_tpu.comm.xla import plan_buckets as jax_plan_buckets
 from chainermn_tpu.models.transformer import TransformerLM as JaxLM
 from chainermn_tpu.models.transformer import \
     lm_loss_with_aux as jax_lm_loss
+from chainermn_tpu.models.resnet import CifarResNet as JaxCifarResNet
 from chainermn_tpu.ops.fused_ce import fused_lm_loss as jax_fused_lm_loss
 from chainermn_tpu.training.step import \
     classifier_loss as jax_classifier_loss
 from chainermn_tpu.training.step import \
     make_data_parallel_train_step as jax_make_step
+from chainermn_tpu.training.step import make_eval_step as jax_make_eval_step
 from chainermn_torch.comm import create_communicator, plan_buckets
-from chainermn_torch.models.convert import params_from_flax
+from chainermn_torch.extensions import (AllreducePersistent,
+                                        allreduce_persistent)
+from chainermn_torch.links import batch_norm_layers
+from chainermn_torch.models.convert import (params_from_flax,
+                                            resnet_params_from_flax)
+from chainermn_torch.models.resnet import CifarResNet
 from chainermn_torch.models.transformer import (TransformerLM,
                                                 lm_loss_with_aux)
 from chainermn_torch.ops.fused_ce import fused_lm_loss
 from chainermn_torch.optimizers import create_multi_node_optimizer
 from chainermn_torch.training import (classifier_loss,
-                                      make_data_parallel_train_step)
+                                      make_data_parallel_train_step,
+                                      make_eval_step)
 from tests.test_torch_mp import assert_ranks_ok, run_world
+from tests.test_torch_resnet import _randomised
 
 TOL_LOSS = dict(rtol=1e-4, atol=1e-4)
 # parameters after a few AdamW steps: the two frameworks' gradients agree
@@ -447,10 +456,18 @@ def test_classifier_loss_is_the_default_loss_and_matches_jax(comm):
 
 
 def test_step_refuses_what_waits_for_later_slices(comm):
+    """``with_rng`` waits for the dropout slice; ``mutable`` names only
+    ``batch_stats``, and a batch-norm model needs it (the JAX step fails
+    on such a model without it); a scan needs a leading axis."""
     tm = _port_model(_flax_params())
     opt = create_multi_node_optimizer(_torch_adamw(tm), comm)
-    with pytest.raises(NotImplementedError, match="ResNet"):
+    with pytest.raises(ValueError, match="batch_stats"):
         make_data_parallel_train_step(tm, opt, comm, mutable=("bn",))
+    bn_model = CifarResNet(num_classes=10, depth=8, device="cpu")
+    bn_opt = create_multi_node_optimizer(
+        torch.optim.SGD(bn_model.parameters(), lr=0.1), comm)
+    with pytest.raises(ValueError, match="mutable"):
+        make_data_parallel_train_step(bn_model, bn_opt, comm)
     with pytest.raises(NotImplementedError, match="dropout"):
         make_data_parallel_train_step(tm, opt, comm, with_rng=True)
     step = make_data_parallel_train_step(tm, opt, comm, scan_steps=2,
@@ -498,3 +515,220 @@ def test_return_hidden_and_lm_loss_with_aux_match_jax():
                                           torch.from_numpy(y))
     np.testing.assert_allclose(loss_t.item(), float(loss_j), **TOL_LOSS)
     assert acc_t.item() == pytest.approx(float(acc_j), abs=1e-6)
+
+
+# -- batch statistics: the mutable step and the eval step -----------------
+#
+# The CIFAR ResNet of depth 8 (config #3's model, 16x16 images, 10
+# classes) with every parameter and statistic redrawn at random, SGD 0.02
+# with momentum 0.9 (optax's trace starts at zero, torch's buffer at the
+# first gradient: the same updates). At the CIFAR example's 0.05 one of
+# the two draws sits where SGD amplifies the f32 rounding of the updated
+# parameters about a thousandfold per step (the f64 oracle keeps them in
+# f64), and the third step's updates part by 4e-2; at 0.02 they stay
+# within 3e-5 of each other. The JAX step runs in f64
+# (``jax.enable_x64``, the model's dtype f64): flax's f32 batch norm
+# differentiates E[x²] − E[x]², whose two terms cancel where |mean| >> std,
+# and on these [0, 1) images its f32 gradients of the first stage are
+# 1e-2 (relative L2) from the f64 ones, where the port's f32 gradients,
+# which use Σdy and Σdy·x̂, are 1e-6 from them. Losses, parameters and
+# running statistics at 1e-4 (rtol and atol): the port's f32 rounding
+# carried through 8 layers and 3 steps.
+
+BN_LR = 0.02
+TOL_BN = dict(rtol=1e-4, atol=1e-4)
+
+
+def _mesh_comm(n):
+    return chainermn_tpu.create_communicator(
+        "xla", mesh=Mesh(np.array(jax.devices()[:n]), ("data",)))
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_case(cross_replica=False, n_dev=1):
+    """(flax model, params, batch_stats, xs [3, 8, 16, 16, 3], ys)."""
+    jm = JaxCifarResNet(num_classes=10, depth=8,
+                        comm=_mesh_comm(n_dev) if cross_replica else None)
+    rs = np.random.RandomState(21)
+    xs = rs.rand(3, 8, 16, 16, 3).astype(np.float32)
+    ys = rs.randint(0, 10, size=(3, 8)).astype(np.int32)
+    v = jax.eval_shape(jm.init, jax.random.PRNGKey(0), xs[0, :1])
+    return (jm, _randomised(v["params"], 22),
+            _randomised(v["batch_stats"], 23), xs, ys)
+
+
+def _jax_bn_run(jm, params, stats, xs, ys, n_dev=1, **kw):
+    """The JAX step in f64 (see above); results back in f32 numpy."""
+    f64 = functools.partial(jax.tree_util.tree_map,
+                            lambda a: np.asarray(a, np.float64))
+    f32 = functools.partial(jax.tree_util.tree_map,
+                            lambda a: np.asarray(a, np.float32))
+    with jax.enable_x64(True):
+        comm_j = _mesh_comm(n_dev)
+        opt = chainermn_tpu.create_multi_node_optimizer(
+            optax.sgd(BN_LR, momentum=0.9), comm_j)
+        step = jax_make_step(jm.clone(dtype=jnp.float64), opt, comm_j,
+                             mutable=("batch_stats",), donate=False, **kw)
+        params = f64(params)
+        state = (params, opt.init(params), {"batch_stats": f64(stats)})
+        losses = []
+        for x, y in zip(xs, ys):
+            state, m = step(state, x.astype(np.float64), y)
+            losses.append(float(m["main/loss"]))
+        return losses, f32(state[0]), f32(state[2]["batch_stats"])
+
+
+def _port_bn_model(comm, cross_replica, params, stats):
+    model = CifarResNet(num_classes=10, depth=8,
+                        comm=comm if cross_replica else None, device="cpu")
+    model.load_state_dict(resnet_params_from_flax(model, params, stats))
+    return model
+
+
+def _port_bn_run(comm, cross_replica, params, stats, xs, ys, **kw):
+    model = _port_bn_model(comm, cross_replica, params, stats)
+    opt = create_multi_node_optimizer(
+        torch.optim.SGD(model.parameters(), lr=BN_LR, momentum=0.9), comm)
+    step = make_data_parallel_train_step(model, opt, comm,
+                                         mutable=("batch_stats",), **kw)
+    losses = [step(torch.from_numpy(x), torch.from_numpy(y))[
+        "main/loss"].item() for x, y in zip(xs, ys)]
+    return losses, model
+
+
+def _assert_bn_state(model, params, stats):
+    want = resnet_params_from_flax(model, params, stats)
+    got = model.state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, msg=k, **TOL_BN)
+
+
+@pytest.mark.parametrize("cross_replica", [False, True])
+def test_mutable_step_matches_the_jax_step_on_one_rank(comm,
+                                                       cross_replica):
+    """Three SGD steps with ``mutable=("batch_stats",)`` against the JAX
+    step on a one-device mesh: losses, parameters and running
+    statistics, with per-replica and with cross-replica batch norm."""
+    jm, params, stats, xs, ys = _bn_case(cross_replica)
+    want, p_j, s_j = _jax_bn_run(jm, params, stats, xs, ys)
+    got, model = _port_bn_run(comm, cross_replica, params, stats, xs, ys)
+    np.testing.assert_allclose(got, want, **TOL_BN)
+    _assert_bn_state(model, p_j, s_j)
+
+
+@pytest.mark.parametrize("kw", [dict(grad_accum=2), dict(remat=True),
+                                dict(grad_accum=2, remat=True)],
+                         ids=["grad_accum", "remat", "both"])
+def test_grad_accum_and_remat_carry_batch_stats_as_the_jax_step(comm, kw):
+    """``grad_accum=2`` passes the statistics through the two
+    micro-batches in order and ``remat=True`` updates them once (the
+    recomputed forward leaves them alone): after three steps the running
+    statistics and parameters equal the JAX step's with the same
+    options. Without the freeze, remat would apply each update twice."""
+    jm, params, stats, xs, ys = _bn_case()
+    want, p_j, s_j = _jax_bn_run(jm, params, stats, xs, ys, **kw)
+    got, model = _port_bn_run(comm, False, params, stats, xs, ys, **kw)
+    np.testing.assert_allclose(got, want, **TOL_BN)
+    _assert_bn_state(model, p_j, s_j)
+
+
+_BN_WORKER = r'''
+import os, sys
+import numpy as np
+import torch
+from chainermn_torch.comm import create_communicator
+from chainermn_torch.models.resnet import CifarResNet
+from chainermn_torch.optimizers import create_multi_node_optimizer
+from chainermn_torch.training import make_data_parallel_train_step
+
+rank = int(os.environ["RANK"])
+data = torch.load(sys.argv[1], weights_only=False)
+comm = create_communicator("pure_nccl", device="cpu")
+half = slice(4 * rank, 4 * rank + 4)
+for cross, case in data["cases"].items():
+    model = CifarResNet(num_classes=10, depth=8,
+                        comm=comm if cross else None, device="cpu")
+    model.load_state_dict(case["init"])
+    opt = create_multi_node_optimizer(
+        torch.optim.SGD(model.parameters(), lr=0.02, momentum=0.9), comm)
+    step = make_data_parallel_train_step(model, opt, comm,
+                                         mutable=("batch_stats",))
+    losses = [step(torch.from_numpy(x[half]), torch.from_numpy(y[half]))[
+        "main/loss"].item() for x, y in zip(data["xs"], data["ys"])]
+    np.testing.assert_allclose(losses, case["losses"], rtol=1e-4, atol=1e-4)
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(v, case["final"][k], rtol=1e-4,
+                                   atol=1e-4, msg=f"{cross} {k}")
+comm.finalize()
+print(f"RANK{rank} OK", flush=True)
+'''
+
+
+def test_mutable_step_on_two_ranks_matches_the_jax_step_on_two_devices(
+        tmp_path):
+    """A 2-rank gloo world, each rank with half of each 8-image batch,
+    against the JAX step on a 2-device mesh over the whole batch, for
+    per-replica batch norm (running statistics pmean-ed after each step)
+    and cross-replica batch norm (statistics and their gradient sums
+    all-reduced): three steps' losses, and the parameters and running
+    statistics on both ranks (1e-4)."""
+    cases = {}
+    for cross in (False, True):
+        jm, params, stats, xs, ys = _bn_case(cross, n_dev=2)
+        losses, p_j, s_j = _jax_bn_run(jm, params, stats, xs, ys, n_dev=2)
+        model = CifarResNet(num_classes=10, depth=8, device="cpu")
+        cases[cross] = {
+            "init": resnet_params_from_flax(model, params, stats),
+            "final": resnet_params_from_flax(model, p_j, s_j),
+            "losses": losses}
+    path = tmp_path / "bn_case.pt"
+    torch.save({"cases": cases, "xs": xs, "ys": ys}, path)
+    assert_ranks_ok(run_world(_BN_WORKER, 2, timeout=180,
+                              args=[str(path)]))
+
+
+def test_eval_step_of_a_batch_norm_model_uses_the_running_stats(comm):
+    """``make_eval_step`` passes ``train=False``: its metrics equal the
+    JAX ``make_eval_step`` over the same state (1e-5) and the loss with
+    running statistics, differ from the train-mode loss, and leave the
+    running statistics untouched."""
+    jm, params, stats, xs, ys = _bn_case()
+    comm_j = _mesh_comm(1)
+    ev_j = jax_make_eval_step(jm, comm_j, extra_vars_in_state=True)
+    mj = ev_j((params, (), {"batch_stats": stats}), xs[0], ys[0])
+    model = _port_bn_model(comm, False, params, stats)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    mt = make_eval_step(model, comm)(torch.from_numpy(xs[0]),
+                                     torch.from_numpy(ys[0]))
+    for k in ("validation/main/loss", "validation/main/accuracy"):
+        np.testing.assert_allclose(mt[k].item(), float(mj[k]), rtol=1e-5,
+                                   atol=1e-5)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    with torch.no_grad():
+        train_loss, _ = classifier_loss(model, torch.from_numpy(xs[0]),
+                                        torch.from_numpy(ys[0]), train=True)
+    assert abs(train_loss.item() - mt["validation/main/loss"].item()) > 1e-3
+
+
+def test_allreduce_persistent_averages_running_stats_in_place(comm):
+    """``allreduce_persistent`` on a module reduces its batch norms'
+    running statistics (a world of one: the mean is the value itself, in
+    f32 even when the communicator sends gradients in bf16) and returns
+    the module; ``AllreducePersistent`` calls it with the getter's state
+    and hands the result to the setter."""
+    model = CifarResNet(num_classes=10, depth=8, device="cpu")
+    with torch.no_grad():
+        for m in batch_norm_layers(model):
+            m.running_mean.normal_()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    assert allreduce_persistent(model, comm) is model
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    c16 = create_communicator("pure_nccl", device="cpu",
+                              allreduce_grad_dtype=torch.bfloat16)
+    stats = {"m": torch.tensor([1.0 + 2.0 ** -9])}
+    seen = []
+    AllreducePersistent(lambda: stats, c16, seen.append)()
+    assert seen == [stats] and stats["m"].item() == 1.0 + 2.0 ** -9
