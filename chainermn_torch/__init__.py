@@ -14,17 +14,27 @@ iterators, ``Trainer``, the multi-node evaluator and the reports
 #2, ``python -m chainermn_torch.examples.train_imagenet``) and the CIFAR
 ResNet with ``MultiNodeBatchNormalization`` (config #3, ``python -m
 chainermn_torch.examples.train_cifar``) through the step's
-``mutable=("batch_stats",)``, with the native prefetching loader.
+``mutable=("batch_stats",)``, with the native prefetching loader;
+model parallelism through the differentiable point-to-point functions
+(``chainermn_torch.functions``) and ``MultiNodeChainList`` (config #5,
+``python -m chainermn_torch.examples.train_mnist_model_parallel``; the
+eager variant ``train_mnist_eager_p2p``), several ranks on one GPU
+through the host-staged ``non_cuda_aware`` communicator, and the LSTM
+seq2seq with BPE, greedy and beam decoding and BLEU (config #4,
+``python -m chainermn_torch.examples.train_seq2seq``).
 """
 
+from chainermn_torch import functions
 from chainermn_torch.comm import CommunicatorBase, create_communicator
 from chainermn_torch.datasets import create_empty_dataset, scatter_dataset
 from chainermn_torch.device import resolve_device
 from chainermn_torch.extensions import create_multi_node_evaluator
 from chainermn_torch.iterators import (create_multi_node_iterator,
                                        create_synchronized_iterator)
-from chainermn_torch.links import MultiNodeBatchNormalization
+from chainermn_torch.links import (MultiNodeBatchNormalization,
+                                   MultiNodeChainList)
 from chainermn_torch.models import MLP, CifarResNet, ResNet50
+from chainermn_torch.models.seq2seq import Seq2Seq
 from chainermn_torch.models.transformer import (TransformerLM, generate,
                                                 lm_loss_with_aux)
 from chainermn_torch.ops.fused_ce import fused_lm_loss
@@ -41,4 +51,5 @@ __all__ = ["resolve_device", "TransformerLM", "MLP", "ResNet50",
            "make_data_parallel_train_step", "make_eval_step",
            "lm_loss_with_aux", "fused_lm_loss", "scatter_dataset",
            "create_empty_dataset", "create_multi_node_iterator",
-           "create_synchronized_iterator", "create_multi_node_evaluator"]
+           "create_synchronized_iterator", "create_multi_node_evaluator",
+           "MultiNodeChainList", "Seq2Seq", "functions"]

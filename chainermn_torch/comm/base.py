@@ -74,12 +74,28 @@ class CommunicatorBase(abc.ABC):
         """Every rank's tensor, stacked on a new leading axis."""
 
     @abc.abstractmethod
+    def alltoall(self, x):
+        """All-to-all: this rank's chunk ``s`` (``x[s]``, leading axis
+        ``size``) goes to rank ``s``'s slot ``rank``."""
+
+    @abc.abstractmethod
+    def gather(self, x, root: int = 0):
+        """Every rank's tensor stacked in rank order on ``root``; None on
+        the other ranks."""
+
+    @abc.abstractmethod
+    def scatter(self, x, root: int = 0):
+        """``x[rank]`` of ``root``'s stacked tensor on each rank."""
+
+    @abc.abstractmethod
     def send(self, x, dest: int, tag: int = 0):
-        """Point-to-point send."""
+        """Point-to-point send of a tensor or a nested structure of
+        tensors; the receiver learns shapes and dtypes from the
+        message."""
 
     @abc.abstractmethod
     def recv(self, src: int, tag: int = 0):
-        """Point-to-point receive."""
+        """The next message ``src`` sent to this rank with ``tag``."""
 
     # -- object collectives (picklable host objects) ---------------------
 

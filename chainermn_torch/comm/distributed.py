@@ -26,9 +26,29 @@ construction, so objects never stage through NCCL or the GPU, and
 ``send_obj``/``recv_obj`` keep their ``tag`` (gloo matches tags, NCCL
 ignores them).
 
-Waiting for later slices (``NotImplementedError``, ROADMAP.md queue 1
-item 2): ``split``, array ``send``/``recv`` and the host-staged
-(``non_cuda_aware``) path.
+Array ``send``/``recv`` (and :meth:`DistributedCommunicator.exchange`,
+several of them at once) carry a tensor or a nested structure of
+tensors: a header over a second gloo group (structure, shapes, dtypes,
+tag and the pair's sequence number; :mod:`chainermn_torch.comm.p2p`),
+then the payload over the array route. Sends never wait for the
+receiver; their buffers are kept until sent. Over NCCL, which matches no
+tags, a receiver must take one sender's messages in send order, and a
+receive out of that order raises (the header's sequence number shows
+it) rather than return another message's data. NCCL payloads go as
+batches on the world's communicator, which the constructor creates and
+connects pair by pair with one all-to-all.
+
+``host_staged=True`` is the reference's ``non_cuda_aware`` communicator:
+the world is gloo, tensors stay on the rank's GPU, and every array
+collective, ``bcast_data``, ``allreduce_grad`` and ``send``/``recv``
+copies through page-locked host buffers (``staged_bytes`` counts the
+bytes copied each way). It is how several ranks share one GPU: NCCL
+refuses two ranks on one device, and a NCCL communicator that finds
+ranks sharing a GPU raises and names ``non_cuda_aware``; it never
+switches on its own.
+
+Waiting for a later slice (``NotImplementedError``, ROADMAP.md queue 1
+item 2): ``split``.
 """
 
 from __future__ import annotations
@@ -37,12 +57,14 @@ import functools
 import operator
 import os
 import pickle
-from typing import Any, Iterable, List, Optional, Sequence
+import socket
+from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from chainermn_torch.comm import p2p
 from chainermn_torch.comm.base import CommunicatorBase
 from chainermn_torch.device import resolve_device
 
@@ -53,6 +75,14 @@ __all__ = ["DistributedCommunicator", "plan_buckets",
 #: per step that their launch cost stays small, small enough that the
 #: packed copy of a 135M-parameter model's gradients is not doubled at once
 DEFAULT_BUCKET_BYTES = 25 * 2 ** 20
+
+#: bytes of unfinished gloo sends a rank keeps before it waits for the
+#: oldest (a gloo send finishes once the receiver has posted its receive)
+PENDING_SEND_BYTES = 64 * 2 ** 20
+
+#: the fixed size of a point-to-point header message (a longer header
+#: sends its rest in a second message)
+HEADER_BYTES = 1024
 
 _LATER = ("waits for a later slice of the port (ROADMAP.md queue 1 item "
           "2, comm/)")
@@ -93,6 +123,26 @@ def _tensors(tree) -> List[torch.Tensor]:
     return [t for v in tree for t in _tensors(v)]
 
 
+_SHARED_GPU = ("{} share one GPU; NCCL refuses two ranks on one device. "
+               "Run several ranks on one card with "
+               "create_communicator('non_cuda_aware') (host-staged, gloo)")
+
+
+def duplicate_devices(ids: Sequence[Any]) -> List[List[int]]:
+    """Groups of ranks (each of two or more) whose device ids are equal;
+    ``ids[r]`` is rank r's ``(host, GPU)``."""
+    where = {}
+    for r, i in enumerate(ids):
+        where.setdefault(i, []).append(r)
+    return [rs for rs in where.values() if len(rs) > 1]
+
+
+def _device_id(dev: torch.device):
+    """This host and the GPU's UUID (its index where torch gives none)."""
+    props = torch.cuda.get_device_properties(dev)
+    return socket.gethostname(), str(getattr(props, "uuid", dev.index))
+
+
 def _tree_map(fn, *trees):
     """``fn`` over the leaves of nested dicts, lists and tuples of one
     structure, as ``jax.tree_util.tree_map`` maps them (None is an empty
@@ -125,14 +175,19 @@ class DistributedCommunicator(CommunicatorBase):
         and without ``device="cpu"`` it raises.
       allreduce_grad_dtype: communication dtype of :meth:`allreduce_grad`
         (e.g. ``torch.bfloat16``), or None for the gradients' own.
+      host_staged: the ``non_cuda_aware`` path (module docstring): a gloo
+        world whose array operations copy through host memory.
     """
 
     def __init__(self, device=None,
-                 allreduce_grad_dtype: Optional[torch.dtype] = None):
+                 allreduce_grad_dtype: Optional[torch.dtype] = None,
+                 host_staged: bool = False):
         dev = resolve_device(device)
         self._owns_group = False
+        self._host = None
         if not dist.is_initialized():
-            backend = "nccl" if dev.type == "cuda" else "gloo"
+            backend = ("nccl" if dev.type == "cuda" and not host_staged
+                       else "gloo")
             if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
                 dist.init_process_group(backend, init_method="env://")
             else:
@@ -154,8 +209,35 @@ class DistributedCommunicator(CommunicatorBase):
         self.device = dev
         # the object plane: a gloo group over every rank (collective call)
         self._host = dist.new_group(backend="gloo")
+        # array point-to-point headers (and gloo payloads): their own
+        # group, so their tags never meet send_obj's
+        self._p2p = dist.new_group(backend="gloo")
+        gloo_world = dist.get_backend() == "gloo"
+        self._host_staged = host_staged and dev.type == "cuda"
+        # array collectives' group: the world, or for a host-staged
+        # communicator in a NCCL world a gloo group over every rank
+        self._arrays = (dist.new_group(backend="gloo")
+                        if host_staged and not gloo_world else None)
+        self._nccl_p2p = not gloo_world and not host_staged
+        self._channels = p2p.Channels(ordered=self._nccl_p2p)
+        self._pending: List[Tuple[Any, torch.Tensor]] = []
+        self._pending_bytes = 0
+        self.staged_bytes = 0
         self.allreduce_grad_dtype = allreduce_grad_dtype
-        self.name = "pure_nccl"
+        self.name = "non_cuda_aware" if host_staged else "pure_nccl"
+        if self._nccl_p2p and self._size > 1:
+            shared = duplicate_devices(self.allgather_obj(_device_id(dev)))
+            if shared:
+                self.finalize()
+                raise RuntimeError(_SHARED_GPU.format(f"ranks {shared}"))
+            # make the world's NCCL communicator and connect every pair of
+            # ranks now, with an all-to-all of 1 MiB a pair (large enough
+            # to open the channels a large message uses): NCCL's first
+            # send to a peer blocks until that peer's first NCCL call,
+            # which a receiver still waiting for another header never
+            # makes; and the point-to-point batches ride this communicator
+            probe = torch.zeros(self._size * 2 ** 18, device=dev)
+            dist.all_to_all_single(torch.empty_like(probe), probe)
 
     # -- topology -------------------------------------------------------
 
@@ -183,6 +265,33 @@ class DistributedCommunicator(CommunicatorBase):
     def inter_size(self) -> int:
         return -(-self._size // self._intra_size)
 
+    # -- host staging (the non_cuda_aware path) ------------------------
+
+    def _out(self, t: torch.Tensor, copy: bool = False) -> torch.Tensor:
+        """``t`` as the array route takes it: contiguous (a new tensor
+        with ``copy``), and for a host-staged communicator copied into
+        page-locked host memory."""
+        if not self._host_staged or t.device.type != "cuda":
+            return t.clone(memory_format=torch.contiguous_format) \
+                if copy else t.contiguous()
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t)
+        self.staged_bytes += buf.numel() * buf.element_size()
+        return buf
+
+    def _in(self, buf: torch.Tensor) -> torch.Tensor:
+        """A tensor the array route delivered, on this rank's device."""
+        if not self._host_staged:
+            return buf
+        self.staged_bytes += buf.numel() * buf.element_size()
+        return buf.to(self.device)
+
+    def _empty(self, shape, dtype) -> torch.Tensor:
+        """A receive buffer on the array route."""
+        if self._host_staged:
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
     # -- array collectives ----------------------------------------------
 
     def _op(self, op: str):
@@ -193,32 +302,188 @@ class DistributedCommunicator(CommunicatorBase):
     def allreduce(self, x, op: str = "sum"):
         """All-reduce of this rank's tensor → a new tensor."""
         red = self._op(op)
-        y = torch.as_tensor(x).clone()
-        dist.all_reduce(y, red)
+        buf = self._out(torch.as_tensor(x), copy=True)
+        dist.all_reduce(buf, red, group=self._arrays)
+        y = self._in(buf)
         return y / self._size if op == "mean" else y
 
     def bcast(self, x, root: int = 0):
         """``root``'s tensor on every rank (a new tensor)."""
         self._check_root(root)
-        y = torch.as_tensor(x).clone().contiguous()
-        dist.broadcast(y, root)
-        return y
+        x = torch.as_tensor(x)
+        buf = (self._out(x, copy=True) if self._rank == root
+               else self._empty(x.shape, x.dtype))
+        dist.broadcast(buf, root, group=self._arrays)
+        return self._in(buf)
 
     def allgather(self, x):
         """Every rank's tensor stacked on axis 0 (rank order)."""
-        x = torch.as_tensor(x).contiguous()
-        out = [torch.empty_like(x) for _ in range(self._size)]
-        dist.all_gather(out, x)
-        return torch.stack(out)
+        buf = self._out(torch.as_tensor(x))
+        out = [self._empty(buf.shape, buf.dtype) for _ in range(self._size)]
+        dist.all_gather(out, buf, group=self._arrays)
+        return self._in(torch.stack(out))
+
+    def alltoall(self, x):
+        """``x``'s leading axis splits into ``size`` equal chunks: chunk
+        ``s`` goes to rank ``s``, and chunk ``r`` of the result is rank
+        ``r``'s chunk for this rank."""
+        x = torch.as_tensor(x)
+        if x.ndim == 0 or x.shape[0] % self._size:
+            raise ValueError(f"alltoall expects a leading axis divisible "
+                             f"by {self._size}, got shape "
+                             f"{tuple(x.shape)}")
+        buf = self._out(x)
+        out = self._empty(buf.shape, buf.dtype)
+        dist.all_to_all_single(out, buf, group=self._arrays)
+        return self._in(out)
+
+    def gather(self, x, root: int = 0):
+        """Every rank's tensor stacked in rank order on ``root``; None on
+        the other ranks (the reference's ``gather``)."""
+        self._check_root(root)
+        buf = self._out(torch.as_tensor(x))
+        out = ([self._empty(buf.shape, buf.dtype)
+                for _ in range(self._size)]
+               if self._rank == root else None)
+        dist.gather(buf, out, dst=root, group=self._arrays)
+        return self._in(torch.stack(out)) if out is not None else None
+
+    def scatter(self, x, root: int = 0):
+        """``x[rank]`` of ``root``'s tensor ``x`` (leading axis ``size``)
+        on each rank; the other ranks' ``x`` is not read (None will do):
+        the shape and dtype come from the root."""
+        self._check_root(root)
+        meta = None
+        if self._rank == root:
+            x = torch.as_tensor(x)
+            if x.ndim == 0 or x.shape[0] != self._size:
+                raise ValueError(f"scatter expects a leading axis of "
+                                 f"{self._size} on the root, got shape "
+                                 f"{tuple(x.shape)}")
+            meta = (tuple(x.shape[1:]), str(x.dtype))
+        shape, dtype = self.bcast_obj(meta, root)
+        out = self._empty(shape, p2p.parse_dtype(dtype))
+        parts = (list(self._out(x).unbind(0)) if self._rank == root
+                 else None)
+        dist.scatter(out, parts, src=root, group=self._arrays)
+        return self._in(out)
 
     def split(self, color: int, key: int):
         raise NotImplementedError(f"split {_LATER}")
 
+    # -- array point-to-point -------------------------------------------
+
     def send(self, x, dest: int, tag: int = 0):
-        raise NotImplementedError(f"send {_LATER}")
+        """Send a tensor or a nested structure of tensors to ``dest`` on
+        the channel ``tag``. It returns at once; the receiver learns the
+        structure, shapes and dtypes from the message's header."""
+        self.exchange(sends=[(dest, tag, x)])
 
     def recv(self, src: int, tag: int = 0):
-        raise NotImplementedError(f"recv {_LATER}")
+        """The next message ``src`` sent to this rank on ``tag``, on this
+        rank's device."""
+        return self.exchange(recvs=[(src, tag)])[0]
+
+    def exchange(self, sends: Sequence[Tuple[int, int, Any]] = (),
+                 recvs: Sequence[Tuple[int, int]] = ()) -> List[Any]:
+        """Several point-to-point messages at once: ``sends`` of
+        ``(dest, tag, tree)`` and ``recvs`` of ``(src, tag)``; returns the
+        received trees in ``recvs``' order. Headers go first, every send
+        before any receive, so two ranks may swap messages in one call."""
+        outgoing, wanted = [], []
+        for dest, tag, tree in sends:
+            self._check_peer(dest)
+            p2p.check_tag(tag)
+            leaves, spec = p2p.flatten(tree)
+            leaves = [t.detach() for t in leaves]
+            header = self._channels.header(dest, tag, spec, leaves)
+            self._isend_header(header, dest, p2p.wire_tags(tag)[0])
+            outgoing.append((dest, tag, leaves))
+        for src, tag in recvs:
+            self._check_peer(src)
+            p2p.check_tag(tag)
+            header = self._recv_header(src, p2p.wire_tags(tag)[0])
+            wanted.append((src, tag, header,
+                           self._channels.accept(src, tag, header)))
+        if self._nccl_p2p:
+            return self._nccl_payloads(outgoing, wanted)
+        for dest, tag, leaves in outgoing:
+            for t in leaves:
+                buf = self._out(t)
+                self._keep(dist.isend(buf, dest, group=self._p2p,
+                                      tag=p2p.wire_tags(tag)[1]), buf)
+        out = []
+        for src, tag, header, metas in wanted:
+            bufs = [self._empty(shape, dtype) for shape, dtype in metas]
+            works = [dist.irecv(b, src, group=self._p2p,
+                                tag=p2p.wire_tags(tag)[1]) for b in bufs]
+            for w in works:
+                w.wait()
+            out.append(p2p.unflatten(header["spec"],
+                                     [self._in(b) for b in bufs]))
+        return out
+
+    def _nccl_payloads(self, outgoing, wanted):
+        """The payloads over NCCL, as one batch: NCCL groups the sends
+        and receives, so two ranks may swap messages, and the batch rides
+        the world's communicator (made and connected at construction)."""
+        ops = [dist.P2POp(dist.isend, t.to(self.device).contiguous(), dest)
+               for dest, _, leaves in outgoing for t in leaves]
+        received = []
+        for src, _, header, metas in wanted:
+            bufs = [self._empty(shape, dtype) for shape, dtype in metas]
+            ops += [dist.P2POp(dist.irecv, b, src) for b in bufs]
+            received.append((header["spec"], bufs))
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+        return [p2p.unflatten(spec, bufs) for spec, bufs in received]
+
+    def _keep(self, work, buf: torch.Tensor) -> None:
+        """Hold an unfinished gloo send's buffer; past
+        ``PENDING_SEND_BYTES`` wait for the oldest sends."""
+        self._pending.append((work, buf))
+        self._pending_bytes += buf.numel() * buf.element_size()
+        while self._pending and self._pending_bytes > PENDING_SEND_BYTES:
+            self._pop_pending()
+
+    def _pop_pending(self) -> None:
+        work, buf = self._pending.pop(0)
+        work.wait()
+        self._pending_bytes -= buf.numel() * buf.element_size()
+
+    def _drain(self) -> None:
+        """Wait for every unfinished send."""
+        while self._pending:
+            self._pop_pending()
+
+    def _isend_header(self, header: dict, dest: int, tag: int) -> None:
+        """A header as one message of ``HEADER_BYTES`` (its pickle's
+        length, then the pickle), and what does not fit as a second: one
+        round of gloo's rendezvous for a usual header instead of two."""
+        raw = pickle.dumps(header, pickle.HIGHEST_PROTOCOL)
+        first = bytearray(HEADER_BYTES)
+        first[:8] = len(raw).to_bytes(8, "little")
+        first[8:8 + len(raw)] = raw[:HEADER_BYTES - 8]
+        parts = [first]
+        if len(raw) > HEADER_BYTES - 8:
+            parts.append(bytearray(raw[HEADER_BYTES - 8:]))
+        for part in parts:
+            t = torch.frombuffer(part, dtype=torch.uint8)
+            self._keep(dist.isend(t, dest, group=self._p2p, tag=tag), t)
+
+    def _recv_header(self, src: int, tag: int) -> dict:
+        first = torch.empty(HEADER_BYTES, dtype=torch.uint8)
+        dist.recv(first, src, group=self._p2p, tag=tag)
+        first = first.numpy().tobytes()
+        n = int.from_bytes(first[:8], "little")
+        raw = first[8:8 + n]
+        if n > HEADER_BYTES - 8:
+            rest = torch.empty(n - (HEADER_BYTES - 8), dtype=torch.uint8)
+            dist.recv(rest, src, group=self._p2p, tag=tag)
+            raw += rest.numpy().tobytes()
+        # a header a rank of this job pickled in _isend_header
+        return pickle.loads(raw)
 
     # -- object collectives (pickled over the gloo host group) ----------
 
@@ -317,7 +582,12 @@ class DistributedCommunicator(CommunicatorBase):
         with ``root``'s, in place; returns ``params``."""
         self._check_root(root)
         for t in _tensors(params):
-            dist.broadcast(t.data, root)
+            buf = (self._out(t.data) if self._rank == root
+                   or not self._host_staged
+                   else self._empty(t.shape, t.dtype))
+            dist.broadcast(buf, root, group=self._arrays)
+            if buf.data_ptr() != t.data.data_ptr():
+                t.data.copy_(self._in(buf))
         return params
 
     @torch.no_grad()
@@ -343,7 +613,9 @@ class DistributedCommunicator(CommunicatorBase):
                     DEFAULT_BUCKET_BYTES):
                 flat = torch.cat([leaves[i].reshape(-1).to(cdt)
                                   for i in bucket])
-                dist.all_reduce(flat, red)
+                buf = self._out(flat)
+                dist.all_reduce(buf, red, group=self._arrays)
+                flat = self._in(buf)
                 off = 0
                 for i in bucket:
                     g = leaves[i]
@@ -358,18 +630,26 @@ class DistributedCommunicator(CommunicatorBase):
     # -- misc -----------------------------------------------------------
 
     def barrier(self) -> None:
-        if self.device.type == "cuda":
+        """Wait for every rank (and for this rank's unfinished sends)."""
+        self._drain()
+        if dist.get_backend() == "nccl":
             dist.barrier(device_ids=[self.device.index])
         else:
             dist.barrier()
 
     def finalize(self) -> None:
-        """Destroy the host group, and the process group if this
-        communicator created it."""
+        """Wait for unfinished sends, then destroy this communicator's
+        groups, and the process group if this communicator created
+        it."""
+        if self._host is None:
+            return
+        self._drain()
         if dist.is_initialized():
             if self._owns_group:
                 dist.destroy_process_group()
-            elif self._host is not None:
-                dist.destroy_process_group(self._host)
+            else:
+                for g in (self._host, self._p2p, self._arrays):
+                    if g is not None:
+                        dist.destroy_process_group(g)
         self._owns_group = False
         self._host = None

@@ -4,7 +4,11 @@ Counterpart of ``chainermn_tpu/comm/factory.py``: the reference
 ChainerMN's communicator names all map to one
 :class:`~chainermn_torch.comm.distributed.DistributedCommunicator` (NCCL
 collectives through ``torch.distributed`` choose their own algorithm for
-the topology), so reference scripts run unchanged.
+the topology), so reference scripts run unchanged. ``non_cuda_aware`` is
+the one name with a path of its own: a gloo world whose array operations
+stage through host memory (``host_staged=True``), the way several ranks
+share one GPU. Only that name selects it; a NCCL communicator whose ranks
+share a GPU raises and names it.
 """
 
 from __future__ import annotations
@@ -36,9 +40,9 @@ def create_communicator(communicator_name: str = "pure_nccl",
     """Create a communicator by name (any of the reference's names).
 
     ``device`` is ``cuda`` by default (NCCL) and ``cpu`` only when asked
-    (gloo). ``mesh``/``axes`` (multi-axis meshes) and the host-staged
-    ``non_cuda_aware`` path wait for later slices (ROADMAP.md queue 1
-    item 2)."""
+    (gloo). ``non_cuda_aware`` stages every array operation through host
+    memory over gloo. ``mesh``/``axes`` (multi-axis meshes) wait for a
+    later slice (ROADMAP.md queue 1 item 2)."""
     name = communicator_name
     if name not in _COMM_NAMES:
         raise ValueError(f"unknown communicator {name!r}; expected one of "
@@ -47,12 +51,9 @@ def create_communicator(communicator_name: str = "pure_nccl",
         raise NotImplementedError(
             "mesh/axes communicators wait for a later slice of the port "
             "(ROADMAP.md queue 1 item 2)")
-    if name == "non_cuda_aware":
-        raise NotImplementedError(
-            "the host-staged 'non_cuda_aware' path waits for a later slice "
-            "of the port (ROADMAP.md queue 1 item 2)")
     comm = DistributedCommunicator(device=device,
-                                   allreduce_grad_dtype=allreduce_grad_dtype)
+                                   allreduce_grad_dtype=allreduce_grad_dtype,
+                                   host_staged=name == "non_cuda_aware")
     if name == "single_node" and comm.inter_size > 1:
         raise ValueError("'single_node' requires every rank on one node")
     comm.name = name

@@ -20,6 +20,8 @@ from typing import Optional, Sequence
 import numpy as np
 
 from chainermn_torch.comm.base import CommunicatorBase
+from chainermn_torch.datasets.bpe import (BPETokenizer, train_bpe,
+                                          train_bpe_file)
 from chainermn_torch.datasets.standard_formats import (load_cifar, load_idx,
                                                        load_mnist,
                                                        save_cifar, save_idx,
@@ -36,7 +38,7 @@ __all__ = ["SubDataset", "ListDataset", "split_indices", "scatter_dataset",
            "synth_cifar_uint8", "ImageFolderDataset", "write_image_folder",
            "synthetic_mnist", "synthetic_cifar", "synthetic_translation",
            "load_idx", "save_idx", "load_mnist", "save_mnist", "load_cifar",
-           "save_cifar"]
+           "save_cifar", "BPETokenizer", "train_bpe", "train_bpe_file"]
 
 # tag of scatter_dataset's payload stream (the JAX package's)
 _SCATTER_TAG = 0x5CA77E0

@@ -16,7 +16,17 @@ params)`` or loads a saved tree).
   ``running_var`` (plus torch's ``num_batches_tracked``, 0, which flax
   does not keep, for ``torch.nn.BatchNorm2d``).
 
-:func:`mlp_params_from_flax` converts the MLP.
+:func:`mlp_params_from_flax` converts the MLP, and
+:func:`dense_stage_params_from_flax` a chain-list stage built from flax
+``Dense`` layers (its ``nn.Linear`` layers in order ↔ ``Dense_0``,
+``Dense_1``, ...).
+:func:`seq2seq_params_from_flax` converts the seq2seq model: embeddings
+and the projection as above; each flax ``OptimizedLSTMCell_k`` (input
+kernels ``ii/if/ig/io`` without bias, recurrent kernels ``hi/hf/hg/ho``
+with bias, gate order i, f, g, o, carry ``(c, h)``) becomes layer ``k``
+of the ``nn.LSTM`` (the same gate order, carry ``(h, c)``):
+``weight_ih_lk`` stacks the transposed input kernels, ``weight_hh_lk``
+the recurrent ones, ``bias_hh_lk`` the biases, ``bias_ih_lk`` is zero.
 :func:`resnet_params_from_flax` converts a ResNet: each convolution,
 batch norm and dense layer of the port's model from the flax layer of the
 same path (the port's ``MultiNodeBatchNormalization`` keeps no
@@ -47,7 +57,8 @@ import numpy as np
 import torch
 
 __all__ = ["convert_layer", "params_from_flax", "mlp_params_from_flax",
-           "resnet_params_from_flax"]
+           "resnet_params_from_flax", "dense_stage_params_from_flax",
+           "seq2seq_params_from_flax"]
 
 
 def _t(x) -> torch.Tensor:
@@ -114,6 +125,57 @@ def mlp_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         sd.update(convert_layer("dense", tree[f"Dense_{i}"],
                                 prefix=f"l{i + 1}."))
     return sd
+
+
+def dense_stage_params_from_flax(module: torch.nn.Module,
+                                 tree: Mapping) -> Dict[str, torch.Tensor]:
+    """One chain-list stage's flax ``params`` (``Dense_0``, ``Dense_1``,
+    ... and nothing else) → a state dict for ``module``, whose
+    ``nn.Linear`` layers, in registration order, are those Dense
+    layers."""
+    linears = [n for n, m in module.named_modules()
+               if isinstance(m, torch.nn.Linear)]
+    tree = tree.get("params", tree)
+    if sorted(tree) != sorted(f"Dense_{i}" for i in range(len(linears))):
+        raise ValueError(f"stage has {len(linears)} Linear layers, the "
+                         f"flax tree {sorted(tree)}")
+    sd: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(linears):
+        sd.update(convert_layer("dense", tree[f"Dense_{i}"],
+                                prefix=name + "."))
+    return sd
+
+
+_GATES = "ifgo"
+
+
+def _lstm_layers(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    k = 0
+    while f"OptimizedLSTMCell_{k}" in tree:
+        cell = tree[f"OptimizedLSTMCell_{k}"]
+        sd[f"{prefix}weight_ih_l{k}"] = torch.cat(
+            [_t(cell["i" + g]["kernel"]).T for g in _GATES]).contiguous()
+        sd[f"{prefix}weight_hh_l{k}"] = torch.cat(
+            [_t(cell["h" + g]["kernel"]).T for g in _GATES]).contiguous()
+        sd[f"{prefix}bias_hh_l{k}"] = torch.cat(
+            [_t(cell["h" + g]["bias"]) for g in _GATES])
+        sd[f"{prefix}bias_ih_l{k}"] = torch.zeros_like(
+            sd[f"{prefix}bias_hh_l{k}"])
+        k += 1
+    return sd
+
+
+def seq2seq_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``Seq2Seq`` ``params`` (numpy leaves) → a state dict for
+    :class:`chainermn_torch.models.seq2seq.Seq2Seq` (mapping in the module
+    docstring)."""
+    tree = tree.get("params", tree)
+    return {**convert_layer("embed", tree["src_embed"], prefix="src_embed."),
+            **convert_layer("embed", tree["tgt_embed"], prefix="tgt_embed."),
+            **convert_layer("dense", tree["proj"], prefix="proj."),
+            **_lstm_layers(tree["encoder"], "encoder."),
+            **_lstm_layers(tree["decoder"], "decoder.")}
 
 
 def _flax_path(name: str, kind: str, cross_replica: bool) -> List[str]:

@@ -72,7 +72,25 @@ the final line:
    finite and changed, and no hand-written kernel may launch; then
    ``train_imagenet --loader`` for 8 iterations at batch 256 from a
    file-backed uint8 set (images/s per chip, host batch assembly);
-9. a ``{"kernels": [...]}`` line, the card line, and last
+9. seq2seq — config #4 through the port's seq2seq example
+   (``chainermn_torch.examples.train_seq2seq``) at the JAX module's full
+   width (2 LSTM layers x 256 units, vocabulary 40,000 on both sides), one
+   NCCL rank, per-rank batch 64, bucket 32, synthetic pairs, f32 with TF32
+   off: its first 8 losses must match the same steps on the CPU, the loss
+   must fall, greedy and beam-4 decoding must run on the card, and no
+   hand-written kernel may launch (ms/step, target tokens/s, peak memory,
+   BLEU);
+10. model_parallel — config #5: ``train_mnist_model_parallel`` as a
+   world of 4 processes on this one card through
+   ``create_communicator("non_cuda_aware")`` (the example's widths, 4
+   stages); its first losses must equal the unsplit MLP's on the card,
+   the loss must fall, and no rank may launch a hand-written kernel
+   (ms/step, host-staged bytes per step); then ``train_mnist_eager_p2p``
+   on 2 ranks, one activation's round trip between two host-staged ranks
+   beside raw gloo and the copies alone, and two ranks that ask for NCCL
+   on one card must refuse and name ``non_cuda_aware``; a failed rank
+   fails the run;
+11. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one, or when run
@@ -1760,14 +1778,350 @@ def resnet50(seed: int, card: str, profile_dir=None):
     return {name: counts[name] + loader_counts[name] for name in counts}
 
 
+SEQ2SEQ = dict(n_train=8192, epochs=2, batch=64, bucket=32, units=256,
+               layers=2, vocab=40000, check_steps=8, beam=4)
+# config #4's first 8 steps on the card vs the same steps on the CPU from
+# the same parameters and batches, f32 on both (TF32 off): cuDNN's LSTM and
+# the 40,000-wide projection sum in other orders than the CPU's (~1e-6
+# relative a step), and 8 Adam steps (lr * g / |g| moves weights whose
+# gradient is near zero by a visible part of lr) carry that 10-100x; a
+# wrong gradient moves the loss by more than 1e-2 within those steps:
+#   |loss_card - loss_cpu| <= 1e-3 |loss_cpu|
+TOL_SEQ2SEQ_LOSS_REL = 1e-3
+
+
+def seq2seq(card: str, profile_dir=None):
+    """Config #4 through the port's seq2seq example
+    (``chainermn_torch.examples.train_seq2seq``: ``build``, its training
+    loop and its translate demo): the JAX module's full width
+    (``Seq2Seq()`` defaults: 2 layers x 256 units, vocabulary 40,000 on
+    both sides), one NCCL rank, per-rank batch 64, bucket 32, synthetic
+    pairs, f32 with TF32 off. Its first 8 losses are first run on the CPU
+    from the same parameters and batches. With ``profile_dir``, 20 more
+    steps run under torch.profiler (kernel and host tables)."""
+    import torch
+
+    from chainermn_torch.examples import train_seq2seq
+    from chainermn_torch.ops import _cuda
+
+    c, k = SEQ2SEQ, SEQ2SEQ["check_steps"]
+    argv = ["--communicator", "pure_nccl", "--epoch", str(c["epochs"]),
+            "--unit", str(c["units"]), "--layer", str(c["layers"]),
+            "--vocab", str(c["vocab"]), "--n-train", str(c["n_train"]),
+            "--batchsize", str(c["batch"]), "--bucket", str(c["bucket"])]
+    args = train_seq2seq.parse_args(argv + ["--device", "cpu"])
+    run = train_seq2seq.build(args)
+    cpu = [float(run.step(*(torch.from_numpy(a) for a in
+                            train_seq2seq.pad_batch(run.iterator.next(),
+                                                    args.bucket)))
+                 ["main/loss"]) for _ in range(k)]
+    run.comm.finalize()
+    del run
+
+    args = train_seq2seq.parse_args(argv)
+    run = train_seq2seq.build(args)
+    step, tokens = run.step, [0]
+
+    def counting_step(src, src_len, tgt_in, tgt_out):
+        tokens[0] += int((tgt_out != 0).sum())      # target tokens (host)
+        return step(src, src_len, tgt_in, tgt_out)
+
+    run.step = counting_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    history, _ = train_seq2seq.train_loop(run, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    greedy, bleu = train_seq2seq.translate_demo(run, args)
+    args.beam = c["beam"]
+    beam, beam_bleu = train_seq2seq.translate_demo(run, args)
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    peak = torch.cuda.max_memory_allocated()
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        batches = [train_seq2seq.pad_batch(run.iterator.next(), args.bucket)
+                   for _ in range(20)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for arrays in batches:
+                run.step(*(torch.from_numpy(a) for a in arrays))
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        busy_us = write_kernel_table(prof, profile_dir, "seq2seq", card,
+                                     pwall)
+        write_host_table(prof, profile_dir, "seq2seq", card, 20)
+        print(f"profile seq2seq: wall {pwall:.4f} s for 20 steps (profiler "
+              f"on, batches assembled before), device busy "
+              f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / pwall:.4f} of "
+              f"wall; device ms by kind " + ", ".join(
+                  f"{g} {t:.3f}" for g, t in kernel_groups(prof).items())
+              + f" ({card})", flush=True)
+    run.comm.finalize()
+    losses = [float(m["main/loss"]) for m in history]
+    steps = len(losses)
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses[:k], cpu))
+    print(f"seq2seq: Seq2Seq {c['layers']}x{c['units']} LSTM, vocabulary "
+          f"{c['vocab']}, {steps} steps ({c['epochs']} epochs of "
+          f"{c['n_train']} synthetic pairs, per-rank batch {c['batch']}, "
+          f"bucket {c['bucket']}, f32) in {wall:.4f} s, "
+          f"{wall / steps * 1e3:.3f} ms/step, target tokens/s per "
+          f"chip {tokens[0] / wall:.1f}, peak memory "
+          f"{peak / 2 ** 30:.4f} GiB, first loss {losses[0]:.6g}, final "
+          f"loss {losses[-1]:.6g}, BLEU greedy {bleu:.4f} beam-{c['beam']} "
+          f"{beam_bleu:.4f}, first {k} losses card "
+          f"{[round(x, 6) for x in losses[:k]]} cpu "
+          f"{[round(x, 6) for x in cpu]} worst relative difference "
+          f"{err:.2e} (tolerance {TOL_SEQ2SEQ_LOSS_REL}), launches {counts} "
+          f"({card})", flush=True)
+    if err > TOL_SEQ2SEQ_LOSS_REL:
+        raise PhaseError(f"the card's first {k} seq2seq losses are "
+                         f"{err:.2e} (relative) from the CPU's, above "
+                         f"{TOL_SEQ2SEQ_LOSS_REL}")
+    if not losses[-1] < losses[0]:
+        raise PhaseError(f"the seq2seq loss did not fall: {losses[0]} -> "
+                         f"{losses[-1]}")
+    for name, hyp in (("greedy", greedy), (f"beam-{c['beam']}", beam)):
+        if hyp.shape != (4, c["bucket"]) or not (
+                (hyp >= 0) & (hyp < c["vocab"])).all():
+            raise PhaseError(f"{name} decoding gave {hyp.shape} tokens "
+                             f"outside [0, {c['vocab']})")
+    if any(counts.values()):
+        raise PhaseError(f"the seq2seq path launched hand-written kernels: "
+                         f"{counts}")
+    return counts
+
+
+MODEL_PARALLEL = dict(ranks=4, stages=4, unit=200, batch=256, epochs=2,
+                      n_train=2048, check_steps=4)
+# config #5 split over 4 ranks on one card vs the unsplit MLP on the card:
+# the same Linear and ReLU products on the same device, shapes and
+# parameters, and host staging copies bits exactly, so the losses are
+# expected to agree to the bit; the bound leaves room for a library that
+# picks another GEMM algorithm in another process:
+#   |loss_split - loss_unsplit| <= 1e-5 |loss_unsplit|
+TOL_MODEL_PARALLEL_REL = 1e-5
+
+# one rank of the model-parallel world: the example's main, its launch
+# counts (zeroed just before) on its last line
+_RANK_SCRIPT = (
+    "import json, sys\n"
+    "from chainermn_torch.examples import train_mnist_model_parallel as m\n"
+    "from chainermn_torch.ops import _cuda\n"
+    "_cuda.reset_launches()\n"
+    "m.main(sys.argv[1:])\n"
+    "print('launches ' + json.dumps(_cuda.launches()), flush=True)\n")
+
+# two host-staged ranks on one card: round trips of one activation (256 x
+# 200 f32) through comm.send/recv (header, staging, gloo), beside raw gloo
+# round trips of the same bytes from page-locked host memory and the
+# device-host copies alone; rank 0 prints the ms of each
+_PINGPONG_SCRIPT = (
+    "import json, time, torch, torch.distributed as dist\n"
+    "from chainermn_torch.comm import create_communicator\n"
+    "comm = create_communicator('non_cuda_aware')\n"
+    "r, n = comm.rank, 50\n"
+    "x = torch.randn(256, 200, device=comm.device)\n"
+    "h = torch.empty(256, 200, pin_memory=True)\n"
+    "def comm_rt():\n"
+    "    if r == 0:\n"
+    "        comm.send(x, 1)\n"
+    "        comm.recv(1)\n"
+    "    else:\n"
+    "        comm.send(comm.recv(0), 0)\n"
+    "def gloo_rt():\n"
+    "    if r == 0:\n"
+    "        dist.send(h, 1)\n"
+    "        dist.recv(h, 1)\n"
+    "    else:\n"
+    "        dist.recv(h, 0)\n"
+    "        dist.send(h, 0)\n"
+    "def copies():\n"
+    "    h.copy_(x)\n"
+    "    x.copy_(h)\n"
+    "    torch.cuda.synchronize()\n"
+    "out = {}\n"
+    "for name, fn in (('comm', comm_rt), ('gloo', gloo_rt),\n"
+    "                 ('copies', copies)):\n"
+    "    for _ in range(5):\n"
+    "        fn()\n"
+    "    comm.barrier()\n"
+    "    t0 = time.perf_counter()\n"
+    "    for _ in range(n):\n"
+    "        fn()\n"
+    "    out[name] = (time.perf_counter() - t0) / n * 1e3\n"
+    "comm.barrier()\n"
+    "comm.finalize()\n"
+    "if r == 0:\n"
+    "    print('pingpong ' + json.dumps(out), flush=True)\n")
+
+# two ranks that ask for NCCL on one card: each must refuse, naming the
+# host-staged communicator
+_NCCL_SCRIPT = (
+    "from chainermn_torch.comm import create_communicator\n"
+    "try:\n"
+    "    create_communicator('pure_nccl')\n"
+    "except RuntimeError as e:\n"
+    "    print('refused: ' + str(e), flush=True)\n")
+
+
+def run_ranks(argv, n: int, timeout: float):
+    """Start ``argv`` as ranks 0..n-1 of one world on this card (a free
+    localhost port); returns each rank's output. A rank that fails or
+    outlives ``timeout`` fails the phase, and every rank is stopped."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env = dict(os.environ, PYTHONPATH=HERE, WORLD_SIZE=str(n),
+               LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    procs = [subprocess.Popen(argv, cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(n)]
+    outs = []
+    try:
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        raise PhaseError(f"{argv[:3]}: a rank outlived {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise PhaseError(f"rank {r} of {argv[:3]} exited "
+                             f"{p.returncode}:\n{out[-3000:]}")
+    return outs
+
+
+def model_parallel(card: str):
+    """Config #5: ``train_mnist_model_parallel`` as a world of 4 processes
+    on this one card through ``create_communicator("non_cuda_aware")`` at
+    the example's widths (784-200-200-200-10 in 4 stages, batch 256, 2
+    epochs of 2,048, Adam 1e-3); its first losses are held to the unsplit
+    MLP's on the card (the same parameters and batches). Then
+    ``train_mnist_eager_p2p`` on 2 ranks, a point-to-point round trip
+    between 2 host-staged ranks beside raw gloo and the copies alone, and
+    2 ranks that ask for NCCL on this card must refuse and name
+    ``non_cuda_aware``."""
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from chainermn_torch.examples import train_mnist_model_parallel as mp
+
+    c, k = MODEL_PARALLEL, MODEL_PARALLEL["check_steps"]
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        argv = ["--communicator", "non_cuda_aware", "--stages",
+                str(c["stages"]), "--unit", str(c["unit"]), "--batchsize",
+                str(c["batch"]), "--epoch", str(c["epochs"]), "--n-train",
+                str(c["n_train"]), "--out", d]
+        t0 = time.perf_counter()
+        outs = run_ranks([sys.executable, "-c", _RANK_SCRIPT, *argv],
+                         c["ranks"], timeout=300)
+        world_s = time.perf_counter() - t0
+        with open(os.path.join(d, "log.json")) as f:
+            log = json.load(f)
+    counts = {}
+    for out in outs:
+        line = [ln for ln in out.splitlines() if ln.startswith("launches ")]
+        for name, n in json.loads(line[-1][len("launches "):]).items():
+            counts[name] = counts.get(name, 0) + n
+
+    # the unsplit MLP: the same blocks, batches and optimizer in one
+    # process on the card
+    model = torch.nn.Sequential(*mp.stage_blocks(c["stages"], c["unit"]))
+    model.to("cuda")
+    opt = mp.adam(model.parameters())
+    it = mp.SerialIterator(mp.synthetic_mnist(c["n_train"], seed=0),
+                           c["batch"], shuffle=True, seed=0)
+    unsplit = []
+    for _ in range(k):
+        x, y = mp.batch_arrays(it.next(), "cuda")
+        loss = F.cross_entropy(model(x), y)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        unsplit.append(loss.item())
+    losses = log["losses"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses[:k], unsplit))
+    print(f"model_parallel: MultiNodeChainList MLP 784-"
+          f"{'-'.join([str(c['unit'])] * (c['stages'] - 1))}-10 in "
+          f"{log['stages']} stages on {log['ranks']} ranks of one card "
+          f"(non_cuda_aware), batch {c['batch']}, {len(losses)} steps, "
+          f"{log['ms_per_step']:.3f} ms/step, host-staged bytes per step "
+          f"(each rank's copies, rank 0) "
+          f"{log['staged_bytes_per_step']:.0f}, world wall {world_s:.2f} s "
+          f"(process start included), first loss {losses[0]:.6g}, final "
+          f"loss {losses[-1]:.6g}, first {k} losses split "
+          f"{[round(x, 6) for x in losses[:k]]} unsplit "
+          f"{[round(x, 6) for x in unsplit]} worst relative difference "
+          f"{err:.2e} (tolerance {TOL_MODEL_PARALLEL_REL}), launches "
+          f"{counts} ({card})", flush=True)
+    if err > TOL_MODEL_PARALLEL_REL:
+        raise PhaseError(f"the split MLP's first {k} losses are {err:.2e} "
+                         f"(relative) from the unsplit MLP's")
+    if not losses[-1] < losses[0]:
+        raise PhaseError(f"the model-parallel loss did not fall: "
+                         f"{losses[0]} -> {losses[-1]}")
+    if any(counts.values()):
+        raise PhaseError(f"the model-parallel path launched hand-written "
+                         f"kernels: {counts}")
+
+    t0 = time.perf_counter()
+    outs = run_ranks([sys.executable, "-m", "chainermn_torch.examples."
+                      "train_mnist_eager_p2p", "--communicator",
+                      "non_cuda_aware"], 2, timeout=300)
+    eager_s = time.perf_counter() - t0
+    steps = [ln for ln in outs[1].splitlines() if ln.startswith("step")]
+    print(f"model_parallel eager: train_mnist_eager_p2p on 2 ranks of one "
+          f"card (non_cuda_aware), {eager_s:.2f} s (process start "
+          f"included), {steps} ({card})", flush=True)
+    if "rank 1 done" not in outs[1]:
+        raise PhaseError(f"train_mnist_eager_p2p did not finish:\n"
+                         f"{outs[1][-3000:]}")
+
+    outs = run_ranks([sys.executable, "-c", _PINGPONG_SCRIPT], 2,
+                     timeout=120)
+    pp = json.loads([ln for ln in outs[0].splitlines()
+                     if ln.startswith("pingpong ")][-1][len("pingpong "):])
+    print(f"model_parallel p2p: one activation (204,800 bytes) there and "
+          f"back between two host-staged ranks of one card: comm.send/recv "
+          f"{pp['comm']:.4f} ms, raw gloo from page-locked memory "
+          f"{pp['gloo']:.4f} ms, the device-host copies alone "
+          f"{pp['copies']:.4f} ms ({card})", flush=True)
+
+    outs = run_ranks([sys.executable, "-c", _NCCL_SCRIPT], 2, timeout=120)
+    if not all("refused" in o and "non_cuda_aware" in o for o in outs):
+        raise PhaseError(f"two NCCL ranks on one card were not refused:\n"
+                         f"{outs}")
+    print(f"model_parallel nccl: two pure_nccl ranks on one card refused, "
+          f"naming non_cuda_aware ({card})", flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one more served run, one more "
-                         "train call, 20 more MNIST and CIFAR steps and "
-                         "one more ResNet-50 call into DIR (chrome traces "
-                         "and kernel tables)")
+                         "train call, 20 more MNIST, CIFAR and seq2seq "
+                         "steps and one more ResNet-50 call into DIR "
+                         "(chrome traces and kernel tables)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1875,6 +2229,9 @@ def main(argv=None) -> int:
     cifar_counts = cifar(card, args.profile)
     torch.cuda.empty_cache()
     r50_counts = resnet50(args.seed, card, args.profile)
+    torch.cuda.empty_cache()
+    s2s_counts = seq2seq(card, args.profile)
+    mp_counts = model_parallel(card)
 
     sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:168"),
                "flash_bwd": ("flash_bwd.cu", "flash_attention.py:399"),
@@ -1890,10 +2247,11 @@ def main(argv=None) -> int:
             "source": f"chainermn_torch/csrc/{src}",
             "replaces": f"chainermn_tpu/ops/{tpu}",
             # serving and training both drive flash_fwd: its count is
-            # the sum of the main-path runs (the MNIST, CIFAR and ResNet-50
-            # runs add none)
+            # the sum of the main-path runs (the MNIST, CIFAR, ResNet-50,
+            # seq2seq and model-parallel runs add none)
             "launches": train_counts[name] + mnist_counts[name]
-            + cifar_counts[name] + r50_counts[name] + (
+            + cifar_counts[name] + r50_counts[name] + s2s_counts[name]
+            + mp_counts.get(name, 0) + (
                 counts["flash_fwd"] if name == "flash_fwd" else 0),
             "max_abs_err": errs[name], **times[name]})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,7 +4,9 @@ batches (cross-replica batch norm against batch norm over the
 concatenated batch); ``train_imagenet``'s optimizer against optax's SGD
 with Nesterov momentum and ``warmup_cosine_decay_schedule``, its
 on-device uint8 decode against the JAX example's, a ``--loader`` run, and
-the options that wait for later slices.
+the options that wait for later slices; the seq2seq (config #4) and
+model-parallel (config #5) examples against the JAX examples' first
+steps, and the eager send/recv example (tolerances beside them).
 
 Tolerances: the 2-rank run against the 1-rank run: losses at 1e-4
 (rtol and atol; one framework, the statistics and gradient sums
@@ -204,3 +206,270 @@ def test_imagenet_refuses_what_waits_for_later_slices(flags, item):
     args = train_imagenet.parse_args(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match=item):
         train_imagenet.build_trainer(args)
+
+
+# -- config #4: the seq2seq example -----------------------------------------
+# Its first losses against the JAX example's steps: the JAX Seq2Seq with
+# the same parameters on each rank's batches (the JAX package's
+# split_indices, SerialIterator and pad_batch), the gradients averaged over
+# ranks, optax.adam(1e-3), the loss averaged over ranks: the JAX example's
+# local_step (model.apply, seq2seq_loss, pmean, allreduce_grad "mean",
+# adam). Tolerance 1e-4 relative: f32 LSTMs summed in other orders (4e-7
+# relative a step), carried through 3 Adam steps.
+
+S2S_ARGS = ["--device", "cpu", "--vocab", "30", "--unit", "16", "--layer",
+            "2", "--n-train", "48", "--batchsize", "8", "--bucket", "8"]
+S2S_STEPS = 3
+
+
+def _jax_seq2seq(n_ranks):
+    """The JAX model's parameters and the losses of the JAX example's
+    first steps on ``n_ranks`` ranks."""
+    from chainermn_tpu.datasets import SubDataset as JSub
+    from chainermn_tpu.datasets import split_indices as jsplit
+    from chainermn_tpu.datasets.toy import synthetic_translation
+    from chainermn_tpu.iterators import SerialIterator as JIter
+    from chainermn_tpu.models.seq2seq import Seq2Seq as JSeq2Seq
+    from chainermn_tpu.models.seq2seq import pad_batch, seq2seq_loss
+
+    train = synthetic_translation(48, src_vocab=30, tgt_vocab=30, seed=0)
+    its = [JIter(JSub(train, p), 8, shuffle=True, seed=0)
+           for p in jsplit(len(train), n_ranks, shuffle=True, seed=0)]
+    model = JSeq2Seq(n_layers=2, n_units=16, src_vocab=30, tgt_vocab=30)
+    sample = pad_batch([train[i] for i in range(2)], 8)
+    params = model.init(jax.random.PRNGKey(0), *sample[:3])["params"]
+    start = jax.tree_util.tree_map(np.asarray, params)
+    opt = optax.adam(1e-3)
+    state = opt.init(params)
+
+    def f(p, src, src_len, tgt_in, tgt_out):
+        logits = model.apply({"params": p}, src, src_len, tgt_in)
+        return seq2seq_loss(logits, tgt_out)[0]
+
+    vg = jax.jit(jax.value_and_grad(f))
+    losses = []
+    for _ in range(S2S_STEPS):
+        vals, grads = zip(*(vg(params, *pad_batch(it.next(), 8))
+                            for it in its))
+        g = jax.tree_util.tree_map(lambda *gs: sum(gs) / n_ranks, *grads)
+        updates, state = opt.update(g, state, params)
+        params = optax.apply_updates(params, updates)
+        losses.append(float(sum(vals) / n_ranks))
+    return start, losses
+
+
+_S2S_WORKER = r'''
+import os, pickle, sys
+import torch
+from chainermn_torch.examples import train_seq2seq
+
+out, argv = sys.argv[1], sys.argv[2:]
+args = train_seq2seq.parse_args(argv)
+with open(os.path.join(out, "params.pkl"), "rb") as f:
+    sd = pickle.load(f)
+run = train_seq2seq.build(args)
+run.model.load_state_dict(sd)
+losses = []
+for _ in range(3):
+    arrays = train_seq2seq.pad_batch(run.iterator.next(), args.bucket)
+    m = run.step(*(torch.from_numpy(a) for a in arrays))
+    losses.append(float(m["main/loss"]))
+hyp, bleu = train_seq2seq.translate_demo(run, args)
+assert hyp.shape == (4, args.bucket) and 0.0 <= bleu <= 1.0
+if run.comm.rank == 0:
+    with open(os.path.join(out, "losses.pkl"), "wb") as f:
+        pickle.dump(losses, f)
+print(f"RANK{run.comm.rank} OK", flush=True)
+run.comm.finalize()
+'''
+
+
+def test_seq2seq_one_rank_matches_the_jax_examples_steps():
+    from chainermn_torch.examples import train_seq2seq
+    from chainermn_torch.models.convert import seq2seq_params_from_flax
+
+    start, want = _jax_seq2seq(1)
+    args = train_seq2seq.parse_args(S2S_ARGS + ["--beam", "2"])
+    run = train_seq2seq.build(args)
+    try:
+        run.model.load_state_dict(seq2seq_params_from_flax(start))
+        got = []
+        for _ in range(S2S_STEPS):
+            arrays = train_seq2seq.pad_batch(run.iterator.next(), 8)
+            got.append(float(run.step(*(torch.from_numpy(a)
+                                        for a in arrays))["main/loss"]))
+        hyp, bleu = train_seq2seq.translate_demo(run, args)
+    finally:
+        run.comm.finalize()
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert hyp.shape == (4, 8) and 0.0 <= bleu <= 1.0
+
+
+def test_seq2seq_two_ranks_match_the_jax_examples_steps(tmp_path):
+    """Two gloo ranks: the root's pairs scattered as payloads, each rank
+    its own batches, the multi-node optimizer's gradient mean."""
+    from chainermn_torch.models.convert import seq2seq_params_from_flax
+
+    start, want = _jax_seq2seq(2)
+    with open(tmp_path / "params.pkl", "wb") as f:
+        pickle.dump(seq2seq_params_from_flax(start), f)
+    assert_ranks_ok(run_world(_S2S_WORKER, 2, timeout=120,
+                              args=[str(tmp_path), *S2S_ARGS]))
+    got = pickle.loads((tmp_path / "losses.pkl").read_bytes())
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_seq2seq_main_trains_from_a_bpe_corpus(tmp_path, capsys):
+    """``--src-file``/``--tgt-file``: the root trains byte-BPE on the
+    parallel text (cached beside it) and the example runs to its
+    translate demo."""
+    from chainermn_torch.examples import train_seq2seq
+
+    rs = np.random.RandomState(0)
+    words = ["ka", "mo", "tesu", "bilo", "dana", "remi"]
+    src = [" ".join(rs.choice(words, rs.randint(2, 6))) for _ in range(24)]
+    (tmp_path / "c.src").write_text("\n".join(src) + "\n")
+    (tmp_path / "c.tgt").write_text(
+        "\n".join(" ".join(s.split()[::-1]) for s in src) + "\n")
+    final = train_seq2seq.main(
+        ["--device", "cpu", "--src-file", str(tmp_path / "c.src"),
+         "--tgt-file", str(tmp_path / "c.tgt"), "--bpe-vocab", "280",
+         "--unit", "8", "--epoch", "1", "--batchsize", "8"])
+    out = capsys.readouterr().out
+    assert "BPE vocab" in out and "translate demo (greedy)" in out
+    assert np.isfinite(final)
+    assert (tmp_path / "c.src.bpe280.json").exists()
+
+
+# -- config #5: the model-parallel examples ---------------------------------
+# The first losses of train_mnist_model_parallel against the JAX example's
+# steps: the JAX MultiNodeChainList of Blocks (one stage per rank) under
+# shard_map on the virtual CPU mesh, the same parameters (the JAX chain's
+# init, converted stage by stage) and batches (synthetic_mnist and
+# SerialIterator, seed 0), optax.adam(1e-3). Tolerance 1e-4 relative (f32
+# products in other orders through 3 Adam steps).
+
+MP_ARGS = ["--device", "cpu", "--unit", "16", "--n-train", "96",
+           "--batchsize", "32", "--epoch", "1"]
+
+
+class _JBlock:
+    """The JAX example's Block (a flax module built on first use, so this
+    file's import stays light)."""
+
+    @staticmethod
+    def make(feat, act):
+        import flax.linen as fnn
+
+        class Block(fnn.Module):
+            feat: int
+            act: bool = True
+
+            @fnn.compact
+            def __call__(self, x):
+                x = fnn.Dense(self.feat)(x.reshape((x.shape[0], -1)))
+                return fnn.relu(x) if self.act else x
+
+        return Block(feat, act)
+
+
+def _jax_model_parallel(n_stages):
+    from jax import shard_map
+
+    from chainermn_tpu.datasets.toy import synthetic_mnist
+    from chainermn_tpu.iterators import SerialIterator as JIter
+    from chainermn_tpu.links import MultiNodeChainList as JChain
+
+    comm = chainermn_tpu.create_communicator("xla")
+    chain = JChain(comm)
+    for s in range(n_stages):
+        last = s == n_stages - 1
+        chain.add_link(_JBlock.make(10 if last else 16, not last), rank=s,
+                       rank_in=None if s == 0 else s - 1,
+                       rank_out=None if last else s + 1)
+    train = synthetic_mnist(96, seed=0)
+    x0 = np.stack([train[i][0] for i in range(2)])
+    params = chain.init(jax.random.PRNGKey(0), jnp.asarray(x0))
+    start = jax.tree_util.tree_map(np.asarray, params)
+    opt = optax.adam(1e-3)
+    state = opt.init(params)
+
+    def loss_fn(params, x, y):
+        logits = shard_map(lambda x: chain.apply(params, x), mesh=comm.mesh,
+                           in_specs=(P(),), out_specs=P())(x)
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits, y).mean()
+
+    vg = jax.jit(jax.value_and_grad(loss_fn))
+    it = JIter(train, 32, shuffle=True, seed=0)
+    losses = []
+    for _ in range(3):
+        batch = it.next()
+        x = jnp.asarray(np.stack([b[0] for b in batch]))
+        y = jnp.asarray(np.stack([b[1] for b in batch]))
+        loss, g = vg(params, x, y)
+        updates, state = opt.update(g, state)
+        params = optax.apply_updates(params, updates)
+        losses.append(float(loss))
+    return start, losses
+
+
+_MP_WORKER = r'''
+import os, pickle, sys
+from chainermn_torch.examples import train_mnist_model_parallel as mp
+
+out, argv = sys.argv[1], sys.argv[2:]
+with open(os.path.join(out, "stages.pkl"), "rb") as f:
+    stages = pickle.load(f)
+comm, chain, opt, it = mp.build(mp.parse_args(argv))
+chain.load_state_dict({f"stage{s}.{k}": v for s, sd in enumerate(stages)
+                       if s == comm.rank for k, v in sd.items()})
+losses, _ = mp.train(comm, chain, opt, it, 1)
+if comm.rank == 0:
+    with open(os.path.join(out, "losses.pkl"), "wb") as f:
+        pickle.dump(losses, f)
+print(f"RANK{comm.rank} OK", flush=True)
+comm.finalize()
+'''
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_model_parallel_matches_the_jax_examples_steps(tmp_path, ranks):
+    """``train_mnist_model_parallel`` in a gloo world of 2 and of 4 ranks
+    (stages = min(--stages 4, ranks)), each rank one stage."""
+    from chainermn_torch.examples import train_mnist_model_parallel as mp
+    from chainermn_torch.models.convert import dense_stage_params_from_flax
+
+    start, want = _jax_model_parallel(ranks)
+    blocks = mp.stage_blocks(ranks, 16)
+    with open(tmp_path / "stages.pkl", "wb") as f:
+        pickle.dump([dense_stage_params_from_flax(b, p)
+                     for b, p in zip(blocks, start)], f)
+    assert_ranks_ok(run_world(_MP_WORKER, ranks, timeout=120,
+                              args=[str(tmp_path), *MP_ARGS]))
+    got = pickle.loads((tmp_path / "losses.pkl").read_bytes())
+    assert len(got) == 3
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+_EAGER_WORKER = r'''
+import os
+from chainermn_torch.examples import train_mnist_eager_p2p as ex
+
+losses = ex.worker(ex.parse_args(["--device", "cpu", "--steps", "12"]))
+rank = int(os.environ["RANK"])
+if rank == 1:
+    print("LOSSES", losses[0], losses[-1], flush=True)
+print(f"RANK{rank} OK", flush=True)
+'''
+
+
+def test_eager_p2p_example_trains_across_two_ranks():
+    """Rank 0's half learns only through the gradients rank 1's backward
+    sends back; the loss falls."""
+    results = run_world(_EAGER_WORKER, 2, timeout=120)
+    assert_ranks_ok(results)
+    line = [ln for ln in results[1][1].splitlines()
+            if ln.startswith("LOSSES")][0]
+    first, last = map(float, line.split()[1:])
+    assert last < 0.5 * first

@@ -64,7 +64,13 @@ def test_importing_the_port_loads_no_jax_module():
             "chainermn_torch.training.loader, "
             "chainermn_torch.datasets.image_folder, "
             "chainermn_torch.examples.train_cifar, "
-            "chainermn_torch.examples.train_imagenet, chip_smoke; "
+            "chainermn_torch.examples.train_imagenet, "
+            "chainermn_torch.functions, chainermn_torch.links.chain_list, "
+            "chainermn_torch.models.seq2seq, chainermn_torch.datasets.bpe, "
+            "chainermn_torch.comm.p2p, "
+            "chainermn_torch.examples.train_seq2seq, "
+            "chainermn_torch.examples.train_mnist_model_parallel, "
+            "chainermn_torch.examples.train_mnist_eager_p2p, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -141,3 +147,40 @@ def test_the_resnet_slice_raises_without_cuda_unless_asked_for_cpu(tmp_path):
                                np.zeros(4, np.int32), 2, device="cpu")
     assert isinstance(next(loader)[0], np.ndarray)
     loader.close()
+
+
+def test_the_model_parallel_and_seq2seq_slice_raises_without_cuda(tmp_path):
+    """The communication functions, the chain list, the seq2seq model, BPE
+    and the three examples are covered by the import scan; the seq2seq
+    model and the examples raise without CUDA unless given the CPU, and
+    the host-staged communicator is chosen by its name only."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device works")
+    from chainermn_torch.examples import (train_mnist_eager_p2p,
+                                          train_mnist_model_parallel,
+                                          train_seq2seq)
+    from chainermn_torch.models.seq2seq import Seq2Seq
+
+    files = [p.relative_to(REPO).as_posix() for p in _port_files()]
+    for new in ("chainermn_torch/comm/p2p.py",
+                "chainermn_torch/functions/__init__.py",
+                "chainermn_torch/functions/point_to_point.py",
+                "chainermn_torch/functions/eager_p2p.py",
+                "chainermn_torch/functions/collective.py",
+                "chainermn_torch/links/chain_list.py",
+                "chainermn_torch/models/seq2seq.py",
+                "chainermn_torch/datasets/bpe.py",
+                "chainermn_torch/examples/train_seq2seq.py",
+                "chainermn_torch/examples/train_mnist_model_parallel.py",
+                "chainermn_torch/examples/train_mnist_eager_p2p.py"):
+        assert new in files       # covered by the import scan above
+    for make in (lambda: Seq2Seq(n_units=4, src_vocab=8, tgt_vocab=8),
+                 lambda: train_seq2seq.main(["--epoch", "1"]),
+                 lambda: train_mnist_model_parallel.main(["--epoch", "1"]),
+                 lambda: train_mnist_eager_p2p.worker(
+                     train_mnist_eager_p2p.parse_args([])),
+                 lambda: create_communicator("non_cuda_aware")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert Seq2Seq(n_units=4, src_vocab=8, tgt_vocab=8,
+                   device="cpu").device == torch.device("cpu")

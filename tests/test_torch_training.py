@@ -165,18 +165,25 @@ def test_size_one_communicator_topology_and_collectives(comm):
     comm.allreduce_grad(grads, "mean")
     assert torch.equal(grads[1], torch.full((2, 2), 2.0))
     comm.barrier()
-    for call in (lambda: comm.split(0, 0), lambda: comm.send(x, 0),
-                 lambda: comm.recv(0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        comm.split(0, 0)
+    for call in (lambda: comm.send(x, 0), lambda: comm.recv(0)):
+        with pytest.raises(RuntimeError, match="no peer"):
             call()
+    assert torch.equal(comm.alltoall(x[None]), x[None])
+    assert torch.equal(comm.gather(x), x[None])
+    assert torch.equal(comm.scatter(x[None]), x)
     # the object collectives of a world of one (2-3 ranks:
     # tests/test_torch_objects.py)
     assert comm.bcast_obj({"a": 1}) == {"a": 1}
     assert comm.allreduce_obj(1) == 1 and comm.allreduce_obj(5, "mean") == 5
     with pytest.raises(RuntimeError, match="no peer"):
         comm.send_obj(1, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_communicator("non_cuda_aware", device="cpu")
+    # the host-staged path by its name (multi-rank: test_torch_p2p.py)
+    staged = create_communicator("non_cuda_aware", device="cpu")
+    assert staged.name == "non_cuda_aware"
+    assert torch.equal(staged.allreduce(x), x) and staged.staged_bytes == 0
+    staged.finalize()
     with pytest.raises(ValueError, match="unknown communicator"):
         create_communicator("mpi", device="cpu")
 
