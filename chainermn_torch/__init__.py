@@ -21,19 +21,26 @@ model parallelism through the differentiable point-to-point functions
 eager variant ``train_mnist_eager_p2p``), several ranks on one GPU
 through the host-staged ``non_cuda_aware`` communicator, and the LSTM
 seq2seq with BPE, greedy and beam decoding and BLEU (config #4,
-``python -m chainermn_torch.examples.train_seq2seq``).
+``python -m chainermn_torch.examples.train_seq2seq``); the ViT on the
+non-causal flash kernels with dropout keys (the step's ``with_rng``), and
+snapshots with consensus resume through ``MultiNodeCheckpointer`` and the
+Trainer's emergency checkpoint (``python -m
+chainermn_torch.examples.train_imagenet --model vit [--snapshot-every N]
+[--resume]``).
 """
 
 from chainermn_torch import functions
 from chainermn_torch.comm import CommunicatorBase, create_communicator
 from chainermn_torch.datasets import create_empty_dataset, scatter_dataset
 from chainermn_torch.device import resolve_device
-from chainermn_torch.extensions import create_multi_node_evaluator
+from chainermn_torch.extensions import (create_multi_node_checkpointer,
+                                        create_multi_node_evaluator,
+                                        install_global_except_hook)
 from chainermn_torch.iterators import (create_multi_node_iterator,
                                        create_synchronized_iterator)
 from chainermn_torch.links import (MultiNodeBatchNormalization,
                                    MultiNodeChainList)
-from chainermn_torch.models import MLP, CifarResNet, ResNet50
+from chainermn_torch.models import MLP, CifarResNet, ResNet50, ViT
 from chainermn_torch.models.seq2seq import Seq2Seq
 from chainermn_torch.models.transformer import (TransformerLM, generate,
                                                 lm_loss_with_aux)
@@ -52,4 +59,5 @@ __all__ = ["resolve_device", "TransformerLM", "MLP", "ResNet50",
            "lm_loss_with_aux", "fused_lm_loss", "scatter_dataset",
            "create_empty_dataset", "create_multi_node_iterator",
            "create_synchronized_iterator", "create_multi_node_evaluator",
-           "MultiNodeChainList", "Seq2Seq", "functions"]
+           "MultiNodeChainList", "Seq2Seq", "functions", "ViT",
+           "create_multi_node_checkpointer", "install_global_except_hook"]

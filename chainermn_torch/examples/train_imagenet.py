@@ -1,6 +1,6 @@
-"""Data-parallel ImageNet ResNet-50: the port's
+"""Data-parallel ImageNet ResNet-50 or ViT: the port's
 ``examples/imagenet/train_imagenet.py`` (config #2, the throughput
-configuration).
+configuration, and its ``--model vit``).
 
 The reference's flow: one process per GPU, the ``pure_nccl``
 communicator with bf16 gradients on the wire
@@ -11,6 +11,22 @@ Nesterov momentum 0.9 (optax's nesterov trace: the same updates) and, with
 ``--warmup-epochs``, optax's ``warmup_cosine_decay_schedule`` evaluated at
 each update's count. ``--batchsize`` is each rank's batch (the JAX
 script's is global, 64 per device by default).
+
+``--model vit`` trains the JAX example's ``ViT(num_classes=1000,
+dtype=bf16)`` instead: ViT-S/16 (d_model 384, 12 layers, 6 heads, d_ff
+1536, ``pool="gap"``) with no batch statistics (``mutable=None``); its
+attention runs the non-causal flash kernels. ``--dropout RATE`` (the
+port's; the JAX example's ViT has none) builds the model with that
+dropout and the step with ``with_rng=True``, keyed by the iteration, so a
+resumed run draws the masks the uninterrupted run would have.
+
+``--snapshot-every N`` snapshots every N iterations through
+``create_multi_node_checkpointer("imagenet", comm, path=--out,
+async_write=True)`` (and in an emergency: preemption or an exception
+leaving the loop); ``--resume`` restores the newest snapshot every rank
+holds (model, optimizer with its momentum and learning-rate schedule,
+iterator position, iteration) before training on to the stop trigger.
+The throughput line counts only this run's iterations.
 
 Inputs, one of:
 
@@ -26,15 +42,18 @@ Inputs, one of:
   page-locked memory, they reach the GPU by asynchronous copies, and the
   uint8 → bf16 decode runs on the device inside the loss.
 
-Waiting for later slices (``NotImplementedError``): ``--optimizer
-lars|lamb`` (ROADMAP.md queue 1 item 8), ``--model vit`` (item 7) and
-``--snapshot-every``/``--resume`` (the checkpointer, item 7).
+Waiting for a later slice (``NotImplementedError``): ``--optimizer
+lars|lamb`` (ROADMAP.md queue 1 item 8).
 
     python -m chainermn_torch.examples.train_imagenet --iterations 20
     python -m chainermn_torch.examples.train_imagenet --loader \\
         --iterations 8 --batchsize 256
     python -m chainermn_torch.examples.train_imagenet --device cpu \\
         --image-size 64 --n-train 64 --batchsize 8 --iterations 2
+    python -m chainermn_torch.examples.train_imagenet --model vit \\
+        --iterations 20 --snapshot-every 10
+    python -m chainermn_torch.examples.train_imagenet --model vit \\
+        --iterations 40 --snapshot-every 10 --resume
     torchrun --nproc-per-node 2 -m chainermn_torch.examples.train_imagenet \\
         --device cpu --image-size 64 --n-train 64 --batchsize 4 \\
         --iterations 2
@@ -53,8 +72,11 @@ import torch
 from chainermn_torch.comm import create_communicator
 from chainermn_torch.datasets import (ArrayDataset, ImageFolderDataset,
                                       scatter_dataset)
+from chainermn_torch.extensions import create_multi_node_checkpointer
 from chainermn_torch.iterators import SerialIterator
 from chainermn_torch.models.resnet import ResNet50
+from chainermn_torch.models.vit import ViT
+from chainermn_torch.ops.dropout import fold_in
 from chainermn_torch.optimizers import create_multi_node_optimizer
 from chainermn_torch.resilience.supervisor import main_exit_code
 from chainermn_torch.training import (LogReport, PrintReport,
@@ -114,7 +136,11 @@ def parse_args(argv=None):
                    help="linear LR warmup epochs (then cosine decay)")
     p.add_argument("--model", choices=["resnet50", "vit"],
                    default="resnet50",
-                   help="vit waits for ROADMAP.md queue 1 item 7")
+                   help="vit: the patch-16 Vision Transformer (ViT-S/16) "
+                        "on the flash-attention kernels")
+    p.add_argument("--dropout", type=float, default=0.0,
+                   help="with --model vit: dropout rate (the step then "
+                        "takes dropout keys)")
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--n-train", type=int, default=2048)
     p.add_argument("--data-dir", default=None, metavar="DIR",
@@ -132,9 +158,9 @@ def parse_args(argv=None):
                    default="bfloat16")
     p.add_argument("--snapshot-every", type=int, default=0,
                    metavar="ITERS",
-                   help="checkpointing waits for ROADMAP.md queue 1 item 7")
+                   help="checkpoint every N iterations (0 = off)")
     p.add_argument("--resume", action="store_true",
-                   help="waits for ROADMAP.md queue 1 item 7")
+                   help="resume from the newest complete snapshot")
     p.add_argument("--out", "-o", default="result")
     p.add_argument("--device", default=None,
                    help="'cuda' (default; NCCL) or 'cpu' (gloo)")
@@ -146,14 +172,8 @@ def _refuse_later_slices(args) -> None:
         raise NotImplementedError(
             f"--optimizer {args.optimizer} waits for the reducers and "
             "large-batch optimizers (ROADMAP.md queue 1 item 8)")
-    if args.model != "resnet50":
-        raise NotImplementedError(
-            "--model vit waits for the ViT slice (ROADMAP.md queue 1 "
-            "item 7)")
-    if args.snapshot_every or args.resume:
-        raise NotImplementedError(
-            "--snapshot-every/--resume wait for the checkpointer "
-            "(ROADMAP.md queue 1 item 7)")
+    if args.dropout and args.model != "vit":
+        raise ValueError("--dropout applies to --model vit")
 
 
 def _uint8_shard(args, comm):
@@ -191,14 +211,15 @@ def make_optimizer(args, params, comm, steps_per_epoch: int):
     extension would read the metrics, a host synchronisation, every
     step)."""
     sgd = torch.optim.SGD(params, lr=args.lr, momentum=0.9, nesterov=True)
+    opt = create_multi_node_optimizer(sgd, comm)
     if args.warmup_epochs > 0:
         lr = warmup_cosine_lr(args.lr,
                               int(steps_per_epoch * args.warmup_epochs),
                               max(steps_per_epoch * args.epoch, 1))
-        sched = torch.optim.lr_scheduler.LambdaLR(
-            sgd, lambda count: lr(count) / args.lr)
-        sgd.register_step_post_hook(lambda *_: sched.step())
-    return create_multi_node_optimizer(sgd, comm)
+        # attached to the multi-node optimizer: its state rides snapshots
+        opt.add_schedule(torch.optim.lr_scheduler.LambdaLR(
+            sgd, lambda count: lr(count) / args.lr))
+    return opt
 
 
 def build_trainer(args):
@@ -243,29 +264,58 @@ def build_trainer(args):
         it = SerialIterator(train, args.batchsize, shuffle=True, seed=0)
 
     torch.manual_seed(0)
-    model = ResNet50(num_classes=n_classes, dtype=dtype, device=comm.device)
+    if args.model == "vit":
+        model = ViT(num_classes=n_classes, image_size=args.image_size,
+                    dtype=dtype, dropout_rate=args.dropout,
+                    device=comm.device)
+        mutable = None
+    else:
+        model = ResNet50(num_classes=n_classes, dtype=dtype,
+                         device=comm.device)
+        mutable = ("batch_stats",)
     comm.bcast_data(model)
     optimizer = make_optimizer(args, model.parameters(), comm,
                                max(1, train_len // global_batch))
 
     loss_fn, converter = None, default_converter
     if args.loader:
-        def loss_fn(model, x, y, train=True, mutable=None):
+        def loss_fn(model, x, y, train=True, mutable=None, rng=None):
             # on-device decode: the loader ships raw uint8 rows (255 is
             # exact in bf16; the quotient rounds to dtype, as JAX's does)
             return classifier_loss(model, x.to(dtype) / 255.0, y,
-                                   train=train, mutable=mutable)
+                                   train=train, mutable=mutable, rng=rng)
 
         def converter(batch):   # the loader's batch is already arrays
             return batch
 
+    with_rng = args.dropout > 0
     step = make_data_parallel_train_step(model, optimizer, comm,
-                                         loss_fn=loss_fn,
-                                         mutable=("batch_stats",))
-    updater = StandardUpdater(it, step, comm, converter=converter)
+                                         loss_fn=loss_fn, mutable=mutable,
+                                         with_rng=with_rng)
+    if with_rng:
+        keyed = step
+
+        def step(x, y):
+            # the iteration keys the masks: a resumed run draws the
+            # uninterrupted run's
+            return keyed(x, y, fold_in(0, updater.iteration))
+
+    updater = StandardUpdater(it, step, comm, converter=converter,
+                              model=model, optimizer=optimizer)
+    checkpointer = None
+    if args.snapshot_every or args.resume:
+        checkpointer = create_multi_node_checkpointer(
+            "imagenet", comm, path=args.out, async_write=True)
+    if args.resume:
+        restored = checkpointer.resume(updater)
+        if comm.is_master and restored is not None:
+            print(f"resumed from iteration {restored}", flush=True)
     stop = ((args.iterations, "iteration") if args.iterations
             else (args.epoch, "epoch"))
     trainer = Trainer(updater, stop_trigger=stop, out=args.out)
+    if checkpointer is not None and args.snapshot_every:
+        trainer.extend(checkpointer, trigger=(args.snapshot_every,
+                                              "iteration"))
     if comm.is_master:
         trainer.extend(LogReport(os.path.join(args.out, "imagenet.jsonl")),
                        trigger=(10, "iteration"))
@@ -279,11 +329,13 @@ def main(argv=None) -> Trainer:
     args = parse_args(argv)
     trainer, _ = build_trainer(args)
     comm = trainer.updater.comm
+    start = trainer.updater.iteration   # the restored one after --resume
     try:
         trainer.run()
         if comm.is_master and not trainer.preempted:
             obs = trainer.observation
-            ips = (obs["iteration"] * args.batchsize * comm.size
+            # only this run's iterations count
+            ips = ((obs["iteration"] - start) * args.batchsize * comm.size
                    / obs["elapsed_time"])
             print(f"throughput: {ips:.1f} images/sec "
                   f"({ips / comm.size:.1f} /chip)", flush=True)

@@ -1,22 +1,31 @@
-"""Training-loop extensions of the port.
+"""Training-loop extensions of the port: evaluator, persistent-state
+sync, checkpointer, abort hook.
 
-Counterpart of ``create_multi_node_evaluator``, ``allreduce_persistent``
-and ``AllreducePersistent`` in ``chainermn_tpu/extensions/__init__.py``
-(reference: chainermn/extensions/). The checkpointer and
-``install_global_except_hook`` wait for ROADMAP.md queue 1 item 7.
+Counterpart of ``chainermn_tpu/extensions/__init__.py`` (reference:
+chainermn/extensions/ and chainermn/global_except_hook.py):
+``create_multi_node_evaluator``, ``allreduce_persistent``,
+``AllreducePersistent``, ``MultiNodeCheckpointer`` /
+``create_multi_node_checkpointer`` (:mod:`.checkpoint`) and
+``install_global_except_hook``.
 """
 
 from __future__ import annotations
 
+import os
+import sys
+import traceback
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
 
 from chainermn_torch.comm.base import CommunicatorBase
+from chainermn_torch.extensions.checkpoint import (
+    MultiNodeCheckpointer, create_multi_node_checkpointer)
 
 __all__ = ["create_multi_node_evaluator", "allreduce_persistent",
-           "AllreducePersistent"]
+           "AllreducePersistent", "MultiNodeCheckpointer",
+           "create_multi_node_checkpointer", "install_global_except_hook"]
 
 
 def create_multi_node_evaluator(actual_evaluator,
@@ -108,3 +117,35 @@ class AllreducePersistent:
         state = allreduce_persistent(self._get(), self._comm)
         if self._set is not None:
             self._set(state)
+
+
+#: the exit status of a job torn down by the hook
+ABORT_EXIT_CODE = 13
+
+
+def install_global_except_hook(communicator: CommunicatorBase = None):
+    """Fail-fast job abort: any uncaught exception tears the process
+    down instead of leaving its peers waiting inside a collective
+    (reference: chainermn/global_except_hook.py, which prints the
+    traceback and calls ``MPI_Abort``). The hook prints the traceback and
+    hard-exits with status 13 (``os._exit``: no interpreter shutdown that
+    could block on a collective). The JAX package also posts an abort key
+    that peers' object-plane probes raise on within seconds; that waits
+    for the port's ``ObjectPlane`` (ROADMAP.md queue 1 item 2), so here
+    the peers learn of the abort from their process group's own
+    timeouts. ``communicator`` is accepted for the reference's signature.
+    Returns the hook it replaced."""
+    del communicator
+    prev_hook = sys.excepthook
+
+    def _hook(exc_type, exc_value, exc_tb):
+        try:
+            sys.stderr.write(
+                "chainermn_torch: uncaught exception — aborting job\n")
+            traceback.print_exception(exc_type, exc_value, exc_tb)
+            sys.stderr.flush()
+        finally:
+            os._exit(ABORT_EXIT_CODE)
+
+    sys.excepthook = _hook
+    return prev_hook

@@ -46,6 +46,13 @@ same path (the port's ``MultiNodeBatchNormalization`` keeps no
   the way the JAX package's ``bhld_to_blhd_params`` maps it. The port
   needs no second compute layout: its kernels read q/k/v through strides.
 
+:func:`vit_params_from_flax` converts the ViT: ``patchify`` as a
+``conv`` (HWIO → OIHW), ``cls_token`` and ``pos_emb`` as they are, each
+``block_<i>``'s fused ``qkv`` (split by the port's output chunks, as in
+the LM), ``attn_out``, ``ffn_in`` and ``ffn_out`` as ``dense``, its
+``LayerNorm_0``/``LayerNorm_1`` as ``ln_attn``/``ln_ffn``, the final
+``LayerNorm_0`` as ``ln_f`` and ``head`` as ``dense``.
+
 Every parameter of the port is f32, as flax keeps them.
 """
 
@@ -58,7 +65,7 @@ import torch
 
 __all__ = ["convert_layer", "params_from_flax", "mlp_params_from_flax",
            "resnet_params_from_flax", "dense_stage_params_from_flax",
-           "seq2seq_params_from_flax"]
+           "seq2seq_params_from_flax", "vit_params_from_flax"]
 
 
 def _t(x) -> torch.Tensor:
@@ -268,4 +275,30 @@ def params_from_flax(model, tree: Mapping) -> Dict[str, torch.Tensor]:
                          ("LayerNorm_1", "ln_ffn")):
             sd.update(convert_layer("layer_norm", bp[src],
                                     prefix=pre + dst + "."))
+    return sd
+
+
+def vit_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``ViT`` ``params`` (numpy leaves) → a state dict for
+    :class:`chainermn_torch.models.vit.ViT` of the same configuration
+    (mapping in the module docstring; ``pool="cls"`` trees carry
+    ``cls_token``)."""
+    tree = tree.get("params", tree)
+    sd = {**convert_layer("conv", tree["patchify"], prefix="patchify."),
+          **convert_layer("layer_norm", tree["LayerNorm_0"], prefix="ln_f."),
+          **convert_layer("dense", tree["head"], prefix="head."),
+          "pos_emb": _t(tree["pos_emb"])}
+    if "cls_token" in tree:
+        sd["cls_token"] = _t(tree["cls_token"])
+    i = 0
+    while f"block_{i}" in tree:
+        bp, pre = tree[f"block_{i}"], f"blocks.{i}."
+        for name in ("qkv", "attn_out", "ffn_in", "ffn_out"):
+            sd.update(convert_layer("dense", bp[name],
+                                    prefix=pre + name + "."))
+        for src, dst in (("LayerNorm_0", "ln_attn"),
+                         ("LayerNorm_1", "ln_ffn")):
+            sd.update(convert_layer("layer_norm", bp[src],
+                                    prefix=pre + dst + "."))
+        i += 1
     return sd

@@ -12,11 +12,18 @@ Every parameter takes part in every step, as every leaf of an optax
 update does: a parameter that received no gradient gets a zero one, so
 decoupled weight decay reaches it too (``torch.optim.AdamW`` alone skips
 parameters whose ``.grad`` is None).
+
+``state_dict``/``load_state_dict`` cover everything a resumed run needs:
+the inner optimizer's, the double buffer's held gradients, and the
+learning-rate schedules attached with :meth:`MultiNodeOptimizer.
+add_schedule` (a ``LambdaLR`` whose ``last_epoch`` did not survive a
+resume would restart its warm-up). ``load_state_dict`` loads in place,
+into the objects the train step holds.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -38,6 +45,7 @@ class MultiNodeOptimizer:
         self.double_buffering = double_buffering
         self.op = op
         self._prev: Optional[List[torch.Tensor]] = None
+        self.schedules: List[Any] = []
 
     @property
     def param_groups(self):
@@ -49,6 +57,37 @@ class MultiNodeOptimizer:
 
     def _params(self) -> List[torch.Tensor]:
         return [p for g in self.param_groups for p in g["params"]]
+
+    def add_schedule(self, scheduler) -> None:
+        """Step ``scheduler`` (a ``torch.optim.lr_scheduler`` of the inner
+        optimizer) after each inner update, and keep its state in
+        :meth:`state_dict`."""
+        self.actual_optimizer.register_step_post_hook(
+            lambda *_: scheduler.step())
+        self.schedules.append(scheduler)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The inner optimizer's state, the double buffer's gradients
+        (None before the first step or without double buffering) and each
+        schedule's state."""
+        return {"optimizer": self.actual_optimizer.state_dict(),
+                "prev": None if self._prev is None else list(self._prev),
+                "schedules": [s.state_dict() for s in self.schedules]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Load :meth:`state_dict` output in place."""
+        if len(state["schedules"]) != len(self.schedules):
+            raise ValueError(f"the state has {len(state['schedules'])} "
+                             f"schedules, this optimizer "
+                             f"{len(self.schedules)}")
+        self.actual_optimizer.load_state_dict(state["optimizer"])
+        prev = state["prev"]
+        self._prev = None if prev is None else [
+            torch.as_tensor(g).to(device=p.device, dtype=p.dtype, copy=True)
+            for g, p in zip(prev, self._params())]
+        for sched, s in zip(self.schedules, state["schedules"]):
+            sched.load_state_dict(s)
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.actual_optimizer.zero_grad(set_to_none=set_to_none)

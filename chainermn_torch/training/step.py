@@ -27,6 +27,16 @@ in one flat f32 buffer: the JAX step's ``pmean`` of the varying
 ``batch_stats``. A cross-replica batch norm's statistics already agree on
 every rank, and the JAX step leaves them alone too.
 
+``with_rng=True`` (dropout) makes the signature ``step(x, y, rng)``
+with ``rng`` an int key, as the JAX step's ``step(state, x, y, rng)``
+takes a PRNGKey. Each rank folds its rank into the key, and each
+micro-step its index (``grad_accum``; under ``scan_steps`` the inner
+step's index first), with :func:`chainermn_torch.ops.dropout.fold_in`, so
+masks differ across ranks and micro-steps and repeat for the same
+``rng``. The loss gets the key as ``rng=`` and passes it to the model;
+the model's dropout seeds a generator on its device from it per site, so
+a ``remat`` recomputation draws the same masks.
+
 ``make_eval_step`` is the counterpart of the JAX ``make_eval_step``: the
 loss and accuracy of each rank's batch under ``torch.no_grad()`` and
 with ``train=False`` (running statistics), averaged over ranks (the JAX
@@ -45,29 +55,37 @@ from torch.utils.checkpoint import checkpoint
 
 from chainermn_torch.extensions import allreduce_persistent
 from chainermn_torch.links import batch_norm_layers, frozen_batch_stats
+from chainermn_torch.ops.dropout import fold_in
 
 __all__ = ["classifier_loss", "make_data_parallel_train_step",
            "make_eval_step"]
 
 
-def _accepts_train(model) -> bool:
-    """Whether ``model``'s ``forward`` declares ``train`` (batch norm and
-    dropout models), as the JAX ``_accepts_train`` asks of ``__call__``."""
+def _accepts(model, name: str) -> bool:
+    """Whether ``model``'s ``forward`` declares ``name`` (``train``: batch
+    norm and dropout models; ``rng``: dropout models), as the JAX
+    ``_accepts_train`` asks of ``__call__``."""
     try:
         sig = inspect.signature(type(model).forward)
     except (TypeError, ValueError):
         return False
-    return "train" in sig.parameters
+    return name in sig.parameters
 
 
-def classifier_loss(model, x, y, train: bool = True, mutable=None):
+def classifier_loss(model, x, y, train: bool = True, mutable=None,
+                    rng=None):
     """Softmax cross-entropy and accuracy of an ``(x, y)`` classifier, in
     the step-factory loss signature ``loss_fn(model, x, y, train,
     mutable) -> (loss, (acc, new_vars))``. ``train`` reaches every model
-    whose ``forward`` takes it; the batch statistics a train-mode forward
-    updates live in the model, so ``new_vars`` is empty."""
+    whose ``forward`` takes it, and the dropout key ``rng`` every model
+    whose ``forward`` takes ``rng`` (flax ignores rngs a model does not
+    use); the batch statistics a train-mode forward updates live in the
+    model, so ``new_vars`` is empty."""
     del mutable
-    logits = model(x, train=train) if _accepts_train(model) else model(x)
+    kw = {"train": train} if _accepts(model, "train") else {}
+    if rng is not None and _accepts(model, "rng"):
+        kw["rng"] = rng
+    logits = model(x, **kw)
     loss = F.cross_entropy(logits.float(), y.long())
     acc = (logits.argmax(-1) == y).float().mean()
     return loss, (acc, {})
@@ -85,8 +103,8 @@ def make_data_parallel_train_step(model, optimizer, comm,
     (:func:`chainermn_torch.optimizers.create_multi_node_optimizer`);
     each rank passes its own batch. ``mutable`` is ``("batch_stats",)``
     for a model with batch norm (see the module docstring) and None
-    otherwise; ``with_rng`` (dropout) waits for the dropout slice
-    (ROADMAP.md queue 1 item 7)."""
+    otherwise; ``with_rng=True`` makes it ``step(x, y, rng)`` (dropout,
+    see the module docstring)."""
     bns = batch_norm_layers(model)
     if mutable:
         if tuple(mutable) != ("batch_stats",):
@@ -95,10 +113,6 @@ def make_data_parallel_train_step(model, optimizer, comm,
     elif bns:
         raise ValueError("the model has batch statistics: pass "
                          "mutable=('batch_stats',), as the JAX step needs")
-    if with_rng:
-        raise NotImplementedError(
-            "with_rng waits for the dropout slice of the port (ROADMAP.md "
-            "queue 1)")
     if grad_accum < 1 or scan_steps < 1:
         raise ValueError("grad_accum and scan_steps must be >= 1")
     lf = loss_fn or classifier_loss
@@ -111,21 +125,27 @@ def make_data_parallel_train_step(model, optimizer, comm,
     def recompute_contexts():
         return contextlib.nullcontext(), frozen_batch_stats(model)
 
-    def loss_of(x, y):
+    def loss_of(x, y, key):
+        kw = {} if key is None else {"rng": key}
         if remat:
             return checkpoint(
-                lambda a, b: lf(model, a, b, train=True, mutable=mutable),
+                lambda a, b: lf(model, a, b, train=True, mutable=mutable,
+                                **kw),
                 x, y, use_reentrant=False, context_fn=recompute_contexts)
-        return lf(model, x, y, train=True, mutable=mutable)
+        return lf(model, x, y, train=True, mutable=mutable, **kw)
 
-    def one_step(x, y):
+    def one_step(x, y, key):
         optimizer.zero_grad(set_to_none=True)
         if x.shape[0] % grad_accum:
             raise ValueError(f"batch {x.shape[0]} not divisible by "
                              f"grad_accum {grad_accum}")
+        if key is not None:
+            key = fold_in(key, comm.rank)   # the JAX step's axis_index
         loss_sum = acc_sum = 0.0
-        for xi, yi in zip(x.chunk(grad_accum), y.chunk(grad_accum)):
-            loss, (acc, _) = loss_of(xi, yi)
+        for i, (xi, yi) in enumerate(zip(x.chunk(grad_accum),
+                                         y.chunk(grad_accum))):
+            ki = key if key is None or grad_accum == 1 else fold_in(key, i)
+            loss, (acc, _) = loss_of(xi, yi, ki)
             loss.backward()
             loss_sum = loss_sum + loss.detach().float()
             acc_sum = acc_sum + acc.detach().float()
@@ -140,17 +160,23 @@ def make_data_parallel_train_step(model, optimizer, comm,
         return comm.allreduce(torch.stack([loss_sum, acc_sum]) / grad_accum,
                               "mean")
 
-    def step(x, y) -> Dict[str, torch.Tensor]:
+    def step(x, y, *rng) -> Dict[str, torch.Tensor]:
+        if len(rng) != int(with_rng):
+            raise TypeError("step(x, y, rng) with with_rng=True, step(x, y) "
+                            "without")
+        key = int(rng[0]) if with_rng else None
         x = torch.as_tensor(x, device=device)
         y = torch.as_tensor(y, device=device)
         if scan_steps > 1:
             if x.shape[0] != scan_steps or y.shape[0] != scan_steps:
                 raise ValueError(f"scan_steps={scan_steps} needs inputs "
                                  f"with a leading axis of {scan_steps}")
-            m = torch.stack([one_step(x[i], y[i])
-                             for i in range(scan_steps)])
+            m = torch.stack([
+                one_step(x[i], y[i], None if key is None
+                         else fold_in(key, i))
+                for i in range(scan_steps)])
             return {"main/loss": m[:, 0], "main/accuracy": m[:, 1]}
-        m = one_step(x, y)
+        m = one_step(x, y, key)
         return {"main/loss": m[0], "main/accuracy": m[1]}
 
     return step

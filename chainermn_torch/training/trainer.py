@@ -11,6 +11,12 @@ drives one GPU, so the updater moves this rank's arrays to
 ``comm.device`` and the step all-reduces across ranks. The step's metrics
 stay on the device: the trainer reads them (a host synchronisation) only
 when an extension is due.
+
+The JAX updater holds its state as a pytree that each step replaces; the
+port's step updates the model and the optimizer in place, so the
+updater's ``state`` is their ``state_dict``s, and assigning it loads them
+in place (``load_state_dict``) into the very objects the step holds:
+replacing the references would leave the step training the old ones.
 """
 
 from __future__ import annotations
@@ -47,16 +53,42 @@ class StandardUpdater:
 
     ``step_fn(*batch_arrays) -> metrics_dict`` updates the model and its
     optimizer in place (:func:`make_data_parallel_train_step`).
+    ``model`` and ``optimizer``, the objects the step updates, make up
+    :attr:`state` (what a checkpointer saves and restores).
     """
 
     def __init__(self, iterator, step_fn: Callable, comm,
-                 converter: Callable = default_converter):
+                 converter: Callable = default_converter, model=None,
+                 optimizer=None):
         self.iterator = iterator
         self.step_fn = step_fn
         self.comm = comm
         self.converter = converter
+        self.model = model
+        self.optimizer = optimizer
         self.iteration = 0
         self.last_metrics: Dict[str, Any] = {}
+
+    @property
+    def state(self) -> Dict[str, Any]:
+        """``{"model": model.state_dict(), "optimizer":
+        optimizer.state_dict()}`` (live tensors: a checkpointer copies
+        them at once)."""
+        if self.model is None or self.optimizer is None:
+            raise AttributeError(
+                "this updater knows no model and optimizer: pass them to "
+                "StandardUpdater")
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    @state.setter
+    def state(self, state: Dict[str, Any]) -> None:
+        """Load ``state`` in place into the model and the optimizer."""
+        if self.model is None or self.optimizer is None:
+            raise AttributeError("this updater knows no model and "
+                                 "optimizer to load the state into")
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
 
     @property
     def epoch(self):
@@ -128,9 +160,14 @@ class Trainer:
 
     With ``handle_preemption=True`` (default) the run installs a
     SIGTERM/SIGINT flag handler and polls it every step: a preemption
-    ends the loop cleanly with ``trainer.preempted`` set, and
-    :meth:`exit_code` gives :data:`PREEMPTED_EXIT_CODE`. Extensions with
-    a ``close`` method are closed when the run ends, however it ends.
+    fires ``emergency_save`` on every extension offering it (the
+    multi-node checkpointer), then ends the loop cleanly with
+    ``trainer.preempted`` set, and :meth:`exit_code` gives
+    :data:`PREEMPTED_EXIT_CODE`. Any exception leaving the step loop gets
+    the same last-chance checkpoint and is re-raised. There is no grace
+    deadline yet (``reserve_grace`` comes with ROADMAP.md queue 1 item
+    9). Extensions with a ``close`` method are closed when the run ends,
+    however it ends.
     The JAX package's chaos hook and peer-death watchdog wait for
     ROADMAP.md queue 1 item 9: :meth:`run` refuses their environment
     variables rather than ignore them.
@@ -166,6 +203,19 @@ class Trainer:
         self.observation["epoch"] = self.updater.epoch
         self.observation["elapsed_time"] = time.time() - start
 
+    def _emergency_checkpoint(self) -> None:
+        """Fire ``emergency_save`` on every extension offering it.
+        Failures are printed, not raised: this runs on the way out of a
+        dying or preempted run, where a save error must not mask how the
+        run ended."""
+        for e in self._extensions:
+            fn = getattr(e.ext, "emergency_save", None)
+            if callable(fn):
+                try:
+                    fn(self)
+                except Exception:
+                    traceback.print_exc()
+
     def exit_code(self) -> int:
         """Process exit status under the supervisor contract:
         :data:`PREEMPTED_EXIT_CODE` (143) after a preempted run, else 0.
@@ -192,20 +242,29 @@ class Trainer:
                  else None)
         start = time.time()
         try:
-            while not self._stopped():
-                if guard is not None and guard.requested:
-                    self.preempted = True
-                    break
-                try:
-                    self.updater.update()
-                except StopIteration:
-                    break  # non-repeating iterator exhausted
-                due = [e for e in self._extensions if e.due(self.updater)]
-                if due:
-                    self._materialize_observation(start)
-                    for e in due:
-                        e.ext(self)
-            self._materialize_observation(start)
+            try:
+                while not self._stopped():
+                    if guard is not None and guard.requested:
+                        self.preempted = True
+                        self._emergency_checkpoint()
+                        break
+                    try:
+                        self.updater.update()
+                    except StopIteration:
+                        break  # non-repeating iterator exhausted
+                    due = [e for e in self._extensions
+                           if e.due(self.updater)]
+                    if due:
+                        self._materialize_observation(start)
+                        for e in due:
+                            e.ext(self)
+                self._materialize_observation(start)
+            except BaseException:
+                # last-chance checkpoint: partial progress survives any
+                # exception leaving the step loop (the consensus election
+                # picks it up on restart); then re-raise
+                self._emergency_checkpoint()
+                raise
         finally:
             if guard is not None:
                 guard.uninstall()

@@ -24,8 +24,8 @@ the final line:
    beside the plain version, its bound and the PyTorch call that computes
    the same function (a yardstick only, the port never calls it; SDPA is
    first held against the plain versions): flash at the serving and
-   training shapes and at the split backward's cases (a window; causal
-   Lq != Lk); ce_fwd with its vocabulary ranges, grid and the bytes its
+   training shapes, at the split backward's cases (a window; causal
+   Lq != Lk) and at the ViT's (non-causal, 196 and 197 tokens); ce_fwd with its vocabulary ranges, grid and the bytes its
    TMA boxes move into shared memory; ce_dh + ce_dw together beside the
    one backward call of the yardstick (``pair`` line); then the two flash
    kernels with their register caps lifted, and the CE backward in its
@@ -90,7 +90,21 @@ the final line:
    beside raw gloo and the copies alone, and two ranks that ask for NCCL
    on one card must refuse and name ``non_cuda_aware``; a failed rank
    fails the run;
-11. a ``{"kernels": [...]}`` line, the card line, and last
+11. vit — ``train_imagenet --model vit``: ViT-S/16 (d_model 384, 12
+   layers, 6 heads, d_ff 1536, 1000 classes) in bf16 over f32 parameters
+   at 224², batch 64, SGD 0.1 Nesterov, one NCCL rank, over the synthetic
+   set: first 2 steps at batch 4 on the card held to the CPU; then the
+   example's run with launch counts zeroed just before and read just
+   after (exactly 12 flash_fwd and 12 flash_bwd a step, no CE kernel),
+   ms/step, images/s per chip and peak memory, finite losses and whether
+   they fall; the step alone on a fixed batch on the card; 3 iterations
+   with ``--dropout 0.1`` (the step's dropout keys on the card);
+12. checkpoint — the same ViT in three processes: uninterrupted, with
+   ``--snapshot-every`` stopped at the snapshot, and ``--resume`` to the
+   end; the restored state must equal the saved npz bit for bit and the
+   resumed losses the uninterrupted run's within a bf16 tolerance
+   (snapshot bytes, synchronous save, async stall and resume ms);
+13. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one, or when run
@@ -269,6 +283,14 @@ SPLIT_CASES = [
 ]
 
 
+# the ViT-S/16 training path at 224²: non-causal, 196 tokens (a ragged
+# last tile: 3 x 64 + 4), 197 with the class token (pool="cls")
+VIT_CASES = [
+    ("vit", 64, 196, 196, 6, 6, 64, "bfloat16", False, None, False),
+    ("vit-cls", 64, 197, 197, 6, 6, 64, "bfloat16", False, None, False),
+]
+
+
 def _dtype(name):
     import torch
 
@@ -300,6 +322,8 @@ def check_kernels(gen):
         *BF16_EDGE_CASES,
         # the shapes of the split backward's cases (rows 3-4), timed below
         *SPLIT_CASES,
+        # the ViT's shapes, timed below
+        *VIT_CASES,
     ]
     worst = {}
     for (name, b, lq, lk, hq, hkv, d, dtype, causal, window,
@@ -691,6 +715,7 @@ def check_flash_bwd(gen):
         *BF16_EDGE_CASES,
         # beyond the TPU fused kernel's envelope (the split dq / dkv pair)
         *SPLIT_CASES,
+        *VIT_CASES,
     ]
     worst = 0.0
     for (name, b, lq, lk, hq, hkv, d, dtype, causal, window,
@@ -1460,7 +1485,9 @@ def write_host_table(prof, out_dir: str, stem: str, card: str,
 
 def kernel_groups(prof) -> dict:
     """Device ms of a profile by kind, from the kernel names: cuDNN/cuBLAS
-    convolutions and products, torch reductions (batch-norm statistics
+    convolutions and products (cuBLAS's ``nvjet`` kernels among them), the
+    port's flash kernels, LayerNorm (its ``GammaBeta`` weight gradients
+    too) and GELU, forward and backward, torch reductions (batch-norm statistics
     and gradient sums), torch elementwise kernels (batch norm's casts and
     arithmetic, ReLU, residual adds, pads), the optimizer's fused
     multi-tensor kernels, NCCL, and the rest."""
@@ -1469,19 +1496,24 @@ def kernel_groups(prof) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.key_averages()
     host = {e.key for e in events if e.device_type != cuda}
-    groups = {"conv/gemm": 0.0, "reduce": 0.0, "elementwise": 0.0,
-              "optimizer": 0.0, "nccl": 0.0, "other": 0.0}
+    groups = {"conv/gemm": 0.0, "flash": 0.0, "layer_norm/gelu": 0.0,
+              "reduce": 0.0, "elementwise": 0.0, "optimizer": 0.0,
+              "nccl": 0.0, "other": 0.0}
     for e in events:
         if e.device_type != cuda or e.key in host:
             continue
         name = e.key.lower()
         if "nccl" in name:
             kind = "nccl"
+        elif "flash_" in name:
+            kind = "flash"
+        elif any(t in name for t in ("layer_norm", "gammabeta", "gelu")):
+            kind = "layer_norm/gelu"
         elif "multi_tensor_apply" in name:
             kind = "optimizer"
         elif any(t in name for t in ("xmma", "cudnn", "conv", "gemm",
                                      "cutlass", "fprop", "dgrad", "wgrad",
-                                     "sm80_", "sm90_")):
+                                     "sm80_", "sm90_", "nvjet")):
             kind = "conv/gemm"
         elif "reduce" in name:
             kind = "reduce"
@@ -2114,13 +2146,423 @@ def model_parallel(card: str):
     return counts
 
 
+VIT = dict(batch=64, image=224, n_train=640, iterations=24, fixed_calls=10,
+           check_batch=4, check_steps=2, dropout=0.1,
+           dropout_iterations=3, ckpt_n_train=512, ckpt_iterations=8,
+           ckpt_every=4, ckpt_warmup_epochs=0.5)
+# ViT-S/16 bf16, 2 steps at batch 4 on the card vs the CPU from the same
+# parameters and batches (SGD 0.1, Nesterov momentum 0.9): each device
+# rounds every activation to bf16 after its own sums (the card's flash
+# kernel against the CPU's plain attention, cuBLAS against the CPU's
+# GEMMs). On the CPU the bf16 model drifts from the f32 one by 1.4e-3
+# in the loss and 7.4e-3 in the update (relative L2 over all parameters;
+# the worst tensor, pos_emb, 1.0e-2) after these 2 steps; two bf16 runs
+# that round in other places stay within the same bounds. A wrong
+# projection, mask or gradient on one device is off by O(1):
+#   |loss_card - loss_cpu| <= 1e-2 |loss_cpu|
+#   |update_card - update_cpu| <= 0.1 |update_cpu| (all parameters)
+TOL_VIT_LOSS_REL = 1e-2
+TOL_VIT_UPDATE_REL = 0.1
+# the resumed run's losses after the snapshot vs the uninterrupted run's
+# (bf16 compute): the restored state is the saved one bit for bit, but
+# the two runs' first steps may differ in their last bits, because
+# flash_bwd sums dq with f32 atomics in no fixed order (ROADMAP.md queue
+# 2 item 2) and a bf16 cast can round such a sum either way (the phase
+# prints how far two runs of the same first steps are apart); a lost
+# momentum buffer, LR schedule or iterator position moves a loss by far
+# more:
+#   |loss_resumed - loss_uninterrupted| <= 2e-2 |loss_uninterrupted|
+TOL_CKPT_LOSS_REL = 2e-2
+
+
+def _vit_check(seed: int):
+    """Two steps of ViT-S/16 (bf16, batch 4, 224², SGD 0.1 with Nesterov
+    momentum 0.9, as ``train_imagenet --model vit`` builds it) through
+    the port's step on the CPU (a gloo world of one) and then on the
+    card (NCCL), from the same parameters (``torch.manual_seed(seed)``,
+    drawn on the CPU) and batches. Returns (cpu losses, card losses,
+    worst relative loss difference, relative update difference over all
+    parameters, worst tensor and its difference)."""
+    import torch
+
+    from chainermn_torch.comm import create_communicator
+    from chainermn_torch.models.vit import ViT
+    from chainermn_torch.optimizers import create_multi_node_optimizer
+    from chainermn_torch.training.step import make_data_parallel_train_step
+
+    v = VIT
+    gen = torch.Generator().manual_seed(seed + 1)
+    shape = (v["check_steps"], v["check_batch"], v["image"], v["image"], 3)
+    xs = torch.rand(shape, generator=gen)
+    ys = torch.randint(0, 1000, shape[:2], generator=gen)
+    out = {}
+    for device in ("cpu", "cuda"):
+        comm = create_communicator("pure_nccl", device=device)
+        torch.manual_seed(seed)
+        model = ViT(num_classes=1000, dtype=torch.bfloat16, device=device)
+        init = {k: t.detach().cpu().clone()
+                for k, t in model.state_dict().items()}
+        opt = create_multi_node_optimizer(torch.optim.SGD(
+            model.parameters(), lr=0.1, momentum=0.9, nesterov=True), comm)
+        step = make_data_parallel_train_step(model, opt, comm,
+                                             scan_steps=v["check_steps"])
+        losses = step(xs, ys)["main/loss"].tolist()
+        out[device] = (losses, {k: t.detach().cpu() for k, t in
+                                model.state_dict().items()})
+        comm.finalize()
+        del model, opt, step
+    (lc, sc), (lg, sg) = out["cpu"], out["cuda"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    num = den = 0.0
+    worst, worst_name = 0.0, ""
+    for n in sc:
+        dc, dg = sc[n] - init[n], sg[n] - init[n]
+        num += ((dg - dc) ** 2).sum().item()
+        den += (dc ** 2).sum().item()
+        rel = ((dg - dc).norm() / dc.norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, n
+    torch.cuda.empty_cache()
+    return lc, lg, loss_err, (num / den) ** 0.5, worst_name, worst
+
+
+def _vit_argv(out: str, iterations: int, n_train: int, *extra):
+    v = VIT
+    return ["--model", "vit", "--iterations", str(iterations),
+            "--batchsize", str(v["batch"]), "--image-size", str(v["image"]),
+            "--n-train", str(n_train), "--out", out, *extra]
+
+
+def _expect_vit_launches(counts, steps: int, what: str) -> None:
+    want = {"flash_fwd": 12 * steps, "flash_bwd": 12 * steps, "ce_fwd": 0,
+            "ce_dh": 0, "ce_dw": 0}
+    if counts != want:
+        raise PhaseError(f"{what}: launches {counts}, expected {want} (12 "
+                         f"flash_fwd and 12 flash_bwd a step, no CE kernel)")
+
+
+def vit(seed: int, card: str, profile_dir=None):
+    """``train_imagenet --model vit`` at full width: ViT-S/16 (d_model
+    384, 12 layers, 6 heads, d_ff 1536, ``pool="gap"``, 1000 classes),
+    bf16 compute over f32 parameters, 224² images, per-rank batch 64, SGD
+    0.1 with Nesterov momentum 0.9, one NCCL rank, over the JAX example's
+    synthetic set (``VIT["n_train"]`` images, epochs repeated). First
+    :func:`_vit_check` holds 2 steps at batch 4 on the card to the CPU.
+    Launch counts are zeroed just before the example's run and read just
+    after: 12 ``flash_fwd`` and 12 ``flash_bwd`` a step, no CE kernel.
+    Then the step alone on one fixed batch on the card (its device-bound
+    rate), and ``--dropout 0.1`` for 3 iterations (dropout keys on the
+    card). With ``profile_dir``, 5 fixed-batch steps and 5 example
+    iterations run under torch.profiler. Returns the launch counts of
+    the example runs and the fixed-batch calls."""
+    import tempfile
+
+    import torch
+
+    from chainermn_torch.examples import train_imagenet
+    from chainermn_torch.ops import _cuda
+
+    v = VIT
+    lc, lg, loss_err, upd_err, worst_name, worst = _vit_check(seed)
+    print(f"vit check: 2 steps at batch {v['check_batch']}, {v['image']}², "
+          f"bf16: losses card {[round(x, 6) for x in lg]} cpu "
+          f"{[round(x, 6) for x in lc]}, worst relative loss difference "
+          f"{loss_err:.2e} (tolerance {TOL_VIT_LOSS_REL}), relative update "
+          f"difference over all parameters {upd_err:.4f} (tolerance "
+          f"{TOL_VIT_UPDATE_REL}; worst tensor {worst_name} {worst:.4f}) "
+          f"({card})", flush=True)
+    if loss_err > TOL_VIT_LOSS_REL or upd_err > TOL_VIT_UPDATE_REL:
+        raise PhaseError("the ViT's steps on the card disagree with the "
+                         "CPU's")
+
+    total = {}
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        trainer, model = train_imagenet.build_trainer(
+            train_imagenet.parse_args(_vit_argv(d, v["iterations"],
+                                                v["n_train"])))
+        comm, up = trainer.updater.comm, trainer.updater
+        step, losses, first_done = up.step_fn, [], []
+
+        def recording(*arrays):
+            m = step(*arrays)
+            losses.append(m["main/loss"])   # stays on the device
+            if not first_done:
+                # one synchronise, after the first step only: the rest of
+                # the run is timed from there
+                torch.cuda.synchronize()
+                first_done.append(time.perf_counter())
+            return m
+
+        up.step_fn = recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        trainer.run()
+        torch.cuda.synchronize()
+        rest = time.perf_counter() - first_done[0]
+        counts = _cuda.launches()
+        peak = torch.cuda.max_memory_allocated()
+        steps = up.iteration
+        _expect_vit_launches(counts, steps, "train_imagenet --model vit")
+        total = dict(counts)
+        loss = torch.stack(losses).float().tolist()
+        ms = rest / (steps - 1) * 1e3
+        ips = (steps - 1) * v["batch"] * comm.size / rest
+        t0 = time.perf_counter()
+        for _ in range(10):
+            up.converter(next(up.iterator))
+        host_ms = (time.perf_counter() - t0) / 10 * 1e3
+        # the step alone on one batch already on the card
+        x, y = up.shard_batch(up.converter(next(up.iterator)))
+        step(x, y)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(v["fixed_calls"]):
+            m = step(x, y)
+        last = float(m["main/loss"])
+        fixed = (time.perf_counter() - t0) / v["fixed_calls"]
+        fixed_counts = _cuda.launches()
+        _expect_vit_launches(fixed_counts, v["fixed_calls"],
+                             "the ViT step on a fixed batch")
+        total = {k: total[k] + fixed_counts[k] for k in total}
+        finite = all(l == l and abs(l) < float("inf")
+                     for l in loss + [last])
+        head, tail = sum(loss[:3]) / 3, sum(loss[-3:]) / 3
+        print(f"vit: train_imagenet --model vit, ViT-S/16 bf16, batch "
+              f"{v['batch']} at {v['image']}², {steps} iterations over "
+              f"{v['n_train']} synthetic images: {ms:.3f} ms/step over the "
+              f"last {steps - 1}, images/s per chip {ips / comm.size:.1f}, "
+              f"host batch assembly {host_ms:.3f} ms/batch; the step alone "
+              f"on a fixed batch on the card {fixed * 1e3:.3f} ms/step, "
+              f"images/s per chip {v['batch'] / fixed:.1f}; peak memory "
+              f"{peak / 2 ** 30:.3f} GiB; losses {[round(l, 4) for l in loss]}"
+              f" (finite {finite}; mean of the first 3 {head:.4f}, of the "
+              f"last 3 {tail:.4f}: {'falls' if tail < head else 'does not fall'}"
+              f"), launches {counts} ({card})", flush=True)
+        if not finite:
+            raise PhaseError("the ViT's loss is not finite")
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            for stem, fn in (("vit", lambda: step(x, y)),
+                             ("vit_example", up.update)):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(5):
+                        fn()
+                    torch.cuda.synchronize()
+                    pwall = time.perf_counter() - t0
+                busy_us = write_kernel_table(prof, profile_dir, stem, card,
+                                             pwall)
+                write_host_table(prof, profile_dir, stem, card, 5)
+                groups = kernel_groups(prof)
+                print(f"profile {stem}: wall {pwall:.4f} s for 5 steps "
+                      f"(profiler on), device busy {busy_us / 1e3:.3f} ms = "
+                      f"{busy_us / 1e6 / pwall:.4f} of wall; device ms by "
+                      f"kind " + ", ".join(
+                          f"{g} {t:.3f}" for g, t in groups.items())
+                      + f" ({card})", flush=True)
+        comm.finalize()
+        del trainer, model, step, up, x, y
+        torch.cuda.empty_cache()
+
+        trainer, _ = train_imagenet.build_trainer(train_imagenet.parse_args(
+            _vit_argv(d, v["dropout_iterations"], 3 * v["batch"],
+                      "--dropout", str(v["dropout"]))))
+        _cuda.reset_launches()
+        trainer.run()
+        torch.cuda.synchronize()
+        dcounts = _cuda.launches()
+        dloss = trainer.observation["main/loss"]
+        _expect_vit_launches(dcounts, v["dropout_iterations"],
+                             "train_imagenet --model vit --dropout")
+        trainer.updater.comm.finalize()
+        print(f"vit dropout: train_imagenet --model vit --dropout "
+              f"{v['dropout']} (with_rng: masks from generators on the card "
+              f"keyed by iteration, rank and site), "
+              f"{v['dropout_iterations']} iterations, last loss {dloss:.6f}, "
+              f"launches {dcounts} ({card})", flush=True)
+        if not dloss == dloss:
+            raise PhaseError("the ViT's loss with dropout is not finite")
+        total = {k: total[k] + dcounts[k] for k in total}
+        del trainer
+        torch.cuda.empty_cache()
+    return total
+
+
+_CKPT_SCRIPT = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+from chainermn_torch.examples import train_imagenet
+from chainermn_torch.extensions import checkpoint as ck_mod
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+mode, report, k = sys.argv[1], sys.argv[2], int(sys.argv[3])
+argv = sys.argv[4:]
+res = {}
+Ck = ck_mod.MultiNodeCheckpointer
+if mode == "resume":
+    plain_resume = Ck.resume
+
+    def timed_resume(self, updater):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it = plain_resume(self, updater)
+        torch.cuda.synchronize()
+        res["resume_ms"] = (time.perf_counter() - t0) * 1e3
+        return it
+
+    Ck.resume = timed_resume
+if mode == "cut":
+    plain_call, stalls, made = Ck.__call__, [], []
+
+    def timed_call(self, trainer):
+        torch.cuda.synchronize()   # the step's own work is not the stall
+        t0 = time.perf_counter()
+        plain_call(self, trainer)
+        stalls.append((time.perf_counter() - t0) * 1e3)
+        made.append(self)
+
+    Ck.__call__ = timed_call
+trainer, model = train_imagenet.build_trainer(
+    train_imagenet.parse_args(argv))
+up = trainer.updater
+if mode == "resume":
+    res["resumed_at"] = up.iteration
+    path = os.path.join(trainer.out, "imagenet", f"snapshot_iter_{k}.0")
+    now, _ = ck_mod._host_arrays(up.state)
+    with np.load(path) as z:
+        saved = {n: z[n] for n in z.files if n.startswith("leaf_")}
+    res["leaves"] = len(now)
+    res["bitwise"] = set(now) == set(saved) and all(
+        now[n].dtype == saved[n].dtype and now[n].shape == saved[n].shape
+        and now[n].tobytes() == saved[n].tobytes() for n in saved)
+losses, step = [], up.step_fn
+
+def recording(*arrays):
+    m = step(*arrays)
+    losses.append(m["main/loss"])
+    return m
+
+up.step_fn = recording
+from chainermn_torch.ops import _cuda
+start = up.iteration
+torch.cuda.synchronize()
+_cuda.reset_launches()
+trainer.run()
+torch.cuda.synchronize()
+res["launches"] = _cuda.launches()
+res["steps"] = up.iteration - start
+res["iterations"] = up.iteration
+res["losses"] = [float(l) for l in losses]
+if mode == "cut":
+    res["async_stall_ms"] = stalls
+    fn = os.path.join(trainer.out, "imagenet", f"snapshot_iter_{k}.0")
+    res["bytes"] = os.path.getsize(fn)
+    sync = Ck("sync", up.comm, path=trainer.out)
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync.save(up.state, 100 + i)
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["sync_save_ms"] = times
+up.comm.finalize()
+with open(report, "w") as f:
+    json.dump(res, f)
+print("checkpoint run OK", flush=True)
+"""
+
+
+def checkpoint(card: str):
+    """The ViT through ``train_imagenet --model vit`` with snapshots,
+    three processes on this card (nothing survives in memory between
+    them): an uninterrupted run of ``VIT["ckpt_iterations"]`` iterations;
+    a run with ``--snapshot-every k`` that stops at k (``k =
+    VIT["ckpt_every"]``); and ``--resume`` back to the end. With a
+    warm-up schedule, so the state holds its ``LambdaLR``. After the
+    restore, the model's and the optimizer's state equal the saved npz
+    bit for bit; the resumed losses match the uninterrupted run's within
+    ``TOL_CKPT_LOSS_REL``. Prints the snapshot bytes, the synchronous
+    save, the async save's stall on the training thread, and the resume,
+    in ms. Returns the three runs' launch counts (each process checks its
+    own: 12 flash_fwd and 12 flash_bwd a step)."""
+    import tempfile
+
+    v = VIT
+    n, k = v["ckpt_iterations"], v["ckpt_every"]
+    extra = ("--warmup-epochs", str(v["ckpt_warmup_epochs"]))
+    reports = {}
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        for mode, out, iters, flags in (
+                ("full", "full", n, ()),
+                ("cut", "cut", k, ("--snapshot-every", str(k))),
+                ("resume", "cut", n, ("--snapshot-every", str(k),
+                                      "--resume"))):
+            report = os.path.join(d, f"{mode}.json")
+            argv = _vit_argv(os.path.join(d, out), iters, v["ckpt_n_train"],
+                             *extra, *flags)
+            proc = subprocess.run(
+                [sys.executable, "-c", _CKPT_SCRIPT, mode, report, str(k),
+                 *argv], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0 or not os.path.exists(report):
+                raise PhaseError(f"checkpoint {mode} run exited "
+                                 f"{proc.returncode}:\n"
+                                 f"{(proc.stdout + proc.stderr)[-3000:]}")
+            with open(report) as f:
+                reports[mode] = json.load(f)
+    full, cut, res = reports["full"], reports["cut"], reports["resume"]
+    floor = max(abs(a - b) / abs(b) for a, b in zip(cut["losses"],
+                                                    full["losses"][:k]))
+    err = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                  full["losses"][k:]))
+    print(f"checkpoint: ViT-S/16 bf16, train_imagenet --model vit "
+          f"--warmup-epochs {v['ckpt_warmup_epochs']}, batch {v['batch']}, "
+          f"{n} iterations uninterrupted vs --snapshot-every {k} stopped at "
+          f"{k} and --resume to {n} in a third process: snapshot "
+          f"{cut['bytes']} bytes a rank, synchronous save ms "
+          f"{[round(t, 3) for t in cut['sync_save_ms']]}, async save's "
+          f"stall on the training thread ms "
+          f"{[round(t, 3) for t in cut['async_stall_ms']]}, resume "
+          f"{res['resume_ms']:.3f} ms (election and load into the live "
+          f"model and optimizer); restored at iteration {res['resumed_at']},"
+          f" {res['leaves']} leaves bitwise the saved npz: "
+          f"{res['bitwise']}; losses uninterrupted "
+          f"{[round(l, 5) for l in full['losses']]}, resumed "
+          f"{[round(l, 5) for l in res['losses']]}, worst relative "
+          f"difference after the snapshot {err:.2e} (tolerance "
+          f"{TOL_CKPT_LOSS_REL}; two runs of the same first {k} steps "
+          f"differ by {floor:.2e}: flash_bwd's f32 atomics) ({card})",
+          flush=True)
+    if res["resumed_at"] != k or not res["bitwise"]:
+        raise PhaseError("the resumed state is not the saved snapshot")
+    if (len(res["losses"]) != n - k or len(full["losses"]) != n
+            or err > TOL_CKPT_LOSS_REL):
+        raise PhaseError("the resumed run's losses disagree with the "
+                         "uninterrupted run's")
+    total = {}
+    for mode, r in reports.items():
+        _expect_vit_launches(r["launches"], r["steps"], f"checkpoint {mode}")
+        total = {name: total.get(name, 0) + c
+                 for name, c in r["launches"].items()}
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one more served run, one more "
                          "train call, 20 more MNIST, CIFAR and seq2seq "
-                         "steps and one more ResNet-50 call into DIR "
+                         "steps, one more ResNet-50 call and 5 ViT steps "
+                         "(fixed batch, then through the example) into DIR "
                          "(chrome traces and kernel tables)")
     args = ap.parse_args(argv)
 
@@ -2180,6 +2622,13 @@ def main(argv=None) -> int:
                                          window).items():
             show(name, f"case={case} [{b},{lq}|{lk},{hq}|{hkv},{d}] bf16 "
                        f"window={window}", row)
+    # the ViT's path: non-causal, ragged 196 (197 with the class token)
+    for (case, b, lq, lk, hq, hkv, d, _, causal, window,
+         _) in VIT_CASES:
+        for name, row in time_flash_case(gen, b, lq, lk, hq, hkv, d, causal,
+                                         window).items():
+            show(name, f"case={case} [{b},{lq}|{lk},{hq}|{hkv},{d}] bf16 "
+                       f"non-causal", row)
     times, pair = time_training_kernels(gen)
     plan = ce_fwd_cuda_plan(8192, 768, 32768)
     for name, row in times.items():
@@ -2232,6 +2681,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     s2s_counts = seq2seq(card, args.profile)
     mp_counts = model_parallel(card)
+    torch.cuda.empty_cache()
+    vit_counts = vit(args.seed, card, args.profile)
+    ckpt_counts = checkpoint(card)
 
     sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:168"),
                "flash_bwd": ("flash_bwd.cu", "flash_attention.py:399"),
@@ -2246,12 +2698,13 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"chainermn_torch/csrc/{src}",
             "replaces": f"chainermn_tpu/ops/{tpu}",
-            # serving and training both drive flash_fwd: its count is
-            # the sum of the main-path runs (the MNIST, CIFAR, ResNet-50,
-            # seq2seq and model-parallel runs add none)
+            # serving, training, the ViT and its checkpoint runs drive
+            # flash: a count is the sum of the main-path runs (the MNIST,
+            # CIFAR, ResNet-50, seq2seq and model-parallel runs add none)
             "launches": train_counts[name] + mnist_counts[name]
             + cifar_counts[name] + r50_counts[name] + s2s_counts[name]
-            + mp_counts.get(name, 0) + (
+            + mp_counts.get(name, 0) + vit_counts[name]
+            + ckpt_counts[name] + (
                 counts["flash_fwd"] if name == "flash_fwd" else 0),
             "max_abs_err": errs[name], **times[name]})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -426,3 +426,76 @@ def test_train_step_on_the_card_runs_the_kernels(cuda):
         assert all(p.dtype == torch.float32 for p in model.parameters())
     finally:
         comm.finalize()
+
+
+# -- the ViT slice on the card ----------------------------------------------
+
+def test_vit_on_the_card_matches_the_cpu_and_launches_flash(cuda):
+    """A small bf16 ViT (``pool="cls"``: 17 tokens) on the card against
+    the same model on the CPU: logits within the bf16 rule above (the
+    kernels against the plain attention), one ``flash_fwd`` and one
+    ``flash_bwd`` per block, and gradients that reach every parameter."""
+    from chainermn_torch.models.vit import ViT
+
+    cfg = dict(num_classes=10, image_size=32, patch=8, d_model=64,
+               n_layers=2, n_heads=2, d_ff=128, pool="cls",
+               dtype=torch.bfloat16)
+    torch.manual_seed(0)
+    cpu = ViT(**cfg, device="cpu")
+    card = ViT(**cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand(4, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    before = _cuda.launches()
+    out = card(x.to(cuda))
+    out.float().square().sum().backward()
+    after = _cuda.launches()
+    assert after["flash_fwd"] - before["flash_fwd"] == 2
+    assert after["flash_bwd"] - before["flash_bwd"] == 2
+    _assert_bf16_close(out.detach().cpu(), cpu(x).detach())
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in card.parameters())
+
+
+def test_dropout_keys_on_the_card(cuda):
+    """Masks from a generator on the card: the same key gives the same
+    mask, another key another; the kept share is 1 - rate; train=False
+    returns the input."""
+    from chainermn_torch.ops.dropout import dropout, fold_in
+
+    x = torch.ones(256, 1024, device=cuda, dtype=torch.bfloat16)
+    a, b = dropout(x, 0.25, 7, True), dropout(x, 0.25, 7, True)
+    c = dropout(x, 0.25, fold_in(7, 1), True)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    kept = (a != 0).float().mean().item()
+    assert abs(kept - 0.75) < 0.01
+    assert torch.equal(a[a != 0], torch.full_like(a[a != 0], 1 / 0.75))
+    assert dropout(x, 0.25, 7, False) is x
+
+
+def test_checkpoint_round_trip_of_card_state(cuda, tmp_path):
+    """A state of card tensors (f32 and bf16) saves through page-locked
+    host copies and restores bit for bit (on the CPU, in their dtypes);
+    ``load_state_dict`` puts them back on the card."""
+    from chainermn_torch.extensions import create_multi_node_checkpointer
+    from chainermn_torch.models.vit import ViT
+
+    comm = create_communicator("pure_nccl", device="cpu")
+    try:
+        model = ViT(num_classes=10, image_size=32, patch=8, d_model=32,
+                    n_layers=1, n_heads=2, d_ff=64, device=cuda)
+        state = {"model": model.state_dict(),
+                 "half": torch.randn(5, device=cuda).to(torch.bfloat16)}
+        ck = create_multi_node_checkpointer("card", comm, path=str(tmp_path),
+                                            async_write=True)
+        ck.save(state, 1)
+        got, it = ck.maybe_load(None)
+        ck.close()
+    finally:
+        comm.finalize()
+    assert it == 1 and got["half"].dtype == torch.bfloat16
+    assert torch.equal(got["half"], state["half"].cpu())
+    fresh = ViT(num_classes=10, image_size=32, patch=8, d_model=32,
+                n_layers=1, n_heads=2, d_ff=64, device=cuda)
+    fresh.load_state_dict(got["model"])
+    for k, v in model.state_dict().items():
+        assert torch.equal(fresh.state_dict()[k], v), k

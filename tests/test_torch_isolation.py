@@ -70,7 +70,9 @@ def test_importing_the_port_loads_no_jax_module():
             "chainermn_torch.comm.p2p, "
             "chainermn_torch.examples.train_seq2seq, "
             "chainermn_torch.examples.train_mnist_model_parallel, "
-            "chainermn_torch.examples.train_mnist_eager_p2p, chip_smoke; "
+            "chainermn_torch.examples.train_mnist_eager_p2p, "
+            "chainermn_torch.models.vit, chainermn_torch.ops.dropout, "
+            "chainermn_torch.extensions.checkpoint, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -184,3 +186,27 @@ def test_the_model_parallel_and_seq2seq_slice_raises_without_cuda(tmp_path):
             make()
     assert Seq2Seq(n_units=4, src_vocab=8, tgt_vocab=8,
                    device="cpu").device == torch.device("cpu")
+
+
+def test_the_vit_and_checkpoint_slice_raises_without_cuda(tmp_path):
+    """The ViT, dropout keys and the checkpointer are covered by the
+    import scan; the ViT and ``train_imagenet --model vit`` (with
+    snapshots) raise without CUDA unless given the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device works")
+    from chainermn_torch.models.vit import ViT
+
+    files = [p.relative_to(REPO).as_posix() for p in _port_files()]
+    for new in ("chainermn_torch/models/vit.py",
+                "chainermn_torch/ops/dropout.py",
+                "chainermn_torch/extensions/checkpoint.py"):
+        assert new in files       # covered by the import scan above
+    for make in (lambda: ViT(num_classes=10, image_size=32, patch=8),
+                 lambda: train_imagenet.main(
+                     ["--model", "vit", "--iterations", "1",
+                      "--snapshot-every", "1", "--out", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert ViT(num_classes=10, image_size=32, patch=8, d_model=16,
+               n_layers=1, n_heads=2, d_ff=16,
+               device="cpu").device == torch.device("cpu")

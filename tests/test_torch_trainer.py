@@ -12,6 +12,7 @@ update at 1e-6; the 2-rank run against the 1-rank run at 1e-5 (one framework,
 the two half-batch means averaged instead of one mean). The first step
 is also checked piece by piece (see its test)."""
 
+import os
 import pickle
 import signal
 
@@ -195,8 +196,8 @@ def _tiny_trainer(comm, stop, n=256):
         torch.optim.SGD(model.parameters(), lr=0.1), comm)
     it = SerialIterator(synthetic_mnist(n, seed=0), 64, shuffle=False)
     return Trainer(StandardUpdater(
-        it, make_data_parallel_train_step(model, opt, comm), comm),
-        stop_trigger=stop)
+        it, make_data_parallel_train_step(model, opt, comm), comm,
+        model=model, optimizer=opt), stop_trigger=stop)
 
 
 def test_trainer_iteration_trigger_counts(comm):
@@ -406,3 +407,92 @@ def test_example_two_ranks_match_one_rank_on_both_batches(tmp_path):
     for k, v in model.state_dict().items():
         torch.testing.assert_close(got[0]["params"][k], v, rtol=1e-5,
                                    atol=1e-5, msg=k)
+
+
+# -- the emergency checkpoint ------------------------------------------------
+
+def test_an_exception_in_the_run_fires_emergency_save_then_reraises(
+        comm, tmp_path):
+    """A step that raises at iteration 3: every extension offering
+    ``emergency_save`` (the checkpointer) publishes the state at
+    iteration 2 before the exception leaves ``run``; a fresh updater
+    resumes from it with the model's values at the failure. A failing
+    ``emergency_save`` is printed and does not mask the exception."""
+    from chainermn_torch.extensions import create_multi_node_checkpointer
+
+    trainer = _tiny_trainer(comm, (10, "iteration"))
+    ck = create_multi_node_checkpointer("crash", comm, path=str(tmp_path),
+                                        async_write=True)
+    trainer.extend(ck, trigger=(5, "iteration"))
+
+    class Broken:
+        def __call__(self, t):
+            pass
+
+        def emergency_save(self, t):
+            raise OSError("disk full")
+
+    trainer.extend(Broken(), trigger=(1, "iteration"))
+    up = trainer.updater
+    step = up.step_fn
+
+    def fails_at_3(*arrays):
+        if up.iteration == 2:
+            raise KeyError("step failed")
+        return step(*arrays)
+
+    up.step_fn = fails_at_3
+    with pytest.raises(KeyError, match="step failed"):
+        trainer.run()
+    assert up.iteration == 2
+    assert sorted(os.listdir(ck.path)) == ["snapshot_iter_2.0",
+                                           "snapshot_iter_2.0.json"]
+    fresh = _tiny_trainer(comm, (10, "iteration")).updater
+    ck2 = create_multi_node_checkpointer("crash", comm, path=str(tmp_path))
+    assert ck2.resume(fresh) == 2 and fresh.iteration == 2
+    for k, v in up.model.state_dict().items():
+        assert torch.equal(fresh.model.state_dict()[k], v), k
+
+
+_PREEMPT_SAVE = r'''
+import os, signal, sys
+from chainermn_torch.comm import create_communicator
+from chainermn_torch.datasets import synthetic_mnist
+from chainermn_torch.extensions import create_multi_node_checkpointer
+from chainermn_torch.iterators import SerialIterator
+from chainermn_torch.models import MLP
+from chainermn_torch.optimizers import create_multi_node_optimizer
+from chainermn_torch.training import (StandardUpdater, Trainer,
+                                      make_data_parallel_train_step)
+import torch
+
+comm = create_communicator("naive", device="cpu")
+model = MLP(n_units=8, device="cpu")
+opt = create_multi_node_optimizer(torch.optim.SGD(model.parameters(),
+                                                  lr=0.1), comm)
+trainer = Trainer(StandardUpdater(
+    SerialIterator(synthetic_mnist(128, seed=0), 16),
+    make_data_parallel_train_step(model, opt, comm), comm, model=model,
+    optimizer=opt), stop_trigger=(100, "iteration"))
+ck = create_multi_node_checkpointer("pre", comm, path=sys.argv[1])
+trainer.extend(ck, trigger=(50, "iteration"))
+trainer.extend(lambda t: os.kill(os.getpid(), signal.SIGTERM)
+               if t.updater.iteration == 3 else None,
+               trigger=(1, "iteration"))
+trainer.run()
+files = sorted(os.listdir(ck.path))
+comm.finalize()
+print(f"RANK0 preempted={trainer.preempted} files={files}", flush=True)
+sys.exit(trainer.exit_code())
+'''
+
+
+def test_preemption_fires_emergency_save(tmp_path):
+    """A SIGTERM during iteration 3 (in a subprocess): the loop's poll
+    fires the checkpointer's ``emergency_save`` at iteration 3, then
+    stops with exit code 143."""
+    [(rc, out)] = run_world(_PREEMPT_SAVE, 1, timeout=60,
+                            args=[str(tmp_path)])
+    assert rc == 143, out[-3000:]
+    assert ("RANK0 preempted=True files=['snapshot_iter_3.0', "
+            "'snapshot_iter_3.0.json']") in out, out[-3000:]

@@ -11,6 +11,7 @@ given. The 2-rank tests run a real gloo world of two processes
 """
 
 import functools
+import pickle
 
 import numpy as np
 import pytest
@@ -463,9 +464,9 @@ def test_classifier_loss_is_the_default_loss_and_matches_jax(comm):
 
 
 def test_step_refuses_what_waits_for_later_slices(comm):
-    """``with_rng`` waits for the dropout slice; ``mutable`` names only
-    ``batch_stats``, and a batch-norm model needs it (the JAX step fails
-    on such a model without it); a scan needs a leading axis."""
+    """``mutable`` names only ``batch_stats``, and a batch-norm model
+    needs it (the JAX step fails on such a model without it); a scan
+    needs a leading axis."""
     tm = _port_model(_flax_params())
     opt = create_multi_node_optimizer(_torch_adamw(tm), comm)
     with pytest.raises(ValueError, match="batch_stats"):
@@ -475,8 +476,6 @@ def test_step_refuses_what_waits_for_later_slices(comm):
         torch.optim.SGD(bn_model.parameters(), lr=0.1), comm)
     with pytest.raises(ValueError, match="mutable"):
         make_data_parallel_train_step(bn_model, bn_opt, comm)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        make_data_parallel_train_step(tm, opt, comm, with_rng=True)
     step = make_data_parallel_train_step(tm, opt, comm, scan_steps=2,
                                          loss_fn=lm_loss_with_aux)
     x, y = (torch.from_numpy(a[0]) for a in _batches(1, b=4))
@@ -739,3 +738,200 @@ def test_allreduce_persistent_averages_running_stats_in_place(comm):
     seen = []
     AllreducePersistent(lambda: stats, c16, seen.append)()
     assert seen == [stats] and stats["m"].item() == 1.0 + 2.0 ** -9
+
+
+# -- with_rng: dropout keys ------------------------------------------------
+# The tiny ViT of tests/test_torch_vit.py with dropout 0.2 on every site.
+# Masks are a function of (rng, rank, micro-step, site), so equal keys
+# give bitwise-equal steps on the CPU; the rate-0 step against the JAX
+# with_rng step at 1e-5 (f32 sums in another order).
+
+VIT = dict(num_classes=10, patch=8, d_model=32, n_layers=2, n_heads=4,
+           d_ff=64)
+
+
+def _vit_batch(n=8, seed=11):
+    rs = np.random.RandomState(seed)
+    return (rs.rand(n, 32, 32, 3).astype(np.float32),
+            rs.randint(0, 10, size=n).astype(np.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _vit_flax_params():
+    from chainermn_tpu.models.vit import ViT as JaxViT
+
+    return jax.tree_util.tree_map(np.asarray, JaxViT(**VIT).init(
+        jax.random.PRNGKey(0), _vit_batch(2)[0])["params"])
+
+
+def _vit(rate, **kw):
+    from chainermn_torch.models.convert import vit_params_from_flax
+    from chainermn_torch.models.vit import ViT
+
+    tm = ViT(**VIT, image_size=32, dropout_rate=rate, device="cpu", **kw)
+    tm.load_state_dict(vit_params_from_flax(_vit_flax_params()))
+    return tm
+
+
+def _vit_step(comm, rate=0.2, model_kw=None, **kw):
+    tm = _vit(rate, **(model_kw or {}))
+    opt = create_multi_node_optimizer(
+        torch.optim.SGD(tm.parameters(), lr=0.1), comm)
+    return tm, make_data_parallel_train_step(tm, opt, comm, **kw)
+
+
+def _recording_loss(record):
+    def loss_fn(model, x, y, train=True, mutable=None, rng=None):
+        out = classifier_loss(model, x, y, train, mutable, rng=rng)
+        record.append(out[0].item())
+        return out
+    return loss_fn
+
+
+def test_with_rng_same_key_same_masks_other_key_other_masks(comm):
+    """``step(x, y, rng)``: the same key gives the same step bit for bit,
+    another key other masks (another loss); a missing key raises, as
+    flax does without a dropout rng."""
+    x, y = (torch.from_numpy(a) for a in _vit_batch())
+    runs = []
+    for key in (7, 7, 8):
+        tm, step = _vit_step(comm, with_rng=True)
+        runs.append((step(x, y, key)["main/loss"].item(), tm.state_dict()))
+    assert runs[0][0] == runs[1][0] != runs[2][0]
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
+    with pytest.raises(TypeError, match="rng"):
+        step(x, y)
+    tm, plain = _vit_step(comm)
+    with pytest.raises(ValueError, match="key"):
+        plain(x, y)
+
+
+def test_with_rng_decorrelates_micro_steps(comm):
+    """``grad_accum=2`` on a batch whose two halves are the same images:
+    each micro-step folds its index into the key, so their masks (and
+    losses) differ; without dropout they are equal."""
+    x, y = _vit_batch(4)
+    x, y = (torch.from_numpy(np.concatenate([a, a])) for a in (x, y))
+    for rate in (0.2, 0.0):
+        seen = []
+        tm, step = _vit_step(comm, rate, with_rng=True, grad_accum=2,
+                             loss_fn=_recording_loss(seen))
+        step(x, y, 3)["main/loss"].item()
+        assert len(seen) == 2
+        assert (seen[0] != seen[1]) == (rate > 0), (rate, seen)
+
+
+def test_with_rng_at_rate_zero_is_the_plain_step_and_the_jax_step(comm):
+    """Dropout 0 with keys equals the step without them bit for bit, and
+    the JAX ``with_rng`` step (1e-5)."""
+    from chainermn_tpu.models.vit import ViT as JaxViT
+
+    x, y = _vit_batch()
+    comm_j = _mesh_comm(1)
+    opt_j = chainermn_tpu.create_multi_node_optimizer(optax.sgd(0.1), comm_j)
+    step_j = jax_make_step(JaxViT(**VIT), opt_j, comm_j, with_rng=True,
+                           donate=False)
+    params = _vit_flax_params()
+    (p_j, _), m_j = step_j((params, opt_j.init(params)), x, y,
+                           jax.random.PRNGKey(5))
+    out = []
+    for kw, args in ((dict(with_rng=True), (5,)), ({}, ())):
+        tm, step = _vit_step(comm, 0.0, **kw)
+        out.append((step(torch.from_numpy(x), torch.from_numpy(y),
+                         *args)["main/loss"].item(), tm.state_dict()))
+    assert out[0][0] == out[1][0]
+    np.testing.assert_allclose(out[0][0], float(m_j["main/loss"]),
+                               rtol=1e-5)
+    from chainermn_torch.models.convert import vit_params_from_flax
+
+    want = vit_params_from_flax(jax.tree_util.tree_map(np.asarray, p_j))
+    for k, v in out[0][1].items():
+        assert torch.equal(v, out[1][1][k]), k
+        torch.testing.assert_close(v, want[k], rtol=1e-5, atol=1e-5, msg=k)
+
+
+@pytest.mark.parametrize("where", ["model", "step"])
+def test_remat_recomputes_the_same_dropout_masks(comm, where):
+    """Under ``remat`` (the model's per-block checkpoint, or the step's
+    around the loss) the recomputed forward draws the first pass's masks:
+    the step's loss and parameters equal the un-rematted step's bit for
+    bit. ``torch.utils.checkpoint`` does not replay a hand-made
+    generator's state; the masks are keyed by site instead."""
+    x, y = (torch.from_numpy(a) for a in _vit_batch())
+    out = []
+    for remat in (False, True):
+        model_kw = {"remat": remat} if where == "model" else {}
+        step_kw = {"remat": remat} if where == "step" else {}
+        tm, step = _vit_step(comm, model_kw=model_kw, with_rng=True,
+                             **step_kw)
+        out.append((step(x, y, 9)["main/loss"].item(), tm.state_dict()))
+    assert out[0][0] == out[1][0]
+    for k, v in out[0][1].items():
+        assert torch.equal(v, out[1][1][k]), k
+
+
+def test_eval_mode_ignores_dropout():
+    """``train=False`` is deterministic and equals the model without
+    dropout, with or without a key; train mode with a key drops."""
+    x = torch.from_numpy(_vit_batch(2)[0])
+    tm, plain = _vit(0.2), _vit(0.0)
+    with torch.no_grad():
+        a, b = tm(x, train=False), tm(x, train=False, rng=4)
+        c = plain(x, train=False)
+        d = tm(x, train=True, rng=4)
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert not torch.allclose(a, d)
+
+
+_RNG_WORKER = r'''
+import os, pickle, sys
+import numpy as np
+import torch
+from chainermn_torch.comm import create_communicator
+from chainermn_torch.models.vit import ViT
+from chainermn_torch.optimizers import create_multi_node_optimizer
+from chainermn_torch.training import (classifier_loss,
+                                      make_data_parallel_train_step)
+
+rank = int(os.environ["RANK"])
+with open(sys.argv[1], "rb") as f:
+    case = pickle.load(f)
+comm = create_communicator("pure_nccl", device="cpu")
+seen = []
+
+def loss_fn(model, x, y, train=True, mutable=None, rng=None):
+    out = classifier_loss(model, x, y, train, mutable, rng=rng)
+    seen.append(out[0].item())
+    return out
+
+for rate in (0.2, 0.0):
+    tm = ViT(**case["cfg"], image_size=32, dropout_rate=rate, device="cpu")
+    tm.load_state_dict(case["init"])
+    opt = create_multi_node_optimizer(
+        torch.optim.SGD(tm.parameters(), lr=0.1), comm)
+    step = make_data_parallel_train_step(tm, opt, comm, with_rng=True,
+                                         loss_fn=loss_fn)
+    step(torch.from_numpy(case["x"]), torch.from_numpy(case["y"]), 3)
+losses = comm.allgather_obj(seen)
+# the same images and key on both ranks: the rank folded into the key
+# gives other masks; without dropout the ranks agree
+assert losses[0][0] != losses[1][0], losses
+assert losses[0][1] == losses[1][1], losses
+comm.finalize()
+print(f"RANK{rank} OK", flush=True)
+'''
+
+
+def test_with_rng_decorrelates_ranks(tmp_path):
+    """A 2-rank gloo world, both ranks with the same images and key: each
+    rank folds its rank into the key, so their dropout masks differ."""
+    from chainermn_torch.models.convert import vit_params_from_flax
+
+    x, y = _vit_batch(4)
+    path = tmp_path / "case.pkl"
+    with open(path, "wb") as f:
+        pickle.dump({"cfg": VIT, "x": x, "y": y,
+                     "init": vit_params_from_flax(_vit_flax_params())}, f)
+    assert_ranks_ok(run_world(_RNG_WORKER, 2, timeout=120,
+                              args=[str(path)]))
