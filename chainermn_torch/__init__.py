@@ -26,10 +26,15 @@ non-causal flash kernels with dropout keys (the step's ``with_rng``), and
 snapshots with consensus resume through ``MultiNodeCheckpointer`` and the
 Trainer's emergency checkpoint (``python -m
 chainermn_torch.examples.train_imagenet --model vit [--snapshot-every N]
-[--resume]``).
+[--resume]``); sub-communicators (``mesh``/``axes``, ``split``) and the
+gradient reducers (``chainermn_torch.collectives``: flat, hierarchical,
+quantized with error feedback, auto) behind ``create_multi_node_optimizer
+(grad_reducer=, wire_format=)``, with ``ReductionReport``
+(``train_mnist --grad-reducer/--wire-format``).
 """
 
 from chainermn_torch import functions
+from chainermn_torch.collectives import make_grad_reducer
 from chainermn_torch.comm import CommunicatorBase, create_communicator
 from chainermn_torch.datasets import create_empty_dataset, scatter_dataset
 from chainermn_torch.device import resolve_device
@@ -60,4 +65,5 @@ __all__ = ["resolve_device", "TransformerLM", "MLP", "ResNet50",
            "create_empty_dataset", "create_multi_node_iterator",
            "create_synchronized_iterator", "create_multi_node_evaluator",
            "MultiNodeChainList", "Seq2Seq", "functions", "ViT",
-           "create_multi_node_checkpointer", "install_global_except_hook"]
+           "create_multi_node_checkpointer", "install_global_except_hook",
+           "make_grad_reducer"]

@@ -47,8 +47,22 @@ refuses two ranks on one device, and a NCCL communicator that finds
 ranks sharing a GPU raises and names ``non_cuda_aware``; it never
 switches on its own.
 
-Waiting for a later slice (``NotImplementedError``, ROADMAP.md queue 1
-item 2): ``split``.
+Sub-communicators. :meth:`DistributedCommunicator.over_mesh` gives the
+communicator over some axes of a mesh of ranks (a ``torch.distributed.
+device_mesh.DeviceMesh`` or the grid the factory builds for
+``hierarchical``/``two_dimensional``), and :meth:`DistributedCommunicator.
+split` the communicator over this rank's colour group, as
+``MPI_Comm_split`` orders it. Each gets its own groups: the array route's
+(NCCL, or gloo on the CPU and for host staging), and gloo groups for the
+object collectives and the point-to-point headers. ``new_group`` is
+collective over the whole world, so every rank creates the groups of every
+rank's sub-communicator (the *family*: the groups that partition the
+world, the same list on every rank), in the same order, and keeps its
+own. A sub-communicator's ranks are dense in ``[0, size)`` in its own
+order; collectives that return or take per-rank slots (``allgather``,
+``gather``, ``scatter``, ``alltoall``, the tiled reduce-scatter and
+all-gather) follow that order even where a reordering key makes it
+differ from the group's ascending global ranks.
 """
 
 from __future__ import annotations
@@ -60,6 +74,7 @@ import pickle
 import socket
 from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -84,9 +99,6 @@ PENDING_SEND_BYTES = 64 * 2 ** 20
 #: sends its rest in a second message)
 HEADER_BYTES = 1024
 
-_LATER = ("waits for a later slice of the port (ROADMAP.md queue 1 item "
-          "2, comm/)")
-
 _OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
         "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
@@ -109,6 +121,15 @@ def plan_buckets(sized_items, bucket_bytes):
     if cur:
         buckets.append(cur)
     return buckets
+
+
+def grad_tensors(grads) -> List[torch.Tensor]:
+    """The tensors a gradient reduction writes: a module's ``.grad``
+    tensors (of the parameters that have one), or a dict's or a
+    sequence's tensors."""
+    if isinstance(grads, nn.Module):
+        return [p.grad for p in grads.parameters() if p.grad is not None]
+    return _tensors(grads)
 
 
 def _tensors(tree) -> List[torch.Tensor]:
@@ -177,11 +198,15 @@ class DistributedCommunicator(CommunicatorBase):
         (e.g. ``torch.bfloat16``), or None for the gradients' own.
       host_staged: the ``non_cuda_aware`` path (module docstring): a gloo
         world whose array operations copy through host memory.
+      dcn_bucket_bytes: the bucket of :meth:`allreduce_grad` (None:
+        ``DEFAULT_BUCKET_BYTES``), and the default bucket of the gradient
+        reducers (``chainermn_torch.collectives``; None: their 4 MiB).
     """
 
     def __init__(self, device=None,
                  allreduce_grad_dtype: Optional[torch.dtype] = None,
-                 host_staged: bool = False):
+                 host_staged: bool = False,
+                 dcn_bucket_bytes: Optional[int] = None):
         dev = resolve_device(device)
         self._owns_group = False
         self._host = None
@@ -201,6 +226,9 @@ class DistributedCommunicator(CommunicatorBase):
                                               self._size))
         self._intra_rank = int(os.environ.get("LOCAL_RANK",
                                               self._rank % self._intra_size))
+        self._inter_rank = self._rank // self._intra_size
+        self._inter_size = -(-self._size // self._intra_size)
+        self._ranks_per_node = self._intra_size
         if dev.type == "cuda":
             if dev.index is None:
                 dev = torch.device("cuda", self._intra_rank
@@ -224,7 +252,23 @@ class DistributedCommunicator(CommunicatorBase):
         self._pending_bytes = 0
         self.staged_bytes = 0
         self.allreduce_grad_dtype = allreduce_grad_dtype
+        self._bucket_bytes = dcn_bucket_bytes
         self.name = "non_cuda_aware" if host_staged else "pure_nccl"
+        #: bytes this rank handed to the reduction collectives (the
+        #: buffer of each all-reduce, the input of each reduce-scatter and
+        #: all-gather): what the gradient reducers put on the wire
+        self.collective_bytes = 0
+        # the world as a mesh of one axis; the family is the list of
+        # groups that partition the world into communicators like this one
+        self._members = tuple(range(self._size))
+        self._family = (self._members,)
+        self._perm = None
+        self._grid = np.arange(self._size)
+        self._dims = self._axes = ("r",)
+        self._world_host = self._host
+        self._device_mesh = None
+        self._finalize_with = None
+        self._own_groups = ()
         if self._nccl_p2p and self._size > 1:
             shared = duplicate_devices(self.allgather_obj(_device_id(dev)))
             if shared:
@@ -259,11 +303,238 @@ class DistributedCommunicator(CommunicatorBase):
 
     @property
     def inter_rank(self) -> int:
-        return self._rank // self._intra_size
+        return self._inter_rank
 
     @property
     def inter_size(self) -> int:
-        return -(-self._size // self._intra_size)
+        return self._inter_size
+
+    @property
+    def members(self) -> Tuple[int, ...]:
+        """The world ranks of this communicator, in its rank order."""
+        return self._members
+
+    @property
+    def global_index(self) -> int:
+        """This process's world rank: a position in the world, not a rank
+        of this communicator (never a root or a peer here)."""
+        return self._members[self._rank]
+
+    # -- the mesh -------------------------------------------------------
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The mesh axes this communicator reduces over."""
+        return self._axes
+
+    @property
+    def axis_name(self) -> str:
+        """The single axis name; a communicator over several axes raises
+        (split it, or use :attr:`axis_names`)."""
+        if len(self._axes) != 1:
+            raise ValueError(f"communicator spans axes {self._axes}; use "
+                             f".axis_names or split()")
+        return self._axes[0]
+
+    @property
+    def mesh_shape(self) -> dict:
+        """Mesh axis name → its size."""
+        return dict(zip(self._dims, self._grid.shape))
+
+    @property
+    def mesh(self):
+        """The mesh as a ``torch.distributed.device_mesh.DeviceMesh`` with
+        ``mesh_dim_names`` (the one given to :meth:`over_mesh`, or one
+        made on first use without process groups of its own: this
+        communicator's collectives run on groups it made itself)."""
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            self._device_mesh = DeviceMesh(
+                self.device.type, torch.as_tensor(self._grid),
+                mesh_dim_names=self._dims, _init_backend=False)
+        return self._device_mesh
+
+    # -- sub-communicators ----------------------------------------------
+
+    def over_mesh(self, mesh, axes: Optional[Sequence[str]] = None
+                  ) -> "DistributedCommunicator":
+        """The communicator over ``axes`` (default: all of them) of
+        ``mesh``: a ``DeviceMesh`` with ``mesh_dim_names``, or a
+        ``(grid, names)`` pair (an integer array of world ranks and its
+        axis names). Its ranks walk the mesh along ``axes`` in row-major
+        order, the other coordinates fixed at this rank's. Every rank of
+        the world must call it with the same mesh and axes."""
+        if isinstance(mesh, tuple):
+            grid, dims = mesh
+            device_mesh = None
+        else:
+            grid, dims, device_mesh = mesh.mesh, mesh.mesh_dim_names, mesh
+            if dims is None:
+                raise ValueError("the DeviceMesh needs mesh_dim_names")
+        grid = np.asarray(torch.as_tensor(grid).cpu(), dtype=np.int64)
+        dims = tuple(dims)
+        if len(dims) != grid.ndim:
+            raise ValueError(f"{len(dims)} axis names for a {grid.ndim}-D "
+                             f"mesh")
+        axes = tuple(axes) if axes else dims
+        for a in axes:
+            if a not in dims:
+                raise ValueError(f"axis {a!r} not in mesh axes {dims}")
+        others = [i for i, d in enumerate(dims) if d not in axes]
+        order = others + [dims.index(a) for a in axes]
+        size = int(np.prod([grid.shape[dims.index(a)] for a in axes]))
+        family = tuple(tuple(int(r) for r in row) for row in
+                       np.transpose(grid, order).reshape(-1, size))
+        sub = self._derive(family)
+        sub._grid, sub._dims, sub._axes = grid, dims, axes
+        sub._device_mesh = device_mesh
+        return sub
+
+    def split(self, color, key=None, rank: Optional[int] = None
+              ) -> "DistributedCommunicator":
+        """The communicator over this rank's colour group
+        (``MPI_Comm_split``). ``color`` is this rank's colour (an int, the
+        reference's per-rank form), every rank's colour (a sequence of
+        ``size``), or the closed forms ``("block", k)`` (groups of ``k``
+        consecutive ranks) and ``("stride", k)`` (``size // k`` groups,
+        rank ``r`` in group ``r % (size // k)``). ``key`` orders a group
+        by ``(key, rank)``: this rank's key with an int colour, every
+        rank's keys with the other forms (a scalar key there carries no
+        order and is ignored, as all-equal keys are). Every rank of the
+        world calls it (group creation is collective over the world);
+        ranks of different parent communicators may split differently.
+        ``rank``, if given, must be this rank: a process drives only the
+        groups it belongs to."""
+        if rank is not None and rank != self._rank:
+            raise ValueError(f"split(rank={rank}) on rank {self._rank}: a "
+                             f"process can drive only its own group")
+        n = self._size
+        if isinstance(color, (int, np.integer)):
+            spec = ("rank", int(color), None if key is None else int(key))
+        else:
+            if (isinstance(color, tuple) and len(color) == 2
+                    and color[0] in ("block", "stride")):
+                kind, k = color
+                if k <= 0 or n % k:
+                    raise ValueError(f"group size {k} does not divide "
+                                     f"world {n}")
+                colors = ([r // k for r in range(n)] if kind == "block"
+                          else [r % (n // k) for r in range(n)])
+            else:
+                colors = [int(c) for c in color]
+                if len(colors) != n:
+                    raise ValueError(f"need {n} colors, got {len(colors)}")
+            keys = None
+            if key is not None and not isinstance(key, (int, np.integer)):
+                keys = [int(k) for k in key]
+                if len(keys) != n:
+                    raise ValueError(f"need {n} keys, got {len(keys)}")
+            spec = ("all", tuple(colors), None if keys is None
+                    else tuple(keys))
+        specs = [None] * dist.get_world_size()
+        dist.all_gather_object(specs, spec, group=self._world_host)
+        family = []
+        for sib in self._family:
+            mine = [specs[g] for g in sib]
+            if mine[0][0] == "rank":
+                if any(m[0] != "rank" for m in mine):
+                    raise ValueError("split: every rank of a communicator "
+                                     "must use the same form of colour")
+                colors = [m[1] for m in mine]
+                keys = [i if m[2] is None else m[2]
+                        for i, m in enumerate(mine)]
+            else:
+                if any(m != mine[0] for m in mine):
+                    raise ValueError("split: the ranks of a communicator "
+                                     "passed different colour sequences")
+                colors = list(mine[0][1])
+                keys = list(mine[0][2] or range(len(sib)))
+            for c in sorted(set(colors)):
+                group = sorted((i for i in range(len(sib))
+                                if colors[i] == c),
+                               key=lambda i: (keys[i], i))
+                family.append(tuple(sib[i] for i in group))
+        sub = self._derive(tuple(family))
+        name = f"{self._axes[0]}_split"
+        sub._grid, sub._dims, sub._axes = (np.asarray(sub._members),
+                                           (name,), (name,))
+        return sub
+
+    def _derive(self, family) -> "DistributedCommunicator":
+        """A communicator over this rank's group of ``family`` (groups of
+        world ranks in rank order that partition the world, the same on
+        every rank). Every rank creates every group, in family order; a
+        family that is this communicator's own reuses its groups."""
+        me = dist.get_rank()
+        if sorted(g for grp in family for g in grp) != list(
+                range(dist.get_world_size())):
+            raise ValueError(f"groups {family} do not partition the world")
+        sub = object.__new__(type(self))
+        sub.__dict__.update(self.__dict__)
+        sub._finalize_with = None
+        sub._device_mesh = None
+        sub.collective_bytes = sub.staged_bytes = 0
+        sub._family = tuple(tuple(g) for g in family)
+        members = next(g for g in sub._family if me in g)
+        sub._members = members
+        sub._rank = members.index(me)
+        sub._size = len(members)
+        order = sorted(members)
+        perm = [order.index(g) for g in members]
+        sub._perm = None if perm == list(range(len(perm))) else perm
+        sub._owns_group = False
+        if sub._family == self._family and members == self._members:
+            sub._own_groups = None      # the parent's groups: destroys none
+            return sub
+        gloo_world = dist.get_backend() == "gloo"
+        backend = "gloo" if gloo_world or self._host_staged else "nccl"
+        own = []
+        for grp in sub._family:
+            made = (dist.new_group(list(grp), backend=backend),
+                    dist.new_group(list(grp), backend="gloo"),
+                    dist.new_group(list(grp), backend="gloo"))
+            if grp == members:
+                own = made
+        sub._arrays, sub._host, sub._p2p = own
+        sub._own_groups = own
+        sub._channels = p2p.Channels(ordered=self._nccl_p2p)
+        sub._pending, sub._pending_bytes = [], 0
+        # node-local counts among the group's members, as the reference's
+        # hostname split gives them
+        node = self._ranks_per_node
+        nodes = sorted({g // node for g in members})
+        local = [g for g in members if g // node == me // node]
+        sub._intra_rank = local.index(me)
+        sub._intra_size = len(local)
+        sub._inter_rank = nodes.index(me // node)
+        sub._inter_size = len(nodes)
+        if self._nccl_p2p and sub._size > 1:
+            # connect the subgroup's pairs now (see __init__)
+            probe = torch.zeros(sub._size * 2 ** 18, device=self.device)
+            dist.all_to_all_single(torch.empty_like(probe), probe,
+                                   group=sub._arrays)
+        return sub
+
+    def _g(self, r: int) -> int:
+        """World rank of this communicator's rank ``r``."""
+        return self._members[r]
+
+    def _to_group(self, items: Sequence[Any]) -> List[Any]:
+        """Per-rank slots in this communicator's order → the group's
+        (ascending world ranks), which ``torch.distributed`` uses."""
+        if self._perm is None:
+            return list(items)
+        out = [None] * self._size
+        for i, p in enumerate(self._perm):
+            out[p] = items[i]
+        return out
+
+    def _from_group(self, items: Sequence[Any]) -> List[Any]:
+        """Per-rank slots in the group's order → this communicator's."""
+        if self._perm is None:
+            return list(items)
+        return [items[p] for p in self._perm]
 
     # -- host staging (the non_cuda_aware path) ------------------------
 
@@ -313,7 +584,7 @@ class DistributedCommunicator(CommunicatorBase):
         x = torch.as_tensor(x)
         buf = (self._out(x, copy=True) if self._rank == root
                else self._empty(x.shape, x.dtype))
-        dist.broadcast(buf, root, group=self._arrays)
+        dist.broadcast(buf, self._g(root), group=self._arrays)
         return self._in(buf)
 
     def allgather(self, x):
@@ -321,7 +592,7 @@ class DistributedCommunicator(CommunicatorBase):
         buf = self._out(torch.as_tensor(x))
         out = [self._empty(buf.shape, buf.dtype) for _ in range(self._size)]
         dist.all_gather(out, buf, group=self._arrays)
-        return self._in(torch.stack(out))
+        return self._in(torch.stack(self._from_group(out)))
 
     def alltoall(self, x):
         """``x``'s leading axis splits into ``size`` equal chunks: chunk
@@ -332,10 +603,15 @@ class DistributedCommunicator(CommunicatorBase):
             raise ValueError(f"alltoall expects a leading axis divisible "
                              f"by {self._size}, got shape "
                              f"{tuple(x.shape)}")
+        if self._perm is not None:
+            x = torch.cat(self._to_group(x.chunk(self._size)))
         buf = self._out(x)
         out = self._empty(buf.shape, buf.dtype)
         dist.all_to_all_single(out, buf, group=self._arrays)
-        return self._in(out)
+        out = self._in(out)
+        if self._perm is not None:
+            out = torch.cat(self._from_group(out.chunk(self._size)))
+        return out
 
     def gather(self, x, root: int = 0):
         """Every rank's tensor stacked in rank order on ``root``; None on
@@ -345,8 +621,9 @@ class DistributedCommunicator(CommunicatorBase):
         out = ([self._empty(buf.shape, buf.dtype)
                 for _ in range(self._size)]
                if self._rank == root else None)
-        dist.gather(buf, out, dst=root, group=self._arrays)
-        return self._in(torch.stack(out)) if out is not None else None
+        dist.gather(buf, out, dst=self._g(root), group=self._arrays)
+        return (self._in(torch.stack(self._from_group(out)))
+                if out is not None else None)
 
     def scatter(self, x, root: int = 0):
         """``x[rank]`` of ``root``'s tensor ``x`` (leading axis ``size``)
@@ -363,13 +640,50 @@ class DistributedCommunicator(CommunicatorBase):
             meta = (tuple(x.shape[1:]), str(x.dtype))
         shape, dtype = self.bcast_obj(meta, root)
         out = self._empty(shape, p2p.parse_dtype(dtype))
-        parts = (list(self._out(x).unbind(0)) if self._rank == root
-                 else None)
-        dist.scatter(out, parts, src=root, group=self._arrays)
+        parts = (self._to_group(list(self._out(x).unbind(0)))
+                 if self._rank == root else None)
+        dist.scatter(out, parts, src=self._g(root), group=self._arrays)
         return self._in(out)
 
-    def split(self, color: int, key: int):
-        raise NotImplementedError(f"split {_LATER}")
+    # -- flat reductions (the gradient reducers' collectives) -----------
+
+    def _count(self, t: torch.Tensor) -> None:
+        self.collective_bytes += t.numel() * t.element_size()
+
+    def reduce_flat(self, flat: torch.Tensor, op: str = "sum"
+                    ) -> torch.Tensor:
+        """All-reduce of a contiguous vector, in place where the route
+        allows (the result is returned; ``op="mean"`` is the sum)."""
+        buf = self._out(flat)
+        self._count(buf)
+        dist.all_reduce(buf, self._op(op), group=self._arrays)
+        return self._in(buf)
+
+    def reduce_scatter_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        """Sum-reduce-scatter of a vector whose length ``size`` divides:
+        rank ``r`` gets tile ``r`` (a new tensor)."""
+        n = self._size
+        if flat.numel() % n:
+            raise ValueError(f"reduce_scatter_flat: length {flat.numel()} "
+                             f"is not a multiple of {n}")
+        if self._perm is not None:
+            flat = torch.cat(self._to_group(flat.chunk(n)))
+        buf = self._out(flat)
+        self._count(buf)
+        out = self._empty((flat.numel() // n,), flat.dtype)
+        dist.reduce_scatter_tensor(out, buf, group=self._arrays)
+        return self._in(out)
+
+    def all_gather_flat(self, tile: torch.Tensor) -> torch.Tensor:
+        """Every rank's tile, concatenated in rank order."""
+        buf = self._out(tile)
+        self._count(buf)
+        out = self._empty((tile.numel() * self._size,), tile.dtype)
+        dist.all_gather_into_tensor(out, buf, group=self._arrays)
+        out = self._in(out)
+        if self._perm is not None:
+            out = torch.cat(self._from_group(out.chunk(self._size)))
+        return out
 
     # -- array point-to-point -------------------------------------------
 
@@ -397,12 +711,14 @@ class DistributedCommunicator(CommunicatorBase):
             leaves, spec = p2p.flatten(tree)
             leaves = [t.detach() for t in leaves]
             header = self._channels.header(dest, tag, spec, leaves)
-            self._isend_header(header, dest, p2p.wire_tags(tag)[0])
+            self._isend_header(header, self._g(dest),
+                               p2p.wire_tags(tag)[0])
             outgoing.append((dest, tag, leaves))
         for src, tag in recvs:
             self._check_peer(src)
             p2p.check_tag(tag)
-            header = self._recv_header(src, p2p.wire_tags(tag)[0])
+            header = self._recv_header(self._g(src),
+                                       p2p.wire_tags(tag)[0])
             wanted.append((src, tag, header,
                            self._channels.accept(src, tag, header)))
         if self._nccl_p2p:
@@ -410,12 +726,13 @@ class DistributedCommunicator(CommunicatorBase):
         for dest, tag, leaves in outgoing:
             for t in leaves:
                 buf = self._out(t)
-                self._keep(dist.isend(buf, dest, group=self._p2p,
+                self._keep(dist.isend(buf, self._g(dest),
+                                      group=self._p2p,
                                       tag=p2p.wire_tags(tag)[1]), buf)
         out = []
         for src, tag, header, metas in wanted:
             bufs = [self._empty(shape, dtype) for shape, dtype in metas]
-            works = [dist.irecv(b, src, group=self._p2p,
+            works = [dist.irecv(b, self._g(src), group=self._p2p,
                                 tag=p2p.wire_tags(tag)[1]) for b in bufs]
             for w in works:
                 w.wait()
@@ -427,12 +744,14 @@ class DistributedCommunicator(CommunicatorBase):
         """The payloads over NCCL, as one batch: NCCL groups the sends
         and receives, so two ranks may swap messages, and the batch rides
         the world's communicator (made and connected at construction)."""
-        ops = [dist.P2POp(dist.isend, t.to(self.device).contiguous(), dest)
+        ops = [dist.P2POp(dist.isend, t.to(self.device).contiguous(),
+                          self._g(dest), group=self._arrays)
                for dest, _, leaves in outgoing for t in leaves]
         received = []
         for src, _, header, metas in wanted:
             bufs = [self._empty(shape, dtype) for shape, dtype in metas]
-            ops += [dist.P2POp(dist.irecv, b, src) for b in bufs]
+            ops += [dist.P2POp(dist.irecv, b, self._g(src),
+                               group=self._arrays) for b in bufs]
             received.append((header["spec"], bufs))
         if ops:
             for w in dist.batch_isend_irecv(ops):
@@ -492,7 +811,8 @@ class DistributedCommunicator(CommunicatorBase):
         if self._size == 1:
             return obj
         box = [obj if self._rank == root else None]
-        dist.broadcast_object_list(box, src=root, group=self._host)
+        dist.broadcast_object_list(box, src=self._g(root),
+                                   group=self._host)
         return box[0]
 
     def gather_obj(self, obj: Any, root: int = 0) -> Optional[List[Any]]:
@@ -500,15 +820,15 @@ class DistributedCommunicator(CommunicatorBase):
         if self._size == 1:
             return [obj]
         out = [None] * self._size if self._rank == root else None
-        dist.gather_object(obj, out, dst=root, group=self._host)
-        return out
+        dist.gather_object(obj, out, dst=self._g(root), group=self._host)
+        return None if out is None else self._from_group(out)
 
     def allgather_obj(self, obj: Any) -> List[Any]:
         if self._size == 1:
             return [obj]
         out = [None] * self._size
         dist.all_gather_object(out, obj, group=self._host)
-        return out
+        return self._from_group(out)
 
     def allreduce_obj(self, obj: Any, op: str = "sum") -> Any:
         """Leafwise reduction of every rank's object (nested dicts, lists
@@ -534,8 +854,8 @@ class DistributedCommunicator(CommunicatorBase):
             return objs[0]
         out = [None]
         dist.scatter_object_list(
-            out, list(objs) if self._rank == root else None, src=root,
-            group=self._host)
+            out, self._to_group(list(objs)) if self._rank == root else None,
+            src=self._g(root), group=self._host)
         return objs[root] if self._rank == root else out[0]
 
     def _check_peer(self, peer: int) -> None:
@@ -556,12 +876,14 @@ class DistributedCommunicator(CommunicatorBase):
         payload = torch.frombuffer(
             bytearray(pickle.dumps(obj, pickle.HIGHEST_PROTOCOL)),
             dtype=torch.uint8)
+        dest = self._g(dest)
         dist.send(torch.tensor([payload.numel()], dtype=torch.int64), dest,
                   group=self._host, tag=tag)
         dist.send(payload, dest, group=self._host, tag=tag)
 
     def recv_obj(self, src: int, tag: int = 0) -> Any:
         self._check_peer(src)
+        src = self._g(src)
         n = torch.empty(1, dtype=torch.int64)
         dist.recv(n, src, group=self._host, tag=tag)
         payload = torch.empty(int(n), dtype=torch.uint8)
@@ -585,7 +907,7 @@ class DistributedCommunicator(CommunicatorBase):
             buf = (self._out(t.data) if self._rank == root
                    or not self._host_staged
                    else self._empty(t.shape, t.dtype))
-            dist.broadcast(buf, root, group=self._arrays)
+            dist.broadcast(buf, self._g(root), group=self._arrays)
             if buf.data_ptr() != t.data.data_ptr():
                 t.data.copy_(self._in(buf))
         return params
@@ -595,13 +917,10 @@ class DistributedCommunicator(CommunicatorBase):
                        op: str = "mean"):
         """All-reduce gradients in place: a module's ``.grad`` tensors, or
         a dict or sequence of tensors. ``op="mean"`` is the mean over
-        ranks of the per-rank gradients; returns ``grads``."""
-        red = self._op(op)
-        if isinstance(grads, nn.Module):
-            leaves = [p.grad for p in grads.parameters()
-                      if p.grad is not None]
-        else:
-            leaves = _tensors(grads)
+        ranks of the per-rank gradients; returns ``grads``. Buckets hold
+        at most :attr:`grad_bucket_bytes`."""
+        self._op(op)
+        leaves = grad_tensors(grads)
         groups = {}
         for i, g in enumerate(leaves):
             cdt = self.allreduce_grad_dtype or g.dtype
@@ -610,12 +929,9 @@ class DistributedCommunicator(CommunicatorBase):
             item = torch.empty((), dtype=cdt).element_size()
             for bucket in plan_buckets(
                     [(i, leaves[i].numel() * item) for i in idxs],
-                    DEFAULT_BUCKET_BYTES):
-                flat = torch.cat([leaves[i].reshape(-1).to(cdt)
-                                  for i in bucket])
-                buf = self._out(flat)
-                dist.all_reduce(buf, red, group=self._arrays)
-                flat = self._in(buf)
+                    self.grad_bucket_bytes):
+                flat = self.reduce_flat(torch.cat(
+                    [leaves[i].reshape(-1).to(cdt) for i in bucket]), op)
                 off = 0
                 for i in bucket:
                     g = leaves[i]
@@ -627,15 +943,21 @@ class DistributedCommunicator(CommunicatorBase):
                     g.copy_(piece)
         return grads
 
+    @property
+    def grad_bucket_bytes(self) -> int:
+        """The bucket of :meth:`allreduce_grad`: ``dcn_bucket_bytes``, or
+        ``DEFAULT_BUCKET_BYTES``."""
+        return self._bucket_bytes or DEFAULT_BUCKET_BYTES
+
     # -- misc -----------------------------------------------------------
 
     def barrier(self) -> None:
         """Wait for every rank (and for this rank's unfinished sends)."""
         self._drain()
-        if dist.get_backend() == "nccl":
-            dist.barrier(device_ids=[self.device.index])
+        if dist.get_backend(self._arrays) == "nccl":
+            dist.barrier(group=self._arrays, device_ids=[self.device.index])
         else:
-            dist.barrier()
+            dist.barrier(group=self._arrays)
 
     def finalize(self) -> None:
         """Wait for unfinished sends, then destroy this communicator's
@@ -647,9 +969,14 @@ class DistributedCommunicator(CommunicatorBase):
         if dist.is_initialized():
             if self._owns_group:
                 dist.destroy_process_group()
-            else:
-                for g in (self._host, self._p2p, self._arrays):
+            elif self._own_groups is not None:
+                # a world communicator's groups, or a sub-communicator's
+                # own (one that reuses its parent's has None)
+                for g in (self._own_groups or (self._host, self._p2p,
+                                               self._arrays)):
                     if g is not None:
                         dist.destroy_process_group(g)
         self._owns_group = False
         self._host = None
+        if self._finalize_with is not None:
+            self._finalize_with.finalize()

@@ -3,10 +3,11 @@
 The reference's flow (config #1): create the communicator → the root
 parses MNIST IDX files → ``scatter_dataset`` → ``bcast_obj`` of the test
 set → ``bcast_data`` of the parameters → ``create_multi_node_optimizer``
-(Adam) → ``make_data_parallel_train_step`` and ``make_eval_step`` →
+(Adam, with the ``--grad-reducer`` strategy and its ``--wire-format``)
+→ ``make_data_parallel_train_step`` and ``make_eval_step`` →
 ``SerialIterator`` → ``StandardUpdater`` → ``Trainer`` with the multi-node
-``Evaluator``, and ``LogReport`` / ``PrintReport`` on rank 0 →
-``main_exit_code``. One process per GPU; ``--batchsize`` is each rank's
+``Evaluator``, and ``ReductionReport`` / ``LogReport`` / ``PrintReport``
+on rank 0 → ``main_exit_code``. One process per GPU; ``--batchsize`` is each rank's
 batch.
 
 Without ``--data-dir`` rank 0 writes synthetic MNIST-layout IDX files
@@ -27,6 +28,7 @@ import sys
 
 import torch
 
+from chainermn_torch.collectives import make_grad_reducer
 from chainermn_torch.comm import create_communicator
 from chainermn_torch.datasets import (load_mnist, save_mnist,
                                       scatter_dataset, synth_uint8)
@@ -36,7 +38,8 @@ from chainermn_torch.models import MLP
 from chainermn_torch.optimizers import create_multi_node_optimizer
 from chainermn_torch.resilience.supervisor import main_exit_code
 from chainermn_torch.training import (Evaluator, LogReport, PrintReport,
-                                      StandardUpdater, Trainer,
+                                      ReductionReport, StandardUpdater,
+                                      Trainer,
                                       make_data_parallel_train_step,
                                       make_eval_step)
 
@@ -59,13 +62,13 @@ def parse_args(argv=None):
                         "files under --out and parse those")
     p.add_argument("--grad-reducer", default="flat",
                    choices=["flat", "hierarchical", "quantized", "auto"],
-                   help="gradient-reduction strategy; only 'flat' is "
-                        "ported")
+                   help="gradient-reduction strategy ('flat' is "
+                        "allreduce_grad, bit for bit)")
     p.add_argument("--wire-format", default=None,
                    choices=["f32", "bf16", "int8", "int8-block",
                             "int4-block"],
-                   help="wire format of compressing reducers; only f32 "
-                        "is ported")
+                   help="wire format of the compressing reducers "
+                        "('quantized', 'auto')")
     p.add_argument("--out", "-o", default="result")
     p.add_argument("--device", default=None,
                    help="'cuda' (default; NCCL) or 'cpu' (gloo)")
@@ -92,11 +95,6 @@ def _datasets(args, comm):
 def build_trainer(args):
     """Everything up to ``trainer.run()``: ``(trainer, model)``; the
     communicator is ``trainer.updater.comm``."""
-    if args.grad_reducer != "flat" or args.wire_format not in (None, "f32"):
-        raise NotImplementedError(
-            "--grad-reducer other than 'flat' and compressed "
-            "--wire-format wait for the reducers (ROADMAP.md queue 1 "
-            "item 8)")
     comm = create_communicator(args.communicator, device=args.device)
     if comm.is_master:
         print(f"ranks: {comm.size}  device: {comm.device}", flush=True)
@@ -108,9 +106,12 @@ def build_trainer(args):
     torch.manual_seed(0)
     model = MLP(n_units=args.unit, n_out=10, device=comm.device)
     comm.bcast_data(model)
+    wf = None if args.wire_format in (None, "f32") else args.wire_format
+    reducer = make_grad_reducer(args.grad_reducer, comm, wire_format=wf)
     # optax.adam: eps added after the square root, eps_root 0
     optimizer = create_multi_node_optimizer(
-        torch.optim.Adam(model.parameters(), lr=args.lr, eps=1e-8), comm)
+        torch.optim.Adam(model.parameters(), lr=args.lr, eps=1e-8), comm,
+        grad_reducer=reducer)
     step = make_data_parallel_train_step(model, optimizer, comm)
     eval_step = make_eval_step(model, comm)
 
@@ -125,6 +126,7 @@ def build_trainer(args):
     trainer.extend(create_multi_node_evaluator(evaluator, comm),
                    trigger=(1, "epoch"))
     if comm.is_master:  # reference convention: reporting on rank 0 only
+        trainer.extend(ReductionReport(reducer, model), trigger=(1, "epoch"))
         trainer.extend(LogReport(os.path.join(args.out, "log.jsonl")),
                        trigger=(1, "epoch"))
         trainer.extend(PrintReport(

@@ -2,7 +2,8 @@
 trainer loop, the evaluator and the reports."""
 
 from chainermn_torch.training.evaluator import Evaluator
-from chainermn_torch.training.reports import LogReport, PrintReport
+from chainermn_torch.training.reports import (LogReport, PrintReport,
+                                              ReductionReport)
 from chainermn_torch.training.step import (classifier_loss,
                                            make_data_parallel_train_step,
                                            make_eval_step)
@@ -11,4 +12,5 @@ from chainermn_torch.training.trainer import (StandardUpdater, Trainer,
 
 __all__ = ["classifier_loss", "make_data_parallel_train_step",
            "make_eval_step", "default_converter", "StandardUpdater",
-           "Trainer", "Evaluator", "LogReport", "PrintReport"]
+           "Trainer", "Evaluator", "LogReport", "PrintReport",
+           "ReductionReport"]

@@ -104,7 +104,24 @@ the final line:
    end; the restored state must equal the saved npz bit for bit and the
    resumed losses the uninterrupted run's within a bf16 tolerance
    (snapshot bytes, synchronous save, async stall and resume ms);
-13. a ``{"kernels": [...]}`` line, the card line, and last
+13. reducers — the gradient reducers (``chainermn_torch.collectives``):
+   (a) ResNet-50's gradient tree at full width (25.6M f32 parameters,
+   random gradients from ``--seed``) through ``flat``, ``hierarchical``,
+   ``quantized`` in ``bf16``, ``int8``, ``int8-block`` and
+   ``int4-block`` with error feedback, and ``auto``, on one NCCL rank:
+   each output held to the unquantized result within half a quantization
+   step an element (bit for bit where nothing is quantized), each residual
+   to input − local dequantization, the bytes handed to NCCL to the
+   plan's wire bytes, then ms a reduction; (b) ``train_mnist
+   --grad-reducer flat|hierarchical|quantized --wire-format
+   int8-block|auto`` at ``--unit 1000`` for one epoch of 8,192: losses
+   finite and falling, hierarchical's and auto's equal to flat's bit for
+   bit, the ``ReductionReport`` rows printed; (c) 4 ranks on this card
+   through ``non_cuda_aware`` with ``LOCAL_WORLD_SIZE=2`` (two "nodes"):
+   ``hierarchical`` bit for bit ``flat`` on integer-valued gradients and
+   ``int8-block`` within half a step of it, each rank on ``cuda:0``; no
+   hand-written kernel may launch;
+14. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one, or when run
@@ -115,6 +132,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2001,22 +2019,25 @@ _NCCL_SCRIPT = (
     "    print('refused: ' + str(e), flush=True)\n")
 
 
-def run_ranks(argv, n: int, timeout: float):
+def run_ranks(argv, n: int, timeout: float, local=None):
     """Start ``argv`` as ranks 0..n-1 of one world on this card (a free
-    localhost port); returns each rank's output. A rank that fails or
-    outlives ``timeout`` fails the phase, and every rank is stopped."""
+    localhost port; ``local`` ranks a node, default all ``n``); returns
+    each rank's output. A rank that fails or outlives ``timeout`` fails
+    the phase, and every rank is stopped."""
     import socket
 
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
+    local = local or n
     env = dict(os.environ, PYTHONPATH=HERE, WORLD_SIZE=str(n),
-               LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+               LOCAL_WORLD_SIZE=str(local), MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(port))
     procs = [subprocess.Popen(argv, cwd=HERE, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True,
-                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+                              env=dict(env, RANK=str(r),
+                                       LOCAL_RANK=str(r % local)))
              for r in range(n)]
     outs = []
     try:
@@ -2555,6 +2576,267 @@ def checkpoint(card: str):
     return total
 
 
+REDUCERS = dict(timed_calls=5, mnist_units=1000, mnist_n_train=8192,
+                mnist_batch=256, world_ranks=4, world_local=2)
+# a quantized reduction vs the unquantized one: each element within half
+# a quantization step s (the block's or bucket's max |g| / qmax), plus the
+# f32 rounding of code * s and of the check's own difference, each at
+# most 2^-24 of a value up to qmax (127) steps:
+#   |out - in| <= (0.5 + 2 * 127 * 2^-24) s
+TOL_QUANT_STEP = 0.5 + 2 * 127 * 2 ** -24
+
+
+def _reducer_cases(comm):
+    """(name, reducer) for every strategy and wire format, built as a
+    user builds them."""
+    from chainermn_torch.collectives import make_grad_reducer
+
+    cases = [("flat", make_grad_reducer("flat", comm)),
+             ("hierarchical", make_grad_reducer("hierarchical", comm))]
+    cases += [(f"quantized {wf}", make_grad_reducer(
+        "quantized", comm, wire_format=wf))
+        for wf in ("bf16", "int8", "int8-block", "int4-block")]
+    return cases + [("auto", make_grad_reducer("auto", comm))]
+
+
+def _quant_steps(red, leaves):
+    """Per element of each bucket of ``red``'s plan: the quantization
+    step of a fresh (zero-residual) reduction of ``leaves`` on one rank,
+    as one flat tensor in plan order (0 for bf16: checked bitwise)."""
+    import torch
+    import torch.nn.functional as F
+
+    qmax = 7.0 if red.mode == "int4-block" else 127.0
+    out = []
+    for _, _, bucket in red._plan(leaves):
+        v = torch.cat([leaves[i].reshape(-1) for i in bucket]).abs()
+        k = 256 if red.mode.endswith("-block") else v.numel()
+        b = F.pad(v, (0, (-v.numel()) % k)).reshape(-1, k)
+        out.append((b.amax(1, keepdim=True) / qmax).expand(-1, k).reshape(
+            -1)[:v.numel()])
+    return torch.cat(out)
+
+
+def _reducers_resnet50(seed: int, card: str):
+    """(a): ResNet-50's gradient tree through every reducer on one NCCL
+    rank (module docstring). Returns ms a reduction by reducer."""
+    import torch
+
+    from chainermn_torch.comm import create_communicator
+    from chainermn_torch.models import ResNet50
+
+    comm = create_communicator("pure_nccl")
+    try:
+        params = list(ResNet50(num_classes=1000).parameters())
+        n = sum(p.numel() for p in params)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        # magnitudes over four decades, leaf by leaf
+        grads0 = [torch.randn(p.shape, generator=g, device="cuda")
+                  * 10.0 ** (i % 4 - 3) for i, p in enumerate(params)]
+        flat_in = torch.cat([t.reshape(-1) for t in grads0])
+        times = {}
+        for name, red in _reducer_cases(comm):
+            grads = [t.clone() for t in grads0]
+            state = red.init(params)
+            before = comm.collective_bytes
+            grads, state = red.reduce(grads, state)
+            torch.cuda.synchronize()
+            counted = comm.collective_bytes - before
+            plan = red.plan(params)
+            wire = sum(r["wire_bytes"] for r in plan)
+            flat_out = torch.cat([t.reshape(-1) for t in grads])
+            if name.startswith("quantized"):
+                if red.mode == "bf16":
+                    ok = torch.equal(flat_out, flat_in.bfloat16().float())
+                    worst = 0.0
+                else:
+                    steps = _quant_steps(red, grads0)
+                    worst = ((flat_out - flat_in).abs() / steps).max().item()
+                    ok = worst <= TOL_QUANT_STEP
+                resid = torch.equal(torch.cat(list(state)),
+                                    flat_in - flat_out)
+            else:
+                ok, worst, resid = torch.equal(flat_out, flat_in), 0.0, True
+            # one rank: the hierarchical reducer's tiers are single ranks
+            # and call no collective
+            bytes_ok = counted == (0 if name == "hierarchical" else wire)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(REDUCERS["timed_calls"]):
+                grads, state = red.reduce(grads, state)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end) / REDUCERS["timed_calls"]
+            times[name] = ms
+            algos = sorted({r["algorithm"] for r in plan})
+            print(f"reducers resnet50: {name}: {ms:.4f} ms a reduction of "
+                  f"{n:,} f32 gradients ({4 * n:,} B) in {len(plan)} "
+                  f"buckets {algos}, wire {wire:,} B a step by the plan, "
+                  f"{counted:,} B handed to NCCL, worst |error| / step "
+                  f"{worst:.4f}, residual = input - dequantized: {resid} "
+                  f"({card})", flush=True)
+            if not (ok and resid and bytes_ok):
+                raise PhaseError(f"reducer {name}: output ok {ok} (worst "
+                                 f"{worst}), residual ok {resid}, bytes "
+                                 f"{counted} vs plan {wire}")
+        return times
+    finally:
+        comm.finalize()
+
+
+def _reducers_mnist(card: str):
+    """(b): ``train_mnist`` with each gradient reducer; returns the
+    strategies' losses."""
+    import tempfile
+
+    import torch
+
+    from chainermn_torch.examples import train_mnist
+
+    runs = {"flat": [], "hierarchical": [],
+            "quantized int8-block": ["--wire-format", "int8-block"],
+            "auto": []}
+    losses = {}
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        for name, extra in runs.items():
+            argv = ["--epoch", "1", "--unit", str(REDUCERS["mnist_units"]),
+                    "--n-train", str(REDUCERS["mnist_n_train"]),
+                    "--batchsize", str(REDUCERS["mnist_batch"]),
+                    "--out", d, "--grad-reducer", name.split()[0], *extra]
+            trainer, _ = train_mnist.build_trainer(
+                train_mnist.parse_args(argv))
+            step, seen = trainer.updater.step_fn, []
+
+            def recording(*arrays, step=step, seen=seen):
+                m = step(*arrays)
+                seen.append(m["main/loss"])
+                return m
+
+            trainer.updater.step_fn = recording
+            t0 = time.perf_counter()
+            try:
+                trainer.run()
+            finally:
+                trainer.updater.comm.finalize()
+            wall = time.perf_counter() - t0
+            losses[name] = torch.stack(seen).tolist()
+            ls = losses[name]
+            print(f"reducers mnist: --grad-reducer {name}: {len(ls)} steps "
+                  f"in {wall:.4f} s ({wall / len(ls) * 1e3:.3f} ms/step), "
+                  f"loss {ls[0]:.6g} -> {ls[-1]:.6g} ({card})", flush=True)
+            if not (all(map(math.isfinite, ls)) and ls[-1] < ls[0]):
+                raise PhaseError(f"train_mnist --grad-reducer {name}: "
+                                 f"losses not finite and falling: {ls}")
+    for name in ("hierarchical", "auto"):
+        if losses[name] != losses["flat"]:
+            raise PhaseError(f"train_mnist --grad-reducer {name}: losses "
+                             f"differ from flat's")
+    return losses
+
+
+# one rank of (c): 4 host-staged ranks on this card, two "nodes" of two;
+# the MNIST MLP's gradient shapes with integer values in [-8, 8) (every
+# rank makes every rank's from one seed); rank 0 prints the results
+_REDUCER_WORLD_SCRIPT = (
+    "import json, time, torch\n"
+    "import torch.nn.functional as F\n"
+    "from chainermn_torch.collectives import (FlatReducer,\n"
+    "    HierarchicalReducer, QuantizedReducer)\n"
+    "from chainermn_torch.comm import create_communicator\n"
+    "from chainermn_torch.ops import _cuda\n"
+    "_cuda.reset_launches()\n"
+    "comm = create_communicator('non_cuda_aware')\n"
+    "r, n = comm.rank, comm.size\n"
+    "g = torch.Generator().manual_seed(0)\n"
+    "shapes = [(1000, 784), (1000,), (1000, 1000), (1000,), (10, 1000),\n"
+    "          (10,)]\n"
+    "every = [torch.randint(-8, 8, (n, *s), generator=g).float()\n"
+    "         for s in shapes]\n"
+    "mine = [t[r].to(comm.device) for t in every]\n"
+    "def run(red, state=()):\n"
+    "    xs = [t.clone() for t in mine]\n"
+    "    comm.barrier()\n"
+    "    t0 = time.perf_counter()\n"
+    "    xs, _ = red.reduce(xs, state)\n"
+    "    torch.cuda.synchronize()\n"
+    "    return xs, (time.perf_counter() - t0) * 1e3\n"
+    "flat, hier = FlatReducer(comm), HierarchicalReducer(comm)\n"
+    "q = QuantizedReducer(comm, wire_format='int8-block')\n"
+    "ms = {}\n"
+    "for _ in range(2):\n"
+    "    f, ms['flat'] = run(flat)\n"
+    "    h, ms['hierarchical'] = run(hier)\n"
+    "    qq, ms['int8-block'] = run(q, q.init(mine))\n"
+    "worst = 0.0\n"
+    "for _, _, bucket in q._plan(mine):\n"
+    "    v = torch.cat([every[i].reshape(n, -1) for i in bucket], 1)\n"
+    "    k = v.shape[1]\n"
+    "    step = F.pad(v.abs(), (0, (-k) % 256)).reshape(n, -1, 256).amax(\n"
+    "        2).amax(0) / 127.0\n"
+    "    step = step[:, None].expand(-1, 256).reshape(-1)[:k]\n"
+    "    got = torch.cat([qq[i].reshape(-1).cpu() for i in bucket])\n"
+    "    want = torch.cat([f[i].reshape(-1).cpu() for i in bucket])\n"
+    "    worst = max(worst, ((got - want).abs() / step).max().item())\n"
+    "out = {'device': str(comm.device), 'nodes': [comm.intra_size,\n"
+    "       comm.inter_size], 'tiers': [hier.topology.intra,\n"
+    "       hier.topology.inter], 'ms': ms,\n"
+    "       'hier_equal': all(torch.equal(a, b) for a, b in zip(h, f)),\n"
+    "       'flat_exact': all(torch.equal(a.cpu(), t.mean(0))\n"
+    "                         for a, t in zip(f, every)),\n"
+    "       'int8_worst_over_step': worst, 'launches': _cuda.launches(),\n"
+    "       'staged_bytes': comm.staged_bytes}\n"
+    "outs = comm.allgather_obj(out)\n"
+    "comm.finalize()\n"
+    "if r == 0:\n"
+    "    print('world ' + json.dumps(outs), flush=True)\n")
+
+
+def reducers(seed: int, card: str):
+    """The gradient reducers: (a) ResNet-50's gradient tree on one NCCL
+    rank, (b) ``train_mnist --grad-reducer``, (c) 4 host-staged ranks on
+    this card as two nodes of two (module docstring). Launch counts are
+    zeroed just before and read just after; returns them."""
+    import torch
+
+    from chainermn_torch.ops import _cuda
+
+    _cuda.reset_launches()
+    _reducers_resnet50(seed, card)
+    torch.cuda.empty_cache()
+    _reducers_mnist(card)
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    outs = run_ranks([sys.executable, "-c", _REDUCER_WORLD_SCRIPT],
+                     REDUCERS["world_ranks"], timeout=300,
+                     local=REDUCERS["world_local"])
+    world = json.loads([ln for ln in outs[0].splitlines()
+                        if ln.startswith("world ")][-1][len("world "):])
+    w0 = world[0]
+    print(f"reducers world: 4 host-staged ranks of one card as 2 nodes x 2 "
+          f"(non_cuda_aware, LOCAL_WORLD_SIZE=2), devices "
+          f"{sorted({w['device'] for w in world})}, hierarchical tiers "
+          f"intra x inter {w0['tiers']}, MNIST MLP gradients (1,796,010 "
+          f"f32), ms a reduction (rank 0) {w0['ms']}, hierarchical == flat "
+          f"bitwise {all(w['hier_equal'] for w in world)}, int8-block worst "
+          f"|error| / step {max(w['int8_worst_over_step'] for w in world):.4f}"
+          f", host-staged bytes (rank 0) {w0['staged_bytes']:,} ({card})",
+          flush=True)
+    for w in world:
+        for name, v in w["launches"].items():
+            counts[name] = counts.get(name, 0) + v
+        if not (w["device"] == "cuda:0" and w["nodes"] == [2, 2]
+                and w["tiers"] == [2, 2] and w["hier_equal"]
+                and w["flat_exact"]
+                and w["int8_worst_over_step"] <= TOL_QUANT_STEP):
+            raise PhaseError(f"reducers on 4 ranks of one card: {w}")
+    if any(counts.values()):
+        raise PhaseError(f"the reducers launched hand-written kernels: "
+                         f"{counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2684,6 +2966,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     vit_counts = vit(args.seed, card, args.profile)
     ckpt_counts = checkpoint(card)
+    red_counts = reducers(args.seed, card)
 
     sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:168"),
                "flash_bwd": ("flash_bwd.cu", "flash_attention.py:399"),
@@ -2700,11 +2983,12 @@ def main(argv=None) -> int:
             "replaces": f"chainermn_tpu/ops/{tpu}",
             # serving, training, the ViT and its checkpoint runs drive
             # flash: a count is the sum of the main-path runs (the MNIST,
-            # CIFAR, ResNet-50, seq2seq and model-parallel runs add none)
+            # CIFAR, ResNet-50, seq2seq, model-parallel and reducer runs
+            # add none)
             "launches": train_counts[name] + mnist_counts[name]
             + cifar_counts[name] + r50_counts[name] + s2s_counts[name]
             + mp_counts.get(name, 0) + vit_counts[name]
-            + ckpt_counts[name] + (
+            + ckpt_counts[name] + red_counts.get(name, 0) + (
                 counts["flash_fwd"] if name == "flash_fwd" else 0),
             "max_abs_err": errs[name], **times[name]})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,7 +13,9 @@ JAX checkpointer electing the port's files, the consensus election in a
 fewer ranks, the resumed run of ``tests/training_tests/test_resume.py``
 (bitwise on the CPU, with an LR schedule and the double buffer in the
 state), the trainer round trip, the in-place restore, the global except
-hook in a subprocess, and the parts that wait for later slices.
+hook in a subprocess, the error-feedback residuals of a quantized
+reducer through a snapshot and back, and the parts that wait for later
+slices.
 Restored values are compared exactly: a snapshot is a copy.
 """
 
@@ -372,6 +374,77 @@ def test_resumed_run_matches_the_uninterrupted_losses(comm, tmp_path, total,
     assert second == ref[cut:]
     for k, v in ref_up.model.state_dict().items():
         assert torch.equal(u2.model.state_dict()[k], v), k
+
+
+def _ef_updater(comm, seed=0):
+    """The MLP(16) under Adam 1e-2 behind the int8 error-feedback
+    reducer, on 256 synthetic MNIST samples scaled by 1e-2 (the regime of
+    ``tests/collectives_tests/test_ef_checkpoint_resume.py``, where the
+    int8 floor makes the residuals large), batch 32."""
+    from chainermn_torch.collectives import QuantizedReducer
+    from chainermn_torch.datasets import synthetic_mnist
+
+    torch.manual_seed(0)
+    model = MLP(n_units=16, device="cpu")
+    opt = create_multi_node_optimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-2, eps=1e-8), comm,
+        grad_reducer=QuantizedReducer(comm, mode="int8", ef=True))
+    ds = synthetic_mnist(256, seed=0)
+    data = [(ds[i][0] * np.float32(1e-2), ds[i][1]) for i in range(256)]
+    step = make_data_parallel_train_step(model, opt, comm)
+    it = SerialIterator(data, 32, shuffle=True, seed=seed)
+    return StandardUpdater(it, step, comm, model=model, optimizer=opt)
+
+
+def _ef_resumed(comm, tmp_path, name):
+    """The uninterrupted 8-step losses, and an updater (wrong shuffle
+    seed) resumed from a snapshot at step 4 with the residuals it saved."""
+    ref = []
+    _run(Trainer(_ef_updater(comm), stop_trigger=(8, "iteration"),
+                 handle_preemption=False), ref)
+    ck = create_multi_node_checkpointer(name, comm, path=str(tmp_path))
+    t1 = Trainer(_ef_updater(comm), stop_trigger=(4, "iteration"),
+                 handle_preemption=False)
+    t1.extend(ck, trigger=(4, "iteration"))
+    first = []
+    _run(t1, first)
+    assert first == ref[:4]
+    saved = [r.clone() for r in t1.updater.optimizer.reducer_state]
+    assert sum(float(r.abs().sum()) for r in saved) > 0, \
+        "no residual at the snapshot: the round trip would prove nothing"
+    u2 = _ef_updater(comm, seed=999)
+    ck2 = create_multi_node_checkpointer(name, comm, path=str(tmp_path))
+    assert ck2.resume(u2) == 4
+    return ref, saved, u2
+
+
+def test_ef_residuals_round_trip_and_the_run_continues_bitwise(comm,
+                                                                tmp_path):
+    """``tests/collectives_tests/test_ef_checkpoint_resume.py`` on the
+    port: the error-feedback residuals ride the optimizer's state into the
+    snapshot and back (bitwise), and the resumed run's losses equal the
+    uninterrupted run's bit for bit."""
+    ref, saved, u2 = _ef_resumed(comm, tmp_path, "ef")
+    for a, b in zip(saved, u2.optimizer.reducer_state):
+        assert torch.equal(a, b)
+    tail = []
+    _run(Trainer(u2, stop_trigger=(8, "iteration"),
+                 handle_preemption=False), tail)
+    assert tail == ref[4:]
+
+
+def test_zeroed_residuals_diverge(comm, tmp_path):
+    """The negative control: the same resume with the residuals zeroed
+    leaves the reference trajectory, so the equality above flows through
+    the residuals."""
+    ref, _, u2 = _ef_resumed(comm, tmp_path, "ef0")
+    u2.optimizer.reducer_state = tuple(
+        torch.zeros_like(r) for r in u2.optimizer.reducer_state)
+    tail = []
+    _run(Trainer(u2, stop_trigger=(8, "iteration"),
+                 handle_preemption=False), tail)
+    assert max(abs(a - b) for a, b in zip(tail, ref[4:])) > 1e-6, (
+        tail, ref[4:])
 
 
 def test_restore_loads_in_place_into_the_steps_objects(comm, tmp_path):

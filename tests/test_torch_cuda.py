@@ -499,3 +499,61 @@ def test_checkpoint_round_trip_of_card_state(cuda, tmp_path):
     fresh.load_state_dict(got["model"])
     for k, v in model.state_dict().items():
         assert torch.equal(fresh.state_dict()[k], v), k
+
+
+# -- the gradient reducers on one NCCL rank ----------------------------------
+
+@pytest.mark.parametrize("name", ["flat", "hierarchical", "auto", "bf16",
+                                  "int8", "int8-block", "int4-block"])
+def test_reducer_on_one_nccl_rank_matches_its_plain_result(cuda, name):
+    """Every reducer on a world of one NCCL rank (the sum is the rank's
+    own gradient), on leaves of several sizes and magnitudes in 5000-byte
+    buckets: flat, hierarchical and auto give the gradient bit for bit;
+    bf16 gives its bf16 rounding; the integer formats each element within
+    half a quantization step (the block's or bucket's max / qmax), and the
+    error-feedback residual is exactly input − output; the bytes handed
+    to NCCL equal the plan's wire bytes (the hierarchical reducer's tiers
+    are single ranks here, so it calls none)."""
+    from chainermn_torch.collectives import make_grad_reducer
+
+    comm = create_communicator("pure_nccl")
+    try:
+        g = torch.Generator(device=cuda).manual_seed(0)
+        leaves = [torch.randn(s, generator=g, device=cuda) * c
+                  for s, c in (((37, 19), 1e-2), ((19,), 1.0), ((700,), 3.0),
+                               ((5, 3), 0.1))]
+        quantized = name not in ("flat", "hierarchical", "auto")
+        red = make_grad_reducer("quantized" if quantized else name, comm,
+                                bucket_bytes=5000,
+                                **({"wire_format": name} if quantized
+                                   else {}))
+        state = red.init(leaves)
+        got = [t.clone() for t in leaves]
+        before = comm.collective_bytes
+        got, state = red.reduce(got, state)
+        torch.cuda.synchronize()
+        if name != "hierarchical":  # one rank: no tier has a collective
+            assert comm.collective_bytes - before == sum(
+                r["wire_bytes"] for r in red.plan(leaves))
+        if not quantized:
+            assert all(torch.equal(a, b) for a, b in zip(got, leaves))
+            return
+        flat_in = torch.cat([t.reshape(-1) for t in leaves])
+        flat_out = torch.cat([t.reshape(-1) for t in got])
+        if name == "bf16":
+            assert torch.equal(flat_out, flat_in.bfloat16().float())
+        else:
+            qmax = 7.0 if name == "int4-block" else 127.0
+            k = 256 if name.endswith("-block") else None
+            for (_, _, bucket) in red._plan(leaves):
+                v = torch.cat([leaves[i].reshape(-1) for i in bucket])
+                o = torch.cat([got[i].reshape(-1) for i in bucket])
+                pad = (-v.numel()) % (k or v.numel())
+                step = torch.nn.functional.pad(v.abs(), (0, pad)).reshape(
+                    -1, k or v.numel()).amax(1, keepdim=True) / qmax
+                step = step.expand(-1, k or v.numel()).reshape(-1)[
+                    :v.numel()]
+                assert torch.all((o - v).abs() <= step / 2 * (1 + 1e-6))
+        assert torch.equal(torch.cat(list(state)), flat_in - flat_out)
+    finally:
+        comm.finalize()

@@ -109,10 +109,9 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     assert MLP(n_units=4, device="cpu").device == torch.device("cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_mnist.main(["--epoch", "1", "--out", "unused"])
-    args = train_mnist.parse_args(["--device", "cpu", "--grad-reducer",
-                                   "auto"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        train_mnist.build_trainer(args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_mnist.main(["--epoch", "1", "--grad-reducer", "auto",
+                          "--out", "unused"])
 
 
 def test_the_resnet_slice_raises_without_cuda_unless_asked_for_cpu(tmp_path):
@@ -210,3 +209,34 @@ def test_the_vit_and_checkpoint_slice_raises_without_cuda(tmp_path):
     assert ViT(num_classes=10, image_size=32, patch=8, d_model=16,
                n_layers=1, n_heads=2, d_ff=16,
                device="cpu").device == torch.device("cpu")
+
+
+def test_the_reducer_slice_raises_without_cuda_unless_asked_for_cpu(
+        tmp_path):
+    """The sub-communicators and the reducers are covered by the import
+    scan; the communicator names that shape a mesh raise without CUDA
+    unless given the CPU, and ``train_mnist --grad-reducer`` builds on the
+    CPU with every strategy (the reducers were refused before this
+    slice)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device works")
+    files = [p.relative_to(REPO).as_posix() for p in _port_files()]
+    for new in ("chainermn_torch/collectives/__init__.py",
+                "chainermn_torch/collectives/base.py",
+                "chainermn_torch/collectives/flat.py",
+                "chainermn_torch/collectives/hierarchical.py",
+                "chainermn_torch/collectives/quantized.py",
+                "chainermn_torch/collectives/auto.py"):
+        assert new in files       # covered by the import scan above
+    for name in ("hierarchical", "two_dimensional"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            create_communicator(name)
+    for flags in (["--grad-reducer", "hierarchical"],
+                  ["--grad-reducer", "quantized", "--wire-format",
+                   "int4-block"],
+                  ["--grad-reducer", "auto", "--wire-format", "bf16"]):
+        trainer, _ = train_mnist.build_trainer(train_mnist.parse_args(
+            ["--device", "cpu", "--unit", "4", "--n-train", "64",
+             "--out", str(tmp_path), *flags]))
+        assert trainer.updater.comm.device == torch.device("cpu")
+        trainer.updater.comm.finalize()

@@ -24,11 +24,13 @@ def _free_port() -> int:
 
 
 def run_world(script: str, n: int, timeout: float,
-              args: Sequence[str] = ()) -> List[Tuple[Optional[int], str]]:
+              args: Sequence[str] = (), local: Optional[int] = None
+              ) -> List[Tuple[Optional[int], str]]:
     """Run ``script`` (Python source) in ``n`` processes, ranks 0..n-1 of
     one world (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
     ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT`` set; the repo
-    on ``PYTHONPATH``; one OpenMP thread each). Returns each rank's
+    on ``PYTHONPATH``; one OpenMP thread each). ``local`` ranks make a
+    node (default: all ``n``). Returns each rank's
     ``(returncode, stdout and stderr)`` in rank order. A rank still
     running ``timeout`` seconds after the start is killed and reported
     with its output and a note."""
@@ -40,8 +42,10 @@ def run_world(script: str, n: int, timeout: float,
         procs = []
         try:
             for rank in range(n):
+                node = local or n
                 penv = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
-                            LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(n),
+                            LOCAL_RANK=str(rank % node),
+                            LOCAL_WORLD_SIZE=str(node),
                             MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                             PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
                 procs.append(subprocess.Popen(

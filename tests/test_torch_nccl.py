@@ -14,6 +14,16 @@ their gradients; ``MultiNodeChainList`` (a linear and a branching graph)
 against the unsplit model built on the same rank from the same seed.
 Transfers are exact; the chain list at 1e-5 (the same f32 products on
 another GPU of the same kind).
+
+A second 4-rank world checks the sub-communicators and the reducers over
+NCCL subgroups: ``split`` in block and stride form, the communicators
+over a ``DeviceMesh`` ``("dcn", "ici")`` = (2, 2) and its axes, the
+hierarchical reducer in both modes (``intra=2`` on the world; the mesh's
+axes) bitwise against ``flat`` on integer-valued floats, and two steps of
+``int8-block`` with error feedback against the same arithmetic done on
+each rank from every rank's gradient and residual (bitwise: the same
+scales and int32 code sums; the residual exactly input − local
+dequantization).
 """
 
 import pytest
@@ -155,7 +165,104 @@ print(f"RANK{r} OK", flush=True)
 '''
 
 
-@pytest.mark.skipif(torch.cuda.device_count() < 4,
-                    reason="needs four GPUs: one NCCL rank each")
+def _four_cards():
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four GPUs: one NCCL rank each")
+
+
 def test_nccl_point_to_point_across_four_cards():
+    _four_cards()
     assert_ranks_ok(run_world(_WORKER, 4, timeout=240))
+
+
+_REDUCER_WORKER = r"""
+import torch
+import torch.nn.functional as F
+from torch.distributed.device_mesh import init_device_mesh
+from chainermn_torch.collectives import (HierarchicalReducer,
+                                         QuantizedReducer, make_grad_reducer)
+from chainermn_torch.comm import create_communicator
+
+comm = create_communicator("pure_nccl")
+r, dev = comm.rank, comm.device
+g = torch.Generator().manual_seed(0)
+ints = [torch.randint(-8, 8, (4, 1001), generator=g).float()
+        for _ in range(2)]
+reals = [torch.randn(4, 1500, generator=g) * 10.0 ** (i - 2)
+         for i in range(3)]
+
+
+def mine(leaves):
+    return [t[r].to(dev, copy=True) for t in leaves]
+
+
+# split: block and stride groups, over NCCL subgroups
+for form, colour in ((("block", 2), [0, 0, 1, 1]),
+                     (("stride", 2), [0, 1, 0, 1])):
+    sub = comm.split(form)
+    assert sub.members == tuple(m for m in range(4)
+                                if colour[m] == colour[r])
+    x = torch.tensor([float(r)], device=dev)
+    assert sub.allreduce(x).item() == sum(sub.members)
+    assert sub.allgather(x).reshape(-1).tolist() == [
+        float(m) for m in sub.members]
+    sub.finalize()
+
+# a DeviceMesh and its axes
+mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("dcn", "ici"))
+mc = create_communicator("pure_nccl", mesh=mesh)
+ici = create_communicator("pure_nccl", mesh=mesh, axes=("ici",))
+dcn = create_communicator("pure_nccl", mesh=mesh, axes=("dcn",))
+assert mc.members == (0, 1, 2, 3) and mc.axis_names == ("dcn", "ici")
+assert ici.members == (r // 2 * 2, r // 2 * 2 + 1)
+assert dcn.members == (r % 2, r % 2 + 2)
+assert ici.allreduce(torch.ones(1, device=dev)).item() == 2.0
+
+# hierarchical (both modes) bitwise against flat on integer floats
+flat = make_grad_reducer("flat", comm).reduce(mine(ints))[0]
+for red in (HierarchicalReducer(comm, intra=2), HierarchicalReducer(mc)):
+    assert (red.topology.intra, red.topology.inter) == (2, 2)
+    got = red.reduce(mine(ints))[0]
+    assert all(torch.equal(a, b) for a, b in zip(got, flat))
+    assert all(torch.equal(a.cpu(), t.sum(0) / 4) for a, t in zip(got, ints))
+    v = ints[0][:, :1000]
+    tiles = red.reduce_scatter_flat(v[r].to(dev), 1)
+    assert torch.equal(tiles.cpu(), v.sum(0).reshape(4, -1)[r])
+
+# int8-block with error feedback, two steps, against the plain arithmetic
+q = QuantizedReducer(comm, mode="int8-block", bucket_bytes=8192)
+state = q.init(mine(reals))
+for step in range(2):
+    leaves = [t * (step + 1) for t in reals]
+    every = comm.allgather_obj([e.cpu() for e in state])
+    before = comm.collective_bytes
+    got, state = q.reduce(mine(leaves), state)
+    assert comm.collective_bytes - before == sum(
+        row["wire_bytes"] for row in q.plan(mine(leaves)))
+    for bi, (_, _, bucket) in enumerate(q._plan(mine(leaves))):
+        v = torch.cat([leaves[i] for i in bucket], 1) + torch.stack(
+            [e[bi] for e in every])
+        n = v.shape[1]
+        b = F.pad(v, (0, (-n) % 256)).reshape(4, -1, 256)
+        amax = b.abs().amax(2).amax(0)
+        scale = torch.where(amax > 0, amax * (1.0 / 127.0),
+                            torch.ones_like(amax))
+        codes = torch.clamp(torch.round(b / scale[None, :, None]), -127,
+                            127).to(torch.int32)
+        want = (codes.sum(0).float() * scale[:, None]).reshape(-1)[:n] / 4
+        out = torch.cat([got[i].reshape(-1).cpu() for i in bucket])
+        assert torch.equal(out, want), (step, bi)
+        local = (codes[r].float() * scale[:, None]).reshape(-1)[:n]
+        assert torch.equal(state[bi].cpu(), v[r] - local), (step, bi)
+
+for c in (ici, dcn, mc):
+    c.finalize()
+comm.barrier()
+comm.finalize()
+print(f"RANK{r} OK", flush=True)
+"""
+
+
+def test_nccl_subgroups_and_reducers_across_four_cards():
+    _four_cards()
+    assert_ranks_ok(run_world(_REDUCER_WORKER, 4, timeout=240))

@@ -166,8 +166,10 @@ def test_size_one_communicator_topology_and_collectives(comm):
     comm.allreduce_grad(grads, "mean")
     assert torch.equal(grads[1], torch.full((2, 2), 2.0))
     comm.barrier()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        comm.split(0, 0)
+    sub = comm.split(0, 0)
+    assert (sub.rank, sub.size, sub.members) == (0, 1, (0,))
+    assert torch.equal(sub.allreduce(x), x)
+    sub.finalize()
     for call in (lambda: comm.send(x, 0), lambda: comm.recv(0)):
         with pytest.raises(RuntimeError, match="no peer"):
             call()
@@ -328,9 +330,12 @@ def test_multi_node_optimizer_against_the_jax_wrapper(comm,
                                    rtol=1e-6, atol=1e-6)
         if double_buffering and i == 0:
             np.testing.assert_array_equal(w.detach().numpy(), w0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown grad_reducer"):
         create_multi_node_optimizer(torch.optim.SGD([w], lr=0.1), comm,
                                     grad_reducer=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_multi_node_optimizer(torch.optim.SGD([w], lr=0.1), comm,
+                                    tune=True)
 
 
 # -- the data-parallel train step -----------------------------------------
