@@ -30,7 +30,11 @@ chainermn_torch.examples.train_imagenet --model vit [--snapshot-every N]
 gradient reducers (``chainermn_torch.collectives``: flat, hierarchical,
 quantized with error feedback, auto) behind ``create_multi_node_optimizer
 (grad_reducer=, wire_format=)``, with ``ReductionReport``
-(``train_mnist --grad-reducer/--wire-format``).
+(``train_mnist --grad-reducer/--wire-format``); ZeRO-1/2 sharded
+training (``make_zero1_train_step``/``make_zero2_train_step``, flat or
+bucketed, with any reducer) and LARS/LAMB, through ``python -m
+chainermn_torch.examples.train_lm [--zero 1|2]`` and ``train_imagenet
+--optimizer lars|lamb``.
 """
 
 from chainermn_torch import functions
@@ -50,7 +54,10 @@ from chainermn_torch.models.seq2seq import Seq2Seq
 from chainermn_torch.models.transformer import (TransformerLM, generate,
                                                 lm_loss_with_aux)
 from chainermn_torch.ops.fused_ce import fused_lm_loss
-from chainermn_torch.optimizers import create_multi_node_optimizer
+from chainermn_torch.optimizers import (create_multi_node_optimizer,
+                                        make_zero1_train_step,
+                                        make_zero2_train_step, zero1_params,
+                                        zero_layout_manifest)
 from chainermn_torch.serving.engine import Engine, EngineConfig
 from chainermn_torch.serving.kv_cache import ServingStep
 from chainermn_torch.training import (make_data_parallel_train_step,
@@ -66,4 +73,5 @@ __all__ = ["resolve_device", "TransformerLM", "MLP", "ResNet50",
            "create_synchronized_iterator", "create_multi_node_evaluator",
            "MultiNodeChainList", "Seq2Seq", "functions", "ViT",
            "create_multi_node_checkpointer", "install_global_except_hook",
-           "make_grad_reducer"]
+           "make_grad_reducer", "make_zero1_train_step",
+           "make_zero2_train_step", "zero1_params", "zero_layout_manifest"]

@@ -221,8 +221,8 @@ class AutoReducer(GradReducer):
                             ) -> torch.Tensor:
         n = self.comm.size if n is None else n
         if self.choose(g.numel() * g.element_size()) == "hierarchical":
-            return self.topology.reduce_scatter(g) / n
-        return self.comm.reduce_scatter_flat(g) / n
+            return self.topology.reduce_scatter(g).div_(n)
+        return self.comm.reduce_scatter_flat(g).div_(n)
 
     def plan(self, tree):
         rows = super().plan(tree)

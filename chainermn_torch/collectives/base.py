@@ -176,7 +176,7 @@ class GradReducer:
         decompose or compress override it, keeping the
         tile-``r``-on-rank-``r`` layout."""
         n = self.comm.size if n is None else n
-        return self.comm.reduce_scatter_flat(g) / n
+        return self.comm.reduce_scatter_flat(g).div_(n)
 
     # -- introspection --------------------------------------------------
 

@@ -121,7 +121,7 @@ class HierarchicalReducer(GradReducer):
     def reduce_scatter_flat(self, g: torch.Tensor, n: Optional[int] = None
                             ) -> torch.Tensor:
         n = self.comm.size if n is None else n
-        return self.topology.reduce_scatter(g) / n
+        return self.topology.reduce_scatter(g).div_(n)
 
 
 register_reducer("hierarchical", HierarchicalReducer)

@@ -674,16 +674,26 @@ class DistributedCommunicator(CommunicatorBase):
         dist.reduce_scatter_tensor(out, buf, group=self._arrays)
         return self._in(out)
 
-    def all_gather_flat(self, tile: torch.Tensor) -> torch.Tensor:
-        """Every rank's tile, concatenated in rank order."""
+    def all_gather_flat(self, tile: torch.Tensor,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Every rank's tile, concatenated in rank order; into ``out`` (a
+        contiguous vector on this rank's device, returned) when given:
+        written by the collective itself where nothing is staged or
+        reordered."""
         buf = self._out(tile)
         self._count(buf)
-        out = self._empty((tile.numel() * self._size,), tile.dtype)
-        dist.all_gather_into_tensor(out, buf, group=self._arrays)
-        out = self._in(out)
+        n = tile.numel() * self._size
+        if out is not None and not self._host_staged and self._perm is None:
+            dist.all_gather_into_tensor(out, buf, group=self._arrays)
+            return out
+        full = self._empty((n,), tile.dtype)
+        dist.all_gather_into_tensor(full, buf, group=self._arrays)
+        full = self._in(full)
         if self._perm is not None:
-            out = torch.cat(self._from_group(out.chunk(self._size)))
-        return out
+            full = torch.cat(self._from_group(full.chunk(self._size)))
+        if out is None:
+            return full
+        return out.copy_(full)
 
     # -- array point-to-point -------------------------------------------
 

@@ -7,9 +7,12 @@ communicator with bf16 gradients on the wire
 (``allreduce_grad_dtype=torch.bfloat16``, the reference's fp16 analog),
 ``ResNet50`` in bf16 compute over f32 parameters and batch statistics,
 ``make_data_parallel_train_step(mutable=("batch_stats",))``, SGD with
-Nesterov momentum 0.9 (optax's nesterov trace: the same updates) and, with
-``--warmup-epochs``, optax's ``warmup_cosine_decay_schedule`` evaluated at
-each update's count. ``--batchsize`` is each rank's batch (the JAX
+Nesterov momentum 0.9 (optax's nesterov trace: the same updates), or with
+``--optimizer lars|lamb`` the large-batch optimizers to optax's rules
+(``LARS(lr, weight_decay=1e-4, momentum=0.9)``, ``LAMB(lr,
+weight_decay=1e-4)``, :mod:`chainermn_torch.optimizers.large_batch`)
+and, with ``--warmup-epochs``, optax's ``warmup_cosine_decay_schedule``
+evaluated at each update's count. ``--batchsize`` is each rank's batch (the JAX
 script's is global, 64 per device by default).
 
 ``--model vit`` trains the JAX example's ``ViT(num_classes=1000,
@@ -42,9 +45,6 @@ Inputs, one of:
   page-locked memory, they reach the GPU by asynchronous copies, and the
   uint8 → bf16 decode runs on the device inside the loss.
 
-Waiting for a later slice (``NotImplementedError``): ``--optimizer
-lars|lamb`` (ROADMAP.md queue 1 item 8).
-
     python -m chainermn_torch.examples.train_imagenet --iterations 20
     python -m chainermn_torch.examples.train_imagenet --loader \\
         --iterations 8 --batchsize 256
@@ -52,6 +52,8 @@ lars|lamb`` (ROADMAP.md queue 1 item 8).
         --image-size 64 --n-train 64 --batchsize 8 --iterations 2
     python -m chainermn_torch.examples.train_imagenet --model vit \\
         --iterations 20 --snapshot-every 10
+    python -m chainermn_torch.examples.train_imagenet --optimizer lars \\
+        --warmup-epochs 1 --iterations 20
     python -m chainermn_torch.examples.train_imagenet --model vit \\
         --iterations 40 --snapshot-every 10 --resume
     torchrun --nproc-per-node 2 -m chainermn_torch.examples.train_imagenet \\
@@ -77,7 +79,8 @@ from chainermn_torch.iterators import SerialIterator
 from chainermn_torch.models.resnet import ResNet50
 from chainermn_torch.models.vit import ViT
 from chainermn_torch.ops.dropout import fold_in
-from chainermn_torch.optimizers import create_multi_node_optimizer
+from chainermn_torch.optimizers import (LAMB, LARS,
+                                        create_multi_node_optimizer)
 from chainermn_torch.resilience.supervisor import main_exit_code
 from chainermn_torch.training import (LogReport, PrintReport,
                                       StandardUpdater, Trainer,
@@ -131,7 +134,8 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--optimizer", choices=["sgd", "lars", "lamb"],
                    default="sgd",
-                   help="lars/lamb wait for ROADMAP.md queue 1 item 8")
+                   help="lars/lamb: large-batch recipes (layerwise trust "
+                        "ratios)")
     p.add_argument("--warmup-epochs", type=float, default=0.0,
                    help="linear LR warmup epochs (then cosine decay)")
     p.add_argument("--model", choices=["resnet50", "vit"],
@@ -168,10 +172,6 @@ def parse_args(argv=None):
 
 
 def _refuse_later_slices(args) -> None:
-    if args.optimizer != "sgd":
-        raise NotImplementedError(
-            f"--optimizer {args.optimizer} waits for the reducers and "
-            "large-batch optimizers (ROADMAP.md queue 1 item 8)")
     if args.dropout and args.model != "vit":
         raise ValueError("--dropout applies to --model vit")
 
@@ -205,20 +205,28 @@ def _uint8_shard(args, comm):
 
 def make_optimizer(args, params, comm, steps_per_epoch: int):
     """``--optimizer sgd``: SGD with Nesterov momentum 0.9 behind the
-    multi-node wrapper; with ``--warmup-epochs`` its learning rate follows
+    multi-node wrapper (``lars``: ``LARS(lr, weight_decay=1e-4,
+    momentum=0.9)``; ``lamb``: ``LAMB(lr, weight_decay=1e-4)``, the JAX
+    example's optax calls); with ``--warmup-epochs`` its learning rate follows
     :func:`warmup_cosine_lr` over ``--epoch`` epochs, one schedule step
     per update (inside the optimizer: an every-iteration trainer
     extension would read the metrics, a host synchronisation, every
     step)."""
-    sgd = torch.optim.SGD(params, lr=args.lr, momentum=0.9, nesterov=True)
-    opt = create_multi_node_optimizer(sgd, comm)
+    inner = {
+        "sgd": lambda: torch.optim.SGD(params, lr=args.lr, momentum=0.9,
+                                       nesterov=True),
+        "lars": lambda: LARS(params, lr=args.lr, weight_decay=1e-4,
+                             momentum=0.9),
+        "lamb": lambda: LAMB(params, lr=args.lr, weight_decay=1e-4),
+    }[args.optimizer]()
+    opt = create_multi_node_optimizer(inner, comm)
     if args.warmup_epochs > 0:
         lr = warmup_cosine_lr(args.lr,
                               int(steps_per_epoch * args.warmup_epochs),
                               max(steps_per_epoch * args.epoch, 1))
         # attached to the multi-node optimizer: its state rides snapshots
         opt.add_schedule(torch.optim.lr_scheduler.LambdaLR(
-            sgd, lambda count: lr(count) / args.lr))
+            inner, lambda count: lr(count) / args.lr))
     return opt
 
 

@@ -31,7 +31,7 @@ elects the JAX package's.
 
 Waiting for later slices (``NotImplementedError``): the ``orbax``
 backend and the sharded leaves of ZeRO/FSDP states with ``set_layout``
-(ROADMAP.md queue 1 item 8), and the chaos injection points of
+(ROADMAP.md queue 1 item 8b), and the chaos injection points of
 ``$CHAINERMN_TPU_CHAOS`` (item 9). The ring replicas' writer
 (``resilience/replica.py``) comes with item 9 too; their read side
 (``replicas/``) is here.
@@ -204,7 +204,7 @@ class MultiNodeCheckpointer:
         if backend == "orbax":
             raise NotImplementedError(
                 "the orbax backend waits for the sharded checkpoints of a "
-                "later slice of the port (ROADMAP.md queue 1 item 8)")
+                "later slice of the port (ROADMAP.md queue 1 item 8b)")
         if backend != "npz":
             raise ValueError(f"unknown checkpoint backend {backend!r}")
         self.name = name
@@ -237,7 +237,7 @@ class MultiNodeCheckpointer:
         """Optimizer shard-layout metadata waits for ZeRO/FSDP."""
         raise NotImplementedError(
             "set_layout (ZeRO/FSDP shard layouts) waits for a later slice "
-            "of the port (ROADMAP.md queue 1 item 8)")
+            "of the port (ROADMAP.md queue 1 item 8b)")
 
     # -- async writer ---------------------------------------------------
 
@@ -692,7 +692,7 @@ class MultiNodeCheckpointer:
             if any(k.endswith("_nshards") for k in first.files):
                 raise NotImplementedError(
                     "sharded snapshot leaves (ZeRO/FSDP) wait for a later "
-                    "slice of the port (ROADMAP.md queue 1 item 8)")
+                    "slice of the port (ROADMAP.md queue 1 item 8b)")
             if "__tree__" not in first.files:
                 raise ValueError(f"{sources[0]} carries no __tree__: not a "
                                  "snapshot of the port's")

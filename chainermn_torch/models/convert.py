@@ -54,6 +54,16 @@ the LM), ``attn_out``, ``ffn_in`` and ``ffn_out`` as ``dense``, its
 ``LayerNorm_0`` as ``ln_f`` and ``head`` as ``dense``.
 
 Every parameter of the port is f32, as flax keeps them.
+
+:func:`flax_param_order` lists a model's trainable parameters in the order
+``jax.tree_util.tree_leaves`` gives the flax tree (dict keys sorted at
+every level, so a Dense layer's ``bias`` comes before its ``kernel``),
+through the names the converters above map, and :func:`flax_layout_perm`
+the permutation that puts a parameter in its flax layout (a Dense
+kernel is ``weight.t()``, a convolution's HWIO kernel ``weight.permute(2,
+3, 1, 0)``): the order and the layout in which the ZeRO steps pack
+parameters (``chainermn_torch/optimizers/zero.py``), so that their flat
+vectors hold JAX's numbers in JAX's places.
 """
 
 from __future__ import annotations
@@ -65,7 +75,8 @@ import torch
 
 __all__ = ["convert_layer", "params_from_flax", "mlp_params_from_flax",
            "resnet_params_from_flax", "dense_stage_params_from_flax",
-           "seq2seq_params_from_flax", "vit_params_from_flax"]
+           "seq2seq_params_from_flax", "vit_params_from_flax",
+           "flax_param_order", "flax_layout_perm"]
 
 
 def _t(x) -> torch.Tensor:
@@ -302,3 +313,75 @@ def vit_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
                                     prefix=pre + dst + "."))
         i += 1
     return sd
+
+
+# the port's layer names → flax's (the LM's and the ViT's; ``blocks.<i>``
+# is ``block_<i>``, the MLP's ``l<k>`` is ``Dense_<k-1>``)
+_FLAX_NAMES = {"ln_attn": "LayerNorm_0", "ln_ffn": "LayerNorm_1",
+               "ln_f": "LayerNorm_0", "pos_embedding": "pos_emb"}
+
+
+def _flax_leaf(model, owner: str, attr: str):
+    """The flax path of the port's parameter ``owner.attr``."""
+    from chainermn_torch.models.mlp import MLP
+
+    mod = model.get_submodule(owner) if owner else model
+    if attr == "weight":
+        if isinstance(mod, torch.nn.LayerNorm):
+            attr = "scale"
+        elif isinstance(mod, torch.nn.Embedding):
+            attr = "embedding"
+        elif isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d)):
+            attr = "kernel"
+    if isinstance(model, MLP):
+        return (f"Dense_{int(owner[1:]) - 1}", attr)
+    parts, path = owner.split(".") if owner else [], []
+    for i, part in enumerate(parts):
+        if part == "blocks":
+            continue
+        if i and parts[i - 1] == "blocks":
+            path.append(f"block_{part}")
+        else:
+            path.append(_FLAX_NAMES.get(part, part))
+    return (*path, _FLAX_NAMES.get(attr, attr))
+
+
+def flax_param_order(model) -> List[tuple]:
+    """``(name, parameter)`` of ``model``'s trainable parameters in the
+    flax tree's leaf order (module docstring) for the models the
+    converters map (:class:`~chainermn_torch.models.MLP`,
+    :class:`~chainermn_torch.models.TransformerLM`,
+    :class:`~chainermn_torch.models.ViT`); any other model keeps its own
+    parameter order."""
+    from chainermn_torch.models.mlp import MLP
+    from chainermn_torch.models.transformer import TransformerLM
+    from chainermn_torch.models.vit import ViT
+
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    if not isinstance(model, (MLP, TransformerLM, ViT)):
+        return named
+
+    def key(item):
+        owner, _, attr = item[0].rpartition(".")
+        return _flax_leaf(model, owner, attr)
+
+    return sorted(named, key=key)
+
+
+def flax_layout_perm(model, name: str) -> Optional[tuple]:
+    """The permutation ``p`` with ``param.permute(p)`` in flax's layout
+    for the parameter ``name`` of a model :func:`flax_param_order` maps
+    (None where the layouts agree, and for any other model)."""
+    from chainermn_torch.models.mlp import MLP
+    from chainermn_torch.models.transformer import TransformerLM
+    from chainermn_torch.models.vit import ViT
+
+    owner, _, attr = name.rpartition(".")
+    if attr != "weight" or not isinstance(model, (MLP, TransformerLM, ViT)):
+        return None
+    mod = model.get_submodule(owner)
+    if isinstance(mod, torch.nn.Linear):
+        return (1, 0)
+    if isinstance(mod, torch.nn.Conv2d):
+        return (2, 3, 1, 0)
+    return None

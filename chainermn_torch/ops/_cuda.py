@@ -55,6 +55,12 @@ Build = Tuple[str, Tuple[str, ...]]
 _libs: Dict[Build, ctypes.CDLL] = {}
 _variants: Dict[str, Tuple[str, ...]] = {}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+#: the same counts by input dtype: f32 inputs run other kernel bodies
+#: (``flash_fwd_fma``, ``flash_bwd_fma``, the f32 ``ce_*_kernel``) than
+#: bf16 ones
+_launches_by_dtype: Dict[torch.dtype, Dict[str, int]] = {
+    dt: {name: 0 for name in KERNELS} for dt in (torch.float32,
+                                                 torch.bfloat16)}
 
 
 def _nvcc() -> str:
@@ -201,17 +207,19 @@ def ptxas_usage(name: str, defines: Tuple[str, ...] = ()
     return parse_ptxas(out.with_suffix(".ptxas.txt").read_text())
 
 
-def launches() -> Dict[str, int]:
-    """Launches per kernel since the last :func:`reset_launches`."""
-    return dict(_launches)
+def launches(dtype: Optional[torch.dtype] = None) -> Dict[str, int]:
+    """Launches per kernel since the last :func:`reset_launches`; with
+    ``dtype`` (f32 or bf16), only those on inputs of that dtype."""
+    return dict(_launches if dtype is None else _launches_by_dtype[dtype])
 
 
 def reset_launches() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    for counts in (_launches, *_launches_by_dtype.values()):
+        for name in counts:
+            counts[name] = 0
 
 
-def _launched(err: int, name: str) -> None:
+def _launched(err: int, name: str, dtype: torch.dtype) -> None:
     """Raise if a launcher returned an error code (a cudaError_t, or a
     negated CUresult from building a TMA descriptor), else count the
     launch: the one place a kernel's count goes up."""
@@ -223,6 +231,7 @@ def _launched(err: int, name: str) -> None:
                            f"cuTensorMapEncodeTiled returned CUresult "
                            f"{-err}")
     _launches[name] += 1
+    _launches_by_dtype[dtype][name] += 1
 
 
 def _bind(lib: str, fn_name: str, argtypes):
@@ -263,7 +272,7 @@ def launch_flash_fwd(q, k, v, out, lse, q_seg, kv_seg, scale: float,
              DTYPES[q.dtype], b, lq, lk, hq, hkv, d, *q.stride()[:3],
              *k.stride()[:3], *v.stride()[:3], scale, int(causal),
              int(window), _stream(q))
-    _launched(err, "flash_fwd")
+    _launched(err, "flash_fwd", q.dtype)
 
 
 _FLASH_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
@@ -288,7 +297,7 @@ def launch_flash_bwd(q, k, v, dout, lse, dr, q_seg, kv_seg, dq_acc, dk, dv,
              DTYPES[q.dtype], b, lq, lk, hq, hkv, d, *q.stride()[:3],
              *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3], scale,
              int(causal), int(window), _stream(q))
-    _launched(err, "flash_bwd")
+    _launched(err, "flash_bwd", q.dtype)
 
 
 _CE_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
@@ -323,7 +332,7 @@ def launch_ce_fwd(h, wt, y, lse, tl, am, part=None, splits: int = 1
     err = fn(h.data_ptr(), wt.data_ptr(), y.data_ptr(), lse.data_ptr(),
              tl.data_ptr(), am.data_ptr(), _ptr(part), splits,
              DTYPES[h.dtype], n, d, wt.shape[0], _stream(h))
-    _launched(err, "ce_fwd")
+    _launched(err, "ce_fwd", h.dtype)
 
 
 def _launch_ce_bwd(kernel: str, h, wt, y, lse, out) -> None:
@@ -332,7 +341,7 @@ def _launch_ce_bwd(kernel: str, h, wt, y, lse, out) -> None:
     err = fn(h.data_ptr(), wt.data_ptr(), y.data_ptr(), lse.data_ptr(),
              out.data_ptr(), DTYPES[h.dtype], n, d, wt.shape[0],
              _stream(h))
-    _launched(err, kernel)
+    _launched(err, kernel, h.dtype)
 
 
 def launch_ce_dh(h, wt, y, lse, dh) -> None:

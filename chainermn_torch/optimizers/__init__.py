@@ -23,6 +23,10 @@ checkpoint file keeps its own: the JAX package's
 ``last_epoch`` did not survive a resume would restart its warm-up).
 ``load_state_dict`` loads in place, into the objects the train step
 holds.
+
+The ZeRO-1/2 step factories (:mod:`chainermn_torch.optimizers.zero`) and
+the large-batch optimizers LARS and LAMB
+(:mod:`chainermn_torch.optimizers.large_batch`) are exported here too.
 """
 
 from __future__ import annotations
@@ -34,8 +38,22 @@ import torch
 from chainermn_torch.collectives import make_grad_reducer
 from chainermn_torch.collectives.base import _ITEM13
 from chainermn_torch.comm.base import CommunicatorBase
+from chainermn_torch.optimizers.large_batch import LAMB, LARS
+from chainermn_torch.optimizers.zero import (fsdp_gather_params,
+                                             fsdp_layout_manifest,
+                                             fsdp_scan_apply, fsdp_shardings,
+                                             fsdp_stack_shardings,
+                                             make_fsdp_train_step,
+                                             make_zero1_train_step,
+                                             make_zero2_train_step,
+                                             zero1_params,
+                                             zero_layout_manifest)
 
-__all__ = ["MultiNodeOptimizer", "create_multi_node_optimizer"]
+__all__ = ["MultiNodeOptimizer", "create_multi_node_optimizer", "LARS",
+           "LAMB", "make_zero1_train_step", "make_zero2_train_step",
+           "zero1_params", "zero_layout_manifest", "make_fsdp_train_step",
+           "fsdp_shardings", "fsdp_stack_shardings", "fsdp_scan_apply",
+           "fsdp_gather_params", "fsdp_layout_manifest"]
 
 
 class MultiNodeOptimizer:

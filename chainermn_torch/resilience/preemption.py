@@ -5,10 +5,10 @@ preempt a job with a SIGTERM and a grace window; the default disposition
 kills the process mid-step. This module installs a handler that only sets
 a flag; the Trainer loop polls it once per step and, when set, leaves the
 run loop cleanly with ``trainer.preempted`` set, and the process exits
-with :data:`PREEMPTED_EXIT_CODE`. The JAX package also spends the grace
-window (``CHAINERMN_TPU_PREEMPTION_GRACE_S``) on an emergency
-checkpoint; that comes with the port's checkpointer (ROADMAP.md queue 1
-item 7).
+with :data:`PREEMPTED_EXIT_CODE`. On the way out the Trainer writes its
+checkpointer's emergency snapshot, as the JAX package does; the JAX
+package's grace deadline (``CHAINERMN_TPU_PREEMPTION_GRACE_S``, the
+window that snapshot may take) waits for ROADMAP.md queue 1 item 9.
 
 The handler is deliberately minimal (async-signal-safe: set a flag,
 remember the signal, chain nothing): all real work happens on the

@@ -25,7 +25,10 @@ the final line:
    the same function (a yardstick only, the port never calls it; SDPA is
    first held against the plain versions): flash at the serving and
    training shapes, at the split backward's cases (a window; causal
-   Lq != Lk) and at the ViT's (non-causal, 196 and 197 tokens); ce_fwd with its vocabulary ranges, grid and the bytes its
+   Lq != Lk) and at the ViT's (non-causal, 196 and 197 tokens); the f32
+   bodies (``flash_*_fma``, the f32 CE kernels) also at the ZeRO phase's
+   f32 shapes, held and timed there; ce_fwd with its vocabulary ranges,
+   grid and the bytes its
    TMA boxes move into shared memory; ce_dh + ce_dw together beside the
    one backward call of the yardstick (``pair`` line); then the two flash
    kernels with their register caps lifted, and the CE backward in its
@@ -121,7 +124,28 @@ the final line:
    ``hierarchical`` bit for bit ``flat`` on integer-valued gradients and
    ``int8-block`` within half a step of it, each rank on ``cuda:0``; no
    hand-written kernel may launch;
-14. a ``{"kernels": [...]}`` line, the card line, and last
+14. zero — ZeRO-1/2 and the large-batch optimizers: (a) the 135M LM of
+   ``train`` (bf16 over f32 parameters, seq 2048, batch 4,
+   ``fused_lm_loss``) on one NCCL rank through ZeRO-1 flat, ZeRO-1
+   bucketed (25 MiB) and ZeRO-2 (2 micro-batches, bucketed), each 4 steps
+   from the seed's weights held to the data-parallel step
+   (``create_multi_node_optimizer(AdamW)``) on the same batch: ms/step,
+   tokens/s per chip, peak GiB, the hooks' peak of live gradient bytes,
+   optimizer-state bytes, and each kernel's launches (zeroed just before
+   and read just after the ZeRO runs); (b) 4 host-staged ranks of this
+   card (``non_cuda_aware``), the LM at full width but 2 layers, f32, seq
+   512, two sequences a rank (ZeRO-2: two micro-batches), SGD with
+   momentum: ZeRO-1 and ZeRO-2 flat and bucketed and ZeRO-1 with
+   int8-block error feedback, and ZeRO-1 with Adam, each held to one rank
+   (a ``split`` of its own) running the data-parallel step on all eight
+   sequences; (c) ``train_imagenet --optimizer lars|lamb``: the first 2
+   steps of ResNet-50 (64², f32) and the ViT (32², f32) held to the CPU's,
+   then ResNet-50 ``--loader`` at batch 256, 224² and the ViT at batch 64,
+   224², 8 iterations each between two SGD runs; (d) ``train_lm --zero 1
+   --zero-bucket-kib 4096`` at full width (f32, seq 2048, batch 4);
+15. a ``{"kernels": [...]}`` line (a row for each kernel's bf16 body and
+   one for its f32 body, which only the ZeRO phase's f32 runs launch),
+   the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one, or when run
@@ -307,6 +331,16 @@ VIT_CASES = [
     ("vit", 64, 196, 196, 6, 6, 64, "bfloat16", False, None, False),
     ("vit-cls", 64, 197, 197, 6, 6, 64, "bfloat16", False, None, False),
 ]
+# the f32 bodies (flash_fwd_fma, flash_bwd_fma) at the ZeRO phase's f32
+# shapes: train_lm's [4,2048,12,64] causal, (b)'s ZeRO-2 micro-batch of
+# one 512-token sequence (ZeRO-1's two are the "f32" case), and the
+# large-batch check's ViT at 32² (4 tokens, non-causal)
+F32_PATH_CASES = [
+    ("f32-lm", 4, 2048, 2048, 12, 12, 64, "float32", True, None, False),
+    ("f32-world-micro", 1, 512, 512, 12, 12, 64, "float32", True, None,
+     False),
+    ("f32-vit-32", 4, 4, 4, 6, 6, 64, "float32", False, None, False),
+]
 
 
 def _dtype(name):
@@ -342,6 +376,7 @@ def check_kernels(gen):
         *SPLIT_CASES,
         # the ViT's shapes, timed below
         *VIT_CASES,
+        *F32_PATH_CASES,
     ]
     worst = {}
     for (name, b, lq, lk, hq, hkv, d, dtype, causal, window,
@@ -388,8 +423,9 @@ def _rel_l2(got, ref) -> float:
 
 
 def time_flash_case(gen, b, lq, lk, hq, hkv, d, causal, window=None,
-                    backward=True):
-    """flash_fwd (and flash_bwd) at one bf16 shape beside their plain
+                    backward=True, dtype="bfloat16"):
+    """flash_fwd (and flash_bwd) at one shape (bf16 unless ``dtype``
+    says otherwise) beside their plain
     versions, their bounds and SDPA (its forward on inputs that need no
     gradient, and its backward through autograd): a yardstick the port
     never calls. SDPA gets ``is_causal`` (top-left aligned for Lq != Lk,
@@ -406,9 +442,9 @@ def time_flash_case(gen, b, lq, lk, hq, hkv, d, causal, window=None,
         flash_attention_cuda, flash_attention_reference)
 
     q, dout = (torch.randn(b, lq, hq, d, device="cuda", generator=gen)
-               .to(torch.bfloat16) for _ in range(2))
+               .to(_dtype(dtype)) for _ in range(2))
     k, v = (torch.randn(b, lk, hkv, d, device="cuda", generator=gen)
-            .to(torch.bfloat16) for _ in range(2))
+            .to(_dtype(dtype)) for _ in range(2))
     kw = {"enable_gqa": True} if hq != hkv else {}
     if window is None:
         kw["is_causal"] = causal
@@ -450,7 +486,7 @@ def time_flash_case(gen, b, lq, lk, hq, hkv, d, causal, window=None,
             q, k, v, causal, None, None, window), iters=3, warmup=1),
         library_ms=cuda_time_ms(sdpa),
         **dict(zip(("bound_ms", "bound_by"), flash_bound_ms(
-            b, lq, lk, hq, hkv, d, "bfloat16", causal, window))))}
+            b, lq, lk, hq, hkv, d, dtype, causal, window))))}
     if backward:
         out, lse = flash_attention_cuda(q, k, v, causal, None, None, window)
         rows["flash_bwd"] = dict(
@@ -461,8 +497,9 @@ def time_flash_case(gen, b, lq, lk, hq, hkv, d, causal, window=None,
                 iters=3, warmup=1),
             library_ms=cuda_time_ms(sdpa_bwd),
             **dict(zip(("bound_ms", "bound_by"), flash_bwd_bound_ms(
-                b, lq, lk, hq, hkv, d, "bfloat16", causal, window))))
-    print(f"yardstick SDPA [{b},{lq}|{lk},{hq}|{hkv},{d}] window={window} "
+                b, lq, lk, hq, hkv, d, dtype, causal, window))))
+    print(f"yardstick SDPA [{b},{lq}|{lk},{hq}|{hkv},{d}] {dtype} "
+          f"window={window} "
           f"({type(o_sdpa.grad_fn).__name__}): relative L2 error vs the "
           f"plain versions (out, dq, dk, dv) "
           + " ".join(f"{e:.3g}" for e in errs), flush=True)
@@ -709,8 +746,8 @@ def _fmt(name, res):
 
 def check_flash_bwd(gen):
     """flash_bwd against its plain version (dq, dk, dv) in every listed
-    case, on the plain forward's out and lse; returns the max error at
-    the training shape."""
+    case, on the plain forward's out and lse; returns the max error of
+    each case."""
     import torch
 
     from chainermn_torch.ops.flash_attention import (
@@ -734,8 +771,9 @@ def check_flash_bwd(gen):
         # beyond the TPU fused kernel's envelope (the split dq / dkv pair)
         *SPLIT_CASES,
         *VIT_CASES,
+        *F32_PATH_CASES,
     ]
-    worst = 0.0
+    worst = {}
     for (name, b, lq, lk, hq, hkv, d, dtype, causal, window,
          segs) in cases:
         dtype = _dtype(dtype)
@@ -769,8 +807,8 @@ def check_flash_bwd(gen):
         if not ok:
             raise PhaseError(f"flash_bwd disagrees with its plain version "
                              f"in case {name}")
+        worst[name] = max(r[0] for r in res)
         if name == "train":
-            worst = max(r[0] for r in res)
             # the check must see an error confined to late keys, whose dk
             # and dv are the smallest of a causal backward
             bad = got[1].clone()
@@ -814,7 +852,8 @@ def check_fused_ce(gen):
     """ce_fwd, ce_dh and ce_dw against their plain versions in every
     listed case (the forward alone past the backward's widest D); a
     second call must give the same bits. Returns each kernel's max error
-    at the training shape."""
+    at the training shape, and (``*_f32``) the worst of the f32 cases on
+    the ZeRO phase's path."""
     import torch
 
     from chainermn_torch.ops.fused_ce import (
@@ -839,6 +878,10 @@ def check_fused_ce(gen):
         ("v-below-a-tile", 300, 768, 100, bf16, False, True),
         ("ties-across-ranges", 512, 64, 4096, bf16, True, True),
         ("d1544-forward", 70, 1544, 3000, bf16, False, False),
+        # the f32 bodies at the ZeRO phase's (b): two 512-token sequences
+        # a rank (ZeRO-1), one (ZeRO-2's micro-batch)
+        ("f32-world", 1024, 768, 32768, f32, False, True),
+        ("f32-world-micro", 512, 768, 32768, f32, False, True),
     ]
     worst = {}
     for name, n, d, v, dtype, ties, backward in cases:
@@ -899,9 +942,13 @@ def check_fused_ce(gen):
         if not ok:
             raise PhaseError(f"fused CE kernels disagree with their plain "
                              f"versions in case {name}")
+        if name.startswith("f32-world"):
+            for k, e in (("ce_fwd_f32", max(e_lse, e_tl)),
+                         ("ce_dh_f32", res_dh[0]), ("ce_dw_f32", res_dw[0])):
+                worst[k] = max(worst.get(k, 0.0), e)
         if name == "train":
-            worst = {"ce_fwd": max(e_lse, e_tl), "ce_dh": res_dh[0],
-                     "ce_dw": res_dw[0]}
+            worst.update(ce_fwd=max(e_lse, e_tl), ce_dh=res_dh[0],
+                         ce_dw=res_dw[0])
             # the check must see dh and dW built from the neighbouring
             # row's lse
             shares = [_close(fn(h, wt, y, r_lse.roll(1)), r, dtype)[2]
@@ -968,6 +1015,48 @@ def time_training_kernels(gen):
     del h, wt, y, lse, hl, wl, loss
     torch.cuda.empty_cache()
     return rows, pair
+
+
+def time_f32_kernels(gen):
+    """The f32 bodies that the ZeRO phase's f32 runs launch, at their
+    shapes there, as :func:`time_training_kernels` times the bf16 ones:
+    flash at ``train_lm``'s [4,2048,12,64] causal, the CE kernels at
+    (b)'s ZeRO-1 batch (N 1024, D 768, V 32768), the yardsticks in f32.
+    Returns ``{kernel_f32: row}``."""
+    import torch
+    import torch.nn.functional as F
+
+    from chainermn_torch.ops.fused_ce import (
+        ce_dh_cuda, ce_dh_reference, ce_dw_cuda, ce_dw_reference,
+        ce_forward_cuda, ce_forward_reference)
+
+    rows = {f"{k}_f32": row for k, row in time_flash_case(
+        gen, 4, 2048, 2048, 12, 12, 64, True, dtype="float32").items()}
+    n, dm, vocab = 1024, 768, 32768
+    h, wt, y = ce_inputs(gen, n, dm, vocab, torch.float32)
+    lse = ce_forward_cuda(h, wt, y)[0]
+    hl = h.detach().requires_grad_()
+    wl = wt.detach().requires_grad_()
+    loss = F.cross_entropy(hl @ wl.t(), y.long())
+    lib_f = cuda_time_ms(lambda: F.cross_entropy(h @ wt.t(), y.long()),
+                         iters=5)
+    lib_b = cuda_time_ms(lambda: torch.autograd.grad(
+        loss, (hl, wl), retain_graph=True), iters=5)
+    for name, kern, ref, lib in (
+            ("ce_fwd", lambda: ce_forward_cuda(h, wt, y),
+             lambda: ce_forward_reference(h, wt, y), lib_f),
+            ("ce_dh", lambda: ce_dh_cuda(h, wt, y, lse),
+             lambda: ce_dh_reference(h, wt, y, lse), lib_b),
+            ("ce_dw", lambda: ce_dw_cuda(h, wt, y, lse),
+             lambda: ce_dw_reference(h, wt, y, lse), lib_b)):
+        bound, by = ce_bound_ms(n, dm, vocab, "float32", name)
+        rows[f"{name}_f32"] = dict(
+            ms=cuda_time_ms(kern, iters=5, warmup=2),
+            plain_ms=cuda_time_ms(ref, iters=3, warmup=1),
+            library_ms=lib, bound_ms=bound, bound_by=by)
+    del h, wt, y, lse, hl, wl, loss
+    torch.cuda.empty_cache()
+    return rows
 
 
 def build_model(seed: int, dtype, attention: str):
@@ -1359,6 +1448,7 @@ def run_example(example, argv, k: int, card: str, profile_dir, stem: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _cuda.launches()
+    counts_f32 = _cuda.launches(torch.float32)
     peak = torch.cuda.max_memory_allocated()
     upd = trainer.updater
     steps = upd.iteration
@@ -1390,7 +1480,8 @@ def run_example(example, argv, k: int, card: str, profile_dir, stem: str):
     card_first = torch.stack(first).tolist()
     return dict(obs=trainer.observation, cpu=cpu, card=card_first,
                 err=max(abs(a - b) / abs(b) for a, b in zip(card_first, cpu)),
-                wall=wall, steps=steps, counts=counts, peak=peak,
+                wall=wall, steps=steps, counts=counts,
+                counts_f32=counts_f32, peak=peak,
                 host_ms=host_ms, ranks=comm.size)
 
 
@@ -2836,6 +2927,481 @@ def reducers(seed: int, card: str):
                          f"{counts}")
     return counts
 
+ZERO = dict(steps=4, bucket_mib=25, micro=2, world_ranks=4, world_layers=2,
+            world_seq=512, world_per_rank=2, world_steps=2,
+            world_bucket_mib=4, check_steps=2,
+            r50_iterations=8, vit_iterations=8, lm_iterations=4, lm_batch=4,
+            lm_bucket_kib=4096)
+# ZeRO on one rank against the data-parallel step, bf16 compute: the same
+# arithmetic, but the ZeRO parameters are views in flax's layout (a
+# Linear's weight transposed), so cuBLAS takes other kernels and the bf16
+# activations round in other places; AdamW moves every weight by about lr
+# whatever its gradient's size, so those last bits move a weight whose
+# gradient is near zero by up to 2 lr. Over 4 steps:
+#   |loss_zero - loss_dp| <= 2e-3 |loss_dp|  (a wrong reduction or a lost
+#   bucket moves the 4th loss by more than 1e-2)
+#   ||p_zero - p_dp|| <= 0.1 ||p_dp - p_0||  (all parameters, L2)
+TOL_ZERO_LOSS_REL = 2e-3
+TOL_ZERO_UPDATE_REL = 0.1
+# 4 host-staged ranks, f32 with TF32 off, two sequences a rank (ZeRO-2
+# accumulates them as two micro-batches), against one rank fed all eight:
+# the same products, the gradient summed over ranks and micro-batches in
+# another order (~1e-6 relative), over 2 steps. SGD with momentum, whose
+# update scales with the gradient, so a sum where the mean belongs (a
+# lost 1/N moves the update by 3x its size, a lost 1/2 over the
+# micro-batches by 1x) fails the update bound; one Adam run for its state
+# bytes, held as the SGD runs are
+TOL_ZERO_WORLD_LOSS_REL = 1e-4
+TOL_ZERO_WORLD_UPDATE_REL = 0.05
+# int8-block error feedback: the first loss precedes any update; the
+# second follows one step on gradients within half a quantization step
+# of the reference's an element
+TOL_ZERO_QUANT_LOSS_REL = 5e-3
+# train_imagenet --optimizer lars|lamb, the first 2 losses on the card vs
+# the CPU from the same parameters and batches, f32 with TF32 off: the
+# forward differs by f32 sums (~1e-6) that batch norm in train mode over
+# a few values a channel amplifies (ResNet-50's bf16 check: 1.93e-4), and
+# the second loss follows one trust-ratio step
+TOL_LARGE_BATCH_LOSS_REL = 1e-3
+
+_ZERO_WORLD_SCRIPT = r"""
+import json, sys, time, torch
+from chainermn_torch.collectives import QuantizedReducer
+from chainermn_torch.comm import create_communicator
+from chainermn_torch.models.transformer import TransformerLM
+from chainermn_torch.ops import _cuda
+from chainermn_torch.ops.fused_ce import fused_lm_loss
+from chainermn_torch.optimizers import (create_multi_node_optimizer,
+    make_zero1_train_step, make_zero2_train_step, zero1_params)
+from chainermn_torch.training.step import make_data_parallel_train_step
+torch.backends.cuda.matmul.allow_tf32 = False
+layers, seq, per, steps, bb = map(int, sys.argv[1:6])
+comm = create_communicator('non_cuda_aware')
+r, n = comm.rank, comm.size
+one = comm.split(('block', 1))       # this rank alone: the reference
+g = torch.Generator().manual_seed(1)
+toks = torch.randint(0, 32768, (steps, n * per, seq + 1), generator=g).to(
+    comm.device)
+def lm():
+    torch.manual_seed(0)
+    return TransformerLM(vocab=32768, d_model=768, n_heads=12,
+                         n_layers=layers, d_ff=3072, max_len=seq,
+                         pos_emb='rope', device=comm.device)
+OPTS = {'sgd': lambda params: torch.optim.SGD(params, lr=0.1, momentum=0.9),
+        'adam': lambda params: torch.optim.Adam(params, lr=3e-4, eps=1e-8)}
+def flat(params):
+    return torch.cat([params[k].detach().reshape(-1).float()
+                      for k in sorted(params)])
+refs = {}
+for opt, make in OPTS.items():
+    ref = lm()
+    p0 = flat(dict(ref.named_parameters()))
+    rstep = make_data_parallel_train_step(
+        ref, create_multi_node_optimizer(make(ref.parameters()), one), one,
+        loss_fn=fused_lm_loss)
+    losses = [rstep(toks[s, :, :-1], toks[s, :, 1:])['main/loss'].item()
+              for s in range(steps)]
+    refs[opt] = (losses, flat(dict(ref.named_parameters())))
+    del ref, rstep
+_cuda.reset_launches()
+out = {'ref': {k: v[0] for k, v in refs.items()}, 'runs': {},
+       'device': str(comm.device)}
+mine = slice(r * per, (r + 1) * per)
+for name, stage, bucket, wf, opt in (
+        ('zero1-flat', 1, None, None, 'sgd'),
+        ('zero1-bucketed', 1, bb, None, 'sgd'),
+        ('zero2-flat', 2, None, None, 'sgd'),
+        ('zero2-bucketed', 2, bb, None, 'sgd'),
+        ('zero1-int8-block', 1, None, 'int8-block', 'sgd'),
+        ('zero1-flat-adam', 1, None, None, 'adam')):
+    model = lm()
+    kw = dict(loss_fn=fused_lm_loss, bucket_bytes=bucket, grad_reducer=(
+        None if wf is None else QuantizedReducer(comm, wire_format=wf)))
+    if stage == 1:
+        step, st = make_zero1_train_step(model, OPTS[opt], comm, **kw)
+    else:
+        step, st = make_zero2_train_step(model, OPTS[opt], comm,
+                                         n_microbatches=per, **kw)
+    comm.barrier()
+    t0 = time.perf_counter()
+    losses = [step(toks[s, mine, :-1], toks[s, mine, 1:])[
+        'main/loss'].item() for s in range(steps)]
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    p = flat(zero1_params(st, model, bucket))
+    p_ref = refs[opt][1]
+    upd = ((p - p_ref).norm() / (p_ref - p0).norm()).item()
+    out['runs'][name] = dict(
+        opt=opt, stage=stage, losses=losses, ms=ms, update_rel=upd,
+        state_bytes=st.optimizer_state_numel() * 4,
+        padded=sum(st.layout.padded),
+        fingerprint=[p.double().sum().item(), (p.double() ** 2).sum().item()])
+    del model, step, st, p
+    torch.cuda.empty_cache()
+out['launches'] = _cuda.launches()
+out['launches_f32'] = _cuda.launches(torch.float32)
+out['staged_bytes'] = comm.staged_bytes
+outs = comm.allgather_obj(out)
+one.finalize()
+comm.finalize()
+if r == 0:
+    print('zero world ' + json.dumps(outs), flush=True)
+"""
+
+
+def _zero_full_width(seed: int, card: str):
+    """(a): the full-width LM on one NCCL rank through ZeRO-1/2 against
+    the data-parallel step. Returns the ZeRO runs' launch counts (all on
+    bf16 inputs)."""
+    import torch
+
+    from chainermn_torch.comm import create_communicator
+    from chainermn_torch.ops import _cuda
+    from chainermn_torch.ops.fused_ce import fused_lm_loss
+    from chainermn_torch.optimizers import (create_multi_node_optimizer,
+                                            make_zero1_train_step,
+                                            make_zero2_train_step,
+                                            zero1_params)
+    from chainermn_torch.training.step import make_data_parallel_train_step
+
+    z = ZERO
+    toks = train_tokens(seed)
+    x = torch.as_tensor(toks[:, :-1], device="cuda").long()
+    y = torch.as_tensor(toks[:, 1:], device="cuda").long()
+    comm = create_communicator("pure_nccl")
+    bb = z["bucket_mib"] << 20
+
+    def adamw(params):
+        # optax.adamw's defaults (decay 1e-4 on every leaf)
+        return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=1e-4)
+
+    counts = {name: 0 for name in ("flash_fwd", "flash_bwd", "ce_fwd",
+                                   "ce_dh", "ce_dw")}
+    ref = start = None
+    for name, stage, bucket in (("dp", 0, None), ("zero1-flat", 1, None),
+                                ("zero1-bucketed", 1, bb),
+                                ("zero2-bucketed", 2, bb)):
+        model = build_model(seed, torch.bfloat16, "flash")
+        if start is None:
+            start = torch.cat([p.detach().reshape(-1).cpu() for _, p in
+                               sorted(model.named_parameters())])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = opt = None
+        if stage == 0:
+            opt = create_multi_node_optimizer(adamw(model.parameters()), comm)
+            step = make_data_parallel_train_step(model, opt, comm,
+                                                 loss_fn=fused_lm_loss)
+        elif stage == 1:
+            step, state = make_zero1_train_step(
+                model, adamw, comm, loss_fn=fused_lm_loss,
+                bucket_bytes=bucket)
+        else:
+            step, state = make_zero2_train_step(
+                model, adamw, comm, n_microbatches=z["micro"],
+                loss_fn=fused_lm_loss, bucket_bytes=bucket)
+        _cuda.reset_launches()
+        losses = [step(x, y)["main/loss"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(z["steps"] - 1):
+            losses.append(step(x, y)["main/loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / (z["steps"] - 1)
+        launched = _cuda.launches()
+        launched_f32 = _cuda.launches(torch.float32)
+        peak = torch.cuda.max_memory_allocated()
+        losses = torch.stack(losses).tolist()
+        if state is None:
+            params = dict(model.named_parameters())
+            sbytes = sum(t.numel() * t.element_size()
+                         for s in opt.state.values() for t in s.values()
+                         if torch.is_tensor(t) and t.ndim)
+            grad_peak = None
+        else:
+            params = zero1_params(state, model, bucket)
+            sbytes = state.optimizer_state_numel() * 4
+            grad_peak = state.grad_bytes_peak
+        flat = torch.cat([params[k].detach().reshape(-1).cpu()
+                          for k in sorted(params)])
+        del model, step, state, opt, params
+        torch.cuda.empty_cache()
+        extra = ""
+        if ref is None:
+            ref = (losses, flat)
+        else:
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, ref[0]))
+            upd = ((flat - ref[1]).norm() / (ref[1] - start).norm()).item()
+            micro = z["micro"] if name.startswith("zero2") else 1
+            want = {k: z["steps"] * micro * (12 if k.startswith("flash")
+                                             else 1) for k in counts}
+            extra = (f", vs dp: worst relative loss difference "
+                     f"{loss_err:.3e} (tolerance {TOL_ZERO_LOSS_REL}), "
+                     f"relative update difference {upd:.4f} (tolerance "
+                     f"{TOL_ZERO_UPDATE_REL}), hook peak of live gradient "
+                     f"bytes {grad_peak:,}")
+            if loss_err > TOL_ZERO_LOSS_REL or upd > TOL_ZERO_UPDATE_REL:
+                raise PhaseError(f"zero {name} disagrees with the "
+                                 f"data-parallel step{extra}")
+            if launched != want or any(launched_f32.values()):
+                raise PhaseError(f"zero {name}: launches {launched} (f32 "
+                                 f"{launched_f32}), expected {want}, none "
+                                 f"f32")
+            for k in counts:
+                counts[k] += launched[k]
+        if not all(math.isfinite(v) for v in losses):
+            raise PhaseError(f"zero {name}: a loss is not finite")
+        print(f"zero {name}: 135M LM bf16, seq {TRAIN['seq_len']}, batch "
+              f"{TRAIN['batch']}, one NCCL rank, {z['steps']} steps: "
+              f"{dt * 1e3:.3f} ms/step, tokens/s per chip "
+              f"{TRAIN['batch'] * TRAIN['seq_len'] / dt:.1f}, peak "
+              f"{peak / 2 ** 30:.3f} GiB, optimizer state {sbytes:,} B, "
+              f"losses {[round(v, 5) for v in losses]}, launches "
+              f"{launched}{extra} ({card})", flush=True)
+    comm.finalize()
+    return counts, {k: 0 for k in counts}
+
+
+def _zero_world(card: str):
+    """(b): 4 host-staged ranks of this card. Returns their launches, and
+    those of them on f32 inputs (all)."""
+    z = ZERO
+    per = z["world_per_rank"]
+    outs = run_ranks([sys.executable, "-c", _ZERO_WORLD_SCRIPT,
+                      str(z["world_layers"]), str(z["world_seq"]), str(per),
+                      str(z["world_steps"]), str(z["world_bucket_mib"] << 20)],
+                     z["world_ranks"], timeout=420)
+    world = json.loads([ln for ln in outs[0].splitlines()
+                        if ln.startswith("zero world ")][-1][
+                            len("zero world "):])
+    counts, f32 = {}, {}
+    for w in world:
+        for k, v in w["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        for k, v in w["launches_f32"].items():
+            f32[k] = f32.get(k, 0) + v
+    w0 = world[0]
+    n = z["world_ranks"]
+    steps = 0
+    for name, run in w0["runs"].items():
+        quant = "int8" in name
+        ref = w0["ref"][run["opt"]]
+        slots = 2 if run["opt"] == "adam" else 1
+        micro = per if run["stage"] == 2 else 1
+        steps += z["world_steps"] * micro * n
+        errs = [abs(a - b) / abs(b) for a, b in zip(run["losses"], ref)]
+        same = all(w["runs"][name]["fingerprint"] == run["fingerprint"]
+                   and w["runs"][name]["losses"] == run["losses"]
+                   for w in world)
+        print(f"zero world {name}: 4 host-staged ranks of one card, LM "
+              f"d 768 x {z['world_layers']} layers f32, seq "
+              f"{z['world_seq']}, {per} sequences a rank"
+              + (f" in {micro} micro-batches" if micro > 1 else "")
+              + f", {'SGD momentum 0.9' if slots == 1 else 'Adam'}, "
+              f"{z['world_steps']} steps: {run['ms']:.1f} ms/step (rank 0),"
+              f" losses {[round(v, 6) for v in run['losses']]} vs one rank "
+              f"fed every batch {[round(v, 6) for v in ref]} (relative "
+              f"{[float(f'{e:.3e}') for e in errs]}), relative update "
+              f"difference {run['update_rel']:.4f}, optimizer state "
+              f"{run['state_bytes']:,} B a rank (padded {run['padded']:,} "
+              f"/ {n} x {slots} x 4 B), gathered parameters equal on every "
+              f"rank {same} ({card})", flush=True)
+        ok = (same and run["state_bytes"] == run["padded"] // n * slots * 4
+              and errs[0] <= TOL_ZERO_WORLD_LOSS_REL)
+        if quant:
+            ok = ok and max(errs) <= TOL_ZERO_QUANT_LOSS_REL
+        else:
+            ok = ok and (max(errs) <= TOL_ZERO_WORLD_LOSS_REL
+                         and run["update_rel"] <= TOL_ZERO_WORLD_UPDATE_REL)
+        if not ok:
+            raise PhaseError(f"zero world {name} disagrees with one rank "
+                             f"fed every batch: {run}")
+    # steps: the forward-backward passes of every rank (a micro-batch
+    # each)
+    want = {"flash_fwd": z["world_layers"] * steps,
+            "flash_bwd": z["world_layers"] * steps, "ce_fwd": steps,
+            "ce_dh": steps, "ce_dw": steps}
+    if counts != want or f32 != want:
+        raise PhaseError(f"zero world: launches {counts} (f32 {f32}), "
+                         f"expected {want}, all f32")
+    print(f"zero world: devices {sorted({w['device'] for w in world})}, "
+          f"launches of the 4 ranks {counts} (all f32), host-staged bytes "
+          f"(rank 0) {w0['staged_bytes']:,} ({card})", flush=True)
+    return counts, f32
+
+
+def _timed_example(example, argv):
+    """``example.build_trainer(example.parse_args(argv))`` run to its
+    stop trigger on the card: (observation, ms a step after the first,
+    launches, the launches on f32 inputs, peak bytes)."""
+    import torch
+
+    from chainermn_torch.ops import _cuda
+
+    trainer, _ = example.build_trainer(example.parse_args(argv))
+    step, first = trainer.updater.step_fn, []
+
+    def timed(*arrays):
+        m = step(*arrays)
+        if not first:
+            torch.cuda.synchronize()
+            first.append(time.perf_counter())
+        return m
+
+    trainer.updater.step_fn = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    try:
+        trainer.run()
+        torch.cuda.synchronize()
+    finally:
+        it = trainer.updater.iterator
+        if hasattr(it, "close"):
+            it.close()
+        trainer.updater.comm.finalize()
+    obs = trainer.observation
+    ms = (time.perf_counter() - first[0]) / (obs["iteration"] - 1) * 1e3
+    return (obs, ms, _cuda.launches(), _cuda.launches(torch.float32),
+            torch.cuda.max_memory_allocated())
+
+
+def _zero_large_batch(card: str):
+    """(c): ``train_imagenet --optimizer lars|lamb``. Returns the card
+    runs' launches, and those on f32 inputs (the checks')."""
+    import tempfile
+
+    import torch
+
+    from chainermn_torch.examples import train_imagenet
+
+    z, r, v = ZERO, RESNET50, VIT
+    counts, f32 = {}, {}
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        for label, flags in (("resnet50", ["--image-size", "64"]),
+                             ("vit", ["--model", "vit", "--image-size",
+                                      "32"])):
+            for name in ("lars", "lamb"):
+                argv = flags + ["--optimizer", name, "--iterations",
+                                str(z["check_steps"]), "--batchsize", "4",
+                                "--n-train", "16", "--dtype", "float32",
+                                "--out", d]
+                res = run_example(train_imagenet, argv, z["check_steps"],
+                                  card, None, "zero")
+                print(f"zero {label} --optimizer {name} check: first "
+                      f"{z['check_steps']} losses on the card "
+                      f"{[round(x, 6) for x in res['card']]} vs the CPU "
+                      f"{[round(x, 6) for x in res['cpu']]} (worst "
+                      f"relative {res['err']:.3e}, tolerance "
+                      f"{TOL_LARGE_BATCH_LOSS_REL}) ({card})", flush=True)
+                if res["err"] > TOL_LARGE_BATCH_LOSS_REL:
+                    raise PhaseError(f"train_imagenet --optimizer {name} "
+                                     f"({label}) on the card disagrees "
+                                     "with the CPU")
+                for k, n in res["counts"].items():
+                    counts[k] = counts.get(k, 0) + n
+                for k, n in res["counts_f32"].items():
+                    f32[k] = f32.get(k, 0) + n
+        runs = {
+            "resnet50": ["--loader", "--iterations",
+                         str(z["r50_iterations"]), "--batchsize",
+                         str(r["batch"]), "--image-size", str(r["image"]),
+                         "--n-train", str(r["batch"] * z["r50_iterations"]),
+                         "--out", d],
+            "vit": _vit_argv(d, z["vit_iterations"], v["batch"]
+                             * z["vit_iterations"])}
+        for label, argv in runs.items():
+            ms = []
+            # SGD first and last: a process's first runs carry warm-ups
+            # (cuDNN plans, the allocator) that a later run does not
+            for name in ("sgd", "lars", "lamb", "sgd"):
+                obs, t, launched, launched_f32, peak = _timed_example(
+                    train_imagenet, argv + ["--optimizer", name])
+                ms.append((name, t))
+                if not math.isfinite(obs["main/loss"]):
+                    raise PhaseError(f"train_imagenet {label} --optimizer "
+                                     f"{name}: the loss is not finite")
+                if label == "vit":
+                    _expect_vit_launches(launched, z["vit_iterations"],
+                                         f"vit --optimizer {name}")
+                elif any(launched.values()):
+                    raise PhaseError(f"the ResNet path launched "
+                                     f"hand-written kernels: {launched}")
+                if any(launched_f32.values()):
+                    raise PhaseError(f"train_imagenet {label} bf16 launched "
+                                     f"f32 kernels: {launched_f32}")
+                for k, n in launched.items():
+                    counts[k] = counts.get(k, 0) + n
+            batch, iters = ((r["batch"], z["r50_iterations"])
+                            if label == "resnet50"
+                            else (v["batch"], z["vit_iterations"]))
+            print(f"zero {label} train_imagenet --optimizer: ms/step after "
+                  f"the first of {iters} at batch {batch}, 224², bf16, in "
+                  f"this order: " + ", ".join(
+                      f"{k} {t:.3f} ({batch / t * 1e3:.1f} images/s per "
+                      f"chip)" for k, t in ms)
+                  + f"; last peak {peak / 2 ** 30:.3f} GiB ({card})",
+                  flush=True)
+            torch.cuda.empty_cache()
+    return counts, f32
+
+
+def _zero_train_lm(card: str):
+    """(d): ``train_lm --zero 1 --zero-bucket-kib 4096`` at full width.
+    Returns its launches, and those on f32 inputs (all)."""
+    import tempfile
+
+    from chainermn_torch.examples import train_lm
+
+    z = ZERO
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        argv = ["--zero", "1", "--zero-bucket-kib", str(z["lm_bucket_kib"]),
+                "--d-model", "768", "--n-heads", "12", "--n-layers", "12",
+                "--vocab", "32768", "--seq-len", "2048", "--batchsize",
+                str(z["lm_batch"]), "--n-train",
+                str(z["lm_batch"] * z["lm_iterations"]), "--iterations",
+                str(z["lm_iterations"]), "--out", d]
+        obs, ms, launched, launched_f32, peak = _timed_example(train_lm,
+                                                                argv)
+    steps = z["lm_iterations"]
+    want = {"flash_fwd": 12 * steps, "flash_bwd": 12 * steps, "ce_fwd": 0,
+            "ce_dh": 0, "ce_dw": 0}
+    print(f"zero train_lm --zero 1 --zero-bucket-kib {z['lm_bucket_kib']}: "
+          f"d 768 x 12 layers, vocab 32768, seq 2048, batch "
+          f"{z['lm_batch']}, f32: {ms:.3f} ms/step after the first of "
+          f"{steps}, tokens/s per chip "
+          f"{z['lm_batch'] * 2048 / ms * 1e3:.1f}, peak "
+          f"{peak / 2 ** 30:.3f} GiB, last loss {obs['main/loss']:.5f}, "
+          f"launches {launched} ({card})", flush=True)
+    if not math.isfinite(obs["main/loss"]):
+        raise PhaseError("train_lm --zero 1: the loss is not finite")
+    if launched != want or launched_f32 != want:
+        raise PhaseError(f"train_lm --zero 1: launches {launched} (f32 "
+                         f"{launched_f32}), expected {want}, all f32")
+    return launched, launched_f32
+
+
+def zero(seed: int, card: str):
+    """ZeRO-1/2 and LARS/LAMB, (a)-(d) of the module docstring. Returns
+    the launches of the phase's main-path runs, and those of them on f32
+    inputs."""
+    import torch
+
+    counts, f32 = {}, {}
+    for part in (lambda: _zero_full_width(seed, card),
+                 lambda: _zero_world(card),
+                 lambda: _zero_large_batch(card),
+                 lambda: _zero_train_lm(card)):
+        got, got_f32 = part()
+        for k, n in got.items():
+            counts[k] = counts.get(k, 0) + n
+        for k, n in got_f32.items():
+            f32[k] = f32.get(k, 0) + n
+        torch.cuda.empty_cache()
+    return counts, f32
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2885,7 +3451,12 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     worst = check_kernels(gen)
-    worst["flash_bwd"] = check_flash_bwd(gen)
+    bwd_worst = check_flash_bwd(gen)
+    worst["flash_bwd"] = bwd_worst["train"]
+    # the f32 bodies: the worst of their cases on the ZeRO phase's path
+    f32_cases = [c[0] for c in F32_PATH_CASES] + ["f32"]
+    worst["flash_fwd_f32"] = max(worst[c] for c in f32_cases)
+    worst["flash_bwd_f32"] = max(bwd_worst[c] for c in f32_cases)
     worst.update(check_fused_ce(gen))
     def show(name, where, row, extra=""):
         print(f"time {name} ({where}): kernel {row['ms']:.4f} ms, "
@@ -2926,6 +3497,11 @@ def main(argv=None) -> int:
           f"{pair['library_ms']:.4f} ms, ratio "
           f"{pair['ms'] / pair['library_ms']:.3f}, bound "
           f"{pair['bound_ms']:.4f} ms ({card})", flush=True)
+    f32_times = time_f32_kernels(gen)
+    for name, row in f32_times.items():
+        show(name, "the ZeRO phase's f32 shape: flash [4,2048,12,64] "
+             "causal, CE [1024,768]x[768,32768]", row)
+    times.update(f32_times)
     compare_launch_bounds(gen, card)
     compare_ce_layouts(gen, card)
 
@@ -2967,6 +3543,7 @@ def main(argv=None) -> int:
     vit_counts = vit(args.seed, card, args.profile)
     ckpt_counts = checkpoint(card)
     red_counts = reducers(args.seed, card)
+    zero_counts, zero_f32 = zero(args.seed, card)
 
     sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:168"),
                "flash_bwd": ("flash_bwd.cu", "flash_attention.py:399"),
@@ -2977,20 +3554,25 @@ def main(argv=None) -> int:
         name: worst[name] for name in sources if name != "flash_fwd"}}
     kernels = []
     for name, (src, tpu) in sources.items():
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"chainermn_torch/csrc/{src}",
-            "replaces": f"chainermn_tpu/ops/{tpu}",
-            # serving, training, the ViT and its checkpoint runs drive
-            # flash: a count is the sum of the main-path runs (the MNIST,
-            # CIFAR, ResNet-50, seq2seq, model-parallel and reducer runs
-            # add none)
-            "launches": train_counts[name] + mnist_counts[name]
-            + cifar_counts[name] + r50_counts[name] + s2s_counts[name]
-            + mp_counts.get(name, 0) + vit_counts[name]
-            + ckpt_counts[name] + red_counts.get(name, 0) + (
-                counts["flash_fwd"] if name == "flash_fwd" else 0),
-            "max_abs_err": errs[name], **times[name]})
+        # serving, training, the ViT, its checkpoint runs and the ZeRO
+        # phase drive flash (and the ZeRO phase the CE kernels): a count
+        # is the sum of the main-path runs (the MNIST, CIFAR, ResNet-50,
+        # seq2seq, model-parallel and reducer runs add none). The phases
+        # before the ZeRO phase run bf16 models; its f32 runs' launches go
+        # to the f32 bodies' own rows
+        bf16 = (train_counts[name] + mnist_counts[name]
+                + cifar_counts[name] + r50_counts[name] + s2s_counts[name]
+                + mp_counts.get(name, 0) + vit_counts[name]
+                + ckpt_counts[name] + red_counts.get(name, 0)
+                + zero_counts.get(name, 0) - zero_f32.get(name, 0) + (
+                    counts["flash_fwd"] if name == "flash_fwd" else 0))
+        for row, n in ((name, bf16), (f"{name}_f32", zero_f32.get(name, 0))):
+            kernels.append({
+                "name": row, "route": "cuda",
+                "source": f"chainermn_torch/csrc/{src}",
+                "replaces": f"chainermn_tpu/ops/{tpu}",
+                "launches": n, "max_abs_err": worst[row] if row != name
+                else errs[name], **times[row]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -119,3 +119,29 @@ def test_the_register_cap_can_be_lifted_by_a_define(name):
     text = (_cuda._CSRC / _cuda.SOURCES[name]).read_text()
     assert f"#ifndef {macro}" in text
     assert f"DP <= 64 ? {macro} : 1" in text
+
+
+def test_launches_are_counted_per_input_dtype():
+    """The f32 inputs run other kernel bodies than the bf16 ones, so the
+    count of each launch is also kept under its input dtype."""
+    import torch
+
+    _cuda.reset_launches()
+    try:
+        _cuda._launched(0, "flash_fwd", torch.float32)
+        _cuda._launched(0, "flash_fwd", torch.bfloat16)
+        _cuda._launched(0, "ce_dw", torch.bfloat16)
+        assert _cuda.launches()["flash_fwd"] == 2
+        assert _cuda.launches(torch.float32) == dict(
+            flash_fwd=1, flash_bwd=0, ce_fwd=0, ce_dh=0, ce_dw=0)
+        assert _cuda.launches(torch.bfloat16) == dict(
+            flash_fwd=1, flash_bwd=0, ce_fwd=0, ce_dh=0, ce_dw=1)
+        with pytest.raises(RuntimeError, match="cudaError_t 700"):
+            _cuda._launched(700, "ce_fwd", torch.float32)
+        assert _cuda.launches()["ce_fwd"] == 0
+        with pytest.raises(KeyError):
+            _cuda.launches(torch.float16)
+        _cuda.reset_launches()
+        assert not any(_cuda.launches(torch.float32).values())
+    finally:
+        _cuda.reset_launches()

@@ -508,18 +508,18 @@ def test_emergency_save_publishes_synchronously(comm, tmp_path):
 
 def test_later_slices_raise(comm, tmp_path, monkeypatch):
     """The orbax backend, ZeRO/FSDP layouts and sharded leaves (ROADMAP.md
-    queue 1 item 8) and the chaos switch (item 9) raise."""
-    with pytest.raises(NotImplementedError, match="item 8"):
+    queue 1 item 8b) and the chaos switch (item 9) raise."""
+    with pytest.raises(NotImplementedError, match="item 8b"):
         create_multi_node_checkpointer("o", comm, path=str(tmp_path),
                                        backend="orbax")
     ck = create_multi_node_checkpointer("c", comm, path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         ck.set_layout({"kind": "zero"})
     fn = os.path.join(ck.path, "snapshot_iter_3.0")
     np.savez(fn + ".npz", leaf_0_nshards=np.int64(2),
              __world__=np.int64(1))
     os.replace(fn + ".npz", fn)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         ck.maybe_load({"w": torch.zeros(2)}, iteration=3)
     monkeypatch.setenv("CHAINERMN_TPU_CHAOS", "corrupt@match=snapshot")
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -1,7 +1,8 @@
 """Card-only tests of the port's hand-written CUDA kernels (flash
 forward and backward, the fused CE's forward, dh and dW) and of the
-training step on the card. A CUDA kernel has no CPU mode, so without a
-GPU every test here skips.
+training step on the card (the data-parallel step, and a ZeRO-1 step
+against the same step on the CPU). A CUDA kernel has no CPU mode, so
+without a GPU every test here skips.
 
 This file imports no JAX, so it runs on a GPU machine without the JAX
 package's test set-up:
@@ -557,3 +558,65 @@ def test_reducer_on_one_nccl_rank_matches_its_plain_result(cuda, name):
         assert torch.equal(torch.cat(list(state)), flat_in - flat_out)
     finally:
         comm.finalize()
+
+
+# -- ZeRO on the card ---------------------------------------------------------
+
+_ZERO_CPU = r'''
+import os, pickle, sys
+import torch
+from tests.test_torch_cuda import zero_lm_step
+
+with open(sys.argv[1], "wb") as f:
+    pickle.dump(zero_lm_step("cpu"), f)
+print("RANK0 OK", flush=True)
+'''
+
+
+def zero_lm_step(device):
+    """One bucketed ZeRO-1 step (SGD 0.1, momentum 0.9, 16 KiB buckets) of
+    a small f32 LM with ``lm_loss_with_aux`` on ``device``, in a world of
+    one rank: the loss and the re-assembled parameters (on the CPU)."""
+    from chainermn_torch.models.transformer import lm_loss_with_aux
+    from chainermn_torch.optimizers import make_zero1_train_step, zero1_params
+
+    comm = create_communicator("pure_nccl", device=device)
+    try:
+        torch.manual_seed(0)
+        model = TransformerLM(vocab=256, d_model=64, n_heads=4, n_layers=2,
+                              d_ff=128, max_len=64, device="cpu")
+        model.to(device)
+        step, state = make_zero1_train_step(
+            model, lambda ps: torch.optim.SGD(ps, lr=0.1, momentum=0.9),
+            comm, loss_fn=lm_loss_with_aux, bucket_bytes=16384)
+        toks = torch.randint(0, 256, (4, 65),
+                             generator=torch.Generator().manual_seed(1))
+        before = _cuda.launches()
+        m = step(toks[:, :-1].to(device), toks[:, 1:].to(device))
+        launched = {k: _cuda.launches()[k] - before[k]
+                    for k in ("flash_fwd", "flash_bwd")}
+        params = {k: v.cpu() for k, v in
+                  zero1_params(state, model, 16384).items()}
+        return float(m["main/loss"]), params, launched
+    finally:
+        comm.finalize()
+
+
+def test_zero1_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The step on one NCCL rank against the same step on a one-rank gloo
+    world on the CPU (a subprocess): the loss at rtol 1e-5, every
+    parameter at rtol 1e-4 and atol 1e-6 (f32 on both sides, the flash
+    kernels against their plain versions), and the card's step launched
+    each flash kernel once a layer."""
+    from tests.test_torch_mp import assert_ranks_ok, run_world
+    import pickle
+
+    out = tmp_path / "cpu.pkl"
+    assert_ranks_ok(run_world(_ZERO_CPU, 1, timeout=240, args=[str(out)]))
+    want_loss, want, _ = pickle.loads(out.read_bytes())
+    loss, got, launched = zero_lm_step("cuda")
+    assert launched == {"flash_fwd": 2, "flash_bwd": 2}
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, rtol=1e-4, atol=1e-6,
+                                   msg=k)

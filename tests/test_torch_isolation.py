@@ -72,7 +72,10 @@ def test_importing_the_port_loads_no_jax_module():
             "chainermn_torch.examples.train_mnist_model_parallel, "
             "chainermn_torch.examples.train_mnist_eager_p2p, "
             "chainermn_torch.models.vit, chainermn_torch.ops.dropout, "
-            "chainermn_torch.extensions.checkpoint, chip_smoke; "
+            "chainermn_torch.extensions.checkpoint, "
+            "chainermn_torch.optimizers.zero, "
+            "chainermn_torch.optimizers.large_batch, "
+            "chainermn_torch.examples.train_lm, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -240,3 +243,40 @@ def test_the_reducer_slice_raises_without_cuda_unless_asked_for_cpu(
              "--out", str(tmp_path), *flags]))
         assert trainer.updater.comm.device == torch.device("cpu")
         trainer.updater.comm.finalize()
+
+
+def test_the_zero_slice_raises_without_cuda_unless_asked_for_cpu(tmp_path):
+    """ZeRO-1/2, LARS/LAMB and ``train_lm`` are covered by the import
+    scan; ``train_lm`` (data-parallel and ``--zero``) and ``train_imagenet
+    --optimizer lars|lamb`` raise without CUDA unless given the CPU, and
+    the CPU builds them (the optimizers were refused before this
+    slice)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device works")
+    from chainermn_torch.examples import train_lm
+
+    files = [p.relative_to(REPO).as_posix() for p in _port_files()]
+    for new in ("chainermn_torch/optimizers/zero.py",
+                "chainermn_torch/optimizers/large_batch.py",
+                "chainermn_torch/examples/train_lm.py"):
+        assert new in files       # covered by the import scan above
+    for make in (lambda: train_lm.main(["--iterations", "1", "--out",
+                                        str(tmp_path)]),
+                 lambda: train_lm.main(["--zero", "1", "--iterations", "1",
+                                        "--out", str(tmp_path)]),
+                 lambda: train_imagenet.main(
+                     ["--optimizer", "lars", "--iterations", "1", "--out",
+                      str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    trainer, model = train_lm.build_trainer(train_lm.parse_args(
+        ["--device", "cpu", "--zero", "2", "--n-train", "64", "--out",
+         str(tmp_path)]))
+    assert model.device == torch.device("cpu")
+    trainer.updater.comm.finalize()
+    trainer, _ = train_imagenet.build_trainer(train_imagenet.parse_args(
+        ["--device", "cpu", "--optimizer", "lamb", "--model", "vit",
+         "--image-size", "32", "--n-train", "8", "--batchsize", "2",
+         "--out", str(tmp_path)]))
+    assert trainer.updater.comm.device == torch.device("cpu")
+    trainer.updater.comm.finalize()

@@ -24,6 +24,24 @@ axes) bitwise against ``flat`` on integer-valued floats, and two steps of
 each rank from every rank's gradient and residual (bitwise: the same
 scales and int32 code sums; the residual exactly input − local
 dequantization).
+
+A third 4-rank world takes the first training steps across cards: a small
+f32 TransformerLM (vocab 256, d_model 64, 2 layers, seq 64, on the flash
+kernels, ``lm_loss_with_aux``, SGD 0.1 with momentum 0.9) trains 2 steps,
+each rank on its own batch of 2, through ``make_data_parallel_train_step``
+with each reducer (flat, hierarchical with ``intra=2``, auto, and
+quantized int8-block with error feedback) and through ZeRO-1 and ZeRO-2
+(``n_microbatches=2``), flat and bucketed (16 KiB); each is held against
+the same model on the same rank fed all four batches at once (the mean
+loss of the concatenated batch, whose gradient is the ranks' mean). The
+unquantized runs: losses at rtol 1e-5 and parameters at rtol 1e-4, atol
+1e-6 (the same f32 sums in another order and on another card). The
+int8-block run: the first loss at rtol 1e-5 (no update has happened yet)
+and the first update within lr · mean_r max|g_r| / 254 of the reference's
+an element (rank r's code rounds by at most half a step of its block's
+scale, which is at most max|g_r| / 127, and the reduced gradient is the
+mean of the four ranks'). ``WORLD_DEVICE=cpu`` runs the same world on gloo
+(a check before the card).
 """
 
 import pytest
@@ -266,3 +284,129 @@ print(f"RANK{r} OK", flush=True)
 def test_nccl_subgroups_and_reducers_across_four_cards():
     _four_cards()
     assert_ranks_ok(run_world(_REDUCER_WORKER, 4, timeout=240))
+
+
+TRAIN_WORKER = r"""
+import copy, os, sys
+import torch
+from chainermn_torch.collectives import HierarchicalReducer, make_grad_reducer
+from chainermn_torch.comm import create_communicator
+from chainermn_torch.models.transformer import TransformerLM, lm_loss_with_aux
+from chainermn_torch.optimizers import (create_multi_node_optimizer,
+                                        make_zero1_train_step,
+                                        make_zero2_train_step, zero1_params)
+from chainermn_torch.training import make_data_parallel_train_step
+
+DEV = os.environ.get("WORLD_DEVICE", "cuda")
+comm = create_communicator("pure_nccl", device=DEV)
+r, dev, n = comm.rank, comm.device, comm.size
+LR, STEPS, B, L, V = 0.1, 2, 2, 64, 256
+g = torch.Generator().manual_seed(1)
+toks = torch.randint(0, V, (STEPS, n, B, L + 1), generator=g).to(dev)
+
+
+def lm():
+    torch.manual_seed(0)
+    return TransformerLM(vocab=V, d_model=64, n_heads=4, n_layers=2,
+                         d_ff=128, max_len=L, device=dev)
+
+
+def sgd(params):
+    return torch.optim.SGD(params, lr=LR, momentum=0.9)
+
+
+# one rank fed every batch: the reference, on this rank alone
+ref = lm()
+ref_opt = sgd(ref.parameters())
+ref_losses, ref_first = [], None
+start = {k: v.detach().clone() for k, v in ref.named_parameters()}
+# each rank's own first gradient: the scale of its int8 codes
+gmax = 0.0
+for k in range(n):
+    ref.zero_grad()
+    lm_loss_with_aux(ref, toks[0, k, :, :-1], toks[0, k, :, 1:])[0].backward()
+    gmax += max(p.grad.abs().max().item() for p in ref.parameters()) / n
+for s in range(STEPS):
+    x, y = toks[s, ..., :-1].reshape(n * B, L), toks[s, ..., 1:].reshape(
+        n * B, L)
+    ref_opt.zero_grad()
+    loss = lm_loss_with_aux(ref, x, y)[0]
+    loss.backward()
+    ref_opt.step()
+    ref_losses.append(loss.item())
+    if s == 0:
+        ref_first = {k: v.detach().clone() for k, v in ref.named_parameters()}
+ref_final = {k: v.detach() for k, v in ref.named_parameters()}
+
+
+def close(a, b, rtol, atol, what):
+    assert torch.allclose(a, b, rtol=rtol, atol=atol), (
+        what, (a - b).abs().max().item())
+
+
+def check(name, step, params_of, quantized=False):
+    losses = []
+    for s in range(STEPS):
+        m = step(toks[s, r, :, :-1], toks[s, r, :, 1:])
+        losses.append(m["main/loss"].item())
+        if quantized and s == 0:
+            got = params_of()
+            bound = LR * gmax / 254 * (1 + 1e-3) + 1e-6
+            for k, v in got.items():
+                close(v - start[k], ref_first[k] - start[k], 0, bound,
+                      (name, k))
+    if quantized:
+        close(torch.tensor(losses[0]), torch.tensor(ref_losses[0]), 1e-5,
+              0, (name, "loss"))
+        return
+    close(torch.tensor(losses), torch.tensor(ref_losses), 1e-5, 0,
+          (name, "losses"))
+    for k, v in params_of().items():
+        close(v, ref_final[k], 1e-4, 1e-6, (name, k))
+    print(f"RANK{r} {name} losses {losses}", flush=True)
+
+
+for name in ("flat", "hierarchical", "auto", "int8-block"):
+    model = lm()
+    comm.bcast_data(model)
+    if name == "hierarchical":
+        red = HierarchicalReducer(comm, intra=2)
+    elif name == "int8-block":
+        red = make_grad_reducer("quantized", comm, wire_format="int8-block")
+    else:
+        red = make_grad_reducer(name, comm)
+    opt = create_multi_node_optimizer(sgd(model.parameters()), comm,
+                                      grad_reducer=red)
+    step = make_data_parallel_train_step(model, opt, comm,
+                                         loss_fn=lm_loss_with_aux)
+    check(f"dp-{name}", step,
+          lambda: {k: v.detach() for k, v in model.named_parameters()},
+          quantized=name == "int8-block")
+
+for stage in (1, 2):
+    for bb in (None, 16384):
+        model = lm()
+        comm.bcast_data(model)
+        if stage == 1:
+            step, state = make_zero1_train_step(
+                model, sgd, comm, loss_fn=lm_loss_with_aux, bucket_bytes=bb)
+        else:
+            step, state = make_zero2_train_step(
+                model, sgd, comm, n_microbatches=2,
+                loss_fn=lm_loss_with_aux, bucket_bytes=bb)
+        check(f"zero{stage}-{'bucketed' if bb else 'flat'}", step,
+              lambda: zero1_params(state, model, bb))
+        assert state.optimizer_state_numel() == sum(state.layout.padded) // n
+
+comm.barrier()
+comm.finalize()
+print(f"RANK{r} OK", flush=True)
+"""
+
+
+def test_training_steps_across_four_cards():
+    """The data-parallel step with every reducer and ZeRO-1/2 (flat and
+    bucketed) on four NCCL ranks against one rank fed every batch (module
+    docstring)."""
+    _four_cards()
+    assert_ranks_ok(run_world(TRAIN_WORKER, 4, timeout=400))
