@@ -19,9 +19,49 @@
 // bf16) the forward does 2 N D V = 412 GFLOP and dh and dW 4 N D V = 825
 // GFLOP each (the logits are recomputed) against ~63 MB of h and W: all
 // three are bound by the tensor cores' operations, 0.417 and 0.834 ms at the
-// 989 TFLOP/s bf16 peak. f32 inputs take plain FMAs on the CUDA cores (a
-// testing path: its 1e-4 contract is tighter than TF32); the f32 kernels
-// sweep the other operand through shared-memory tiles, unpipelined.
+// 989 TFLOP/s bf16 peak. f32 inputs take full-f32 FMAs on the CUDA cores
+// (an f32 model's loss: the JAX TransformerLM defaults to f32, and the
+// 1e-4 contract of f32 is tighter than TF32's 10-bit mantissa).
+//
+// f32 forward (`ce_fwd_fma`) and dh (`ce_bwd_fma<false>`), at N 1024, D
+// 768, V 32768 bound by 2 N D V = 51.5 GFLOP and 4 N D V = 103 GFLOP of
+// FMAs, 0.769 and 1.538 ms at the 67 TFLOP/s f32 peak (one D chunk; dh with
+// c chunks recomputes the logits c times: (2 c + 2) N D V):
+// * the vocabulary is split into S ranges of whole tiles, as the bf16
+//   forward's, so that (row blocks x S) CTAs fill the SMs; a forward CTA
+//   writes its rows' partial (m, s, t, a) and `ce_fwd_combine` combines
+//   them; a dh CTA writes its partial dh [BM, DC] to an f32 workspace
+//   [S, N, D] that `ce_dh_combine` sums in range order (S = 1: straight
+//   into dh). No atomics: two calls give the same bits;
+// * operands stream through a two-stage cp.async ring of shared-memory
+//   slabs, the next slab's copies issued before this slab's FMAs; a logits
+//   slab keeps the rows of h and W^T as they lie (row r, 64 depths) with
+//   rows padded by 4 floats, so a 16-byte read brings 4 depths of one row
+//   and 8 lanes reading 8 consecutive rows hit 8 different bank quads;
+// * register tiles: each thread accumulates TM x TN logits from TM + TN
+//   16-byte reads per 4 depths (forward 8 x 8: 4 reads per 64 FMAs, not 2
+//   reads of shared memory per FMA);
+// * forward epilogue in registers: a row's 128 columns lie in 16 lanes of
+//   one warp, so its max, first-index argmax and sum of exp take xor
+//   shuffles; lane 0 of the 16 folds them into the row's running (m, s, t,
+//   a) in shared memory, strictly greater (the first tile keeps ties);
+//   columns >= V read -inf; shared memory is fixed whatever D is;
+// * dh keeps its [32, DC] accumulator (DC = 768) in registers, 8 x 12 a
+//   thread, for the CTA's whole life; per vocabulary tile of 256 it runs
+//   the logits product (4 x 8 a thread), writes dl = exp(S - lse) -
+//   onehot (0 outside N x V) to shared memory transposed, then streams
+//   W^T's 256 rows again, 32 at a time, 768 columns wide, through the same
+//   ring for acc += dl . W. D > 768 takes chunks of 768 columns over
+//   blockIdx.z, each recomputing the logits; any D that is a multiple of
+//   4 runs. W^T is read from L2 twice per 32 rows of h (2 N D V / 8 bytes,
+//   6.4 GB at N 1024); built with either product's FMAs left out, dh
+//   kept most of its time (PERF.md, section 6): the slabs' traffic, not
+//   the FMAs, holds it back (sharing W^T across a cluster of CTAs would
+//   halve it).
+// `ce_bwd_fma<true>` is the mirror image, dW (R = W^T, T = h), compiled
+// but not yet launched: dW keeps `ce_dw_kernel<float>` below, whose helpers (`Tile`,
+// `logits_tile`, `load_slab`, `dl_tile`, `stage_rows`) sweep the other
+// operand through shared-memory tiles, unpipelined.
 //
 // bf16 forward (`ce_fwd_wgmma`), warp-specialised:
 // * a CTA owns 128 rows of h (two consumer warpgroups of 64) and one range
@@ -86,11 +126,9 @@
 namespace {
 
 constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
 constexpr int BK = 32;   // depth of one h / wt slab of the logits product
 constexpr int DC = 64;   // head-dim columns per chunk of the dh / dW product
 constexpr int PAD = 8;   // elements of padding per shared-memory row
-constexpr float NEG = -1e30f;
 
 struct RowMajor {};
 struct ColMajor {};
@@ -199,94 +237,6 @@ __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// ------------------------------------------------------------ f32 forward
-
-constexpr int F_BM = 64, F_BN = 128;
-
-template <typename T>
-constexpr int fwd_smem() {
-  return (F_BM + F_BN) * (BK + PAD) * static_cast<int>(sizeof(T)) +
-         F_BM * (F_BN + 4) * 4;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-    ce_fwd_kernel(const T* h, const T* wt, const int* y, float* lse,
-                  float* tl, int* am, int N, int D, int V) {
-  extern __shared__ float4 smem4[];
-  T* sA = reinterpret_cast<T*>(smem4);
-  T* sB = sA + F_BM * (BK + PAD);
-  float* sC = reinterpret_cast<float*>(sB + F_BN * (BK + PAD));
-  constexpr int LDC = F_BN + 4;
-  constexpr int RPW = F_BM / NWARPS;  // rows per warp in the epilogue
-  const int n0 = blockIdx.x * F_BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  float m[RPW], s[RPW], t[RPW];
-  int a[RPW], yy[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = n0 + warp * RPW + i;
-    m[i] = NEG;
-    s[i] = t[i] = 0.f;
-    a[i] = 0;
-    yy[i] = row < N ? y[row] : -1;
-  }
-
-  Tile<T, F_BM, F_BN, RowMajor, ColMajor> acc;
-  for (int v0 = 0; v0 < V; v0 += F_BN) {
-    logits_tile<T, F_BM, F_BN>(acc, sA, sB, h, wt, n0, v0, N, V, D);
-    acc.store(sC, LDC);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const float* crow = sC + (warp * RPW + i) * LDC;
-      float x[F_BN / 32];
-      float mc = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < F_BN / 32; ++j) {
-        const int c = lane + 32 * j;
-        x[j] = v0 + c < V ? crow[c] : -INFINITY;
-        mc = fmaxf(mc, x[j]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, off));
-      // first column attaining the tile max (jnp.argmax's tie rule)
-      int first = 1 << 30;
-#pragma unroll
-      for (int j = F_BN / 32 - 1; j >= 0; --j)
-        if (x[j] == mc) first = lane + 32 * j;
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        first = min(first, __shfl_xor_sync(0xffffffffu, first, off));
-      const float m_new = fmaxf(m[i], mc);
-      float se = 0.f;
-#pragma unroll
-      for (int j = 0; j < F_BN / 32; ++j) se += expf(x[j] - m_new);
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        se += __shfl_xor_sync(0xffffffffu, se, off);
-      s[i] = s[i] * expf(m[i] - m_new) + se;
-      if (mc > m[i]) a[i] = v0 + first;  // strictly greater: first tile wins
-      m[i] = m_new;
-      const int yl = yy[i] - v0;
-      if (yl >= 0 && yl < F_BN && yy[i] < V) t[i] += crow[yl];
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int row = n0 + warp * RPW + i;
-      if (row < N) {
-        lse[row] = m[i] + logf(s[i]);
-        tl[row] = t[i];
-        am[row] = a[i];
-      }
-    }
-  }
-}
-
 // -------------------------------------------------------------- dl tiles
 
 // dl = exp(logit - lse) - onehot(y), rounded to T, zero outside N x V
@@ -315,64 +265,417 @@ __device__ __forceinline__ void stage_rows(float* sLse, int* sY,
   }
 }
 
-// --------------------------------------------------------------------- dh
+// --------------------------------------------- f32 forward and dh: FMAs
 
-constexpr int H_BM = 32, H_BN = 128;
-
-template <typename T>
-int dh_smem(int D) {
-  const int dp = round_up(D, DC);
-  return H_BM * (BK + PAD) * static_cast<int>(sizeof(T)) +
-         H_BN * (DC + PAD) * static_cast<int>(sizeof(T)) +
-         H_BM * (H_BN + 4) * 4 +
-         H_BM * (H_BN + PAD) * static_cast<int>(sizeof(T)) +
-         H_BM * (dp + 4) * 4 + H_BM * 8;
+// ROWS rows of a row-major f32 matrix `base` (row stride `lds`) from
+// row `row0`, column `col0` on, 4 CH floats wide, into shared memory rows
+// of stride LD, by cp.async 16 bytes at a time; rows >= nrows and columns
+// >= ncols are zero-filled (their copies read nothing and point at `base`)
+template <int NT, int ROWS, int CH, int LD>
+__device__ __forceinline__ void slab_async(float* dst, const float* base,
+                                           int row0, int col0, int lds,
+                                           int nrows, int ncols) {
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
+    const int r = idx / CH;
+    const int c = (idx % CH) * 4;
+    const bool ok = row0 + r < nrows && col0 + c < ncols;
+    cp_async16(dst + r * LD + c,
+               ok ? base + static_cast<long long>(row0 + r) * lds + col0 + c
+                  : base,
+               ok);
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-    ce_dh_kernel(const T* h, const T* wt, const int* y, const float* lse,
-                 T* dh, int N, int D, int V) {
-  static_assert(DC >= BK, "the wt buffer serves both products");
-  extern __shared__ float4 smem4[];
-  constexpr int LDC = H_BN + 4, LDL = H_BN + PAD, LDB = DC + PAD;
-  const int ldh = round_up(D, DC) + 4;
-  T* sA = reinterpret_cast<T*>(smem4);
-  T* sB = sA + H_BM * (BK + PAD);
-  float* sC = reinterpret_cast<float*>(sB + H_BN * LDB);
-  T* sDl = reinterpret_cast<T*>(sC + H_BM * LDC);
-  float* sDh = reinterpret_cast<float*>(sDl + H_BM * LDL);
-  float* sLse = sDh + H_BM * ldh;
-  int* sY = reinterpret_cast<int*>(sLse + H_BM);
-  const int n0 = blockIdx.x * H_BM;
-
-  for (int e = threadIdx.x; e < H_BM * ldh; e += NTHREADS) sDh[e] = 0.f;
-  stage_rows<H_BM>(sLse, sY, lse, y, n0, N);
-
-  Tile<T, H_BM, H_BN, RowMajor, ColMajor> acc;
-  Tile<T, H_BM, DC, RowMajor, RowMajor> acc2;
-  for (int v0 = 0; v0 < V; v0 += H_BN) {
-    logits_tile<T, H_BM, H_BN>(acc, sA, sB, h, wt, n0, v0, N, V, D);
-    acc.store(sC, LDC);
-    __syncthreads();
-    dl_tile<T, H_BM, H_BN>(sDl, LDL, sC, LDC, sLse, sY, n0, v0, N, V);
-    for (int dc = 0; dc < D; dc += DC) {
-      __syncthreads();  // sDl written; previous chunk's sB readers done
-      load_slab<T, H_BN, DC>(sB, LDB,
-                             wt + static_cast<long long>(v0) * D + dc, D,
-                             V - v0, D - dc);
-      __syncthreads();
-      acc2.load(sDh + dc, ldh);
-      acc2.template mma<H_BN>(sDl, LDL, sB, LDB);
-      acc2.store(sDh + dc, ldh);
+// c[i][j] += A row (a + i RS rows) . B row (b + j CS rows) over one slab of
+// FK depths; A and B rows lie FK + 4 floats apart. Each 16-byte read brings
+// 4 depths of one row; depths are summed in order, so the bits do not
+// depend on the schedule.
+template <int FK, int TM, int TN, int RS, int CS>
+__device__ __forceinline__ void fma_slab(float (&c)[TM][TN], const float* a,
+                                         const float* b) {
+  constexpr int LD = FK + 4;
+#pragma unroll
+  for (int kq = 0; kq < FK; kq += 4) {
+    float4 av[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + i * RS * LD + kq);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float4 bv = *reinterpret_cast<const float4*>(b + j * CS * LD + kq);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        c[i][j] = fmaf(av[i].x, bv.x, c[i][j]);
+        c[i][j] = fmaf(av[i].y, bv.y, c[i][j]);
+        c[i][j] = fmaf(av[i].z, bv.z, c[i][j]);
+        c[i][j] = fmaf(av[i].w, bv.w, c[i][j]);
+      }
     }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < H_BM * D; e += NTHREADS) {
-    const int r = e / D, c = e % D;
-    if (n0 + r < N)
-      dh[static_cast<long long>(n0 + r) * D + c] =
-          from_float<T>(sDh[r * ldh + c]);
+}
+
+// The f32 forward's tile: BM rows of h (a warp holds 16, two lanes' 8 each),
+// BN vocabulary columns (16 lanes x TN, lane l holding l + 16 j), FK-deep
+// slabs of D in a ring of STAGES; MIN_CTAS an SM (1: registers uncapped).
+struct FwdF32 {
+  static constexpr int BM = 128, BN = 128, FK = 64, NT = 256;
+  static constexpr int STAGES = 2, TM = 8, TN = 8, MIN_CTAS = 1;
+  static constexpr int LD = FK + 4;
+  static constexpr int STAGE = (BM + BN) * LD;  // floats
+  // the ring, then per row m, s, t (f32) and a, label (int)
+  static constexpr int SMEM = (STAGES * STAGE + 5 * BM) * 4;
+};
+static_assert(FwdF32::BM == FwdF32::NT / 32 * 16 &&
+                  FwdF32::BN == 16 * FwdF32::TN && FwdF32::TM == 8,
+              "a warp's 16 rows: two lanes of 8 rows, 16 lanes of TN columns");
+
+// One CTA: rows [blockIdx.x BM, +BM) against vocabulary tiles
+// [blockIdx.y per, +per) (the last range may be shorter). Writes the rows'
+// partial (m, s, t, a) to part[4][S][N] (a as int bits), as `ce_fwd_wgmma`.
+__global__ void __launch_bounds__(FwdF32::NT, FwdF32::MIN_CTAS)
+    ce_fwd_fma(const float* __restrict__ h, const float* __restrict__ wt,
+               const int* __restrict__ y, float* __restrict__ part, int N,
+               int D, int V, int per) {
+  using F = FwdF32;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* sM = ring + F::STAGES * F::STAGE;
+  float* sS = sM + F::BM;
+  float* sT = sS + F::BM;
+  int* sA = reinterpret_cast<int*>(sT + F::BM);
+  int* sY = sA + F::BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lx = lane % 16;                         // columns lx + 16 j
+  const int r0 = warp * 16 + (lane / 16) * F::TM;   // rows r0 + i
+  const int n0 = blockIdx.x * F::BM;
+  const int tiles = (V + F::BN - 1) / F::BN;
+  const int t_lo = blockIdx.y * per;
+  const int t_hi = min(tiles, t_lo + per);
+  const int ks = (D + F::FK - 1) / F::FK;
+  const int steps = (t_hi - t_lo) * ks;
+
+  for (int r = threadIdx.x; r < F::BM; r += F::NT) {
+    sM[r] = -INFINITY;
+    sS[r] = sT[r] = 0.f;
+    sA[r] = 0;
+    sY[r] = n0 + r < N ? y[n0 + r] : -1;
+  }
+
+  // step s: depths [k0, k0 + FK) of the h block and of vocabulary tile t
+  auto issue = [&](int s) {
+    if (s < steps) {
+      const int t = t_lo + s / ks, k0 = (s % ks) * F::FK;
+      float* st = ring + (s % F::STAGES) * F::STAGE;
+      slab_async<F::NT, F::BM, F::FK / 4, F::LD>(st, h, n0, k0, D, N, D);
+      slab_async<F::NT, F::BN, F::FK / 4, F::LD>(st + F::BM * F::LD, wt,
+                                                 t * F::BN, k0, D, V, D);
+    }
+    cp_async_commit();
+  };
+
+  float c[F::TM][F::TN];
+  for (int s = 0; s < F::STAGES - 1; ++s) issue(s);
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<F::STAGES - 2>();
+    __syncthreads();  // step i landed; everyone is done with step i - 1
+    issue(i + F::STAGES - 1);
+    const int kk = i % ks;
+    if (kk == 0) {
+#pragma unroll
+      for (int r = 0; r < F::TM; ++r)
+#pragma unroll
+        for (int j = 0; j < F::TN; ++j) c[r][j] = 0.f;
+    }
+    const float* st = ring + (i % F::STAGES) * F::STAGE;
+    fma_slab<F::FK, F::TM, F::TN, 1, 16>(c, st + r0 * F::LD,
+                                         st + (F::BM + lx) * F::LD);
+    if (kk != ks - 1) continue;
+
+    // ---- the tile's logits are whole: fold them into the rows' state
+    const int v0 = (t_lo + i / ks) * F::BN;
+    if (v0 + F::BN > V) {
+#pragma unroll
+      for (int j = 0; j < F::TN; ++j)
+        if (v0 + lx + 16 * j >= V) {
+#pragma unroll
+          for (int r = 0; r < F::TM; ++r) c[r][j] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < F::TM; ++r) {
+      // this lane's max and its first column, then the 16 lanes' (the
+      // larger max; on a tie the smaller column: jnp.argmax's rule)
+      float mx = c[r][0];
+      int col = lx;
+#pragma unroll
+      for (int j = 1; j < F::TN; ++j)
+        if (c[r][j] > mx) {
+          mx = c[r][j];
+          col = lx + 16 * j;
+        }
+#pragma unroll
+      for (int off = 8; off > 0; off /= 2) {
+        const float om = __shfl_xor_sync(0xffffffffu, mx, off);
+        const int oc = __shfl_xor_sync(0xffffffffu, col, off);
+        if (om > mx || (om == mx && oc < col)) {
+          mx = om;
+          col = oc;
+        }
+      }
+      const float mb = mx * LOG2E;
+      float se = 0.f;
+#pragma unroll
+      for (int j = 0; j < F::TN; ++j) se += ex2(fmaf(c[r][j], LOG2E, -mb));
+#pragma unroll
+      for (int off = 8; off > 0; off /= 2)
+        se += __shfl_xor_sync(0xffffffffu, se, off);
+      const int row = r0 + r;
+      const int yl = sY[row] - v0;
+      if (yl >= 0 && yl < F::BN && sY[row] < V) {
+#pragma unroll
+        for (int j = 0; j < F::TN; ++j)
+          if (lx + 16 * j == yl) sT[row] += c[r][j];  // one lane holds it
+      }
+      if (lx == 0) {
+        const float m = sM[row];
+        if (mx > m) {  // strictly greater: an earlier tile keeps ties
+          sS[row] = sS[row] * ex2((m - mx) * LOG2E) + se;
+          sM[row] = mx;
+          sA[row] = v0 + col;
+        } else {
+          sS[row] += se * ex2((mx - m) * LOG2E);
+        }
+      }
+    }
+  }
+  __syncwarp();  // a row's target logit may come from another lane
+  if (lane % 16 == 0) {
+    const size_t sn = static_cast<size_t>(gridDim.y) * N;
+    int* part_a = reinterpret_cast<int*>(part + 3 * sn);
+#pragma unroll
+    for (int r = 0; r < F::TM; ++r) {
+      const int row = r0 + r;
+      if (n0 + row >= N) continue;
+      const size_t at = static_cast<size_t>(blockIdx.y) * N + n0 + row;
+      part[at] = sM[row];
+      part[sn + at] = sS[row];
+      part[2 * sn + at] = sT[row];
+      part_a[at] = sA[row];
+    }
+  }
+}
+
+// The f32 backward's tile: BM rows R (dh: h; dW: W^T), BS streamed rows T
+// a tile (dh: W^T; dW: h), an accumulator of BM x DC columns of the output,
+// 8 x 12 a thread (rows 8 g.., columns 4 c + 256 q, q < 3). The logits
+// product runs on FK-deep slabs (4 x TN a thread: warps 2 x 4 of 16 rows x
+// BS / 4 columns), the second on VK rows of T, DC wide; both slab kinds
+// share one ring of STAGES. One CTA an SM (shared memory and registers:
+// 229,376 bytes, 255 registers).
+struct BwdF32 {
+  static constexpr int NT = 256, BM = 32, BS = 256, DC = 768;
+  static constexpr int FK = 64, VK = 32, STAGES = 2;
+  static constexpr int MIN_CTAS = 1;
+  static constexpr int TN = BS / 32;         // logits columns a thread
+  static constexpr int LD = FK + 4;          // logits slab row stride
+  // the second product's slabs and dl^T [BS][BM] need no padding: their
+  // readers take one row at a time (dl's writers meet 8-way conflicts, 4
+  // TN stores a thread a tile)
+  static constexpr int LDW = DC;
+  static constexpr int LDL = BM;
+  static constexpr int S1 = (BM + BS) * LD;  // floats
+  static constexpr int S2 = VK * LDW;
+  static constexpr int STAGE = S1 > S2 ? S1 : S2;
+  static constexpr int SMEM = (STAGES * STAGE + BS * LDL) * 4;
+};
+static_assert(BwdF32::DC == 3 * 256 && BwdF32::BM == BwdF32::NT / 128 * 16 &&
+                  BwdF32::BS % 32 == 0 && BwdF32::BS % BwdF32::VK == 0 &&
+                  BwdF32::SMEM <= 232448,
+              "the two products' thread tiles must cover the CTA's tiles");
+
+// dh (DW false): R = h [nR = N, D], T = wt [nT = V, D], out = dh;
+// dW (DW true):  R = wt [nR = V, D], T = h [nT = N, D], out = dW^T.
+// lse and labels belong to the rows of h. Grid: (nR / BM, S ranges of
+// `per` tiles of T, D / DC chunks). With S = 1 `out` is the result, else
+// the range's slice of the f32 workspace [S][nR][D].
+template <bool DW>
+__global__ void __launch_bounds__(BwdF32::NT, BwdF32::MIN_CTAS)
+    ce_bwd_fma(const float* __restrict__ rsrc, int nR,
+               const float* __restrict__ tsrc, int nT,
+               const int* __restrict__ y, const float* __restrict__ lse,
+               float* __restrict__ out, int D, int per) {
+  using B = BwdF32;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* sDl = ring + B::STAGES * B::STAGE;  // dl^T: [T row][R row]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = blockIdx.x * B::BM;
+  const int tiles = (nT + B::BS - 1) / B::BS;
+  const int t_lo = blockIdx.y * per;
+  const int t_hi = min(tiles, t_lo + per);
+  const int d0 = blockIdx.z * B::DC;
+  const int dcw = min(B::DC, D - d0);         // this chunk's columns
+  const int nq = (dcw + 255) / 256;            // its 256-column blocks
+  const int ks = (D + B::FK - 1) / B::FK;     // logits slabs a tile
+  const int per_tile = ks + B::BS / B::VK;
+  const int steps = (t_hi - t_lo) * per_tile;
+
+  // logits: rows pr + 4 i, columns pc + 8 j of the [BM, BS] tile
+  const int pr = (warp / 4) * 16 + lane / 8;
+  const int pc = (warp % 4) * (B::BS / 4) + lane % 8;
+  // accumulator: rows ar + i, columns ac + 256 q + e
+  const int ar = ((warp / 4) * 2 + lane / 16) * 8;
+  const int ac = ((warp % 4) * 16 + lane % 16) * 4;
+
+  // dh: the lse and labels of this thread's logits rows, fixed
+  float lr[4];
+  int yr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + pr + 4 * i;
+    lr[i] = !DW && row < nR ? lse[row] * LOG2E : 0.f;
+    yr[i] = !DW && row < nR ? y[row] : -1;
+  }
+
+  auto issue = [&](int s) {
+    if (s < steps) {
+      const int t0 = (t_lo + s / per_tile) * B::BS;
+      const int p = s % per_tile;
+      float* st = ring + (s % B::STAGES) * B::STAGE;
+      if (p < ks) {
+        const int k0 = p * B::FK;
+        slab_async<B::NT, B::BM, B::FK / 4, B::LD>(st, rsrc, r0, k0, D, nR,
+                                                   D);
+        slab_async<B::NT, B::BS, B::FK / 4, B::LD>(st + B::BM * B::LD, tsrc,
+                                                   t0, k0, D, nT, D);
+      } else {
+        // the chunk's 256-column blocks in use
+        for (int q = 0; q < nq; ++q)
+          slab_async<B::NT, B::VK, 64, B::LDW>(st + 256 * q, tsrc,
+                                               t0 + (p - ks) * B::VK,
+                                               d0 + 256 * q, D, nT, D);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[8][12];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 12; ++j) acc[i][j] = 0.f;
+  float sc[4][B::TN];
+
+  for (int s = 0; s < B::STAGES - 1; ++s) issue(s);
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<B::STAGES - 2>();
+    __syncthreads();  // step i landed; everyone is done with step i - 1
+    issue(i + B::STAGES - 1);
+    const float* st = ring + (i % B::STAGES) * B::STAGE;
+    const int p = i % per_tile;
+    if (p < ks) {
+      // ---- S = R . T^T, one slab of depth
+      if (p == 0) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < B::TN; ++b) sc[a][b] = 0.f;
+      }
+      fma_slab<B::FK, 4, B::TN, 4, 8>(sc, st + pr * B::LD,
+                                      st + (B::BM + pc) * B::LD);
+      if (p == ks - 1) {
+        // dl = exp(S - lse) - onehot, 0 outside nR x nT, stored transposed
+        // (the next steps' readers wait at the loop's barrier)
+        const int t0 = (t_lo + i / per_tile) * B::BS;
+#pragma unroll
+        for (int b = 0; b < B::TN; ++b) {
+          const int tc = pc + 8 * b;  // tile row of T
+          const int tr = t0 + tc;
+          float lc = 0.f;
+          int yc = -1;
+          if (DW && tr < nT) {
+            lc = lse[tr] * LOG2E;
+            yc = y[tr];
+          }
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int rr = pr + 4 * a;  // tile row of R
+            const int row = r0 + rr;
+            const float l = DW ? lc : lr[a];
+            const int lab = DW ? yc : yr[a];
+            const int voc = DW ? row : tr;  // the vocabulary index
+            sDl[tc * B::LDL + rr] =
+                row < nR && tr < nT
+                    ? ex2(fmaf(sc[a][b], LOG2E, -l)) - (lab == voc ? 1.f : 0.f)
+                    : 0.f;
+          }
+        }
+      }
+    } else {
+      // ---- acc += dl . T over VK rows of T (all three 256-column blocks:
+      // a block past the chunk's width adds to columns never stored)
+      const float* dl = sDl + (p - ks) * B::VK * B::LDL + ar;
+#pragma unroll
+      for (int k = 0; k < B::VK; ++k) {
+        const float4 x0 = *reinterpret_cast<const float4*>(dl + k * B::LDL);
+        const float4 x1 =
+            *reinterpret_cast<const float4*>(dl + k * B::LDL + 4);
+        const float dv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              st + k * B::LDW + ac + 256 * q);
+#pragma unroll
+          for (int a = 0; a < 8; ++a) {
+            acc[a][4 * q] = fmaf(dv[a], w.x, acc[a][4 * q]);
+            acc[a][4 * q + 1] = fmaf(dv[a], w.y, acc[a][4 * q + 1]);
+            acc[a][4 * q + 2] = fmaf(dv[a], w.z, acc[a][4 * q + 2]);
+            acc[a][4 * q + 3] = fmaf(dv[a], w.w, acc[a][4 * q + 3]);
+          }
+        }
+      }
+    }
+  }
+
+  const size_t slice = static_cast<size_t>(blockIdx.y) * nR * D;
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int row = r0 + ar + a;
+    if (row >= nR) continue;
+    float* orow = out + slice + static_cast<size_t>(row) * D + d0;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int col = ac + 256 * q;
+      if (col < dcw)
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(acc[a][4 * q], acc[a][4 * q + 1], acc[a][4 * q + 2],
+                        acc[a][4 * q + 3]);
+    }
+  }
+}
+
+// dW's instantiation: compiled, and its registers and spills reported by
+// ptxas, but not launched (dW is `ce_dw_kernel<float>`)
+template __global__ void ce_bwd_fma<true>(const float* __restrict__, int,
+                                          const float* __restrict__, int,
+                                          const int* __restrict__,
+                                          const float* __restrict__,
+                                          float* __restrict__, int, int);
+
+// the S ranges' partial dh, summed in range order: n4 float4 of [N, D]
+__global__ void ce_dh_combine(const float4* __restrict__ part, int S,
+                              size_t n4, float4* __restrict__ out) {
+  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       e < n4; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float4 acc = part[e];
+    for (int s = 1; s < S; ++s) {
+      const float4 v = part[s * n4 + e];
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    out[e] = acc;
   }
 }
 
@@ -451,28 +754,14 @@ bool shapes_ok(int N, int D, int V) {
   return N >= 1 && V >= 1 && D >= 1 && D % (16 / sizeof(T)) == 0;
 }
 
-template <typename T>
-int fwd(const void* h, const void* wt, const int* y, float* lse, float* tl,
-        int* am, int N, int D, int V, cudaStream_t st) {
-  const int smem = fwd_smem<T>();
-  int err = set_smem(ce_fwd_kernel<T>, smem);
-  if (err) return err;
-  ce_fwd_kernel<T><<<(N + F_BM - 1) / F_BM, NTHREADS, smem, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(wt), y, lse, tl, am, N,
-      D, V);
-  return static_cast<int>(cudaGetLastError());
+// S ranges of `per` tiles (ceil(tiles / S)) cover `tiles` with none empty
+bool ranges_ok(int S, int tiles) {
+  const int per = (tiles + S - 1) / S;
+  return S >= 1 && S <= tiles && (S - 1) * per < tiles;
 }
 
-template <typename T>
-int dh(const void* h, const void* wt, const int* y, const float* lse,
-       void* out, int N, int D, int V, cudaStream_t st) {
-  const int smem = dh_smem<T>(D);
-  int err = set_smem(ce_dh_kernel<T>, smem);
-  if (err) return err;
-  ce_dh_kernel<T><<<(N + H_BM - 1) / H_BM, NTHREADS, smem, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(wt), y, lse,
-      static_cast<T*>(out), N, D, V);
-  return static_cast<int>(cudaGetLastError());
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>
@@ -1060,10 +1349,8 @@ int fwd_bf16(const void* h, const void* wt, const int* y, float* lse,
              cudaStream_t st) {
   const int tiles = (V + Fwd::BN - 1) / Fwd::BN;
   const int per = (tiles + S - 1) / S;
-  // S ranges of `per` tiles must cover the vocabulary with none empty
-  if (S < 1 || S > tiles || (S - 1) * per >= tiles || part == nullptr ||
-      (reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(wt)) %
-          16)
+  if (!ranges_ok(S, tiles) || part == nullptr || !aligned16(h) ||
+      !aligned16(wt))
     return static_cast<int>(cudaErrorInvalidValue);
   int err = 0;
   const EncodeTiled enc = encode_tiled(&err);
@@ -1080,6 +1367,48 @@ int fwd_bf16(const void* h, const void* wt, const int* y, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+int fwd_f32(const void* h, const void* wt, const int* y, float* lse,
+            float* tl, int* am, float* part, int S, int N, int D, int V,
+            cudaStream_t st) {
+  const int tiles = (V + FwdF32::BN - 1) / FwdF32::BN;
+  if (!ranges_ok(S, tiles) || part == nullptr || !aligned16(h) ||
+      !aligned16(wt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = set_smem(ce_fwd_fma, FwdF32::SMEM);
+  if (err) return err;
+  const dim3 grid((N + FwdF32::BM - 1) / FwdF32::BM, S);
+  ce_fwd_fma<<<grid, FwdF32::NT, FwdF32::SMEM, st>>>(
+      static_cast<const float*>(h), static_cast<const float*>(wt), y, part, N,
+      D, V, (tiles + S - 1) / S);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  ce_fwd_combine<<<(N + 255) / 256, 256, 0, st>>>(part, S, N, lse, tl, am);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dh_f32(const void* h, const void* wt, const int* y, const float* lse,
+           void* dh, float* part, int S, int N, int D, int V,
+           cudaStream_t st) {
+  using B = BwdF32;
+  const int tiles = (V + B::BS - 1) / B::BS;
+  if (!ranges_ok(S, tiles) || (S > 1 && part == nullptr) || !aligned16(h) ||
+      !aligned16(wt) || !aligned16(dh) || !aligned16(part))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = set_smem(ce_bwd_fma<false>, B::SMEM);
+  if (err) return err;
+  const dim3 grid((N + B::BM - 1) / B::BM, S, (D + B::DC - 1) / B::DC);
+  float* out = S > 1 ? part : static_cast<float*>(dh);
+  ce_bwd_fma<false><<<grid, B::NT, B::SMEM, st>>>(
+      static_cast<const float*>(h), N, static_cast<const float*>(wt), V, y,
+      lse, out, D, (tiles + S - 1) / S);
+  if ((err = static_cast<int>(cudaGetLastError())) || S == 1) return err;
+  const size_t n4 = static_cast<size_t>(N) * D / 4;
+  const size_t want = (n4 + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  ce_dh_combine<<<blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(part),
+                                       S, n4, static_cast<float4*>(dh));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (h and wt alike); every tensor
@@ -1087,38 +1416,56 @@ int fwd_bf16(const void* h, const void* wt, const int* y, float* lse,
 // bf16 forward returns a negated CUresult when a tensor map is refused.
 extern "C" int chainermn_ce_smem(int which, int dtype, int D) {
   const bool bf = dtype == 1;
-  if (which == 0) return bf ? Fwd::SMEM : fwd_smem<float>();
+  if (which == 0) return bf ? Fwd::SMEM : FwdF32::SMEM;
   if (bf) return bwd_mma_smem(D);
-  return which == 1 ? dh_smem<float>(D) : dw_smem<float>(D);
+  return which == 1 ? BwdF32::SMEM : dw_smem<float>(D);
 }
 
-// the bf16 forward's tile: 0 rows of h per CTA, 1 vocabulary columns per
-// tile, 2 depth of one pipeline step
-extern "C" int chainermn_ce_fwd_tile(int which) {
-  return which == 0 ? Fwd::BM : which == 1 ? Fwd::BN : Fwd::BK;
+// the forward's tile for `dtype`: 0 rows of h per CTA, 1 vocabulary columns
+// per tile, 2 depth of one pipeline step, 3 CTAs an SM holds
+extern "C" int chainermn_ce_fwd_tile(int which, int dtype) {
+  if (dtype == 1)
+    return which == 0 ? Fwd::BM : which == 1 ? Fwd::BN : which == 2 ? Fwd::BK
+                                                                    : 1;
+  return which == 0   ? FwdF32::BM
+         : which == 1 ? FwdF32::BN
+         : which == 2 ? FwdF32::FK
+                      : FwdF32::MIN_CTAS;
 }
 
-// bf16: `part` is an f32 workspace of 4 x splits x N entries and `splits`
-// the number of vocabulary ranges (see chainermn_ce_fwd_tile); f32 takes
-// neither (one CTA sweeps the whole vocabulary)
+// the f32 dh's tile: 0 rows of h per CTA, 1 vocabulary rows per tile, 2
+// columns of dh per D chunk, 3 CTAs an SM holds
+extern "C" int chainermn_ce_dh_tile(int which) {
+  return which == 0   ? BwdF32::BM
+         : which == 1 ? BwdF32::BS
+         : which == 2 ? BwdF32::DC
+                      : BwdF32::MIN_CTAS;
+}
+
+// `part` is an f32 workspace of 4 x splits x N entries and `splits` the
+// number of vocabulary ranges (see chainermn_ce_fwd_tile), for both dtypes
 extern "C" int chainermn_ce_fwd(const void* h, const void* wt, const int* y,
                                 float* lse, float* tl, int* am, float* part,
                                 int splits, int dtype, int N, int D, int V,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && shapes_ok<float>(N, D, V))
-    return fwd<float>(h, wt, y, lse, tl, am, N, D, V, st);
+    return fwd_f32(h, wt, y, lse, tl, am, part, splits, N, D, V, st);
   if (dtype == 1 && shapes_ok<__nv_bfloat16>(N, D, V))
     return fwd_bf16(h, wt, y, lse, tl, am, part, splits, N, D, V, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// f32: `splits` vocabulary ranges (see chainermn_ce_dh_tile) and, when it
+// is above 1, `part` an f32 workspace of splits x N x D entries; bf16
+// takes neither (its CTAs own whole rows of dh)
 extern "C" int chainermn_ce_dh(const void* h, const void* wt, const int* y,
-                               const float* lse, void* dh_out, int dtype,
-                               int N, int D, int V, void* stream) {
+                               const float* lse, void* dh_out, float* part,
+                               int splits, int dtype, int N, int D, int V,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && shapes_ok<float>(N, D, V))
-    return dh<float>(h, wt, y, lse, dh_out, N, D, V, st);
+    return dh_f32(h, wt, y, lse, dh_out, part, splits, N, D, V, st);
   if (dtype == 1 && shapes_ok<__nv_bfloat16>(N, D, V))
     return bwd_mma<false>(h, wt, y, lse, dh_out, N, D, V, st);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -32,7 +32,7 @@ import torch
 
 __all__ = ["SOURCES", "KERNELS", "build", "build_all", "library", "variant",
            "ptxas_usage", "launches", "reset_launches", "launch_flash_fwd",
-           "launch_flash_bwd", "ce_fwd_tile", "launch_ce_fwd",
+           "launch_flash_bwd", "ce_fwd_tile", "ce_dh_tile", "launch_ce_fwd",
            "launch_ce_dh", "launch_ce_dw"]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -56,8 +56,8 @@ _libs: Dict[Build, ctypes.CDLL] = {}
 _variants: Dict[str, Tuple[str, ...]] = {}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 #: the same counts by input dtype: f32 inputs run other kernel bodies
-#: (``flash_fwd_fma``, ``flash_bwd_fma``, the f32 ``ce_*_kernel``) than
-#: bf16 ones
+#: (``flash_fwd_fma``, ``flash_bwd_fma``, ``ce_fwd_fma``, ``ce_bwd_fma``,
+#: ``ce_dw_kernel<float>``) than bf16 ones
 _launches_by_dtype: Dict[torch.dtype, Dict[str, int]] = {
     dt: {name: 0 for name in KERNELS} for dt in (torch.float32,
                                                  torch.bfloat16)}
@@ -302,7 +302,9 @@ def launch_flash_bwd(q, k, v, dout, lse, dr, q_seg, kv_seg, dq_acc, dk, dv,
 
 _CE_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
-_CE_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+_CE_DH_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p]
+_CE_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
 
 
@@ -313,42 +315,54 @@ def ce_smem_bytes(which: int, dtype: torch.dtype, d: int) -> int:
     return int(fn(which, DTYPES[dtype], d))
 
 
-def ce_fwd_tile() -> Tuple[int, int, int]:
-    """The bf16 forward's tile: (rows of h per CTA, vocabulary columns
-    per tile, depth of one pipeline step)."""
-    fn = _bind("fused_ce", "chainermn_ce_fwd_tile", [ctypes.c_int])
-    return int(fn(0)), int(fn(1)), int(fn(2))
+def ce_fwd_tile(dtype: torch.dtype = torch.bfloat16
+                ) -> Tuple[int, int, int, int]:
+    """The forward's tile for inputs of ``dtype``: (rows of h per CTA,
+    vocabulary columns per tile, depth of one pipeline step, CTAs an SM
+    holds)."""
+    fn = _bind("fused_ce", "chainermn_ce_fwd_tile",
+               [ctypes.c_int, ctypes.c_int])
+    return tuple(int(fn(i, DTYPES[dtype])) for i in range(4))
 
 
-def launch_ce_fwd(h, wt, y, lse, tl, am, part=None, splits: int = 1
-                  ) -> None:
+def ce_dh_tile() -> Tuple[int, int, int, int]:
+    """The f32 dh's tile: (rows of h per CTA, vocabulary rows per tile,
+    columns of dh per D chunk, CTAs an SM holds)."""
+    fn = _bind("fused_ce", "chainermn_ce_dh_tile", [ctypes.c_int])
+    return tuple(int(fn(i)) for i in range(4))
+
+
+def launch_ce_fwd(h, wt, y, lse, tl, am, part, splits: int) -> None:
     """``chainermn_ce_fwd``: h ``[N, D]``, wt ``[V, D]``, y int32 ``[N]``
     → lse, tl f32 ``[N]``, am int32 ``[N]`` (validated by
-    ``ops.fused_ce``). bf16 also takes ``part``, an f32 workspace of
-    ``4 x splits x N`` entries, and the number of vocabulary ranges; the
-    forward and the combine of its ranges count as one launch."""
+    ``ops.fused_ce``); ``part`` is an f32 workspace of ``4 x splits x N``
+    entries and ``splits`` the number of vocabulary ranges. The forward
+    and the combine of its ranges count as one launch."""
     fn = _bind("fused_ce", "chainermn_ce_fwd", _CE_FWD_ARGTYPES)
     n, d = h.shape
     err = fn(h.data_ptr(), wt.data_ptr(), y.data_ptr(), lse.data_ptr(),
-             tl.data_ptr(), am.data_ptr(), _ptr(part), splits,
+             tl.data_ptr(), am.data_ptr(), part.data_ptr(), splits,
              DTYPES[h.dtype], n, d, wt.shape[0], _stream(h))
     _launched(err, "ce_fwd", h.dtype)
 
 
-def _launch_ce_bwd(kernel: str, h, wt, y, lse, out) -> None:
-    fn = _bind("fused_ce", f"chainermn_{kernel}", _CE_BWD_ARGTYPES)
+def launch_ce_dh(h, wt, y, lse, dh, part=None, splits: int = 1) -> None:
+    """``chainermn_ce_dh``: unscaled dh ``[N, D]`` in h's dtype. f32 takes
+    ``splits`` vocabulary ranges and, when there is more than one, ``part``,
+    an f32 workspace of ``splits x N x D`` entries; the kernel and the sum
+    of its ranges count as one launch. bf16 takes neither."""
+    fn = _bind("fused_ce", "chainermn_ce_dh", _CE_DH_ARGTYPES)
     n, d = h.shape
     err = fn(h.data_ptr(), wt.data_ptr(), y.data_ptr(), lse.data_ptr(),
-             out.data_ptr(), DTYPES[h.dtype], n, d, wt.shape[0],
-             _stream(h))
-    _launched(err, kernel, h.dtype)
-
-
-def launch_ce_dh(h, wt, y, lse, dh) -> None:
-    """``chainermn_ce_dh``: unscaled dh ``[N, D]`` in h's dtype."""
-    _launch_ce_bwd("ce_dh", h, wt, y, lse, dh)
+             dh.data_ptr(), _ptr(part), splits, DTYPES[h.dtype], n, d,
+             wt.shape[0], _stream(h))
+    _launched(err, "ce_dh", h.dtype)
 
 
 def launch_ce_dw(h, wt, y, lse, dwt) -> None:
     """``chainermn_ce_dw``: unscaled dW^T ``[V, D]`` in wt's dtype."""
-    _launch_ce_bwd("ce_dw", h, wt, y, lse, dwt)
+    fn = _bind("fused_ce", "chainermn_ce_dw", _CE_DW_ARGTYPES)
+    n, d = h.shape
+    err = fn(h.data_ptr(), wt.data_ptr(), y.data_ptr(), lse.data_ptr(),
+             dwt.data_ptr(), DTYPES[h.dtype], n, d, wt.shape[0], _stream(h))
+    _launched(err, "ce_dw", h.dtype)

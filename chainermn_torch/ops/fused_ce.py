@@ -17,17 +17,21 @@ kernel, y ``[N]`` labels → ``(loss, acc)`` scalars:
 The TPU tile rules (rows padded to ``block_rows``, ``v % block_v == 0``,
 the ``bv_dw <= 1024`` halving) do not carry over: the CUDA kernels
 (``csrc/fused_ce.cu``) mask ragged N and V themselves; D is a multiple of
-16 bytes of the dtype and, for the bf16 dh and dW, at most 1536 (the
-shared memory their tiles take, checked through ``ce_smem_bytes``); h and
+16 bytes of the dtype and, for the bf16 dh and dW and the f32 dW, no wider
+than the shared memory their tiles take allows (checked through
+``ce_smem_bytes``: 1536 for bf16); h and
 the head start on 16-byte boundaries (the kernels read them 16 bytes at a
 time or by TMA). ``block_rows`` and ``block_v`` stay in the signature for
 parity and are not used.
 
-The bf16 forward splits the vocabulary into ranges of whole tiles so that
-its CTAs fill the card (:func:`ce_fwd_splits`); each range leaves a
-partial (max, sum of exp, target logit, argmax) per row, which a second
-kernel combines in range order (plain versions
+The forward splits the vocabulary into ranges of whole tiles so that its
+CTAs fill the card (:func:`ce_fwd_splits`, with each dtype's tile); each
+range leaves a partial (max, sum of exp, target logit, argmax) per row,
+which a second kernel combines in range order (plain versions
 :func:`ce_fwd_partial_reference` and :func:`ce_fwd_combine_reference`).
+The f32 dh splits it too (:func:`ce_dh_splits`): each range leaves a
+partial dh in an f32 workspace, summed in range order by a second kernel
+(:func:`ce_dh_partial_reference`, :func:`ce_dh_combine_reference`).
 
 CUDA tensors run the kernels; CPU tensors run the plain versions
 (:func:`ce_forward_reference`, :func:`ce_dh_reference`,
@@ -47,8 +51,10 @@ from chainermn_torch.ops import _cuda
 __all__ = ["fused_ce_head", "fused_lm_loss", "ce_forward_reference",
            "ce_dh_reference", "ce_dw_reference", "ce_forward_cuda",
            "ce_dh_cuda", "ce_dw_cuda", "ce_fwd_splits", "ce_fwd_plan",
-           "ce_fwd_cuda_plan",
-           "ce_fwd_partial_reference", "ce_fwd_combine_reference"]
+           "ce_fwd_cuda_plan", "ce_dh_splits", "ce_dh_plan",
+           "ce_dh_cuda_plan", "ce_fwd_partial_reference",
+           "ce_fwd_combine_reference", "ce_dh_partial_reference",
+           "ce_dh_combine_reference"]
 
 # smem the kernels may use per block on an H100 (227 KB)
 _MAX_SMEM = 232448
@@ -76,10 +82,10 @@ def ce_forward_reference(h, wt, y) -> Tuple[torch.Tensor, ...]:
 
 def ce_fwd_partial_reference(h, wt, y, lo: int, hi: int
                              ) -> Tuple[torch.Tensor, ...]:
-    """Plain version of one vocabulary range [lo, hi) of the bf16
-    forward: per row (max logit m, sum of exp(logit - m), target logit or
-    0 when the label is outside the range, first index attaining m), each
-    ``[N]`` (f32, f32, f32, int32)."""
+    """Plain version of one vocabulary range [lo, hi) of the forward: per
+    row (max logit m, sum of exp(logit - m), target logit or 0 when the
+    label is outside the range, first index attaining m), each ``[N]``
+    (f32, f32, f32, int32)."""
     logits = _logits(h, wt[lo:hi])
     m = logits.max(-1).values
     s = torch.exp(logits - m[:, None]).sum(-1)
@@ -102,36 +108,65 @@ def ce_fwd_combine_reference(m, s, t, a) -> Tuple[torch.Tensor, ...]:
 
 
 def ce_fwd_splits(n: int, v: int, sms: int, block_rows: int = 128,
-                  block_v: int = 256) -> Tuple[int, int]:
-    """Vocabulary ranges of the bf16 forward: (S, tiles per range). One
-    CTA runs per (block of ``block_rows`` rows, range) and one fits an
-    SM; a CTA takes about one tile's time per tile of its range plus one
-    to fill its pipeline, so S minimises ceil(blocks S / sms) (ceil(tiles
-    / S) + 1), the smallest S on a tie. S is then shrunk so that ranges
-    of whole tiles leave none empty."""
-    return _splits(-(-n // block_rows), -(-v // block_v), sms)
+                  block_v: int = 256, ctas_per_sm: int = 1
+                  ) -> Tuple[int, int]:
+    """Vocabulary ranges of the forward: (S, tiles per range). One CTA
+    runs per (block of ``block_rows`` rows, range) and ``ctas_per_sm`` of
+    them share an SM (the defaults are the bf16 tile); a CTA takes about
+    one tile's time per tile of its range plus one to fill its pipeline,
+    so S minimises ceil(blocks S / slots) (ceil(tiles / S) + 1), slots =
+    sms x ctas_per_sm, the smallest S on a tie. S is then shrunk so that
+    ranges of whole tiles leave none empty."""
+    return _splits(-(-n // block_rows), -(-v // block_v), sms * ctas_per_sm)
 
 
 @functools.lru_cache(maxsize=256)
-def _splits(blocks: int, tiles: int, sms: int) -> Tuple[int, int]:
+def _splits(blocks: int, tiles: int, slots: int) -> Tuple[int, int]:
     best = min(range(1, tiles + 1),
-               key=lambda s: (-(-blocks * s // sms) * (-(-tiles // s) + 1), s))
+               key=lambda s: (-(-blocks * s // slots) * (-(-tiles // s) + 1),
+                              s))
     per = -(-tiles // best)
     return -(-tiles // per), per
 
 
 def ce_fwd_plan(n: int, d: int, v: int, sms: int, block_rows: int = 128,
-                block_v: int = 256, block_d: int = 64) -> dict:
-    """The bf16 forward's launch at these shapes: vocabulary ranges,
-    tiles per range, the grid (row blocks, ranges), and the bytes its TMA
-    boxes move into shared memory (every box whole, zero-fill included:
-    each CTA loads its h block again for every vocabulary tile)."""
-    splits, per = ce_fwd_splits(n, v, sms, block_rows, block_v)
+                block_v: int = 256, block_d: int = 64, ctas_per_sm: int = 1,
+                itemsize: int = 2) -> dict:
+    """The forward's launch at these shapes (defaults: the bf16 tile):
+    vocabulary ranges, tiles per range, the grid (row blocks, ranges), and
+    the bytes its slabs (bf16: TMA boxes) move into shared memory (every
+    slab whole, zero-fill included: each CTA loads its h block again for
+    every vocabulary tile)."""
+    splits, per = ce_fwd_splits(n, v, sms, block_rows, block_v, ctas_per_sm)
     blocks = -(-n // block_rows)
     steps = -(-v // block_v) * -(-d // block_d)
     return dict(splits=splits, per=per, grid=(blocks, splits),
                 smem_bytes=blocks * steps * (block_rows + block_v)
-                * block_d * 2)
+                * block_d * itemsize)
+
+
+def ce_dh_splits(n: int, d: int, v: int, sms: int, block_rows: int = 32,
+                 block_v: int = 256, d_chunk: int = 768,
+                 ctas_per_sm: int = 1) -> Tuple[int, int]:
+    """Vocabulary ranges of the f32 dh: (S, tiles per range), chosen as
+    :func:`ce_fwd_splits` chooses them, a block being ``block_rows`` rows
+    by one ``d_chunk`` of D's columns (the defaults are the kernel's
+    tile)."""
+    blocks = -(-n // block_rows) * -(-d // d_chunk)
+    return _splits(blocks, -(-v // block_v), sms * ctas_per_sm)
+
+
+def ce_dh_plan(n: int, d: int, v: int, sms: int, block_rows: int = 32,
+               block_v: int = 256, d_chunk: int = 768,
+               ctas_per_sm: int = 1) -> dict:
+    """The f32 dh's launch at these shapes: vocabulary ranges, tiles per
+    range, the grid (row blocks, ranges, D chunks) and the bytes of its
+    f32 workspace (0 with one range: the kernel writes dh)."""
+    splits, per = ce_dh_splits(n, d, v, sms, block_rows, block_v, d_chunk,
+                               ctas_per_sm)
+    return dict(splits=splits, per=per,
+                grid=(-(-n // block_rows), splits, -(-d // d_chunk)),
+                workspace_bytes=4 * splits * n * d if splits > 1 else 0)
 
 
 def _dl(h, wt, y, lse):
@@ -146,6 +181,27 @@ def ce_dh_reference(h, wt, y, lse) -> torch.Tensor:
     dl cast to the head's dtype first."""
     dl = _dl(h, wt, y, lse).to(wt.dtype).float()
     return (dl @ wt.float()).to(h.dtype)
+
+
+def ce_dh_partial_reference(h, wt, y, lse, lo: int, hi: int
+                            ) -> torch.Tensor:
+    """Plain version of one vocabulary range [lo, hi) of the f32 dh: the
+    f32 sum over v in [lo, hi) of dl[:, v] W[v], dl cast to the head's
+    dtype first (labels outside the range add no one-hot term)."""
+    logits = _logits(h, wt[lo:hi])
+    p = torch.exp(logits - lse[:, None])
+    cols = torch.arange(lo, hi, device=h.device)
+    dl = p - (cols[None, :] == y.long()[:, None]).float()
+    return dl.to(wt.dtype).float() @ wt[lo:hi].float()
+
+
+def ce_dh_combine_reference(parts, dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the dh combine: the ranges' partials ``[S, N, D]``
+    summed in vocabulary order, cast to ``dtype``."""
+    out = parts[0].clone()
+    for part in parts[1:]:
+        out += part
+    return out.to(dtype)
 
 
 def ce_dw_reference(h, wt, y, lse) -> torch.Tensor:
@@ -193,29 +249,45 @@ def ce_forward_cuda(h, wt, y):
     lse = torch.empty(n, dtype=torch.float32, device=h.device)
     tl = torch.empty_like(lse)
     am = torch.empty(n, dtype=torch.int32, device=h.device)
-    if h.dtype == torch.float32:
-        _cuda.launch_ce_fwd(h, wt, y, lse, tl, am)
-    else:
-        splits = ce_fwd_cuda_plan(n, d, v, h.device)["splits"]
-        part = torch.empty(4, splits, n, dtype=torch.float32,
-                           device=h.device)
-        _cuda.launch_ce_fwd(h, wt, y, lse, tl, am, part, splits)
+    splits = ce_fwd_cuda_plan(n, d, v, h.device, h.dtype)["splits"]
+    part = torch.empty(4, splits, n, dtype=torch.float32, device=h.device)
+    _cuda.launch_ce_fwd(h, wt, y, lse, tl, am, part, splits)
     return lse, tl, am
 
 
-def ce_fwd_cuda_plan(n: int, d: int, v: int, device="cuda") -> dict:
-    """:func:`ce_fwd_plan` with the card's SM count and the kernel's
-    tile: the launch ``ce_forward_cuda`` makes at these shapes."""
-    bm, bn, bk = _cuda.ce_fwd_tile()
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return ce_fwd_plan(n, d, v, sms, bm, bn, bk)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def ce_fwd_cuda_plan(n: int, d: int, v: int, device="cuda",
+                     dtype=torch.bfloat16) -> dict:
+    """:func:`ce_fwd_plan` with the card's SM count and the kernel's tile
+    for ``dtype``: the launch ``ce_forward_cuda`` makes at these
+    shapes."""
+    bm, bn, bk, ctas = _cuda.ce_fwd_tile(dtype)
+    return ce_fwd_plan(n, d, v, _sms(device), bm, bn, bk, ctas,
+                       torch.empty((), dtype=dtype).element_size())
+
+
+def ce_dh_cuda_plan(n: int, d: int, v: int, device="cuda") -> dict:
+    """:func:`ce_dh_plan` with the card's SM count and the f32 kernel's
+    tile: the launch ``ce_dh_cuda`` makes for f32 inputs."""
+    return ce_dh_plan(n, d, v, _sms(device), *_cuda.ce_dh_tile())
 
 
 def ce_dh_cuda(h, wt, y, lse):
     """``csrc/fused_ce.cu`` dh kernel → unscaled dh ``[N, D]``."""
     h, wt, y = _check_cuda(h, wt, y, 1)
     dh = torch.empty_like(h)
-    _cuda.launch_ce_dh(h, wt, y, lse.float().contiguous(), dh)
+    lse = lse.float().contiguous()
+    if h.dtype == torch.float32:
+        (n, d), v = h.shape, wt.shape[0]
+        splits = ce_dh_cuda_plan(n, d, v, h.device)["splits"]
+        part = (torch.empty(splits, n, d, dtype=torch.float32,
+                            device=h.device) if splits > 1 else None)
+        _cuda.launch_ce_dh(h, wt, y, lse, dh, part, splits)
+    else:
+        _cuda.launch_ce_dh(h, wt, y, lse, dh)
     return dh
 
 

@@ -13,25 +13,32 @@ the final line:
    CE (``HMMA``, from mma.sync, none of which may be 0; ``HGMMA``, from
    wgmma, which the fused CE's forward must have), and ptxas's registers
    and spill bytes of the main path's tensor-core kernels (flash at d 64,
-   the bf16 CE forward, the bf16 CE backward at D 768); the two flash
+   the bf16 CE forward, the bf16 CE backward at D 768) and of the f32 CE
+   kernels (``ce_fwd_fma``, ``ce_bwd_fma<false>``, ``ce_dw_kernel<float>``,
+   and dh's mirror image ``ce_bwd_fma<true>``, compiled but not launched),
+   and the f32 CE forward's and dh's grids and vocabulary ranges (``f32
+   grids``); the two flash
    sources are also built with those kernels' register caps lifted, and
    the fused CE with its backward's other row layout (``CE_LAYOUT``);
 3. kernels — each kernel (flash_fwd, flash_bwd, and the fused CE's
    ce_fwd, ce_dh, ce_dw) against its plain PyTorch version on the card at
    the main path's shape and in the edge cases (bf16 and f32; for the CE
    forward one row, V under one tile, ties across its vocabulary ranges
-   and D 1544; a second CE call must give the same bits), then timed
+   and D 1544; for the f32 forward and dh one row, V under one tile, ties
+   across ranges, D 36, 772 and 1152; a second CE call must give the same
+   bits), then timed
    beside the plain version, its bound and the PyTorch call that computes
    the same function (a yardstick only, the port never calls it; SDPA is
    first held against the plain versions): flash at the serving and
    training shapes, at the split backward's cases (a window; causal
    Lq != Lk) and at the ViT's (non-causal, 196 and 197 tokens); the f32
    bodies (``flash_*_fma``, the f32 CE kernels) also at the ZeRO phase's
-   f32 shapes, held and timed there; ce_fwd with its vocabulary ranges,
+   f32 shapes, held and timed there, and the f32 CE at N 8192 (the f32 LM
+   loss of batch 4 x 2048); ce_fwd with its vocabulary ranges,
    grid and the bytes its
    TMA boxes move into shared memory; ce_dh + ce_dw together beside the
    one backward call of the yardstick (``pair`` line); then the two flash
-   kernels with their register caps lifted, and the CE backward in its
+   kernels with their register caps lifted and the CE backward in its
    other row layout, each timed beside the shipped build;
 4. slice — the port's ``Engine`` serves 16 greedy requests with the
    135M TransformerLM at full width (vocab 32768, d_model 768, 12
@@ -595,6 +602,27 @@ def ce_fwd_usage() -> dict:
     return found[0]
 
 
+def ce_f32_usage() -> dict:
+    """ptxas's registers and spill bytes of the f32 CE kernels:
+    ``{name: (kernel, usage)}`` for the forward, dh, dW and dh's mirror
+    image (dW, compiled but not launched)."""
+    from chainermn_torch.ops import _cuda
+
+    usage = _cuda.ptxas_usage("fused_ce")
+    out = {}
+    for name, kernel, key in (
+            ("ce_fwd", "ce_fwd_fma", "ce_fwd_fma"),
+            ("ce_dh", "ce_bwd_fma<false>", "ce_bwd_fmaILb0E"),
+            ("ce_dw", "ce_dw_kernel<float>", "ce_dw_kernelIfE"),
+            ("ce_dw mirror", "ce_bwd_fma<true>, not launched",
+             "ce_bwd_fmaILb1E")):
+        found = [u for fn, u in usage.items() if key in fn]
+        if len(found) != 1:
+            raise PhaseError(f"ptxas reports {len(found)} {key} kernels")
+        out[name] = (kernel, found[0])
+    return out
+
+
 def _usage(u: dict) -> str:
     return (f"{u['registers']} registers, spill stores "
             f"{u['spill_stores']} B, loads {u['spill_loads']} B")
@@ -857,8 +885,9 @@ def check_fused_ce(gen):
     import torch
 
     from chainermn_torch.ops.fused_ce import (
-        ce_dh_cuda, ce_dh_reference, ce_dw_cuda, ce_dw_reference,
-        ce_forward_cuda, ce_forward_reference, ce_fwd_cuda_plan)
+        ce_dh_cuda, ce_dh_cuda_plan, ce_dh_reference, ce_dw_cuda,
+        ce_dw_reference, ce_forward_cuda, ce_forward_reference,
+        ce_fwd_cuda_plan)
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
@@ -882,6 +911,16 @@ def check_fused_ce(gen):
         # a rank (ZeRO-1), one (ZeRO-2's micro-batch)
         ("f32-world", 1024, 768, 32768, f32, False, True),
         ("f32-world-micro", 512, 768, 32768, f32, False, True),
+        # the f32 forward's and dh's edges: one row (one row block, 128
+        # vocabulary ranges), V under one tile, ties whose two columns lie
+        # in different ranges, D not a whole slab, D past one 768-column
+        # chunk of dh's accumulator (772: the second chunk 4 wide; 1152)
+        ("f32-n1", 1, 768, 32768, f32, False, True),
+        ("f32-v-below-a-tile", 300, 768, 100, f32, False, True),
+        ("f32-ties-across-ranges", 512, 64, 4096, f32, True, True),
+        ("f32-d36", 333, 36, 2000, f32, False, True),
+        ("f32-d772", 200, 772, 3000, f32, False, True),
+        ("f32-d1152", 150, 1152, 2500, f32, False, True),
     ]
     worst = {}
     for name, n, d, v, dtype, ties, backward in cases:
@@ -913,8 +952,10 @@ def check_fused_ce(gen):
             # first index on ties: every row's argmax is in the first half
             ok = ok and bool((am < v // 2).all()) and bool(
                 (am == r_am).all())
-        ranges = (f" ranges={ce_fwd_cuda_plan(n, d, v)['splits']}"
-                  if dtype == bf16 else "")
+        plan = ce_fwd_cuda_plan(n, d, v, "cuda", dtype)
+        ranges = f" ranges={plan['splits']}"
+        if dtype == f32:
+            ranges += f" dh_ranges={ce_dh_cuda_plan(n, d, v)['splits']}"
         line = (f"kernel fused_ce case={name} [{n},{d}]x[{d},{v}] "
                 f"{str(dtype)[6:]}{ranges} lse_err={e_lse:.3g} "
                 f"tl_err={e_tl:.3g} "
@@ -1021,8 +1062,18 @@ def time_f32_kernels(gen):
     """The f32 bodies that the ZeRO phase's f32 runs launch, at their
     shapes there, as :func:`time_training_kernels` times the bf16 ones:
     flash at ``train_lm``'s [4,2048,12,64] causal, the CE kernels at
-    (b)'s ZeRO-1 batch (N 1024, D 768, V 32768), the yardsticks in f32.
-    Returns ``{kernel_f32: row}``."""
+    (b)'s ZeRO-1 batch (N 1024, D 768, V 32768) and at the f32 LM loss of
+    batch 4 x 2048 (N 8192), the yardsticks in f32 (TF32 off). Returns
+    ``({kernel_f32: row}, {kernel_f32: row at N 8192})``."""
+    rows = {f"{k}_f32": row for k, row in time_flash_case(
+        gen, 4, 2048, 2048, 12, 12, 64, True, dtype="float32").items()}
+    return rows | time_f32_ce(gen, 1024), time_f32_ce(gen, 8192)
+
+
+def time_f32_ce(gen, n, dm=768, vocab=32768):
+    """ce_fwd, ce_dh and ce_dw on f32 inputs [n, dm] x [dm, vocab] beside
+    their plain versions, their bounds and ``F.cross_entropy(h @ W, y)``
+    (forward; backward, dh and dW in one call) in f32."""
     import torch
     import torch.nn.functional as F
 
@@ -1030,9 +1081,6 @@ def time_f32_kernels(gen):
         ce_dh_cuda, ce_dh_reference, ce_dw_cuda, ce_dw_reference,
         ce_forward_cuda, ce_forward_reference)
 
-    rows = {f"{k}_f32": row for k, row in time_flash_case(
-        gen, 4, 2048, 2048, 12, 12, 64, True, dtype="float32").items()}
-    n, dm, vocab = 1024, 768, 32768
     h, wt, y = ce_inputs(gen, n, dm, vocab, torch.float32)
     lse = ce_forward_cuda(h, wt, y)[0]
     hl = h.detach().requires_grad_()
@@ -1042,6 +1090,7 @@ def time_f32_kernels(gen):
                          iters=5)
     lib_b = cuda_time_ms(lambda: torch.autograd.grad(
         loss, (hl, wl), retain_graph=True), iters=5)
+    rows = {}
     for name, kern, ref, lib in (
             ("ce_fwd", lambda: ce_forward_cuda(h, wt, y),
              lambda: ce_forward_reference(h, wt, y), lib_f),
@@ -3426,7 +3475,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
     from chainermn_torch.ops import _cuda
-    from chainermn_torch.ops.fused_ce import ce_fwd_cuda_plan
+    from chainermn_torch.ops.fused_ce import (ce_dh_cuda_plan,
+                                              ce_fwd_cuda_plan)
 
     # f32 products in full f32 (the reference forward's precision)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3436,8 +3486,8 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
 
     t0 = time.perf_counter()
-    took = _cuda.build_all(variants=[*LIFTED_CAPS.items(),
-                                     ("fused_ce", CE_LAYOUT)])
+    took = _cuda.build_all(variants=[
+        *LIFTED_CAPS.items(), ("fused_ce", CE_LAYOUT)])
     print(f"build: {json.dumps(took)} total "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     count_tensor_core_ops(card)
@@ -3446,8 +3496,23 @@ def main(argv=None) -> int:
          for name in ("flash_fwd", "flash_bwd")]
         + [f"ce_fwd bf16 (wgmma) {_usage(ce_fwd_usage())}"]
         + [f"{name} bf16 D <= 768 {_usage(u)}"
-           for name, u in ce_bwd_usage().items()]) + f" ({card})",
-        flush=True)
+           for name, u in ce_bwd_usage().items()]
+        + [f"{name} f32 ({kernel}) {_usage(u)}"
+           for name, (kernel, u) in ce_f32_usage().items()])
+        + f" ({card})", flush=True)
+    print("f32 grids: " + "; ".join(
+        f"ce_fwd N {n}: S={p['splits']} of {p['per']} tiles, grid "
+        f"{p['grid'][0]}x{p['grid'][1]} ({p['grid'][0] * p['grid'][1]} CTAs, "
+        f"{_cuda.ce_fwd_tile(torch.float32)[3]} an SM)"
+        for n, p in ((n, ce_fwd_cuda_plan(n, 768, 32768, "cuda",
+                                          torch.float32))
+                     for n in (1024, 8192))) + "; " + "; ".join(
+        f"ce_dh N {n}: S={p['splits']} of {p['per']} tiles, grid "
+        f"{'x'.join(map(str, p['grid']))} ({math.prod(p['grid'])} CTAs), "
+        f"workspace {p['workspace_bytes']} B"
+        for n, p in ((n, ce_dh_cuda_plan(n, 768, 32768))
+                     for n in (1024, 8192)))
+        + f" (D 768, V 32768; {card})", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     worst = check_kernels(gen)
@@ -3486,7 +3551,7 @@ def main(argv=None) -> int:
     plan = ce_fwd_cuda_plan(8192, 768, 32768)
     for name, row in times.items():
         show(name, "training shape", row, "" if name != "ce_fwd" else (
-            f", tile {'x'.join(map(str, _cuda.ce_fwd_tile()))} (rows x "
+            f", tile {'x'.join(map(str, _cuda.ce_fwd_tile()[:3]))} (rows x "
             f"columns x depth), vocabulary ranges S={plan['splits']} of "
             f"{plan['per']} "
             f"tiles, grid {plan['grid'][0]}x{plan['grid'][1]}, "
@@ -3497,10 +3562,13 @@ def main(argv=None) -> int:
           f"{pair['library_ms']:.4f} ms, ratio "
           f"{pair['ms'] / pair['library_ms']:.3f}, bound "
           f"{pair['bound_ms']:.4f} ms ({card})", flush=True)
-    f32_times = time_f32_kernels(gen)
+    f32_times, f32_lm = time_f32_kernels(gen)
     for name, row in f32_times.items():
         show(name, "the ZeRO phase's f32 shape: flash [4,2048,12,64] "
              "causal, CE [1024,768]x[768,32768]", row)
+    for name, row in f32_lm.items():
+        show(name, "the f32 LM loss of batch 4 x 2048: CE "
+             "[8192,768]x[768,32768]", row)
     times.update(f32_times)
     compare_launch_bounds(gen, card)
     compare_ce_layouts(gen, card)

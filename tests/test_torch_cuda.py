@@ -233,6 +233,19 @@ CE_CASES = {
     "bf16-d1024-chunked": (150, 1024, 700, torch.bfloat16, False),
     "bf16-d1536-widest": (70, 1536, 400, torch.bfloat16, False),
     "bf16-d200-padded": (77, 200, 1003, torch.bfloat16, False),
+    # the f32 forward and dh (register-tiled FMAs, the vocabulary split
+    # into ranges): one row (one row block, many ranges), V below one
+    # tile, ties whose columns v and v + V/2 lie in different ranges, D
+    # not a whole 16- or 32-deep slab, D past one 768-column chunk of dh's
+    # accumulator (772: the second chunk 4 columns wide; 1152: the widest
+    # f32 dh before), the ZeRO phase's batch
+    "f32-n1": (1, 768, 32768, torch.float32, False),
+    "f32-v-below-a-tile": (300, 768, 100, torch.float32, False),
+    "f32-ties-across-ranges": (512, 64, 4096, torch.float32, True),
+    "f32-d36": (333, 36, 2000, torch.float32, False),
+    "f32-d772": (200, 772, 3000, torch.float32, False),
+    "f32-d1152": (150, 1152, 2500, torch.float32, False),
+    "f32-zero-shape": (1024, 768, 32768, torch.float32, False),
 }
 
 
@@ -278,7 +291,8 @@ def test_fused_ce_kernels_match_plain_versions(cuda, name):
 
 
 @pytest.mark.parametrize("name", ["bf16-d768", "bf16-d1024-chunked",
-                                  "f32-ragged"])
+                                  "f32-ragged", "f32-d1152",
+                                  "f32-zero-shape"])
 def test_fused_ce_backward_is_bitwise_reproducible(cuda, name):
     """No atomics: each output element is owned by one CTA, so two calls
     on the same inputs give the same bits."""
@@ -310,6 +324,13 @@ CE_FWD_CASES = {
     "bf16-ties-across-ranges": (512, 64, 4096, torch.bfloat16, True),
     # D past the backward's 1536: the forward's shared memory is fixed
     "bf16-d1544": (70, 1544, 3000, torch.bfloat16, False),
+    # the f32 forward's edges: one row (128 ranges of two 128-column
+    # tiles), ties across its 128-column ranges, a wide D (shared memory
+    # fixed), the f32 LM loss of batch 4 x 2048 (2 ranges)
+    "f32-n1": (1, 768, 32768, torch.float32, False),
+    "f32-ties-across-ranges": (512, 64, 4096, torch.float32, True),
+    "f32-d1544": (70, 1544, 3000, torch.float32, False),
+    "f32-n8192": (8192, 768, 32768, torch.float32, False),
 }
 
 
@@ -320,15 +341,17 @@ def test_fused_ce_forward_matches_plain_version(cuda, name):
     lse, tl, am = ce_forward_cuda(h, wt, y)
     torch.cuda.synchronize()
     r_lse, r_tl, r_am = ce_forward_reference(h, wt, y)
-    torch.testing.assert_close(lse, r_lse, rtol=1e-3, atol=1e-3)
-    torch.testing.assert_close(tl, r_tl, rtol=1e-3, atol=1e-3)
+    stat = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(lse, r_lse, rtol=stat, atol=stat)
+    torch.testing.assert_close(tl, r_tl, rtol=stat, atol=stat)
     assert torch.equal(am, r_am)
     if ties:
         assert (am < v // 2).all()
 
 
 @pytest.mark.parametrize("name", ["bf16-n1", "bf16-ties-across-ranges",
-                                  "bf16-d1544"])
+                                  "bf16-d1544", "f32-n1",
+                                  "f32-ties-across-ranges", "f32-n8192"])
 def test_fused_ce_forward_is_bitwise_reproducible(cuda, name):
     """The ranges' partials are combined in a fixed order, no atomics:
     two calls give the same bits."""
@@ -376,6 +399,49 @@ def test_fused_lm_loss_launches_each_ce_kernel_once(cuda):
     assert [after[k] - before[k] for k in ("ce_fwd", "ce_dh", "ce_dw")] \
         == [1, 1, 1]
     assert torch.isfinite(loss)
+
+
+def test_fused_lm_loss_on_an_f32_model_launches_each_f32_ce_kernel_once(
+        cuda):
+    """An f32 TransformerLM (the JAX model's default dtype) runs the f32
+    bodies: one ce_fwd, ce_dh and ce_dw launch on f32 inputs a step, none
+    on bf16 ones; the gradients of the head (from dW) and of every
+    parameter below it (from dh) match the plain path's."""
+    torch.manual_seed(0)
+    model = TransformerLM(vocab=512, d_model=64, n_heads=4, n_layers=1,
+                          d_ff=128, max_len=64, pos_emb="rope",
+                          dtype=torch.float32, device=cuda)
+    toks = torch.randint(0, 512, (2, 33), device=cuda)
+    kinds = ("ce_fwd", "ce_dh", "ce_dw")
+    before = (_cuda.launches(torch.float32), _cuda.launches(torch.bfloat16))
+    loss, _ = fused_lm_loss(model, toks[:, :-1], toks[:, 1:])
+    loss.backward()
+    torch.cuda.synchronize()
+    after = (_cuda.launches(torch.float32), _cuda.launches(torch.bfloat16))
+    assert [after[0][k] - before[0][k] for k in kinds] == [1, 1, 1]
+    assert [after[1][k] - before[1][k] for k in kinds] == [0, 0, 0]
+    got = {name: p.grad.clone() for name, p in model.named_parameters()}
+    assert len(got) > 2
+    model.zero_grad()
+    hidden = model.forward_hidden(toks[:, :-1])
+    logits = hidden @ model.lm_head.weight.t()
+    torch.nn.functional.cross_entropy(
+        logits.reshape(-1, 512), toks[:, 1:].reshape(-1)).backward()
+    for name, p in model.named_parameters():
+        torch.testing.assert_close(got[name], p.grad, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+#: the f32 kernels' tiles, which tests/test_torch_fused_ce_f32.py plans
+#: with on the CPU: forward (rows, columns, depth, CTAs an SM) and dh
+#: (rows, vocabulary rows, D chunk, CTAs an SM)
+F32_FWD_TILE = (128, 128, 64, 1)
+F32_DH_TILE = (32, 256, 768, 1)
+
+
+def test_the_f32_tiles_are_the_ones_the_cpu_tests_plan_with(cuda):
+    assert _cuda.ce_fwd_tile(torch.float32) == F32_FWD_TILE
+    assert _cuda.ce_dh_tile() == F32_DH_TILE
 
 
 def test_fused_ce_head_differentiates_through_the_kernels(cuda):
