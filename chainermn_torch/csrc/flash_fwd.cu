@@ -42,9 +42,31 @@
 // fragment layouts, masks and tile schedule here are what such a version
 // reuses; `mma.sync` is what PyTorch's own flash backend runs on this card.
 //
-// f32 path: the CUDA-core FMA loop of the first version. The f32 contract
-// (1e-4 against the plain version) is tighter than TF32's 10-bit mantissa,
-// and f32 is not the main path's dtype.
+// f32 path (`flash_fwd_fma`), full f32 on the CUDA cores: the f32 contract
+// (1e-4 against the plain version) is tighter than TF32's 10-bit mantissa;
+// an f32 model (the JAX TransformerLM's default) runs it. At [4, 2048, 12,
+// 64] causal it is bound by its 25.8 GFLOP of FMAs (0.385 ms at 67
+// TFLOP/s), so the design spends as little as it can beside the FMAs:
+// * one CTA owns 128 query rows of one (batch, head), 256 threads: a warp
+//   16 rows, each half-warp 8; Q is copied to shared memory once;
+// * K/V tiles of 64 keys stream through a two-stage cp.async ring, the
+//   next tile's copies issued before this tile's FMAs, one barrier a tile;
+//   K rows padded by 4 floats, so 8 lanes on 8 keys hit 8 bank quads;
+// * S = Q K^T in registers, 8 rows x 4 keys a thread (keys lx + 16 j of
+//   the half-warp's 16 lanes), from 16-byte reads of 4 depths: 12 reads
+//   per 128 FMAs, Q's by broadcast;
+// * online softmax in log2 units: scale log2(e) folded into one FFMA
+//   before ex2, the row max through xor shuffles inside the half-warp, the
+//   row sum kept per lane and reduced once at the end;
+// * P^T goes to shared memory, [key][row], each warp in its own 16 columns
+//   (so a __syncwarp, not a barrier, orders it), quads swizzled by the key;
+//   P V then reads two float4 of P and one float4 of V (d 64) per 32 FMAs
+//   into an O accumulator of 8 rows x d / 16 columns a thread, in
+//   registers for the CTA's life;
+// * the masks, tile skipping, window, GQA, segment ids, ragged tails and
+//   heaviest-first order are the bf16 path's; a fully masked row gives out
+//   0 and lse -1e30. Shared memory: Q, the ring and P^T, 130 KB at d 64
+//   (one CTA an SM), 226 KB at d 128.
 //
 // Layout: q [B, Lq, Hq, D], k/v [B, Lk, Hkv, D], read in place through their
 // strides (last dim contiguous; rows 16-byte aligned); out [B, Lq, Hq, D]
@@ -310,193 +332,327 @@ __global__ void __launch_bounds__(NTHREADS, DP <= 64 ? FLASH_FWD_MIN_CTAS : 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs
+// f32: register-tiled CUDA-core FMAs
 
-constexpr int RPT = 4;       // query rows per thread
-constexpr int CPT = BK / 8;  // score columns per thread
+// The f32 tile: FQ query rows a CTA of FNT threads. A warp owns 16 rows,
+// each half-warp 8 of them (rows 16 w + 8 hf + i); the 16 lanes of a
+// half-warp split a K/V tile's BK keys for S (lane lx holds keys lx + 16 j)
+// and the head dim's columns for O.
+constexpr int FQ = 128;
+constexpr int FNT = 256;
+constexpr int FTM = 8;        // query rows a thread
+constexpr int FTN = BK / 16;  // keys of S a thread
+static_assert(FQ == FNT / 32 * 16 && FTM == 8,
+              "a warp's 16 rows: two half-warps of 8");
 
 template <int DP>
-constexpr int fma_smem_bytes() {
-  return (BQ * (DP + 4) + BK * (DP + 4) + BK * DP + BQ * (BK + 1)) * 4;
+struct FmaTile {
+  // Q rows are read by broadcast (one row a half-warp): no padding. K rows
+  // are read 16 at a time: padded by 4 floats, 8 lanes on 8 keys hit 8
+  // bank quads. V rows are read by 16 lanes on consecutive columns.
+  static constexpr int LDQ = DP, LDK = DP + 4, LDV = DP;
+  // O: a lane holds columns VEC lx + 16 VEC q + e (q < OQ, e < VEC) and
+  // reads them from a V row VEC floats at a time
+  static constexpr int VEC = DP % 64 == 0 ? 4 : DP % 32 == 0 ? 2 : 1;
+  static constexpr int OQ = DP / (16 * VEC);
+  static constexpr int OC = OQ * VEC;  // O columns a thread
+  // floats: Q, then K and V of the two stages, then P^T [BK][FQ]
+  static constexpr int K = FQ * LDQ;
+  static constexpr int V = K + 2 * BK * LDK;
+  static constexpr int P = V + 2 * BK * LDV;
+  static constexpr int SMEM = (P + BK * FQ) * 4;
+  static_assert(SMEM <= 232448, "the f32 tile must fit a block's smem");
+};
+
+// ROWS x DP f32 tile from strided global memory into shared memory rows of
+// stride LD, 16 bytes per cp.async; rows >= nrows and columns >= d are
+// zero-filled (their copies read nothing and point at `src`)
+template <int ROWS, int DP, int LD>
+__device__ __forceinline__ void fma_tile_async(float* dst, const float* src,
+                                               long long row_stride,
+                                               int nrows, int d) {
+  constexpr int CH = DP / 4;
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += FNT) {
+    const int r = idx / CH;
+    const int c = (idx % CH) * 4;
+    const bool ok = r < nrows && c < d;
+    cp_async16(dst + r * LD + c, ok ? src + r * row_stride + c : src, ok);
+  }
+}
+
+// VEC consecutive floats of shared memory, in one read
+template <int VEC>
+__device__ __forceinline__ void lds_vec(float (&x)[VEC], const float* p) {
+  if constexpr (VEC == 4) {
+    const float4 t = load4(p);
+    x[0] = t.x;
+    x[1] = t.y;
+    x[2] = t.z;
+    x[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x;
+    x[1] = t.y;
+  } else {
+    x[0] = *p;
+  }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_fma(Params p) {
-  static_assert(BQ == BK, "load_tile serves Q and K/V tiles of one height");
-  constexpr int LDQ = DP + 4, LDK = DP + 4, LDV = DP, LDP = BK + 1;
-  constexpr int DPT = DP / 8;  // output columns per thread
+__global__ void __launch_bounds__(FNT, 1) flash_fwd_fma(Params p) {
+  using T = FmaTile<DP>;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + BQ * LDQ;
-  float* sV = sK + BK * LDK;
-  float* sP = sV + BK * LDV;
+  float* sK = sQ + T::K;  // [2][BK][LDK]
+  float* sV = sQ + T::V;  // [2][BK][LDV]
+  float* sP = sQ + T::P;  // P^T [BK][FQ], each warp in its 16 columns
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
   const int b = bh / p.Hq;
   const int h = bh % p.Hq;
   const int hk = h / (p.Hq / p.Hkv);
-  const int q0 = qt * BQ;
-  const int rg = threadIdx.x / 8;  // row group: rows r0 .. r0 + RPT - 1
-  const int cg = threadIdx.x % 8;  // lane within the row group's 8 lanes
-  const int r0 = rg * RPT;
+  const int q0 = qt * FQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int hf = lane / 16;              // half-warp: rows 8 hf + i
+  const int lx = lane % 16;              // keys lx + 16 j; O columns
+  const int r0 = warp * 16 + 8 * hf;     // this thread's first tile row
 
   const float* qb = static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh;
   const float* kb = static_cast<const float*>(p.k) + b * p.ksb + hk * p.ksh;
   const float* vb = static_cast<const float*>(p.v) + b * p.vsb + hk * p.vsh;
-  load_tile<DP>(sQ, LDQ, qb + q0 * p.qsl, p.qsl, min(BQ, p.Lq - q0), p.D);
 
-  int qs[RPT];
+  // live K/V range, as the bf16 path's
+  int kend = p.Lk;
+  int kbeg = 0;
+  if (p.causal) {
+    kend = min(kend, q0 + FQ);
+    if (p.window > 0) kbeg = max(0, q0 - p.window + 1) / BK * BK;
+  }
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+
+  // tile t's K and V into stage t & 1
+  auto issue = [&](int t) {
+    const int k0 = kbeg + t * BK;
+    const int nk = min(BK, p.Lk - k0);
+    const int st = t & 1;
+    fma_tile_async<BK, DP, T::LDK>(sK + st * BK * T::LDK, kb + k0 * p.ksl,
+                                   p.ksl, nk, p.D);
+    fma_tile_async<BK, DP, T::LDV>(sV + st * BK * T::LDV, vb + k0 * p.vsl,
+                                   p.vsl, nk, p.D);
+  };
+  fma_tile_async<FQ, DP, T::LDQ>(sQ, qb + q0 * p.qsl, p.qsl,
+                                 min(FQ, p.Lq - q0), p.D);
+  if (ntiles > 0) issue(0);
+  cp_async_commit();
+
+  int qs[FTM];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
+  for (int i = 0; i < FTM; ++i) {
     const int row = q0 + r0 + i;
     qs[i] = (p.qseg != nullptr && row < p.Lq) ? p.qseg[b * p.Lq + row] : 0;
   }
 
-  float m[RPT], l[RPT], acc[RPT][DPT];
+  // softmax state in log2 units; l is this lane's share of its columns,
+  // summed over the half-warp once at the end (alpha is the same in all
+  // 16 lanes of a row)
+  const float scale2 = p.scale * LOG2E;
+  float m[FTM], l[FTM], o[FTM][T::OC];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
+  for (int i = 0; i < FTM; ++i) {
     m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < T::OC; ++c) o[i][c] = 0.f;
   }
 
-  int kend = p.Lk;
-  int kbeg = 0;
-  if (p.causal) {
-    kend = min(kend, q0 + BQ);
-    if (p.window > 0) kbeg = max(0, q0 - p.window + 1) / BK * BK;
-  }
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t (and Q) landed; every warp is done with t - 1
+    if (t + 1 < ntiles) issue(t + 1);  // into the stage t - 1 used
+    cp_async_commit();
+    const int k0 = kbeg + t * BK;
+    const float* tK = sK + (t & 1) * BK * T::LDK;
+    const float* tV = sV + (t & 1) * BK * T::LDV;
 
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    const int nk = min(BK, p.Lk - k0);
-    __syncthreads();  // previous tile's sK/sV/sP reads are done
-    load_tile<DP>(sK, LDK, kb + k0 * p.ksl, p.ksl, nk, p.D);
-    load_tile<DP>(sV, LDV, vb + k0 * p.vsl, p.vsl, nk, p.D);
-    __syncthreads();
-
-    float s[RPT][CPT];
+    // S = Q K^T: 8 rows x 4 keys a thread, 8 + 4 16-byte reads per 4
+    // depths (Q's by broadcast)
+    float s[FTM][FTN];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int i = 0; i < FTM; ++i)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < FTN; ++j) s[i][j] = 0.f;
+    const float* qr = sQ + r0 * T::LDQ;
+    const float* kr = tK + lx * T::LDK;
 #pragma unroll
-    for (int d = 0; d < DP; d += 4) {
-      float4 qv[RPT], kv[CPT];
+    for (int kq = 0; kq < DP; kq += 4) {
+      float4 qv[FTM];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = load4(sQ + (r0 + i) * LDQ + d);
+      for (int i = 0; i < FTM; ++i) qv[i] = load4(qr + i * T::LDQ + kq);
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = load4(sK + (cg + 8 * j) * LDK + d);
+      for (int j = 0; j < FTN; ++j) {
+        const float4 kv = load4(kr + 16 * j * T::LDK + kq);
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          float t = s[i][j];
-          t = fmaf(qv[i].x, kv[j].x, t);
-          t = fmaf(qv[i].y, kv[j].y, t);
-          t = fmaf(qv[i].z, kv[j].z, t);
-          t = fmaf(qv[i].w, kv[j].w, t);
-          s[i][j] = t;
+        for (int i = 0; i < FTM; ++i) {
+          float x = s[i][j];
+          x = fmaf(qv[i].x, kv.x, x);
+          x = fmaf(qv[i].y, kv.y, x);
+          x = fmaf(qv[i].z, kv.z, x);
+          x = fmaf(qv[i].w, kv.w, x);
+          s[i][j] = x;
         }
-    }
-
-    int ks[CPT];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int col = k0 + cg + 8 * j;
-      ks[j] = (p.kseg != nullptr && col < p.Lk) ? p.kseg[b * p.Lk + col] : 0;
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int row = q0 + r0 + i;
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int col = k0 + cg + 8 * j;
-        bool keep = col < p.Lk;
-        if (p.causal) {
-          keep = keep && col <= row;
-          if (p.window > 0) keep = keep && row - col < p.window;
-        }
-        if (p.qseg != nullptr) keep = keep && qs[i] == ks[j];
-        s[i][j] = keep ? s[i][j] * p.scale : NEG;
-        mx = fmaxf(mx, s[i][j]);
       }
-      // the 8 lanes of a row group are consecutive lanes of one warp
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+    }
+
+    const bool need_mask =
+        k0 + BK > p.Lk || p.qseg != nullptr ||
+        (p.causal && (k0 + BK - 1 > q0 ||
+                      (p.window > 0 && k0 <= q0 + FQ - 1 - p.window)));
+    if (need_mask) {
+      int ks[FTN];
+#pragma unroll
+      for (int j = 0; j < FTN; ++j) {
+        const int col = k0 + lx + 16 * j;
+        ks[j] = (p.kseg != nullptr && col < p.Lk) ? p.kseg[b * p.Lk + col]
+                                                  : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < FTM; ++i) {
+        const int row = q0 + r0 + i;
+#pragma unroll
+        for (int j = 0; j < FTN; ++j) {
+          const int col = k0 + lx + 16 * j;
+          bool keep = col < p.Lk;
+          if (p.causal) {
+            keep = keep && col <= row;
+            if (p.window > 0) keep = keep && row - col < p.window;
+          }
+          if (p.qseg != nullptr) keep = keep && qs[i] == ks[j];
+          if (!keep) s[i][j] = NEG;
+        }
+      }
+    }
+
+    // online softmax: a row's 64 keys lie in the 16 lanes of its
+    // half-warp. With scale >= 0 (the wrapper negates q for a negative
+    // one) the row max of S scale log2(e) is the raw max times that
+    // factor, so each exponent is one FFMA; P^T goes to shared memory,
+    // the thread's 8 rows as two float4 a key, their 4-float quads
+    // swizzled by the key (quad c at c ^ (key & 3) of the warp's 4), so
+    // that a quarter-warp's stores spread over the bank quads
+    float* pw = sP + warp * 16;
+#pragma unroll
+    for (int i = 0; i < FTM; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < FTN; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int off = 8; off > 0; off /= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[i], mx * scale2);
+      const float alpha = ex2(m[i] - mn);
+      m[i] = mn;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float pv = s[i][j] <= 0.5f * NEG ? 0.f : expf(s[i][j] - m_new);
+      for (int j = 0; j < FTN; ++j) {
+        const float x = s[i][j];
+        const float pv =
+            (need_mask && x <= 0.5f * NEG) ? 0.f : ex2(fmaf(x, scale2, -mn));
+        s[i][j] = pv;
         rs += pv;
-        sP[(r0 + i) * LDP + cg + 8 * j] = pv;
       }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
       l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= alpha;
+      for (int c = 0; c < T::OC; ++c) o[i][c] *= alpha;
     }
-    __syncthreads();  // sP complete
+#pragma unroll
+    for (int j = 0; j < FTN; ++j) {
+      const int key = lx + 16 * j;
+#pragma unroll
+      for (int g = 0; g < 2; ++g)
+        *reinterpret_cast<float4*>(pw + key * FQ +
+                                   4 * ((2 * hf + g) ^ (key & 3))) =
+            make_float4(s[4 * g][j], s[4 * g + 1][j], s[4 * g + 2][j],
+                        s[4 * g + 3][j]);
+    }
+    __syncwarp();  // a warp reads back only its own rows of P^T
 
-    // rows of sV beyond nk are zero and their sP entries are 0
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pr[RPT];
+    // O += P V: per key two float4 of P (the 8 rows) and OQ reads of VEC
+    // V columns for 8 OC FMAs. Keys past Lk have P = 0 and zero-filled V.
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) pr[i] = sP[(r0 + i) * LDP + kk];
+    for (int k = 0; k < BK; ++k) {
+      const float4 p0 = load4(pw + k * FQ + 4 * ((2 * hf) ^ (k & 3)));
+      const float4 p1 = load4(pw + k * FQ + 4 * ((2 * hf + 1) ^ (k & 3)));
+      const float pr[FTM] = {p0.x, p0.y, p0.z, p0.w,
+                             p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const float vv = sV[kk * LDV + cg + 8 * j];
+      for (int q = 0; q < T::OQ; ++q) {
+        float vv[T::VEC];
+        lds_vec<T::VEC>(vv, tV + k * T::LDV + T::VEC * lx + 16 * T::VEC * q);
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
+        for (int e = 0; e < T::VEC; ++e)
+#pragma unroll
+          for (int i = 0; i < FTM; ++i)
+            o[i][q * T::VEC + e] = fmaf(pr[i], vv[e], o[i][q * T::VEC + e]);
       }
     }
   }
+  cp_async_wait<0>();  // no tile at all: Q's copy is still pending
 
   float* ob = static_cast<float*>(p.out);
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
+  for (int i = 0; i < FTM; ++i) {
+    float lt = l[i];
+#pragma unroll
+    for (int off = 8; off > 0; off /= 2)
+      lt += __shfl_xor_sync(0xffffffffu, lt, off);
     const int row = q0 + r0 + i;
     if (row >= p.Lq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
     float* orow =
         ob + ((static_cast<long long>(b) * p.Lq + row) * p.Hq + h) * p.D;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      if (cg + 8 * j < p.D) orow[cg + 8 * j] = acc[i][j] / denom;
-    if (cg == 0)
+    for (int q = 0; q < T::OQ; ++q) {
+      const int col = T::VEC * lx + 16 * T::VEC * q;
+      if (col >= p.D) continue;
+      const int c = q * T::VEC;
+      if constexpr (T::VEC == 4)
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(o[i][c] * inv, o[i][c + 1] * inv, o[i][c + 2] * inv,
+                        o[i][c + 3] * inv);
+      else if constexpr (T::VEC == 2)
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(o[i][c] * inv, o[i][c + 1] * inv);
+      else
+        orow[col] = o[i][c] * inv;
+    }
+    if (lx == 0)
       p.lse[(static_cast<long long>(b) * p.Hq + h) * p.Lq + row] =
-          m[i] + logf(denom);
+          lt > 0.f ? m[i] * LN2 + logf(lt) : NEG;  // 0: no visible key
   }
 }
 
 // ---------------------------------------------------------------------------
 
+// one CTA per (batch x query head, `rows` query rows) of `threads`
 template <typename Kernel>
-int launch_kernel(Kernel kernel, int smem, const Params& p,
-                  cudaStream_t stream) {
+int launch_kernel(Kernel kernel, int smem, int rows, int threads,
+                  const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.B * p.Hq, (p.Lq + BQ - 1) / BQ);
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
+  const dim3 grid(p.B * p.Hq, (p.Lq + rows - 1) / rows);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DP>
 int launch(const Params& p, bool bf16_path, cudaStream_t stream) {
   if (bf16_path)
-    return launch_kernel(flash_fwd_mma<DP>, mma_smem_bytes<DP>(), p, stream);
-  return launch_kernel(flash_fwd_fma<DP>, fma_smem_bytes<DP>(), p, stream);
+    return launch_kernel(flash_fwd_mma<DP>, mma_smem_bytes<DP>(), BQ,
+                         NTHREADS, p, stream);
+  return launch_kernel(flash_fwd_fma<DP>, FmaTile<DP>::SMEM, FQ, FNT, p,
+                       stream);
 }
 
 }  // namespace

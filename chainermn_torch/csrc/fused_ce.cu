@@ -23,16 +23,18 @@
 // (an f32 model's loss: the JAX TransformerLM defaults to f32, and the
 // 1e-4 contract of f32 is tighter than TF32's 10-bit mantissa).
 //
-// f32 forward (`ce_fwd_fma`) and dh (`ce_bwd_fma<false>`), at N 1024, D
-// 768, V 32768 bound by 2 N D V = 51.5 GFLOP and 4 N D V = 103 GFLOP of
-// FMAs, 0.769 and 1.538 ms at the 67 TFLOP/s f32 peak (one D chunk; dh with
-// c chunks recomputes the logits c times: (2 c + 2) N D V):
-// * the vocabulary is split into S ranges of whole tiles, as the bf16
-//   forward's, so that (row blocks x S) CTAs fill the SMs; a forward CTA
-//   writes its rows' partial (m, s, t, a) and `ce_fwd_combine` combines
-//   them; a dh CTA writes its partial dh [BM, DC] to an f32 workspace
-//   [S, N, D] that `ce_dh_combine` sums in range order (S = 1: straight
-//   into dh). No atomics: two calls give the same bits;
+// f32 forward (`ce_fwd_fma`), dh (`ce_bwd_fma<false>`) and dW
+// (`ce_bwd_fma<true>`), at N 1024, D 768, V 32768 bound by 2 N D V = 51.5
+// GFLOP and 4 N D V = 103 GFLOP of FMAs each, 0.769 and 1.538 ms at the 67
+// TFLOP/s f32 peak (one D chunk; the backward with c chunks recomputes the
+// logits c times: (2 c + 2) N D V):
+// * the forward and dh split the vocabulary, dW the rows of h, into S
+//   ranges of whole tiles, as the bf16 forward's, so that (row blocks x S)
+//   CTAs fill the SMs; a forward CTA writes its rows' partial (m, s, t, a)
+//   and `ce_fwd_combine` combines them; a backward CTA writes its partial
+//   [BM, DC] block to an f32 workspace [S, rows, D] that `ce_sum_ranges`
+//   sums in range order (S = 1: straight into dh or dW^T). No atomics: two
+//   calls give the same bits;
 // * operands stream through a two-stage cp.async ring of shared-memory
 //   slabs, the next slab's copies issued before this slab's FMAs; a logits
 //   slab keeps the rows of h and W^T as they lie (row r, 64 depths) with
@@ -46,22 +48,21 @@
 //   shuffles; lane 0 of the 16 folds them into the row's running (m, s, t,
 //   a) in shared memory, strictly greater (the first tile keeps ties);
 //   columns >= V read -inf; shared memory is fixed whatever D is;
-// * dh keeps its [32, DC] accumulator (DC = 768) in registers, 8 x 12 a
-//   thread, for the CTA's whole life; per vocabulary tile of 256 it runs
-//   the logits product (4 x 8 a thread), writes dl = exp(S - lse) -
-//   onehot (0 outside N x V) to shared memory transposed, then streams
-//   W^T's 256 rows again, 32 at a time, 768 columns wide, through the same
-//   ring for acc += dl . W. D > 768 takes chunks of 768 columns over
-//   blockIdx.z, each recomputing the logits; any D that is a multiple of
-//   4 runs. W^T is read from L2 twice per 32 rows of h (2 N D V / 8 bytes,
-//   6.4 GB at N 1024); built with either product's FMAs left out, dh
-//   kept most of its time (PERF.md, section 6): the slabs' traffic, not
-//   the FMAs, holds it back (sharing W^T across a cluster of CTAs would
-//   halve it).
-// `ce_bwd_fma<true>` is the mirror image, dW (R = W^T, T = h), compiled
-// but not yet launched: dW keeps `ce_dw_kernel<float>` below, whose helpers (`Tile`,
-// `logits_tile`, `load_slab`, `dl_tile`, `stage_rows`) sweep the other
-// operand through shared-memory tiles, unpipelined.
+// * dh and dW are one template, mirror images: a CTA keeps 32 rows of the
+//   resident operand R (dh: h; dW: W^T) and their [32, DC] accumulator (DC
+//   = 768) in registers, 8 x 12 a thread, for its whole life; per tile of
+//   256 rows of the streamed operand T (dh: W^T; dW: h) it runs the
+//   logits product (4 x 8 a thread), writes dl = exp(S - lse) - onehot (0
+//   outside N x V) to shared memory transposed, then streams T's 256 rows
+//   again, 32 at a time, 768 columns wide, through the same ring for acc
+//   += dl . T. D > 768 takes chunks of 768 columns over blockIdx.z, each
+//   recomputing the logits; any D that is a multiple of 4 runs, and shared
+//   memory is fixed whatever D is. T is read from L2 twice per 32 rows of
+//   R (2 N D V / 8 bytes, 6.4 GB at N 1024), but that traffic is not what
+//   holds it at about half its bound: copies of this source that copy half
+//   of T's slabs, or none, save about a tenth and a quarter of its time
+//   (`ce_f32_traffic.py`, PERF.md section 6), so a 2-CTA cluster sharing
+//   T would save at most the tenth.
 //
 // bf16 forward (`ce_fwd_wgmma`), warp-specialised:
 // * a CTA owns 128 rows of h (two consumer warpgroups of 64) and one range
@@ -125,147 +126,11 @@
 
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int BK = 32;   // depth of one h / wt slab of the logits product
-constexpr int DC = 64;   // head-dim columns per chunk of the dh / dW product
-constexpr int PAD = 8;   // elements of padding per shared-memory row
-
-struct RowMajor {};
-struct ColMajor {};
-
-// A(m, k): RowMajor a[m * lda + k], ColMajor a[k * lda + m];
-// B(k, n): RowMajor b[k * ldb + n], ColMajor b[n * ldb + k].
-template <typename L>
-__device__ __forceinline__ int at(int i, int j, int ld);
-template <>
-__device__ __forceinline__ int at<RowMajor>(int i, int j, int ld) {
-  return i * ld + j;
-}
-template <>
-__device__ __forceinline__ int at<ColMajor>(int i, int j, int ld) {
-  return j * ld + i;
-}
-
-// A BM x BN f32 accumulator tile spread over the CTA: C += A . B with the
-// f32 operands in shared memory, on FMAs.
-template <typename T, int BM, int BN, typename LA, typename LB>
-struct Tile;
-
-template <int BM, int BN, typename LA, typename LB>
-struct Tile<float, BM, BN, LA, LB> {
-  static constexpr int PER = BM * BN / NTHREADS;
-  static_assert(BM * BN % NTHREADS == 0, "tile must split over the CTA");
-  float acc[PER];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) acc[i] = 0.f;
-  }
-  __device__ void load(const float* c, int ldc) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = threadIdx.x + i * NTHREADS;
-      acc[i] = c[(e / BN) * ldc + e % BN];
-    }
-  }
-  __device__ void store(float* c, int ldc) const {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = threadIdx.x + i * NTHREADS;
-      c[(e / BN) * ldc + e % BN] = acc[i];
-    }
-  }
-  template <int K>
-  __device__ void mma(const float* a, int lda, const float* b, int ldb) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = threadIdx.x + i * NTHREADS;
-      const int m = e / BN, n = e % BN;
-      float t = acc[i];
-#pragma unroll 8
-      for (int k = 0; k < K; ++k)
-        t = fmaf(a[at<LA>(m, k, lda)], b[at<LB>(k, n, ldb)], t);
-      acc[i] = t;
-    }
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-
-// ROWS x COLS slab of a row-major global matrix (row stride `lds`) into
-// shared memory (row stride `ldd`), 16 bytes at a time; rows >= nrows and
-// columns >= ncols read as zero. ncols is a multiple of 16 bytes of T.
-template <typename T, int ROWS, int COLS>
-__device__ __forceinline__ void load_slab(T* dst, int ldd, const T* src,
-                                          long long lds, int nrows,
-                                          int ncols) {
-  constexpr int CH = 16 / sizeof(T);
-  constexpr int PER_ROW = COLS / CH;
-  static_assert(COLS % CH == 0, "slab width must hold whole 16-byte chunks");
-  for (int idx = threadIdx.x; idx < ROWS * PER_ROW; idx += NTHREADS) {
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows && c < ncols)
-      val = *reinterpret_cast<const uint4*>(src + r * lds + c);
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) = val;
-  }
-}
-
-// logits tile C[BM x BN] = h[n0:, :] . wt[v0:, :]^T over the whole depth D
-template <typename T, int BM, int BN>
-__device__ __forceinline__ void logits_tile(
-    Tile<T, BM, BN, RowMajor, ColMajor>& acc, T* sA, T* sB, const T* h,
-    const T* wt, int n0, int v0, int N, int V, int D) {
-  acc.zero();
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    __syncthreads();  // the previous slab's readers are done
-    load_slab<T, BM, BK>(sA, BK + PAD, h + static_cast<long long>(n0) * D + k0,
-                         D, N - n0, D - k0);
-    load_slab<T, BN, BK>(sB, BK + PAD,
-                         wt + static_cast<long long>(v0) * D + k0, D, V - v0,
-                         D - k0);
-    __syncthreads();
-    acc.template mma<BK>(sA, BK + PAD, sB, BK + PAD);
-  }
-}
-
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// -------------------------------------------------------------- dl tiles
-
-// dl = exp(logit - lse) - onehot(y), rounded to T, zero outside N x V
-template <typename T, int BM, int BN>
-__device__ __forceinline__ void dl_tile(T* sDl, int lddl, const float* sC,
-                                        int ldc, const float* sLse,
-                                        const int* sY, int n0, int v0, int N,
-                                        int V) {
-  for (int e = threadIdx.x; e < BM * BN; e += NTHREADS) {
-    const int r = e / BN, c = e % BN;
-    float x = 0.f;
-    if (n0 + r < N && v0 + c < V)
-      x = expf(sC[r * ldc + c] - sLse[r]) - (sY[r] == v0 + c ? 1.f : 0.f);
-    sDl[r * lddl + c] = from_float<T>(x);
-  }
-}
-
-template <int ROWS>
-__device__ __forceinline__ void stage_rows(float* sLse, int* sY,
-                                           const float* lse, const int* y,
-                                           int n0, int N) {
-  for (int r = threadIdx.x; r < ROWS; r += NTHREADS) {
-    const bool ok = n0 + r < N;
-    sLse[r] = ok ? lse[n0 + r] : 0.f;
-    sY[r] = ok ? y[n0 + r] : -1;
-  }
-}
-
-// --------------------------------------------- f32 forward and dh: FMAs
+// ---------------------------------------- f32 forward, dh and dW: FMAs
 
 // ROWS rows of a row-major f32 matrix `base` (row stride `lds`) from
 // row `row0`, column `col0` on, 4 CH floats wide, into shared memory rows
@@ -654,16 +519,9 @@ __global__ void __launch_bounds__(BwdF32::NT, BwdF32::MIN_CTAS)
   }
 }
 
-// dW's instantiation: compiled, and its registers and spills reported by
-// ptxas, but not launched (dW is `ce_dw_kernel<float>`)
-template __global__ void ce_bwd_fma<true>(const float* __restrict__, int,
-                                          const float* __restrict__, int,
-                                          const int* __restrict__,
-                                          const float* __restrict__,
-                                          float* __restrict__, int, int);
-
-// the S ranges' partial dh, summed in range order: n4 float4 of [N, D]
-__global__ void ce_dh_combine(const float4* __restrict__ part, int S,
+// the S ranges' partial dh [N, D] or dW^T [V, D], summed in range order:
+// n4 float4 a range
+__global__ void ce_sum_ranges(const float4* __restrict__ part, int S,
                               size_t n4, float4* __restrict__ out) {
   for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        e < n4; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
@@ -676,70 +534,6 @@ __global__ void ce_dh_combine(const float4* __restrict__ part, int S,
       acc.w += v.w;
     }
     out[e] = acc;
-  }
-}
-
-// --------------------------------------------------------------------- dW
-
-constexpr int W_BV = 32, W_BM = 64;
-
-template <typename T>
-int dw_smem(int D) {
-  const int dp = round_up(D, DC);
-  return W_BM * (BK + PAD) * static_cast<int>(sizeof(T)) +
-         W_BV * (BK + PAD) * static_cast<int>(sizeof(T)) +
-         W_BM * (W_BV + 4) * 4 +
-         W_BM * (W_BV + PAD) * static_cast<int>(sizeof(T)) +
-         W_BM * (DC + PAD) * static_cast<int>(sizeof(T)) +
-         W_BV * (dp + 4) * 4 + W_BM * 8;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-    ce_dw_kernel(const T* h, const T* wt, const int* y, const float* lse,
-                 T* dwt, int N, int D, int V) {
-  extern __shared__ float4 smem4[];
-  constexpr int LDC = W_BV + 4, LDL = W_BV + PAD, LDH = DC + PAD;
-  const int ldw = round_up(D, DC) + 4;
-  T* sA = reinterpret_cast<T*>(smem4);
-  T* sB = sA + W_BM * (BK + PAD);
-  float* sC = reinterpret_cast<float*>(sB + W_BV * (BK + PAD));
-  T* sDl = reinterpret_cast<T*>(sC + W_BM * LDC);
-  T* sH = sDl + W_BM * LDL;
-  float* sDw = reinterpret_cast<float*>(sH + W_BM * LDH);
-  float* sLse = sDw + W_BV * ldw;
-  int* sY = reinterpret_cast<int*>(sLse + W_BM);
-  const int v0 = blockIdx.x * W_BV;
-
-  for (int e = threadIdx.x; e < W_BV * ldw; e += NTHREADS) sDw[e] = 0.f;
-
-  // logits tile rows are h rows, columns this CTA's vocabulary rows
-  Tile<T, W_BM, W_BV, RowMajor, ColMajor> acc;
-  // dW^T[v, d] += sum_r dl[r, v] h[r, d]: A(v, r) = sDl[r][v]
-  Tile<T, W_BV, DC, ColMajor, RowMajor> acc2;
-  for (int n0 = 0; n0 < N; n0 += W_BM) {
-    logits_tile<T, W_BM, W_BV>(acc, sA, sB, h, wt, n0, v0, N, V, D);
-    acc.store(sC, LDC);
-    stage_rows<W_BM>(sLse, sY, lse, y, n0, N);
-    __syncthreads();
-    dl_tile<T, W_BM, W_BV>(sDl, LDL, sC, LDC, sLse, sY, n0, v0, N, V);
-    for (int dc = 0; dc < D; dc += DC) {
-      __syncthreads();
-      load_slab<T, W_BM, DC>(sH, LDH, h + static_cast<long long>(n0) * D + dc,
-                             D, N - n0, D - dc);
-      __syncthreads();
-      acc2.load(sDw + dc, ldw);
-      acc2.template mma<W_BM>(sDl, LDL, sH, LDH);
-      acc2.store(sDw + dc, ldw);
-    }
-    __syncthreads();  // sLse / sY / sDl readers done before the next tile
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < W_BV * D; e += NTHREADS) {
-    const int r = e / D, c = e % D;
-    if (v0 + r < V)
-      dwt[static_cast<long long>(v0 + r) * D + c] =
-          from_float<T>(sDw[r * ldw + c]);
   }
 }
 
@@ -762,18 +556,6 @@ bool ranges_ok(int S, int tiles) {
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-template <typename T>
-int dw(const void* h, const void* wt, const int* y, const float* lse,
-       void* out, int N, int D, int V, cudaStream_t st) {
-  const int smem = dw_smem<T>(D);
-  int err = set_smem(ce_dw_kernel<T>, smem);
-  if (err) return err;
-  ce_dw_kernel<T><<<(V + W_BV - 1) / W_BV, NTHREADS, smem, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(wt), y, lse,
-      static_cast<T*>(out), N, D, V);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------- bf16 dh / dW: mma.sync
@@ -1385,27 +1167,33 @@ int fwd_f32(const void* h, const void* wt, const int* y, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-int dh_f32(const void* h, const void* wt, const int* y, const float* lse,
-           void* dh, float* part, int S, int N, int D, int V,
-           cudaStream_t st) {
+// dh (DW false: R = h, T = W^T) or dW^T (DW true: R = W^T, T = h) on
+// `ce_bwd_fma<DW>`; S ranges of T's tiles, summed by `ce_sum_ranges` from
+// the f32 workspace `part` [S, nR, D] when S > 1
+template <bool DW>
+int bwd_f32(const void* h, const void* wt, const int* y, const float* lse,
+            void* out, float* part, int S, int N, int D, int V,
+            cudaStream_t st) {
   using B = BwdF32;
-  const int tiles = (V + B::BS - 1) / B::BS;
+  const int nR = DW ? V : N, nT = DW ? N : V;
+  const int tiles = (nT + B::BS - 1) / B::BS;
   if (!ranges_ok(S, tiles) || (S > 1 && part == nullptr) || !aligned16(h) ||
-      !aligned16(wt) || !aligned16(dh) || !aligned16(part))
+      !aligned16(wt) || !aligned16(out) || !aligned16(part))
     return static_cast<int>(cudaErrorInvalidValue);
-  int err = set_smem(ce_bwd_fma<false>, B::SMEM);
+  int err = set_smem(ce_bwd_fma<DW>, B::SMEM);
   if (err) return err;
-  const dim3 grid((N + B::BM - 1) / B::BM, S, (D + B::DC - 1) / B::DC);
-  float* out = S > 1 ? part : static_cast<float*>(dh);
-  ce_bwd_fma<false><<<grid, B::NT, B::SMEM, st>>>(
-      static_cast<const float*>(h), N, static_cast<const float*>(wt), V, y,
-      lse, out, D, (tiles + S - 1) / S);
+  const dim3 grid((nR + B::BM - 1) / B::BM, S, (D + B::DC - 1) / B::DC);
+  const float* hf = static_cast<const float*>(h);
+  const float* wf = static_cast<const float*>(wt);
+  ce_bwd_fma<DW><<<grid, B::NT, B::SMEM, st>>>(
+      DW ? wf : hf, nR, DW ? hf : wf, nT, y, lse,
+      S > 1 ? part : static_cast<float*>(out), D, (tiles + S - 1) / S);
   if ((err = static_cast<int>(cudaGetLastError())) || S == 1) return err;
-  const size_t n4 = static_cast<size_t>(N) * D / 4;
+  const size_t n4 = static_cast<size_t>(nR) * D / 4;
   const size_t want = (n4 + 255) / 256;
   const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  ce_dh_combine<<<blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(part),
-                                       S, n4, static_cast<float4*>(dh));
+  ce_sum_ranges<<<blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(part),
+                                        S, n4, static_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1417,8 +1205,7 @@ int dh_f32(const void* h, const void* wt, const int* y, const float* lse,
 extern "C" int chainermn_ce_smem(int which, int dtype, int D) {
   const bool bf = dtype == 1;
   if (which == 0) return bf ? Fwd::SMEM : FwdF32::SMEM;
-  if (bf) return bwd_mma_smem(D);
-  return which == 1 ? BwdF32::SMEM : dw_smem<float>(D);
+  return bf ? bwd_mma_smem(D) : BwdF32::SMEM;
 }
 
 // the forward's tile for `dtype`: 0 rows of h per CTA, 1 vocabulary columns
@@ -1440,6 +1227,13 @@ extern "C" int chainermn_ce_dh_tile(int which) {
          : which == 1 ? BwdF32::BS
          : which == 2 ? BwdF32::DC
                       : BwdF32::MIN_CTAS;
+}
+
+// the f32 dW's tile (dh's mirror image, one template): 0 vocabulary rows
+// per CTA, 1 rows of h per tile, 2 columns of dW per D chunk, 3 CTAs an
+// SM holds
+extern "C" int chainermn_ce_dw_tile(int which) {
+  return chainermn_ce_dh_tile(which);
 }
 
 // `part` is an f32 workspace of 4 x splits x N entries and `splits` the
@@ -1465,18 +1259,23 @@ extern "C" int chainermn_ce_dh(const void* h, const void* wt, const int* y,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && shapes_ok<float>(N, D, V))
-    return dh_f32(h, wt, y, lse, dh_out, part, splits, N, D, V, st);
+    return bwd_f32<false>(h, wt, y, lse, dh_out, part, splits, N, D, V,
+                          st);
   if (dtype == 1 && shapes_ok<__nv_bfloat16>(N, D, V))
     return bwd_mma<false>(h, wt, y, lse, dh_out, N, D, V, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// f32: `splits` ranges of h's rows (see chainermn_ce_dw_tile) and, when it
+// is above 1, `part` an f32 workspace of splits x V x D entries; bf16
+// takes neither (its CTAs own whole rows of dW^T)
 extern "C" int chainermn_ce_dw(const void* h, const void* wt, const int* y,
-                               const float* lse, void* dwt_out, int dtype,
-                               int N, int D, int V, void* stream) {
+                               const float* lse, void* dwt_out, float* part,
+                               int splits, int dtype, int N, int D, int V,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && shapes_ok<float>(N, D, V))
-    return dw<float>(h, wt, y, lse, dwt_out, N, D, V, st);
+    return bwd_f32<true>(h, wt, y, lse, dwt_out, part, splits, N, D, V, st);
   if (dtype == 1 && shapes_ok<__nv_bfloat16>(N, D, V))
     return bwd_mma<true>(h, wt, y, lse, dwt_out, N, D, V, st);
   return static_cast<int>(cudaErrorInvalidValue);

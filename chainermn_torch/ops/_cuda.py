@@ -32,8 +32,8 @@ import torch
 
 __all__ = ["SOURCES", "KERNELS", "build", "build_all", "library", "variant",
            "ptxas_usage", "launches", "reset_launches", "launch_flash_fwd",
-           "launch_flash_bwd", "ce_fwd_tile", "ce_dh_tile", "launch_ce_fwd",
-           "launch_ce_dh", "launch_ce_dw"]
+           "launch_flash_bwd", "ce_fwd_tile", "ce_dh_tile", "ce_dw_tile",
+           "launch_ce_fwd", "launch_ce_dh", "launch_ce_dw"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -56,8 +56,8 @@ _libs: Dict[Build, ctypes.CDLL] = {}
 _variants: Dict[str, Tuple[str, ...]] = {}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 #: the same counts by input dtype: f32 inputs run other kernel bodies
-#: (``flash_fwd_fma``, ``flash_bwd_fma``, ``ce_fwd_fma``, ``ce_bwd_fma``,
-#: ``ce_dw_kernel<float>``) than bf16 ones
+#: (``flash_fwd_fma``, ``flash_bwd_fma``, ``ce_fwd_fma``, ``ce_bwd_fma``)
+#: than bf16 ones
 _launches_by_dtype: Dict[torch.dtype, Dict[str, int]] = {
     dt: {name: 0 for name in KERNELS} for dt in (torch.float32,
                                                  torch.bfloat16)}
@@ -302,9 +302,7 @@ def launch_flash_bwd(q, k, v, dout, lse, dr, q_seg, kv_seg, dq_acc, dk, dv,
 
 _CE_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
-_CE_DH_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-    ctypes.c_void_p]
-_CE_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+_CE_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
 
 
@@ -332,6 +330,13 @@ def ce_dh_tile() -> Tuple[int, int, int, int]:
     return tuple(int(fn(i)) for i in range(4))
 
 
+def ce_dw_tile() -> Tuple[int, int, int, int]:
+    """The f32 dW's tile: (vocabulary rows per CTA, rows of h per tile,
+    columns of dW per D chunk, CTAs an SM holds)."""
+    fn = _bind("fused_ce", "chainermn_ce_dw_tile", [ctypes.c_int])
+    return tuple(int(fn(i)) for i in range(4))
+
+
 def launch_ce_fwd(h, wt, y, lse, tl, am, part, splits: int) -> None:
     """``chainermn_ce_fwd``: h ``[N, D]``, wt ``[V, D]``, y int32 ``[N]``
     → lse, tl f32 ``[N]``, am int32 ``[N]`` (validated by
@@ -351,7 +356,7 @@ def launch_ce_dh(h, wt, y, lse, dh, part=None, splits: int = 1) -> None:
     ``splits`` vocabulary ranges and, when there is more than one, ``part``,
     an f32 workspace of ``splits x N x D`` entries; the kernel and the sum
     of its ranges count as one launch. bf16 takes neither."""
-    fn = _bind("fused_ce", "chainermn_ce_dh", _CE_DH_ARGTYPES)
+    fn = _bind("fused_ce", "chainermn_ce_dh", _CE_BWD_ARGTYPES)
     n, d = h.shape
     err = fn(h.data_ptr(), wt.data_ptr(), y.data_ptr(), lse.data_ptr(),
              dh.data_ptr(), _ptr(part), splits, DTYPES[h.dtype], n, d,
@@ -359,10 +364,14 @@ def launch_ce_dh(h, wt, y, lse, dh, part=None, splits: int = 1) -> None:
     _launched(err, "ce_dh", h.dtype)
 
 
-def launch_ce_dw(h, wt, y, lse, dwt) -> None:
-    """``chainermn_ce_dw``: unscaled dW^T ``[V, D]`` in wt's dtype."""
-    fn = _bind("fused_ce", "chainermn_ce_dw", _CE_DW_ARGTYPES)
+def launch_ce_dw(h, wt, y, lse, dwt, part=None, splits: int = 1) -> None:
+    """``chainermn_ce_dw``: unscaled dW^T ``[V, D]`` in wt's dtype. f32
+    takes ``splits`` ranges of h's rows and, when there is more than one,
+    ``part``, an f32 workspace of ``splits x V x D`` entries; the kernel
+    and the sum of its ranges count as one launch. bf16 takes neither."""
+    fn = _bind("fused_ce", "chainermn_ce_dw", _CE_BWD_ARGTYPES)
     n, d = h.shape
     err = fn(h.data_ptr(), wt.data_ptr(), y.data_ptr(), lse.data_ptr(),
-             dwt.data_ptr(), DTYPES[h.dtype], n, d, wt.shape[0], _stream(h))
+             dwt.data_ptr(), _ptr(part), splits, DTYPES[h.dtype], n, d,
+             wt.shape[0], _stream(h))
     _launched(err, "ce_dw", h.dtype)

@@ -17,21 +17,23 @@ kernel, y ``[N]`` labels → ``(loss, acc)`` scalars:
 The TPU tile rules (rows padded to ``block_rows``, ``v % block_v == 0``,
 the ``bv_dw <= 1024`` halving) do not carry over: the CUDA kernels
 (``csrc/fused_ce.cu``) mask ragged N and V themselves; D is a multiple of
-16 bytes of the dtype and, for the bf16 dh and dW and the f32 dW, no wider
-than the shared memory their tiles take allows (checked through
-``ce_smem_bytes``: 1536 for bf16); h and
-the head start on 16-byte boundaries (the kernels read them 16 bytes at a
-time or by TMA). ``block_rows`` and ``block_v`` stay in the signature for
-parity and are not used.
+16 bytes of the dtype and, for the bf16 dh and dW, no wider than the
+shared memory their tiles take allows (checked through ``ce_smem_bytes``:
+1536); the f32 kernels' shared memory is fixed whatever D is, so every f32
+D runs; h and the head start on 16-byte boundaries (the kernels read them
+16 bytes at a time or by TMA). ``block_rows`` and ``block_v`` stay in the
+signature for parity and are not used.
 
 The forward splits the vocabulary into ranges of whole tiles so that its
 CTAs fill the card (:func:`ce_fwd_splits`, with each dtype's tile); each
 range leaves a partial (max, sum of exp, target logit, argmax) per row,
 which a second kernel combines in range order (plain versions
 :func:`ce_fwd_partial_reference` and :func:`ce_fwd_combine_reference`).
-The f32 dh splits it too (:func:`ce_dh_splits`): each range leaves a
-partial dh in an f32 workspace, summed in range order by a second kernel
-(:func:`ce_dh_partial_reference`, :func:`ce_dh_combine_reference`).
+The f32 dh splits it too (:func:`ce_dh_splits`), and the f32 dW, dh's
+mirror image, splits the rows of h (:func:`ce_dw_splits`): each range
+leaves a partial dh or dWᵀ in an f32 workspace, summed in range order by
+a second kernel (:func:`ce_dh_partial_reference`,
+:func:`ce_dw_partial_reference`, :func:`ce_sum_ranges_reference`).
 
 CUDA tensors run the kernels; CPU tensors run the plain versions
 (:func:`ce_forward_reference`, :func:`ce_dh_reference`,
@@ -52,9 +54,10 @@ __all__ = ["fused_ce_head", "fused_lm_loss", "ce_forward_reference",
            "ce_dh_reference", "ce_dw_reference", "ce_forward_cuda",
            "ce_dh_cuda", "ce_dw_cuda", "ce_fwd_splits", "ce_fwd_plan",
            "ce_fwd_cuda_plan", "ce_dh_splits", "ce_dh_plan",
-           "ce_dh_cuda_plan", "ce_fwd_partial_reference",
+           "ce_dh_cuda_plan", "ce_dw_splits", "ce_dw_plan",
+           "ce_dw_cuda_plan", "ce_fwd_partial_reference",
            "ce_fwd_combine_reference", "ce_dh_partial_reference",
-           "ce_dh_combine_reference"]
+           "ce_dw_partial_reference", "ce_sum_ranges_reference"]
 
 # smem the kernels may use per block on an H100 (227 KB)
 _MAX_SMEM = 232448
@@ -169,6 +172,28 @@ def ce_dh_plan(n: int, d: int, v: int, sms: int, block_rows: int = 32,
                 workspace_bytes=4 * splits * n * d if splits > 1 else 0)
 
 
+def ce_dw_splits(n: int, d: int, v: int, sms: int, block_rows: int = 32,
+                 block_n: int = 256, d_chunk: int = 768,
+                 ctas_per_sm: int = 1) -> Tuple[int, int]:
+    """Ranges of h's rows of the f32 dW: (S, tiles per range). dW is dh's
+    mirror image (``block_rows`` vocabulary rows a block, ``block_n`` rows
+    of h a tile), so these are :func:`ce_dh_splits` with N and V
+    swapped."""
+    return ce_dh_splits(v, d, n, sms, block_rows, block_n, d_chunk,
+                        ctas_per_sm)
+
+
+def ce_dw_plan(n: int, d: int, v: int, sms: int, block_rows: int = 32,
+               block_n: int = 256, d_chunk: int = 768,
+               ctas_per_sm: int = 1) -> dict:
+    """The f32 dW's launch at these shapes, :func:`ce_dh_plan` with N and
+    V swapped: ranges of h's rows, tiles per range, the grid (vocabulary
+    row blocks, ranges, D chunks) and the bytes of its f32 workspace (0
+    with one range: the kernel writes dWᵀ)."""
+    return ce_dh_plan(v, d, n, sms, block_rows, block_n, d_chunk,
+                      ctas_per_sm)
+
+
 def _dl(h, wt, y, lse):
     logits = _logits(h, wt)
     p = torch.exp(logits - lse[:, None])
@@ -195,9 +220,10 @@ def ce_dh_partial_reference(h, wt, y, lse, lo: int, hi: int
     return dl.to(wt.dtype).float() @ wt[lo:hi].float()
 
 
-def ce_dh_combine_reference(parts, dtype=torch.float32) -> torch.Tensor:
-    """Plain version of the dh combine: the ranges' partials ``[S, N, D]``
-    summed in vocabulary order, cast to ``dtype``."""
+def ce_sum_ranges_reference(parts, dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the f32 backward's combine: the ranges' partials
+    (dh ``[S, N, D]`` or dWᵀ ``[S, V, D]``) summed in range order, cast to
+    ``dtype``."""
     out = parts[0].clone()
     for part in parts[1:]:
         out += part
@@ -209,6 +235,15 @@ def ce_dw_reference(h, wt, y, lse) -> torch.Tensor:
     the head's dtype, dl cast to h's dtype first."""
     dl = _dl(h, wt, y, lse).to(h.dtype).float()
     return (dl.t() @ h.float()).to(wt.dtype)
+
+
+def ce_dw_partial_reference(h, wt, y, lse, lo: int, hi: int
+                            ) -> torch.Tensor:
+    """Plain version of one range [lo, hi) of h's rows of the f32 dW: the
+    f32 sum over n in [lo, hi) of dl[n]ᵀ h[n] ``[V, D]``, dl cast to h's
+    dtype first."""
+    dl = _dl(h[lo:hi], wt, y[lo:hi], lse[lo:hi]).to(h.dtype).float()
+    return dl.t() @ h[lo:hi].float()
 
 
 def _check_cuda(h, wt, y, which: int):
@@ -275,6 +310,12 @@ def ce_dh_cuda_plan(n: int, d: int, v: int, device="cuda") -> dict:
     return ce_dh_plan(n, d, v, _sms(device), *_cuda.ce_dh_tile())
 
 
+def ce_dw_cuda_plan(n: int, d: int, v: int, device="cuda") -> dict:
+    """:func:`ce_dw_plan` with the card's SM count and the f32 kernel's
+    tile: the launch ``ce_dw_cuda`` makes for f32 inputs."""
+    return ce_dw_plan(n, d, v, _sms(device), *_cuda.ce_dw_tile())
+
+
 def ce_dh_cuda(h, wt, y, lse):
     """``csrc/fused_ce.cu`` dh kernel → unscaled dh ``[N, D]``."""
     h, wt, y = _check_cuda(h, wt, y, 1)
@@ -295,7 +336,15 @@ def ce_dw_cuda(h, wt, y, lse):
     """``csrc/fused_ce.cu`` dW kernel → unscaled dWᵀ ``[V, D]``."""
     h, wt, y = _check_cuda(h, wt, y, 2)
     dwt = torch.empty_like(wt)
-    _cuda.launch_ce_dw(h, wt, y, lse.float().contiguous(), dwt)
+    lse = lse.float().contiguous()
+    if h.dtype == torch.float32:
+        (n, d), v = h.shape, wt.shape[0]
+        splits = ce_dw_cuda_plan(n, d, v, h.device)["splits"]
+        part = (torch.empty(splits, v, d, dtype=torch.float32,
+                            device=h.device) if splits > 1 else None)
+        _cuda.launch_ce_dw(h, wt, y, lse, dwt, part, splits)
+    else:
+        _cuda.launch_ce_dw(h, wt, y, lse, dwt)
     return dwt
 
 

@@ -13,20 +13,22 @@ the final line:
    CE (``HMMA``, from mma.sync, none of which may be 0; ``HGMMA``, from
    wgmma, which the fused CE's forward must have), and ptxas's registers
    and spill bytes of the main path's tensor-core kernels (flash at d 64,
-   the bf16 CE forward, the bf16 CE backward at D 768) and of the f32 CE
-   kernels (``ce_fwd_fma``, ``ce_bwd_fma<false>``, ``ce_dw_kernel<float>``,
-   and dh's mirror image ``ce_bwd_fma<true>``, compiled but not launched),
-   and the f32 CE forward's and dh's grids and vocabulary ranges (``f32
-   grids``); the two flash
+   the bf16 CE forward, the bf16 CE backward at D 768) and of the f32
+   kernels (``flash_fwd_fma<64>``, ``ce_fwd_fma``, and dh's and dW's
+   ``ce_bwd_fma<false>`` and ``<true>``), and the f32 CE forward's and
+   dh's grids and vocabulary ranges and dW's grid and ranges of h's rows
+   (``f32 grids``); the two flash
    sources are also built with those kernels' register caps lifted, and
    the fused CE with its backward's other row layout (``CE_LAYOUT``);
 3. kernels — each kernel (flash_fwd, flash_bwd, and the fused CE's
    ce_fwd, ce_dh, ce_dw) against its plain PyTorch version on the card at
    the main path's shape and in the edge cases (bf16 and f32; for the CE
    forward one row, V under one tile, ties across its vocabulary ranges
-   and D 1544; for the f32 forward and dh one row, V under one tile, ties
-   across ranges, D 36, 772 and 1152; a second CE call must give the same
-   bits), then timed
+   and D 1544; for the f32 forward, dh and dW one row, V under one tile,
+   ties across ranges, D 36, 772, 1152 and 1544, and a vocabulary small
+   enough to split dW into ranges of h's rows; for the f32 flash forward a
+   ragged 129-row query and a fully masked row; a second CE call must give
+   the same bits), then timed
    beside the plain version, its bound and the PyTorch call that computes
    the same function (a yardstick only, the port never calls it; SDPA is
    first held against the plain versions): flash at the serving and
@@ -37,7 +39,8 @@ the final line:
    loss of batch 4 x 2048); ce_fwd with its vocabulary ranges,
    grid and the bytes its
    TMA boxes move into shared memory; ce_dh + ce_dw together beside the
-   one backward call of the yardstick (``pair`` line); then the two flash
+   one backward call of the yardstick (``pair`` line), and the f32 ce_dw
+   beside a library backward that computes dW alone; then the two flash
    kernels with their register caps lifted and the CE backward in its
    other row layout, each timed beside the shipped build;
 4. slice — the port's ``Engine`` serves 16 greedy requests with the
@@ -378,6 +381,10 @@ def check_kernels(gen):
         ("f32", 2, 512, 512, 12, 12, 64, f32, True, None, False),
         ("f32-noncausal-d40", 1, 200, 333, 4, 1, 40, f32, False, None,
          False),
+        # the f32 body's 128-row tile: a ragged last row, a fully masked
+        # row (segments)
+        ("f32-ragged-129", 1, 129, 129, 12, 12, 64, f32, True, None, False),
+        ("f32-segments", 2, 300, 300, 4, 2, 64, f32, True, None, True),
         *BF16_EDGE_CASES,
         # the shapes of the split backward's cases (rows 3-4), timed below
         *SPLIT_CASES,
@@ -602,21 +609,20 @@ def ce_fwd_usage() -> dict:
     return found[0]
 
 
-def ce_f32_usage() -> dict:
-    """ptxas's registers and spill bytes of the f32 CE kernels:
-    ``{name: (kernel, usage)}`` for the forward, dh, dW and dh's mirror
-    image (dW, compiled but not launched)."""
+def f32_usage() -> dict:
+    """ptxas's registers and spill bytes of the f32 kernels of the main
+    path: ``{name: (kernel, usage)}`` for the flash forward at d 64 and
+    the CE forward, dh and dW (dh's mirror image: one template)."""
     from chainermn_torch.ops import _cuda
 
-    usage = _cuda.ptxas_usage("fused_ce")
     out = {}
-    for name, kernel, key in (
-            ("ce_fwd", "ce_fwd_fma", "ce_fwd_fma"),
-            ("ce_dh", "ce_bwd_fma<false>", "ce_bwd_fmaILb0E"),
-            ("ce_dw", "ce_dw_kernel<float>", "ce_dw_kernelIfE"),
-            ("ce_dw mirror", "ce_bwd_fma<true>, not launched",
-             "ce_bwd_fmaILb1E")):
-        found = [u for fn, u in usage.items() if key in fn]
+    for name, lib, kernel, key in (
+            ("flash_fwd", "flash_fwd", "flash_fwd_fma<64>",
+             "flash_fwd_fmaILi64E"),
+            ("ce_fwd", "fused_ce", "ce_fwd_fma", "ce_fwd_fma"),
+            ("ce_dh", "fused_ce", "ce_bwd_fma<false>", "ce_bwd_fmaILb0E"),
+            ("ce_dw", "fused_ce", "ce_bwd_fma<true>", "ce_bwd_fmaILb1E")):
+        found = [u for fn, u in _cuda.ptxas_usage(lib).items() if key in fn]
         if len(found) != 1:
             raise PhaseError(f"ptxas reports {len(found)} {key} kernels")
         out[name] = (kernel, found[0])
@@ -886,8 +892,8 @@ def check_fused_ce(gen):
 
     from chainermn_torch.ops.fused_ce import (
         ce_dh_cuda, ce_dh_cuda_plan, ce_dh_reference, ce_dw_cuda,
-        ce_dw_reference, ce_forward_cuda, ce_forward_reference,
-        ce_fwd_cuda_plan)
+        ce_dw_cuda_plan, ce_dw_reference, ce_forward_cuda,
+        ce_forward_reference, ce_fwd_cuda_plan)
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
@@ -921,6 +927,11 @@ def check_fused_ce(gen):
         ("f32-d36", 333, 36, 2000, f32, False, True),
         ("f32-d772", 200, 772, 3000, f32, False, True),
         ("f32-d1152", 150, 1152, 2500, f32, False, True),
+        # dW on dh's mirror image: D 1544 (the old f32 dW's shared memory
+        # refused it), and a small vocabulary that splits h's rows into
+        # ranges summed from a workspace
+        ("f32-d1544", 70, 1544, 3000, f32, False, True),
+        ("f32-dw-ranges", 600, 768, 2000, f32, False, True),
     ]
     worst = {}
     for name, n, d, v, dtype, ties, backward in cases:
@@ -955,7 +966,8 @@ def check_fused_ce(gen):
         plan = ce_fwd_cuda_plan(n, d, v, "cuda", dtype)
         ranges = f" ranges={plan['splits']}"
         if dtype == f32:
-            ranges += f" dh_ranges={ce_dh_cuda_plan(n, d, v)['splits']}"
+            ranges += (f" dh_ranges={ce_dh_cuda_plan(n, d, v)['splits']}"
+                       f" dw_ranges={ce_dw_cuda_plan(n, d, v)['splits']}")
         line = (f"kernel fused_ce case={name} [{n},{d}]x[{d},{v}] "
                 f"{str(dtype)[6:]}{ranges} lse_err={e_lse:.3g} "
                 f"tl_err={e_tl:.3g} "
@@ -1073,7 +1085,9 @@ def time_f32_kernels(gen):
 def time_f32_ce(gen, n, dm=768, vocab=32768):
     """ce_fwd, ce_dh and ce_dw on f32 inputs [n, dm] x [dm, vocab] beside
     their plain versions, their bounds and ``F.cross_entropy(h @ W, y)``
-    (forward; backward, dh and dW in one call) in f32."""
+    in f32: its forward for ce_fwd, its backward (dh and dW in one call)
+    for ce_dh and, as ``pair_library_ms``, beside ce_dw; its backward
+    with respect to W alone is ce_dw's own yardstick."""
     import torch
     import torch.nn.functional as F
 
@@ -1086,10 +1100,14 @@ def time_f32_ce(gen, n, dm=768, vocab=32768):
     hl = h.detach().requires_grad_()
     wl = wt.detach().requires_grad_()
     loss = F.cross_entropy(hl @ wl.t(), y.long())
+    wo = wt.detach().requires_grad_()     # dW alone: h takes no gradient
+    loss_w = F.cross_entropy(h @ wo.t(), y.long())
     lib_f = cuda_time_ms(lambda: F.cross_entropy(h @ wt.t(), y.long()),
                          iters=5)
     lib_b = cuda_time_ms(lambda: torch.autograd.grad(
         loss, (hl, wl), retain_graph=True), iters=5)
+    lib_w = cuda_time_ms(lambda: torch.autograd.grad(
+        loss_w, (wo,), retain_graph=True), iters=5)
     rows = {}
     for name, kern, ref, lib in (
             ("ce_fwd", lambda: ce_forward_cuda(h, wt, y),
@@ -1097,13 +1115,14 @@ def time_f32_ce(gen, n, dm=768, vocab=32768):
             ("ce_dh", lambda: ce_dh_cuda(h, wt, y, lse),
              lambda: ce_dh_reference(h, wt, y, lse), lib_b),
             ("ce_dw", lambda: ce_dw_cuda(h, wt, y, lse),
-             lambda: ce_dw_reference(h, wt, y, lse), lib_b)):
+             lambda: ce_dw_reference(h, wt, y, lse), lib_w)):
         bound, by = ce_bound_ms(n, dm, vocab, "float32", name)
         rows[f"{name}_f32"] = dict(
             ms=cuda_time_ms(kern, iters=5, warmup=2),
             plain_ms=cuda_time_ms(ref, iters=3, warmup=1),
             library_ms=lib, bound_ms=bound, bound_by=by)
-    del h, wt, y, lse, hl, wl, loss
+    rows["ce_dw_f32"]["pair_library_ms"] = lib_b
+    del h, wt, y, lse, hl, wl, wo, loss, loss_w
     torch.cuda.empty_cache()
     return rows
 
@@ -3476,6 +3495,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     from chainermn_torch.ops import _cuda
     from chainermn_torch.ops.fused_ce import (ce_dh_cuda_plan,
+                                              ce_dw_cuda_plan,
                                               ce_fwd_cuda_plan)
 
     # f32 products in full f32 (the reference forward's precision)
@@ -3498,7 +3518,7 @@ def main(argv=None) -> int:
         + [f"{name} bf16 D <= 768 {_usage(u)}"
            for name, u in ce_bwd_usage().items()]
         + [f"{name} f32 ({kernel}) {_usage(u)}"
-           for name, (kernel, u) in ce_f32_usage().items()])
+           for name, (kernel, u) in f32_usage().items()])
         + f" ({card})", flush=True)
     print("f32 grids: " + "; ".join(
         f"ce_fwd N {n}: S={p['splits']} of {p['per']} tiles, grid "
@@ -3507,11 +3527,12 @@ def main(argv=None) -> int:
         for n, p in ((n, ce_fwd_cuda_plan(n, 768, 32768, "cuda",
                                           torch.float32))
                      for n in (1024, 8192))) + "; " + "; ".join(
-        f"ce_dh N {n}: S={p['splits']} of {p['per']} tiles, grid "
+        f"{name} N {n}: S={p['splits']} of {p['per']} tiles, grid "
         f"{'x'.join(map(str, p['grid']))} ({math.prod(p['grid'])} CTAs), "
         f"workspace {p['workspace_bytes']} B"
-        for n, p in ((n, ce_dh_cuda_plan(n, 768, 32768))
-                     for n in (1024, 8192)))
+        for name, plan in (("ce_dh", ce_dh_cuda_plan),
+                           ("ce_dw", ce_dw_cuda_plan))
+        for n, p in ((n, plan(n, 768, 32768)) for n in (1024, 8192)))
         + f" (D 768, V 32768; {card})", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -3524,6 +3545,9 @@ def main(argv=None) -> int:
     worst["flash_bwd_f32"] = max(bwd_worst[c] for c in f32_cases)
     worst.update(check_fused_ce(gen))
     def show(name, where, row, extra=""):
+        if "pair_library_ms" in row:
+            extra += (f", library dh and dW in one call "
+                      f"{row.pop('pair_library_ms'):.4f} ms")
         print(f"time {name} ({where}): kernel {row['ms']:.4f} ms, "
               f"plain {row['plain_ms']:.4f} ms, library "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms,"

@@ -30,7 +30,8 @@ from chainermn_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward_reference,
     flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_reference)
 from chainermn_torch.ops.fused_ce import (ce_dh_cuda, ce_dh_reference,
-                                          ce_dw_cuda, ce_dw_reference,
+                                          ce_dw_cuda, ce_dw_cuda_plan,
+                                          ce_dw_reference,
                                           ce_forward_cuda,
                                           ce_forward_reference,
                                           fused_ce_head, fused_lm_loss)
@@ -52,6 +53,23 @@ CASES = {
                                 False, None, False),
     "d48-f32": (1, 200, 200, 4, 2, 48, torch.float32, True, None, False),
     "d96-f32": (1, 200, 200, 4, 2, 96, torch.float32, True, None, False),
+    # the f32 body's 128-row tiles: ragged Lq of 129 and 200, causal
+    # Lq != Lk both ways, a fully masked row (segments), and every head
+    # dim's template (d 16 ... 128: 1, 2 or 4 columns a read)
+    "ragged-129-f32-d64": (1, 129, 129, 4, 4, 64, torch.float32, True,
+                           None, False),
+    "ragged-129-f32-d40": (1, 129, 129, 4, 2, 40, torch.float32, True,
+                           None, False),
+    "ragged-200-f32-d128": (1, 200, 200, 2, 1, 128, torch.float32, True,
+                            None, False),
+    "causal-lq-lt-lk-f32-d80": (1, 100, 300, 4, 2, 80, torch.float32,
+                                True, None, False),
+    "causal-lq-gt-lk-f32-d112": (1, 300, 70, 2, 2, 112, torch.float32,
+                                 True, None, False),
+    "segments-129-f32-d16": (2, 129, 129, 2, 1, 16, torch.float32, True,
+                             None, True),
+    "window-200-f32-d64": (1, 200, 200, 2, 2, 64, torch.float32, True, 150,
+                           False),
     # the tensor-core (bf16) paths beyond d 64 and the plain causal mask
     "window-bf16-d32": (1, 300, 300, 4, 2, 32, torch.bfloat16, True, 37,
                         False),
@@ -240,6 +258,13 @@ CE_CASES = {
     # accumulator (772: the second chunk 4 columns wide; 1152: the widest
     # f32 dh before), the ZeRO phase's batch
     "f32-n1": (1, 768, 32768, torch.float32, False),
+    # dW on dh's mirror image: D 1544 (refused before: the old f32 dW
+    # kept a [32, D] accumulator in shared memory), the f32 LM loss of
+    # batch 4 x 2048, and a small vocabulary that splits h's rows into
+    # ranges summed from a workspace
+    "f32-d1544": (70, 1544, 3000, torch.float32, False),
+    "f32-n8192": (8192, 768, 32768, torch.float32, False),
+    "f32-dw-ranges": (600, 768, 2000, torch.float32, False),
     "f32-v-below-a-tile": (300, 768, 100, torch.float32, False),
     "f32-ties-across-ranges": (512, 64, 4096, torch.float32, True),
     "f32-d36": (333, 36, 2000, torch.float32, False),
@@ -292,7 +317,8 @@ def test_fused_ce_kernels_match_plain_versions(cuda, name):
 
 @pytest.mark.parametrize("name", ["bf16-d768", "bf16-d1024-chunked",
                                   "f32-ragged", "f32-d1152",
-                                  "f32-zero-shape"])
+                                  "f32-zero-shape", "f32-d1544",
+                                  "f32-dw-ranges"])
 def test_fused_ce_backward_is_bitwise_reproducible(cuda, name):
     """No atomics: each output element is owned by one CTA, so two calls
     on the same inputs give the same bits."""
@@ -303,6 +329,13 @@ def test_fused_ce_backward_is_bitwise_reproducible(cuda, name):
         torch.cuda.synchronize()
         assert first.abs().max() > 0
         assert torch.equal(first, second)
+
+
+def test_the_small_vocabulary_case_splits_dw_into_ranges(cuda):
+    """``f32-dw-ranges`` runs dW with S > 1 (a workspace and its sum in
+    range order) on this card."""
+    n, d, v, _, _ = CE_CASES["f32-dw-ranges"]
+    assert ce_dw_cuda_plan(n, d, v, cuda)["splits"] > 1
 
 
 def test_fused_ce_backward_refuses_d_past_shared_memory(cuda):
@@ -433,15 +466,18 @@ def test_fused_lm_loss_on_an_f32_model_launches_each_f32_ce_kernel_once(
 
 
 #: the f32 kernels' tiles, which tests/test_torch_fused_ce_f32.py plans
-#: with on the CPU: forward (rows, columns, depth, CTAs an SM) and dh
-#: (rows, vocabulary rows, D chunk, CTAs an SM)
+#: with on the CPU: forward (rows, columns, depth, CTAs an SM), dh (rows,
+#: vocabulary rows, D chunk, CTAs an SM) and dW, dh's mirror image
+#: (vocabulary rows, rows of h, D chunk, CTAs an SM)
 F32_FWD_TILE = (128, 128, 64, 1)
 F32_DH_TILE = (32, 256, 768, 1)
+F32_DW_TILE = (32, 256, 768, 1)
 
 
 def test_the_f32_tiles_are_the_ones_the_cpu_tests_plan_with(cuda):
     assert _cuda.ce_fwd_tile(torch.float32) == F32_FWD_TILE
     assert _cuda.ce_dh_tile() == F32_DH_TILE
+    assert _cuda.ce_dw_tile() == F32_DW_TILE
 
 
 def test_fused_ce_head_differentiates_through_the_kernels(cuda):

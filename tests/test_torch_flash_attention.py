@@ -34,6 +34,8 @@ CASES = {
     "window": (1, 64, 4, 2, 16, True, 24, False),
     "segments": (2, 64, 4, 2, 16, True, None, True),
     "ragged-100": (1, 100, 4, 4, 16, True, None, False),
+    # across the f32 kernel's 128-row tile
+    "ragged-129": (1, 129, 2, 2, 16, True, None, False),
 }
 
 

@@ -1,7 +1,8 @@
-"""The f32 fused CE's vocabulary split on the CPU: the plain versions of
-its forward ranges at the f32 tile width and of its dh ranges, held to the
-whole-vocabulary plain versions and to JAX's fused_ce_head (Pallas,
-interpret mode), and the planners that pick its ranges.
+"""The f32 fused CE's splits on the CPU: the plain versions of its forward
+ranges at the f32 tile width, of its dh ranges (of the vocabulary) and of
+its dW ranges (of h's rows), held to the whole plain versions and to
+JAX's fused_ce_head (Pallas, interpret mode), and the planners that pick
+its ranges.
 
 Inputs are made with numpy from a seed and fed to both. Tolerance: rtol =
 atol = 1e-4 (the ranges and JAX sum in different orders); argmax exact.
@@ -15,15 +16,19 @@ import jax
 import jax.numpy as jnp
 
 from chainermn_tpu.ops.fused_ce import fused_ce_head as jax_fused_ce_head
-from chainermn_torch.ops.fused_ce import (ce_dh_combine_reference,
-                                          ce_dh_cuda, ce_dh_partial_reference,
+from chainermn_torch.ops.fused_ce import (ce_dh_cuda, ce_dh_partial_reference,
                                           ce_dh_plan, ce_dh_reference,
-                                          ce_dh_splits, ce_forward_reference,
+                                          ce_dh_splits, ce_dw_cuda,
+                                          ce_dw_partial_reference,
+                                          ce_dw_plan, ce_dw_reference,
+                                          ce_dw_splits, ce_forward_reference,
                                           ce_fwd_combine_reference,
                                           ce_fwd_partial_reference,
-                                          ce_fwd_plan, ce_fwd_splits)
+                                          ce_fwd_plan, ce_fwd_splits,
+                                          ce_sum_ranges_reference)
 
 from tests.test_torch_cuda import F32_DH_TILE as DH_TILE
+from tests.test_torch_cuda import F32_DW_TILE as DW_TILE
 from tests.test_torch_cuda import F32_FWD_TILE as FWD_TILE
 
 N, D, V = 96, 32, 640
@@ -108,7 +113,7 @@ def test_dh_ranges_sum_to_the_whole_dh_and_to_jax(width):
     parts = torch.stack([ce_dh_partial_reference(ht, wt, yt, lse, lo, hi)
                          for lo, hi in bounds])
     assert parts.dtype == torch.float32 and parts.shape == (len(bounds), N, D)
-    dh = ce_dh_combine_reference(parts)
+    dh = ce_sum_ranges_reference(parts)
     torch.testing.assert_close(dh, ce_dh_reference(ht, wt, yt, lse), **TOL)
     np.testing.assert_allclose(dh.numpy(), _jax_dh(h, w, y), **TOL)
     # every range adds its own share: none of the partials is zero
@@ -126,7 +131,7 @@ def test_a_dh_range_without_a_label_is_the_softmax_term_alone():
     p = torch.softmax(ht @ wt.t(), -1)[:, lo:hi]
     torch.testing.assert_close(got, p @ wt[lo:hi], **TOL)
     # one range is the whole dh, cast to the requested dtype
-    whole = ce_dh_combine_reference(
+    whole = ce_sum_ranges_reference(
         ce_dh_partial_reference(ht, wt, yt, lse, 0, V)[None], torch.float32)
     torch.testing.assert_close(whole, ce_dh_reference(ht, wt, yt, lse),
                                **TOL)
@@ -137,8 +142,8 @@ def test_the_combine_sums_in_range_order():
     version rounds the same way (1 + 2^-24 + 2^-24 stays 1 in f32 left to
     right)."""
     parts = torch.tensor([[[1.0]], [[2.0 ** -24]], [[2.0 ** -24]]])
-    assert ce_dh_combine_reference(parts).item() == 1.0
-    assert ce_dh_combine_reference(parts.flip(0)).item() > 1.0
+    assert ce_sum_ranges_reference(parts).item() == 1.0
+    assert ce_sum_ranges_reference(parts.flip(0)).item() > 1.0
 
 
 def test_f32_planners_cover_the_vocabulary_with_no_empty_range():
@@ -195,3 +200,109 @@ def test_the_dh_grid_covers_every_row_and_column_once(d):
         assert splits == plan["splits"] >= 1
         assert plan["workspace_bytes"] == (4 * splits * n * d
                                            if splits > 1 else 0)
+
+
+def _jax_dw(h, w, y):
+    """Unscaled dWᵀ = dlᵀ . h ``[V, D]`` from JAX fused_ce_head's
+    custom_vjp (Pallas, interpret mode): its dW is the mean loss's,
+    hᵀ . dl / N, in the head's [D, V] layout."""
+    def f(w):
+        return jax_fused_ce_head(jnp.asarray(h), w, jnp.asarray(y), 64,
+                                 128)[0]
+
+    _, vjp = jax.vjp(f, jnp.asarray(w))
+    return np.asarray(vjp(jnp.ones(()))[0]).T * h.shape[0]
+
+
+def _row_bounds(width):
+    return list(zip(range(0, N, width), list(range(width, N, width)) + [N]))
+
+
+@pytest.mark.parametrize("width", [DW_TILE[1], 40])
+def test_dw_ranges_sum_to_the_whole_dw_and_to_jax(width):
+    """The f32 dW's split, dh's mirror image: ranges of ``width`` rows of h
+    (the last ragged; the kernel's 256-row tile makes one range of the
+    96 rows), partials summed in range order. The sum equals
+    ce_dw_reference and JAX's gradient in w within 1e-5."""
+    h, w, y = _data(4)
+    bounds = _row_bounds(width)
+    ht, wt, yt = (torch.from_numpy(h), torch.from_numpy(w.T.copy()),
+                  torch.from_numpy(y))
+    lse = ce_forward_reference(ht, wt, yt)[0]
+    parts = torch.stack([ce_dw_partial_reference(ht, wt, yt, lse, lo, hi)
+                         for lo, hi in bounds])
+    assert parts.dtype == torch.float32 and parts.shape == (len(bounds), V, D)
+    dwt = ce_sum_ranges_reference(parts)
+    torch.testing.assert_close(dwt, ce_dw_reference(ht, wt, yt, lse), **TOL)
+    np.testing.assert_allclose(dwt.numpy(), _jax_dw(h, w, y), rtol=1e-5,
+                               atol=1e-5)
+    assert (parts.abs().amax((1, 2)) > 0).all()
+
+
+def test_a_dw_range_adds_the_softmax_term_alone_where_it_holds_no_label():
+    """In a range of h's rows, the vocabulary rows that no row of the
+    range has as its label get p . h alone; the labelled ones also lose
+    their rows of h."""
+    h, w, y = _data(5)
+    lo, hi = 30, 70
+    y[lo:hi] = 9                               # one label in the range
+    ht, wt, yt = (torch.from_numpy(h), torch.from_numpy(w.T.copy()),
+                  torch.from_numpy(y))
+    lse = ce_forward_reference(ht, wt, yt)[0]
+    got = ce_dw_partial_reference(ht, wt, yt, lse, lo, hi)
+    p = torch.softmax(ht @ wt.t(), -1)[lo:hi]
+    soft = p.t() @ ht[lo:hi]
+    free = torch.ones(V, dtype=torch.bool)
+    free[9] = False
+    torch.testing.assert_close(got[free], soft[free], **TOL)
+    torch.testing.assert_close(got[9], soft[9] - ht[lo:hi].sum(0), **TOL)
+
+
+def test_the_f32_dw_planner_splits_h_rows_only_where_the_vocabulary_is_small():
+    """One range (no workspace) at the LM's vocabulary on an H100's 132
+    SMs, at the ZeRO phase's N 1024 and the f32 loss's N 8192; a small
+    vocabulary fills the card with ranges of h's rows instead."""
+    rows, tile, chunk, ctas = DW_TILE
+    for n in (1024, 8192):
+        plan = ce_dw_plan(n, 768, 32768, 132, *DW_TILE)
+        assert plan["splits"] == 1 and plan["workspace_bytes"] == 0
+        assert plan["grid"] == (1024, 1, 1)
+    small = ce_dw_plan(2048, 768, 300, 132, *DW_TILE)
+    assert small["splits"] > 1
+    assert small["grid"] == (10, small["splits"], 1)
+    assert small["workspace_bytes"] == 4 * small["splits"] * 300 * 768
+    for sms in (132, 114, 8):
+        for n in (1, 255, 256, 257, 1000, 8192, 65536):
+            for v in (1, 31, 33, 300, 4097, 32768, 50257):
+                s, per = ce_dw_splits(n, 768, v, sms, rows, tile, chunk,
+                                      ctas)
+                tiles = -(-n // tile)
+                assert 1 <= s <= tiles, (sms, n, v, s)
+                assert (s - 1) * per < tiles <= s * per, (sms, n, v, s, per)
+
+
+@pytest.mark.parametrize("d", [4, 36, 768, 772, 1152, 1544])
+def test_the_dw_grid_covers_every_vocabulary_row_and_column_once(d):
+    """The dW grid's vocabulary blocks and D chunks tile dWᵀ [V, D] with no
+    chunk left empty, its ranges cover h's row tiles with none empty, and
+    its workspace holds one [V, D] slice a range."""
+    rows, tile, chunk, _ = DW_TILE
+    for n in (1, 256, 257, 1024, 8192):
+        for v in (1, 32, 33, 300, 32768):
+            plan = ce_dw_plan(n, d, v, 132, *DW_TILE)
+            blocks, splits, chunks = plan["grid"]
+            assert (blocks - 1) * rows < v <= blocks * rows
+            assert (chunks - 1) * chunk < d <= chunks * chunk
+            tiles = -(-n // tile)
+            assert splits == plan["splits"] >= 1
+            assert (splits - 1) * plan["per"] < tiles <= splits * plan["per"]
+            assert plan["workspace_bytes"] == (4 * splits * v * d
+                                               if splits > 1 else 0)
+
+
+def test_the_dw_kernel_wrapper_refuses_cpu_tensors():
+    h, w, y = _data(6)
+    ht, wt, yt = (torch.from_numpy(h), torch.from_numpy(w.T.copy()),
+                  torch.from_numpy(y))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ce_dw_cuda(ht, wt, yt, torch.zeros(N))
