@@ -57,9 +57,42 @@
 // ldmatrix spends; `mma.sync` is what PyTorch's own flash backend runs on
 // this card, and the fragment layouts and masks here carry over.
 //
-// f32 path: the CUDA-core FMA loop of the first version. The f32 contract
-// (1e-4 against the plain version) is tighter than TF32's 10-bit mantissa,
-// and f32 is not the main path's dtype.
+// f32 path (`flash_bwd_fma`), full f32 on the CUDA cores: the f32 contract
+// (1e-4 against the plain version) is tighter than TF32's 10-bit mantissa;
+// an f32 model (the JAX TransformerLM's default) runs it. At [4, 2048, 12,
+// 64] causal it is bound by its 64.4 GFLOP of FMAs (0.962 ms at 67
+// TFLOP/s), so the design spends as little as it can beside the FMAs:
+// * one CTA of 256 threads, one an SM, owns 128 keys at d <= 64 (64
+//   above): K and V are copied once, and dK and dV (64 floats a thread at
+//   either height) stay in registers for the CTA's life;
+// * Q, dO, lse and Dr of each 64-row query tile stream through a two-stage
+//   cp.async ring, the next tile's copy issued before this tile's FMAs;
+// * every product is an outer product of register tiles fed by 16-byte
+//   shared-memory reads, the row operand read by broadcast in each
+//   quarter-warp, the column operand spread over 8 bank quads: S and dP 8
+//   rows x 4 keys a thread (4 x 4 at 64 keys), 12 reads per 128 FMAs;
+//   dV += P^T dO and dK += dS^T Q 8 keys (4) x d/16 columns, a read of P^T
+//   or dS^T covering 4 query rows; dQ = dS K 8 rows x d/16 columns over
+//   half the keys (warps 0-3 the first half, 4-7 the second);
+// * P is one FFMA (scale log2(e) folded in) and ex2; masks run only on the
+//   tiles that need them (the causal diagonal, the window edge, ragged
+//   tails, any segment ids); P and dS go to shared memory transposed,
+//   [key][row], a warp's 32 stores on 32 banks;
+// * dQ is summed into the f32 dq buffer with one 16-byte atomic per row and
+//   4 columns (8 and 4 bytes where d/16 is not a multiple of 4);
+// * rows are padded by 4 floats, so 8 rows read at one column hit 8 bank
+//   quads; at d 128 padded tiles would not fit 227 KB, so there the rows
+//   are unpadded and their quads XOR-swizzled by the row.
+// Two barriers a query tile. What bounds it on an H100 (PERF.md, PR 14):
+// the shared-memory reads. One 16-byte read costs the SM ~2.4 cycles where
+// each quarter-warp reads one address and ~4 where it reads 8, so each
+// product's reads take ~1.1x its FMAs' issue time; dK, dV, the S and dP
+// tiles and their operands fill 254 registers, which leaves none to
+// prefetch the next reads, and each product runs at about two thirds of
+// that bound (~53% of the FMA peak in all). 128-key tiles beat 64 (fewer
+// reads and atomics per FMA); splitting the CTA into an S/P/dV half and a
+// dP/dS/dK half with 8 x 8 tiles (a third fewer reads) was no faster: a
+// third barrier, the P exchange and spills ate the gain.
 //
 // Layout: q/do [B, Lq, Hq, D], k/v [B, Lk, Hkv, D], read in place through
 // their strides (last dim contiguous, rows 16-byte aligned); lse and Dr
@@ -72,6 +105,8 @@
 // Numerics as in the TPU kernel: S and dP from native-dtype operands with
 // f32 accumulation, P rounded to dO's dtype before P^T.dO, dS rounded to the
 // input dtype before dS^T.Q and dS.K, accumulators in f32.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -375,227 +410,376 @@ __global__ void __launch_bounds__(NTHREADS, DP <= 64 ? FLASH_BWD_MIN_CTAS : 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs
+// f32: register-tiled CUDA-core FMAs
 
-constexpr int RPT = 4;       // rows per thread
-constexpr int CPT = BK / 8;  // score columns per thread
+constexpr int FQ = 64;  // query rows of a streamed tile
 
+// The f32 tile at head dim DP (D padded to 16). Each product is an outer
+// product of register tiles read from shared memory 16 bytes at a time:
+// lanes 8 l4 + l8 of a warp share their row operand within a quarter-warp
+// (one broadcast) and spread their column operand over 8 bank quads.
 template <int DP>
-constexpr int fma_smem_bytes() {
-  return (4 * BK * (DP + 4) + 2 * BQ * (BK + 1)) * 4;
+struct FmaTile {
+  // keys a CTA: dK and dV, 2 KT DP / FNT = 64 floats a thread at either
+  // height, stay in registers for the CTA's life
+  static constexpr int KT = DP <= 64 ? 128 : 64;
+  // S and dP: TM query rows (r + 4 i) x 4 keys (c + 8 j) a thread; a warp
+  // covers 4 TM rows x 32 keys, RW warps down the query tile
+  static constexpr int TM = KT / 16;
+  static constexpr int RW = FQ / (4 * TM);
+  // dV and dK: TK keys (c + 4 i) x OC columns a thread; dQ: 8 query rows x
+  // OC columns over half the keys (warps 0-3 the first half, 4-7 the
+  // second). A lane's columns are OQ runs of VEC of its column group (16
+  // groups: 8 lanes x 2 warps), so each run is one read
+  static constexpr int TK = KT / 16;
+  static constexpr int VEC = DP % 64 == 0 ? 4 : DP % 32 == 0 ? 2 : 1;
+  static constexpr int OQ = DP / (16 * VEC);
+  static constexpr int OC = OQ * VEC;
+  // rows of Q, dO, K, V (LD floats) and of P^T, dS^T (LDP): padded by 4
+  // floats, or at d 128, where padding would not fit, unpadded with their
+  // 16-byte quads XOR-swizzled by the row (`at` in flash_common.cuh)
+  static constexpr bool SWZ = DP == 128;
+  static constexpr int LD = SWZ ? DP : DP + 4;
+  static constexpr int LDP = SWZ ? FQ : FQ + 4;
+  // offsets in floats: K, V; Q and dO of two stages; P^T and dS^T
+  // [key][query row]; lse and Dr of two stages
+  static constexpr int V = KT * LD;
+  static constexpr int Q = 2 * KT * LD;
+  static constexpr int O = Q + 2 * FQ * LD;
+  static constexpr int P = O + 2 * FQ * LD;
+  static constexpr int S = P + KT * LDP;
+  static constexpr int L = S + KT * LDP;
+  static constexpr int DR = L + 2 * FQ;
+  static constexpr int SMEM = (DR + 2 * FQ) * 4;
+  static_assert(SMEM <= 232448, "the f32 tile must fit a block's smem");
+  static_assert(RW * KT / 32 == FNT / 32 && 4 * TK * 4 == KT,
+                "8 warps tile both S and dV/dK");
+};
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// acc[i][j] = a[r + 4 i] . b[c + 8 j] over the head dim (rows of two
+// shared-memory tiles), TM + 4 16-byte reads per 4 depths
+template <int DP, int TM, int LD, bool SWZ>
+__device__ __forceinline__ void row_dots(float (&acc)[TM][4], const float* a,
+                                         const float* bt, int r, int c) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DP; d += 4) {
+    float4 av[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) av[i] = load4(a + at<LD, SWZ>(r + 4 * i, d));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 bv = load4(bt + at<LD, SWZ>(c + 8 * j, d));
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        float x = acc[i][j];
+        x = fmaf(av[i].x, bv.x, x);
+        x = fmaf(av[i].y, bv.y, x);
+        x = fmaf(av[i].z, bv.z, x);
+        x = fmaf(av[i].w, bv.w, x);
+        acc[i][j] = x;
+      }
+    }
+  }
+}
+
+// VEC consecutive floats of global memory from x, in one store or atomic
+template <int VEC, bool ADD>
+__device__ __forceinline__ void st_vec(float* p, const float* x) {
+  if constexpr (VEC == 4) {
+    const float4 v = make_float4(x[0], x[1], x[2], x[3]);
+    if constexpr (ADD) atomicAdd(reinterpret_cast<float4*>(p), v);
+    else *reinterpret_cast<float4*>(p) = v;
+  } else if constexpr (VEC == 2) {
+    const float2 v = make_float2(x[0], x[1]);
+    if constexpr (ADD) atomicAdd(reinterpret_cast<float2*>(p), v);
+    else *reinterpret_cast<float2*>(p) = v;
+  } else {
+    if constexpr (ADD) atomicAdd(p, x[0]);
+    else *p = x[0];
+  }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_fma(Params p) {
-  static_assert(BQ == BK, "load_tile serves Q and K/V tiles of one height");
-  constexpr int LD = DP + 4, LDS = BK + 1;
-  constexpr int DPT = DP / 8;  // head-dim columns per thread
+__global__ void __launch_bounds__(FNT, 1) flash_bwd_fma(Params p) {
+  using T = FmaTile<DP>;
+  constexpr int KT = T::KT, TM = T::TM, TK = T::TK;
+  constexpr int VEC = T::VEC, OQ = T::OQ, OC = T::OC;
+  constexpr int LD = T::LD, LDP = T::LDP;
+  constexpr bool SWZ = T::SWZ;
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + BK * LD;
-  float* sQ = sV + BK * LD;
-  float* sO = sQ + BQ * LD;   // dO
-  float* sP = sO + BQ * LD;   // P
-  float* sS = sP + BQ * LDS;  // dS
+  float* sV = sK + T::V;
+  float* sQ = sK + T::Q;   // [2][FQ] rows
+  float* sO = sK + T::O;   // [2][FQ] rows of dO
+  float* sP = sK + T::P;   // P^T [KT][LDP]
+  float* sS = sK + T::S;   // dS^T [KT][LDP]
+  float* sL = sK + T::L;   // [2][FQ] lse
+  float* sD = sK + T::DR;  // [2][FQ] Dr
 
   const int bh = blockIdx.x;  // b * Hkv + hk
   const int kt = blockIdx.y;  // heaviest causal tiles (small kt) first
   const int b = bh / p.Hkv;
   const int hk = bh % p.Hkv;
   const int group = p.Hq / p.Hkv;
-  const int k0 = kt * BK;
-  const int nk = min(BK, p.Lk - k0);
-  const int rg = threadIdx.x / 8;
-  const int cg = threadIdx.x % 8;
-  const int r0 = rg * RPT;
+  const int k0 = kt * KT;
+  const int nk = min(KT, p.Lk - k0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int l4 = lane / 8, l8 = lane % 8;
+  // S, dP: tile rows r1 + 4 i and keys c1 + 8 j
+  const int r1 = warp % T::RW * 4 * TM + l4;
+  const int c1 = warp / T::RW * 32 + l8;
+  // dV, dK: keys c3 + 4 i, column group cg (columns VEC cg + 16 VEC q + e)
+  const int c3 = warp % 4 * (KT / 4) + l4;
+  const int cg = warp / 4 * 8 + l8;
+  // dQ: tile rows r4 + i, keys kq .. kq + KT / 2 - 1, column group cq
+  const int r4 = (warp & 1) * 32 + 8 * l4;
+  const int kq = warp / 4 * (KT / 2);
+  const int cq = (warp >> 1 & 1) * 8 + l8;
 
   const float* kb = static_cast<const float*>(p.k) + b * p.ksb + hk * p.ksh;
   const float* vb = static_cast<const float*>(p.v) + b * p.vsb + hk * p.vsh;
-  load_tile<DP>(sK, LD, kb + k0 * p.ksl, p.ksl, nk, p.D);
-  load_tile<DP>(sV, LD, vb + k0 * p.vsl, p.vsl, nk, p.D);
-
-  int ks[CPT];
+  fma_tile_async<KT, DP, LD, SWZ>(sK, kb + k0 * p.ksl, p.ksl, nk, p.D);
+  fma_tile_async<KT, DP, LD, SWZ>(sV, vb + k0 * p.vsl, p.vsl, nk, p.D);
+  int ks[4];
 #pragma unroll
-  for (int j = 0; j < CPT; ++j) {
-    const int col = k0 + cg + 8 * j;
+  for (int j = 0; j < 4; ++j) {
+    const int col = k0 + c1 + 8 * j;
     ks[j] = (p.kseg != nullptr && col < p.Lk) ? p.kseg[b * p.Lk + col] : 0;
   }
 
-  // query rows that can see a column of this tile
+  // query rows that can see a column of this tile, as the bf16 path's
   int qbeg = 0, qend = p.Lq;
   if (p.causal) {
-    qbeg = k0 / BQ * BQ;
-    if (p.window > 0) qend = min(qend, k0 + BK - 1 + p.window);
+    qbeg = k0 / FQ * FQ;
+    if (p.window > 0) qend = min(qend, k0 + KT - 1 + p.window);
   }
+  const int nqt = qend > qbeg ? (qend - qbeg + FQ - 1) / FQ : 0;
+  const int iters = group * nqt;
 
-  float dk[RPT][DPT], dv[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) dk[i][j] = dv[i][j] = 0.f;
+  // iteration it: query head hk * group + it / nqt, query tile it % nqt,
+  // into stage st: Q and dO rows, then lse and Dr (threads < 2 FQ)
+  auto issue = [&](int it, int st) {
+    const int h = hk * group + it / nqt;
+    const int q0 = qbeg + (it % nqt) * FQ;
+    const int nq = min(FQ, p.Lq - q0);
+    const float* qsrc = static_cast<const float*>(p.q) + b * p.qsb +
+                        h * p.qsh + q0 * p.qsl;
+    const float* osrc = static_cast<const float*>(p.dout) + b * p.osb +
+                        h * p.osh + q0 * p.osl;
+    fma_tile_async<FQ, DP, LD, SWZ>(sQ + st * FQ * LD, qsrc, p.qsl, nq, p.D);
+    fma_tile_async<FQ, DP, LD, SWZ>(sO + st * FQ * LD, osrc, p.osl, nq, p.D);
+    if (threadIdx.x < 2 * FQ) {
+      const long long rowoff =
+          (static_cast<long long>(b) * p.Hq + h) * p.Lq + q0;
+      const int r = threadIdx.x % FQ;
+      const bool lse = threadIdx.x < FQ;
+      cp_async4((lse ? sL : sD) + st * FQ + r,
+                (lse ? p.lse : p.dr) + rowoff + (r < nq ? r : 0), r < nq);
+    }
+  };
 
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const float* qb = static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh;
-    const float* ob =
-        static_cast<const float*>(p.dout) + b * p.osb + h * p.osh;
-    const float* lse_b = p.lse + (static_cast<long long>(b) * p.Hq + h) * p.Lq;
-    const float* dr_b = p.dr + (static_cast<long long>(b) * p.Hq + h) * p.Lq;
-    for (int q0 = qbeg; q0 < qend; q0 += BQ) {
-      const int nq = min(BQ, p.Lq - q0);
-      __syncthreads();  // previous tile's sQ/sO/sP/sS reads are done
-      load_tile<DP>(sQ, LD, qb + q0 * p.qsl, p.qsl, nq, p.D);
-      load_tile<DP>(sO, LD, ob + q0 * p.osl, p.osl, nq, p.D);
-      __syncthreads();
+  if (iters > 0) issue(0, 0);
+  cp_async_commit();  // with K and V
 
-      float s[RPT][CPT], dp[RPT][CPT];
+  const float scale2 = p.scale * LOG2E;
+  float dk[TK][OC], dv[TK][OC];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+  for (int i = 0; i < TK; ++i)
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c = 0; c < OC; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  for (int it = 0; it < iters; ++it) {
+    const int st = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it landed; every thread is done with it - 1
+    if (it + 1 < iters) issue(it + 1, st ^ 1);  // into the stage it - 1 used
+    cp_async_commit();
+    const int h = hk * group + it / nqt;
+    const int q0 = qbeg + (it % nqt) * FQ;
+    const float* tQ = sQ + st * FQ * LD;
+    const float* tO = sO + st * FQ * LD;
+
+    // S = Q K^T and dP = dO V^T: TM rows x 4 keys a thread
+    float s[TM][4], dp[TM][4];
+    row_dots<DP, TM, LD, SWZ>(s, tQ, sK, r1, c1);
+    row_dots<DP, TM, LD, SWZ>(dp, tO, sV, r1, c1);
+
+    // P = exp(S scale - lse), scale log2(e) folded into one FFMA before
+    // ex2; masked entries 0, and masks only on the tiles that need them
+    // (the causal diagonal, the window edge, ragged tails, any segment
+    // ids)
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float lse2 = sL[st * FQ + r1 + 4 * i] * LOG2E;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = ex2(fmaf(s[i][j], scale2, -lse2));
+    }
+    if (p.qseg != nullptr || q0 + FQ > p.Lq || k0 + KT > p.Lk ||
+        (p.causal && (k0 + KT - 1 > q0 ||
+                      (p.window > 0 && k0 <= q0 + FQ - 1 - p.window)))) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int row = q0 + r1 + 4 * i;
+        const int qs =
+            (p.qseg != nullptr && row < p.Lq) ? p.qseg[b * p.Lq + row] : 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + c1 + 8 * j;
+          bool keep = (row < p.Lq) & (col < p.Lk);
+          if (p.causal)
+            keep &= (col <= row) & ((p.window <= 0) | (row - col < p.window));
+          if (p.qseg != nullptr) keep &= qs == ks[j];
+          if (!keep) s[i][j] = 0.f;
+        }
+      }
+    }
+    // dS = P (dP - Dr) scale; P and dS go to shared memory transposed,
+    // [key][row]: a warp's 32 lanes store to 32 banks
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int rl = r1 + 4 * i;
+      const float dri = sD[st * FQ + rl];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int off = at<LDP, SWZ>(c1 + 8 * j, rl);
+        sP[off] = s[i][j];
+        sS[off] = s[i][j] * (dp[i][j] - dri) * p.scale;
+      }
+    }
+    __syncthreads();  // P^T, dS^T complete
+
+    // dV += P^T dO and dK += dS^T Q over the tile's query rows: per 4 rows,
+    // 2 TK reads of P^T and dS^T (4 rows each) and 8 OQ of dO and Q
+#pragma unroll 2
+    for (int q = 0; q < FQ; q += 4) {
+      float4 pt[TK], dt[TK];
+#pragma unroll
+      for (int i = 0; i < TK; ++i) {
+        pt[i] = load4(sP + at<LDP, SWZ>(c3 + 4 * i, q));
+        dt[i] = load4(sS + at<LDP, SWZ>(c3 + 4 * i, q));
+      }
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4)
+#pragma unroll
+        for (int oq = 0; oq < OQ; ++oq) {
+          const int col = VEC * cg + 16 * VEC * oq;
+          float ov[VEC], qv[VEC];
+          lds_vec<VEC>(ov, tO + at<LD, SWZ>(q + e4, col));
+          lds_vec<VEC>(qv, tQ + at<LD, SWZ>(q + e4, col));
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+#pragma unroll
+            for (int i = 0; i < TK; ++i) {
+              dv[i][oq * VEC + e] =
+                  fmaf(lane_of(pt[i], e4), ov[e], dv[i][oq * VEC + e]);
+              dk[i][oq * VEC + e] =
+                  fmaf(lane_of(dt[i], e4), qv[e], dk[i][oq * VEC + e]);
+            }
+        }
+    }
+
+    // dQ = dS K: 8 rows x OC columns a thread over half the keys, per key
+    // two reads of dS^T (4 rows each) and OQ of K; summed into the f32
+    // dq_acc with one VEC-wide atomic per row and run
+    float dq[8][OC];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < OC; ++c) dq[i][c] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < DP; d += 4) {
-        float4 qv[RPT], ov[RPT];
+    for (int kk = kq; kk < kq + KT / 2; ++kk) {
+      const float4 s0 = load4(sS + at<LDP, SWZ>(kk, r4));
+      const float4 s1 = load4(sS + at<LDP, SWZ>(kk, r4 + 4));
+      const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          qv[i] = load4(sQ + (r0 + i) * LD + d);
-          ov[i] = load4(sO + (r0 + i) * LD + d);
-        }
+      for (int oq = 0; oq < OQ; ++oq) {
+        float kv[VEC];
+        lds_vec<VEC>(kv, sK + at<LD, SWZ>(kk, VEC * cq + 16 * VEC * oq));
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const float4 kv = load4(sK + (cg + 8 * j) * LD + d);
-          const float4 vv = load4(sV + (cg + 8 * j) * LD + d);
+        for (int e = 0; e < VEC; ++e)
 #pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            float t = s[i][j];
-            t = fmaf(qv[i].x, kv.x, t);
-            t = fmaf(qv[i].y, kv.y, t);
-            t = fmaf(qv[i].z, kv.z, t);
-            t = fmaf(qv[i].w, kv.w, t);
-            s[i][j] = t;
-            float u = dp[i][j];
-            u = fmaf(ov[i].x, vv.x, u);
-            u = fmaf(ov[i].y, vv.y, u);
-            u = fmaf(ov[i].z, vv.z, u);
-            u = fmaf(ov[i].w, vv.w, u);
-            dp[i][j] = u;
-          }
-        }
+          for (int i = 0; i < 8; ++i)
+            dq[i][oq * VEC + e] = fmaf(sv[i], kv[e], dq[i][oq * VEC + e]);
       }
-
+    }
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int row = q0 + r0 + i;
-        const bool live = row < p.Lq;
-        const int qs = (p.qseg != nullptr && live) ? p.qseg[b * p.Lq + row]
-                                                   : 0;
-        const float l = live ? lse_b[row] : 0.f;
-        const float dri = live ? dr_b[row] : 0.f;
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + r4 + i;
+      if (row >= p.Lq) continue;
+      float* dqrow =
+          p.dq + ((static_cast<long long>(b) * p.Lq + row) * p.Hq + h) * p.D;
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int col = k0 + cg + 8 * j;
-          bool keep = live && col < p.Lk;
-          if (p.causal) {
-            keep = keep && col <= row;
-            if (p.window > 0) keep = keep && row - col < p.window;
-          }
-          if (p.qseg != nullptr) keep = keep && qs == ks[j];
-          const float pr = keep ? expf(s[i][j] * p.scale - l) : 0.f;
-          sP[(r0 + i) * LDS + cg + 8 * j] = pr;
-          sS[(r0 + i) * LDS + cg + 8 * j] = pr * (dp[i][j] - dri) * p.scale;
-        }
-      }
-      __syncthreads();  // sP, sS complete
-
-      // dV += P^T dO and dK += dS^T Q: this thread owns key rows
-      // r0 .. r0 + 3 of the tile and head-dim columns cg + 8 j
-#pragma unroll 4
-      for (int qq = 0; qq < BQ; ++qq) {
-        float pc[RPT], sc[RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          pc[i] = sP[qq * LDS + r0 + i];
-          sc[i] = sS[qq * LDS + r0 + i];
-        }
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          const float ov = sO[qq * LD + cg + 8 * j];
-          const float qv = sQ[qq * LD + cg + 8 * j];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            dv[i][j] = fmaf(pc[i], ov, dv[i][j]);
-            dk[i][j] = fmaf(sc[i], qv, dk[i][j]);
-          }
-        }
-      }
-
-      // dQ += dS K for query rows r0 .. r0 + 3, atomically into f32
-      float dq[RPT][DPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) dq[i][j] = 0.f;
-#pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        float sc[RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) sc[i] = sS[(r0 + i) * LDS + kk];
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          const float kv = sK[kk * LD + cg + 8 * j];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) dq[i][j] = fmaf(sc[i], kv, dq[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int row = q0 + r0 + i;
-        if (row >= p.Lq) continue;
-        float* dqrow =
-            p.dq + ((static_cast<long long>(b) * p.Lq + row) * p.Hq + h) *
-                       p.D;
-#pragma unroll
-        for (int j = 0; j < DPT; ++j)
-          if (cg + 8 * j < p.D) atomicAdd(dqrow + cg + 8 * j, dq[i][j]);
+      for (int oq = 0; oq < OQ; ++oq) {
+        const int col = VEC * cq + 16 * VEC * oq;
+        if (col < p.D) st_vec<VEC, true>(dqrow + col, dq[i] + oq * VEC);
       }
     }
   }
+  cp_async_wait<0>();  // no query tile at all: K/V's copy is still pending
 
   float* dkb = static_cast<float*>(p.dk);
   float* dvb = static_cast<float*>(p.dv);
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = k0 + r0 + i;
-    if (row >= p.Lk) continue;
+  for (int i = 0; i < TK; ++i) {
+    const int key = k0 + c3 + 4 * i;
+    if (key >= p.Lk) continue;
     const long long off =
-        ((static_cast<long long>(b) * p.Lk + row) * p.Hkv + hk) * p.D;
+        ((static_cast<long long>(b) * p.Lk + key) * p.Hkv + hk) * p.D;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      if (cg + 8 * j >= p.D) continue;
-      dkb[off + cg + 8 * j] = dk[i][j];
-      dvb[off + cg + 8 * j] = dv[i][j];
+    for (int oq = 0; oq < OQ; ++oq) {
+      const int col = VEC * cg + 16 * VEC * oq;
+      if (col >= p.D) continue;
+      st_vec<VEC, false>(dkb + off + col, dk[i] + oq * VEC);
+      st_vec<VEC, false>(dvb + off + col, dv[i] + oq * VEC);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
 
+// calls f(std::integral_constant<int, DP>()), DP the head dim D padded to
+// the next multiple of 16 (D is a multiple of 8 up to 128)
+template <typename F>
+int with_dp(int D, F f) {
+  switch ((D + 15) / 16 * 16) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 48: return f(std::integral_constant<int, 48>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 80: return f(std::integral_constant<int, 80>());
+    case 96: return f(std::integral_constant<int, 96>());
+    case 112: return f(std::integral_constant<int, 112>());
+    default: return f(std::integral_constant<int, 128>());
+  }
+}
+
+// one CTA per (batch x KV head, `keys` keys) of `threads`
 template <typename Kernel>
-int launch_kernel(Kernel kernel, int smem, const Params& p,
-                  cudaStream_t stream) {
+int launch_kernel(Kernel kernel, int smem, int keys, int threads,
+                  const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.B * p.Hkv, (p.Lk + BK - 1) / BK);
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
+  const dim3 grid(p.B * p.Hkv, (p.Lk + keys - 1) / keys);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DP>
 int launch(const Params& p, bool bf16_path, cudaStream_t stream) {
   if (bf16_path)
-    return launch_kernel(flash_bwd_mma<DP>, mma_smem_bytes<DP>(), p, stream);
-  return launch_kernel(flash_bwd_fma<DP>, fma_smem_bytes<DP>(), p, stream);
+    return launch_kernel(flash_bwd_mma<DP>, mma_smem_bytes<DP>(), BK,
+                         NTHREADS, p, stream);
+  return launch_kernel(flash_bwd_fma<DP>, FmaTile<DP>::SMEM,
+                       FmaTile<DP>::KT, FNT, p, stream);
 }
 
 }  // namespace
@@ -619,15 +803,18 @@ extern "C" int chainermn_flash_bwd(
            B,   Lq,  Lk,  Hq,   Hkv, D,   qsb,  qsl,  qsh, ksb,   ksl,
            ksh, vsb, vsl, vsh,  osb, osl, osh,  scale, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tc = dtype == 1;
-  switch ((D + 15) / 16 * 16) {  // head dim padded to the next 16
-    case 16: return launch<16>(p, tc, s);
-    case 32: return launch<32>(p, tc, s);
-    case 48: return launch<48>(p, tc, s);
-    case 64: return launch<64>(p, tc, s);
-    case 80: return launch<80>(p, tc, s);
-    case 96: return launch<96>(p, tc, s);
-    case 112: return launch<112>(p, tc, s);
-    default: return launch<128>(p, tc, s);
-  }
+  return with_dp(D, [&](auto dp) {
+    return launch<decltype(dp)::value>(p, dtype == 1, s);
+  });
+}
+
+// the f32 body's tile at head dim D: 0 keys a CTA, 1 query rows a streamed
+// tile, 2 threads a CTA, 3 CTAs an SM
+extern "C" int chainermn_flash_bwd_f32_tile(int which, int D) {
+  return with_dp(D, [&](auto dp) {
+    return which == 0   ? FmaTile<decltype(dp)::value>::KT
+           : which == 1 ? FQ
+           : which == 2 ? FNT
+                        : 1;
+  });
 }

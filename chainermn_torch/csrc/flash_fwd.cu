@@ -339,7 +339,6 @@ __global__ void __launch_bounds__(NTHREADS, DP <= 64 ? FLASH_FWD_MIN_CTAS : 1)
 // half-warp split a K/V tile's BK keys for S (lane lx holds keys lx + 16 j)
 // and the head dim's columns for O.
 constexpr int FQ = 128;
-constexpr int FNT = 256;
 constexpr int FTM = 8;        // query rows a thread
 constexpr int FTN = BK / 16;  // keys of S a thread
 static_assert(FQ == FNT / 32 * 16 && FTM == 8,
@@ -363,40 +362,6 @@ struct FmaTile {
   static constexpr int SMEM = (P + BK * FQ) * 4;
   static_assert(SMEM <= 232448, "the f32 tile must fit a block's smem");
 };
-
-// ROWS x DP f32 tile from strided global memory into shared memory rows of
-// stride LD, 16 bytes per cp.async; rows >= nrows and columns >= d are
-// zero-filled (their copies read nothing and point at `src`)
-template <int ROWS, int DP, int LD>
-__device__ __forceinline__ void fma_tile_async(float* dst, const float* src,
-                                               long long row_stride,
-                                               int nrows, int d) {
-  constexpr int CH = DP / 4;
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += FNT) {
-    const int r = idx / CH;
-    const int c = (idx % CH) * 4;
-    const bool ok = r < nrows && c < d;
-    cp_async16(dst + r * LD + c, ok ? src + r * row_stride + c : src, ok);
-  }
-}
-
-// VEC consecutive floats of shared memory, in one read
-template <int VEC>
-__device__ __forceinline__ void lds_vec(float (&x)[VEC], const float* p) {
-  if constexpr (VEC == 4) {
-    const float4 t = load4(p);
-    x[0] = t.x;
-    x[1] = t.y;
-    x[2] = t.z;
-    x[3] = t.w;
-  } else if constexpr (VEC == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    x[0] = t.x;
-    x[1] = t.y;
-  } else {
-    x[0] = *p;
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(FNT, 1) flash_fwd_fma(Params p) {

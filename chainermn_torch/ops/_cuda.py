@@ -32,8 +32,9 @@ import torch
 
 __all__ = ["SOURCES", "KERNELS", "build", "build_all", "library", "variant",
            "ptxas_usage", "launches", "reset_launches", "launch_flash_fwd",
-           "launch_flash_bwd", "ce_fwd_tile", "ce_dh_tile", "ce_dw_tile",
-           "launch_ce_fwd", "launch_ce_dh", "launch_ce_dw"]
+           "launch_flash_bwd", "flash_bwd_f32_tile", "ce_fwd_tile",
+           "ce_dh_tile", "ce_dw_tile", "launch_ce_fwd", "launch_ce_dh",
+           "launch_ce_dw"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -298,6 +299,14 @@ def launch_flash_bwd(q, k, v, dout, lse, dr, q_seg, kv_seg, dq_acc, dk, dv,
              *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3], scale,
              int(causal), int(window), _stream(q))
     _launched(err, "flash_bwd", q.dtype)
+
+
+def flash_bwd_f32_tile(d: int) -> Tuple[int, int, int, int]:
+    """The f32 flash backward's tile at head dim ``d``: (keys a CTA, query
+    rows a streamed tile, threads a CTA, CTAs an SM)."""
+    fn = _bind("flash_bwd", "chainermn_flash_bwd_f32_tile",
+               [ctypes.c_int, ctypes.c_int])
+    return tuple(int(fn(i, d)) for i in range(4))
 
 
 _CE_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [

@@ -29,9 +29,11 @@ Semantics carried over from the TPU kernel:
 TPU tiling rules (``_fit_block``, ``_padded_len``, the 128-lane scratch)
 have no counterpart: the CUDA kernels mask ragged lengths themselves.
 Both kernels take every head dim that is a multiple of 8 up to 128, in
-float32 (CUDA-core FMAs, exact to f32 rounding) and bfloat16 (tensor
-cores: ``mma.sync`` fed by ``ldmatrix`` and a ``cp.async`` ring, the head
-dim padded to a multiple of 16 in shared memory).
+float32 (register-tiled CUDA-core FMAs fed by a ``cp.async`` ring, exact
+to f32 rounding; :func:`flash_bwd_f32_plan` mirrors the backward's
+schedule) and bfloat16 (tensor cores: ``mma.sync`` fed by ``ldmatrix``
+and a ``cp.async`` ring, the head dim padded to a multiple of 16 in
+shared memory).
 
 :func:`flash_attention` returns through a ``torch.autograd.Function``
 that dispatches on the tensors' device: CUDA tensors go to the kernels
@@ -51,7 +53,8 @@ from chainermn_torch.ops import _cuda
 
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_cuda", "flash_attention_backward_reference",
-           "flash_attention_bwd_cuda"]
+           "flash_attention_bwd_cuda", "flash_bwd_f32_tile",
+           "flash_bwd_f32_plan"]
 
 NEG_INF = -1e30  # finite stand-in for -inf, as in the TPU kernel
 
@@ -261,6 +264,44 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = False,
                            scale, causal,
                            0 if window is None else int(window))
     return dq_acc.to(q.dtype), dk, dv
+
+
+def flash_bwd_f32_tile(d: int) -> Tuple[int, int, int, int]:
+    """The f32 backward's tile (``flash_bwd_fma`` in ``csrc/flash_bwd.cu``)
+    at head dim ``d``: (keys a CTA, query rows a streamed tile, threads a
+    CTA, CTAs an SM). A CTA owns 128 keys where ``d`` padded to 16 is at
+    most 64, else 64 (shared memory); ``tests/test_torch_cuda.py`` holds
+    the kernel's constants to these."""
+    return (128 if -(-d // 16) * 16 <= 64 else 64, 64, 256, 1)
+
+
+def flash_bwd_f32_plan(b: int, lq: int, lk: int, hkv: int, d: int,
+                       causal: bool = False, window: Optional[int] = None,
+                       segments: bool = False) -> dict:
+    """The f32 backward's schedule, as the kernel runs it: the grid
+    ``(b * hkv, key tiles)`` and, for each key tile, the query tiles its
+    CTA visits (for each query head of its KV head's group) as
+    ``(q0, masked)``. Causal rows see the columns up to their own index
+    (top-left), so a key tile's rows start at the query tile of its
+    first key, and a window ends them before its last key + window;
+    without causal every query tile is visited. A tile is masked where
+    some entry is out of range, above the diagonal, outside the window,
+    or under segment ids; the others keep every entry."""
+    keys, rows, _, _ = flash_bwd_f32_tile(d)
+    visits = []
+    for k0 in range(0, lk, keys):
+        qbeg, qend = 0, lq
+        if causal:
+            qbeg = k0 // rows * rows
+            if window is not None:
+                qend = min(qend, k0 + keys - 1 + window)
+        visits.append([(q0, segments or q0 + rows > lq or k0 + keys > lk
+                        or (causal and (k0 + keys - 1 > q0 or (
+                            window is not None
+                            and k0 <= q0 + rows - 1 - window))))
+                       for q0 in range(qbeg, qend, rows)])
+    return {"grid": (b * hkv, len(visits)), "keys": keys, "rows": rows,
+            "visits": visits}
 
 
 class _FlashAttention(torch.autograd.Function):

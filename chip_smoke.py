@@ -14,7 +14,8 @@ the final line:
    wgmma, which the fused CE's forward must have), and ptxas's registers
    and spill bytes of the main path's tensor-core kernels (flash at d 64,
    the bf16 CE forward, the bf16 CE backward at D 768) and of the f32
-   kernels (``flash_fwd_fma<64>``, ``ce_fwd_fma``, and dh's and dW's
+   kernels (``flash_fwd_fma<64>``, ``flash_bwd_fma<64>``, ``ce_fwd_fma``,
+   and dh's and dW's
    ``ce_bwd_fma<false>`` and ``<true>``), and the f32 CE forward's and
    dh's grids and vocabulary ranges and dW's grid and ranges of h's rows
    (``f32 grids``); the two flash
@@ -27,13 +28,16 @@ the final line:
    and D 1544; for the f32 forward, dh and dW one row, V under one tile,
    ties across ranges, D 36, 772, 1152 and 1544, and a vocabulary small
    enough to split dW into ranges of h's rows; for the f32 flash forward a
-   ragged 129-row query and a fully masked row; a second CE call must give
-   the same bits), then timed
+   ragged 129-row query and a fully masked row; for the f32 flash
+   backward ragged key tiles (Lk 129 and 200), GQA 12 | 4, a window
+   across key tiles, a fully masked row, d 8 and 128, causal Lq > Lk; a
+   second CE call must give the same bits), then timed
    beside the plain version, its bound and the PyTorch call that computes
    the same function (a yardstick only, the port never calls it; SDPA is
    first held against the plain versions): flash at the serving and
    training shapes, at the split backward's cases (a window; causal
-   Lq != Lk) and at the ViT's (non-causal, 196 and 197 tokens); the f32
+   Lq != Lk) and at the ViT's (non-causal, 196 and 197 tokens), the
+   flash_bwd kernel's launch alone beside each whole call; the f32
    bodies (``flash_*_fma``, the f32 CE kernels) also at the ZeRO phase's
    f32 shapes, held and timed there, and the f32 CE at N 8192 (the f32 LM
    loss of batch 4 x 2048); ce_fwd with its vocabulary ranges,
@@ -353,6 +357,23 @@ F32_PATH_CASES = [
 ]
 
 
+# the f32 backward's key tiles (128 keys at d <= 64, 64 above): a ragged
+# last tile (Lk 129: one key; 200), GQA summed in the CTA, a window
+# crossing tile edges, a fully masked row (segments), d 8 and d 128 (64-key
+# tiles, swizzled rows), causal Lq > Lk
+F32_BWD_EDGE_CASES = [
+    (name, b, lq, lk, hq, hkv, d, "float32", causal, window, segs)
+    for name, b, lq, lk, hq, hkv, d, causal, window, segs in (
+        ("f32-lk-129", 1, 100, 129, 4, 2, 64, False, None, False),
+        ("f32-lk-200", 2, 150, 200, 4, 2, 64, False, None, False),
+        ("f32-gqa-12-4", 1, 256, 256, 12, 4, 64, True, None, False),
+        ("f32-window-100", 1, 400, 400, 2, 2, 64, True, 100, False),
+        ("f32-segments", 2, 200, 200, 4, 2, 64, True, None, True),
+        ("f32-d8", 1, 150, 150, 4, 1, 8, True, None, False),
+        ("f32-d128", 1, 200, 200, 4, 2, 128, True, None, False),
+        ("f32-lq-gt-lk", 1, 300, 129, 4, 2, 64, True, None, False))]
+
+
 def _dtype(name):
     import torch
 
@@ -451,6 +472,7 @@ def time_flash_case(gen, b, lq, lk, hq, hkv, d, causal, window=None,
     import torch
     import torch.nn.functional as F
 
+    from chainermn_torch.ops import _cuda
     from chainermn_torch.ops.flash_attention import (
         flash_attention_backward_reference, flash_attention_bwd_cuda,
         flash_attention_cuda, flash_attention_reference)
@@ -503,7 +525,17 @@ def time_flash_case(gen, b, lq, lk, hq, hkv, d, causal, window=None,
             b, lq, lk, hq, hkv, d, dtype, causal, window))))}
     if backward:
         out, lse = flash_attention_cuda(q, k, v, causal, None, None, window)
+        # the kernel's launch alone, without the wrapper's Dr = rowsum(dO
+        # o O), the zeroing of the f32 dq buffer and its cast
+        dr = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq_acc = torch.zeros(b, lq, hq, d, device="cuda")
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        launch_ms = cuda_time_ms(lambda: _cuda.launch_flash_bwd(
+            q, k, v, dout, lse, dr, None, None, dq_acc, dk, dv, d ** -0.5,
+            causal, 0 if window is None else window))
+        del dr, dq_acc, dk, dv
         rows["flash_bwd"] = dict(
+            launch_ms=launch_ms,
             ms=cuda_time_ms(lambda: flash_attention_bwd_cuda(
                 q, k, v, out, lse, dout, causal, None, None, window)),
             plain_ms=cuda_time_ms(lambda: flash_attention_backward_reference(
@@ -611,14 +643,17 @@ def ce_fwd_usage() -> dict:
 
 def f32_usage() -> dict:
     """ptxas's registers and spill bytes of the f32 kernels of the main
-    path: ``{name: (kernel, usage)}`` for the flash forward at d 64 and
-    the CE forward, dh and dW (dh's mirror image: one template)."""
+    path: ``{name: (kernel, usage)}`` for the flash forward and backward
+    at d 64 and the CE forward, dh and dW (dh's mirror image: one
+    template)."""
     from chainermn_torch.ops import _cuda
 
     out = {}
     for name, lib, kernel, key in (
             ("flash_fwd", "flash_fwd", "flash_fwd_fma<64>",
              "flash_fwd_fmaILi64E"),
+            ("flash_bwd", "flash_bwd", "flash_bwd_fma<64>",
+             "flash_bwd_fmaILi64E"),
             ("ce_fwd", "fused_ce", "ce_fwd_fma", "ce_fwd_fma"),
             ("ce_dh", "fused_ce", "ce_bwd_fma<false>", "ce_bwd_fmaILb0E"),
             ("ce_dw", "fused_ce", "ce_bwd_fma<true>", "ce_bwd_fmaILb1E")):
@@ -806,6 +841,7 @@ def check_flash_bwd(gen):
         *SPLIT_CASES,
         *VIT_CASES,
         *F32_PATH_CASES,
+        *F32_BWD_EDGE_CASES,
     ]
     worst = {}
     for (name, b, lq, lk, hq, hkv, d, dtype, causal, window,
@@ -3545,6 +3581,9 @@ def main(argv=None) -> int:
     worst["flash_bwd_f32"] = max(bwd_worst[c] for c in f32_cases)
     worst.update(check_fused_ce(gen))
     def show(name, where, row, extra=""):
+        if "launch_ms" in row:
+            extra += (f", the launch alone {row.pop('launch_ms'):.4f} ms "
+                      f"(the call adds Dr, zeroing dq and its cast)")
         if "pair_library_ms" in row:
             extra += (f", library dh and dW in one call "
                       f"{row.pop('pair_library_ms'):.4f} ms")

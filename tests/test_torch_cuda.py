@@ -28,7 +28,8 @@ from chainermn_torch.models.transformer import TransformerLM
 from chainermn_torch.ops import _cuda
 from chainermn_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward_reference,
-    flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_reference)
+    flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_reference,
+    flash_bwd_f32_tile)
 from chainermn_torch.ops.fused_ce import (ce_dh_cuda, ce_dh_reference,
                                           ce_dw_cuda, ce_dw_cuda_plan,
                                           ce_dw_reference,
@@ -173,6 +174,25 @@ def _qkv(cuda, b, lq, lk, hq, hkv, d, dtype, segments, seed=0):
 BWD_CASES = dict(CASES, **{
     "causal-lq-ne-lk-bf16": (1, 100, 300, 4, 2, 64, torch.bfloat16, True,
                              None, False),
+    # the f32 body's key tiles (128 keys at d <= 64, 64 above): a ragged
+    # last tile (Lk 129: one key; 200), GQA summed in the CTA, a window
+    # crossing tile edges, a fully masked row (segments), d 8 and d 128
+    # (64-key tiles, swizzled rows), causal Lq > Lk
+    "bwd-lk-129-f32": (1, 100, 129, 4, 2, 64, torch.float32, False, None,
+                       False),
+    "bwd-lk-200-f32": (2, 150, 200, 4, 2, 64, torch.float32, False, None,
+                       False),
+    "bwd-gqa-12-4-f32": (1, 256, 256, 12, 4, 64, torch.float32, True, None,
+                         False),
+    "bwd-window-100-f32": (1, 400, 400, 2, 2, 64, torch.float32, True, 100,
+                           False),
+    "bwd-segments-f32": (2, 200, 200, 4, 2, 64, torch.float32, True, None,
+                         True),
+    "bwd-d8-f32": (1, 150, 150, 4, 1, 8, torch.float32, True, None, False),
+    "bwd-d128-f32": (1, 200, 200, 4, 2, 128, torch.float32, True, None,
+                     False),
+    "bwd-lq-gt-lk-f32": (1, 300, 129, 4, 2, 64, torch.float32, True, None,
+                         False),
 })
 
 
@@ -194,6 +214,28 @@ def test_flash_bwd_matches_plain_version(cuda, name):
             _assert_bf16_close(g, r)
     if segments:
         assert (got[0][0, 3] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["bwd-gqa-12-4-f32", "bwd-window-100-f32",
+                                  "bwd-segments-f32", "bwd-d128-f32"])
+def test_flash_bwd_f32_dk_dv_are_bitwise_reproducible(cuda, name):
+    """The f32 body sums dk and dv in registers in a fixed order, with no
+    atomics (dq's f32 atomics land in any order)."""
+    b, lq, lk, hq, hkv, d, dtype, causal, window, segments = BWD_CASES[name]
+    q, k, v, do, seg = _qkv(cuda, b, lq, lk, hq, hkv, d, dtype, segments)
+    out, lse = flash_attention_reference(q, k, v, causal, None, seg, window)
+    first = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal, None,
+                                     seg, window)
+    again = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal, None,
+                                     seg, window)
+    assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
+
+
+def test_the_f32_flash_bwd_tile_is_the_one_the_cpu_tests_plan_with(cuda):
+    """tests/test_torch_flash_attention.py checks the tiles that
+    ``flash_bwd_f32_plan`` visits and masks; the kernel runs the same."""
+    for d in range(8, 129, 8):
+        assert _cuda.flash_bwd_f32_tile(d) == flash_bwd_f32_tile(d), d
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

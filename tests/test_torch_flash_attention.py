@@ -20,8 +20,9 @@ from chainermn_tpu.ops.flash_attention import _flash_fwd
 from chainermn_tpu.ops.flash_attention import flash_attention as jax_flash
 from chainermn_torch.ops import _cuda
 from chainermn_torch.ops.flash_attention import (
-    flash_attention, flash_attention_backward_reference,
-    flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_reference)
+    _scores, flash_attention, flash_attention_backward_reference,
+    flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_reference,
+    flash_bwd_f32_plan, flash_bwd_f32_tile)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -249,6 +250,69 @@ def test_smoke_pair_count_matches_the_plain_keep_mask(name):
         assert by == ("operations" if ops_ms >= bytes_ms else "bytes")
     if name == "causal-lq-lt-lk-bytes":
         assert cols == lq and by == "bytes"
+
+
+# the f32 backward's schedule: name: (lq, lk, d, causal, window). 128-key
+# tiles at d <= 64, 64-key tiles above; ragged tails of either
+PLAN_CASES = {
+    "causal": (300, 300, 64, True, None),
+    "causal-d128": (300, 300, 128, True, None),
+    "window": (500, 500, 64, True, 100),
+    "window-d96": (400, 400, 96, True, 37),
+    "window-1": (200, 200, 64, True, 1),
+    "causal-lq-lt-lk": (100, 300, 64, True, None),
+    "causal-lq-gt-lk": (300, 129, 64, True, None),
+    "window-lq-gt-lk": (330, 200, 64, True, 9),
+    "window-lq-lt-lk": (90, 330, 40, True, 9),
+    "noncausal-ragged": (129, 200, 64, False, None),
+    "noncausal-lq-ne-lk-d128": (65, 150, 128, False, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_f32_backward_plan_visits_every_kept_pair(name):
+    """The (key tile, query tile) pairs the f32 backward visits cover
+    every pair of the plain keep mask, so the tiles it skips hold no
+    kept entry; a tile it leaves unmasked is whole and keeps every
+    entry; the grid has one CTA per (batch row, KV head, key tile)."""
+    lq, lk, d, causal, window = PLAN_CASES[name]
+    keep = _scores(torch.zeros(1, lq, 1, 8), torch.zeros(1, lk, 1, 8),
+                   causal, None, None, window)[1].reshape(lq, lk)
+    plan = flash_bwd_f32_plan(2, lq, lk, 3, d, causal, window)
+    keys, rows = plan["keys"], plan["rows"]
+    assert (keys, rows) == flash_bwd_f32_tile(d)[:2]
+    assert plan["grid"] == (6, -(-lk // keys))
+    seen = torch.zeros(lq, lk, dtype=torch.bool)
+    for kt, visits in enumerate(plan["visits"]):
+        k0 = kt * keys
+        assert [q0 for q0, _ in visits] == sorted({q0 for q0, _ in visits})
+        for q0, masked in visits:
+            assert q0 % rows == 0 and 0 <= q0 < lq
+            seen[q0:q0 + rows, k0:k0 + keys] = True
+            tile = keep[q0:q0 + rows, k0:k0 + keys]
+            if not masked:
+                assert tile.shape == (rows, keys) and bool(tile.all())
+    assert not bool((keep & ~seen).any())
+    # and it does skip: a causal backward leaves out the tiles above the
+    # diagonal, a window those far below it
+    if causal:
+        assert int(seen.sum()) < lq * lk
+
+
+def test_f32_backward_plan_masks_every_tile_under_segment_ids():
+    plan = flash_bwd_f32_plan(1, 256, 256, 1, 64, True, None, True)
+    assert all(masked for visits in plan["visits"] for _, masked in visits)
+    assert [len(v) for v in plan["visits"]] == [4, 2]
+
+
+def test_f32_backward_tile_heights():
+    """128 keys a CTA up to a padded head dim of 64, 64 above, where
+    the padded tiles would not fit shared memory; 64 query rows, 256
+    threads, one CTA an SM."""
+    assert [flash_bwd_f32_tile(d)[0] for d in range(8, 129, 8)] == (
+        [128] * 8 + [64] * 8)
+    assert {flash_bwd_f32_tile(d)[1:] for d in range(8, 129, 8)} == {
+        (64, 256, 1)}
 
 
 @pytest.mark.parametrize("n_kv_heads", [4, 2])
