@@ -16,7 +16,14 @@ square root) with ``lm_loss_with_aux``:
   per rank); ``--zero 2``: ``make_zero2_train_step`` with 2
   micro-batches (the gradient accumulator sharded too);
   ``--zero-bucket-kib K`` reduce-scatters each K KiB bucket of
-  gradients as the backward produces it.
+  gradients as the backward produces it;
+* ``--zero 3``: ``make_fsdp_train_step`` on the model (every parameter
+  sharded, gathered on each use);
+* ``--fsdp-scan``: the model's flax-layout tree stacked
+  (``stack_lm_blocks``), its blocks split within each layer
+  (``fsdp_stack_shardings``), trained through ``make_fsdp_train_step``
+  with ``make_lm_fsdp_scan_loss``: one layer gathered at a time and
+  again in the backward, the fused head + CE loss.
 
 The dense flags: ``--n-kv-heads`` (GQA/MQA), ``--window`` (sliding
 window), ``--rope``; ``--qkv-layout bhld`` trains the same model (JAX's
@@ -28,9 +35,10 @@ flag, and the port adds none). ``--batchsize`` is each rank's batch
 instead of epochs.
 
 JAX's own refusals are kept: ``--zero 3`` with ``--zero-bucket-kib``,
-and ``--fsdp-scan`` with ``--zero``. Waiting for later slices
-(``NotImplementedError``): ``--zero 3`` and ``--fsdp-scan`` (ROADMAP.md
-queue 1 item 8b), ``--moe``, ``--ring`` and ``--seq-impl`` (item 10);
+``--fsdp-scan`` with ``--zero``, with ``--moe``, or with a vocabulary
+that is not a multiple of 128. Waiting for later slices
+(``NotImplementedError``): ``--moe``, ``--ring`` and ``--seq-impl``
+(ROADMAP.md queue 1 item 10);
 ``--autotune-blocks`` does not apply while the CUDA kernels fix their own
 tiles (item 6).
 
@@ -39,6 +47,8 @@ tiles (item 6).
         --zero-bucket-kib 4096 --iterations 20
     python -m chainermn_torch.examples.train_lm --device cpu \\
         --n-train 256 --batchsize 16 --epoch 1 --zero 2
+    python -m chainermn_torch.examples.train_lm --device cpu \\
+        --vocab 128 --n-train 256 --batchsize 16 --epoch 1 --fsdp-scan
     torchrun --nproc-per-node 2 -m chainermn_torch.examples.train_lm \\
         --device cpu --zero 1 --n-train 256 --batchsize 8 --epoch 1
 """
@@ -55,8 +65,15 @@ import torch
 from chainermn_torch.comm import create_communicator
 from chainermn_torch.datasets import scatter_dataset
 from chainermn_torch.iterators import SerialIterator
-from chainermn_torch.models.transformer import TransformerLM, lm_loss_with_aux
+from chainermn_torch.models.convert import flax_params
+from chainermn_torch.models.transformer import (TransformerLM,
+                                                lm_loss_with_aux,
+                                                make_lm_fsdp_scan_loss,
+                                                stack_lm_blocks)
 from chainermn_torch.optimizers import (create_multi_node_optimizer,
+                                        fsdp_shardings,
+                                        fsdp_stack_shardings,
+                                        make_fsdp_train_step,
                                         make_zero1_train_step,
                                         make_zero2_train_step)
 from chainermn_torch.resilience.supervisor import main_exit_code
@@ -64,7 +81,6 @@ from chainermn_torch.training import (LogReport, PrintReport,
                                       StandardUpdater, Trainer,
                                       make_data_parallel_train_step)
 
-_ITEM8B = "waits for the FSDP slice of the port (ROADMAP.md queue 1 item 8b)"
 _ITEM10 = ("waits for the parallel slice of the port (ROADMAP.md queue 1 "
            "item 10)")
 
@@ -106,12 +122,12 @@ def parse_args(argv=None):
                    default=None,
                    help="sequence-parallel attention used by --ring")
     p.add_argument("--fsdp-scan", action="store_true",
-                   help="FSDP over a scanned layer stack (waits for "
-                        "item 8b)")
+                   help="FSDP over a scanned layer stack (one layer "
+                        "gathered at a time), fused head + CE loss")
     p.add_argument("--zero", type=int, default=0, choices=[0, 1, 2, 3],
                    help="ZeRO stage: 1 = sharded optimizer state, 2 = + "
                         "sharded grad accumulator (2 microbatches), 3 = "
-                        "FSDP (waits for item 8b)")
+                        "FSDP")
     p.add_argument("--zero-bucket-kib", type=int, default=0,
                    help="with --zero 1/2: reduce-scatter per KiB-sized "
                         "gradient bucket")
@@ -148,10 +164,10 @@ def _refuse(args) -> None:
             "--zero-bucket-kib applies to --zero 1/2 only: FSDP gradient "
             "liveness follows XLA's per-leaf schedule, not the bucket "
             "plan")
-    if args.zero == 3:
-        raise NotImplementedError(f"--zero 3 (FSDP) {_ITEM8B}")
-    if args.fsdp_scan:
-        raise NotImplementedError(f"--fsdp-scan {_ITEM8B}")
+    if args.fsdp_scan and args.moe > 0:
+        raise SystemExit("--fsdp-scan does not compose with --moe (the "
+                         "load-balancing aux cannot thread through the "
+                         "scan)")
     if args.moe:
         raise NotImplementedError(f"--moe {_ITEM10}")
     if args.ring:
@@ -193,11 +209,27 @@ def _text_windows(args, comm):
     return train
 
 
+class _NoModel:
+    """The updater's model under FSDP: the step's state holds the
+    parameters, so the model adds nothing to :attr:`StandardUpdater.
+    state`."""
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, state: dict) -> None:
+        del state
+
+
 def build_trainer(args):
     """Everything up to ``trainer.run()``: ``(trainer, model)``; the
-    communicator is ``trainer.updater.comm``, and with ``--zero`` the
-    step's :class:`~chainermn_torch.optimizers.zero.ZeroState` is
-    ``trainer.updater.optimizer``."""
+    communicator is ``trainer.updater.comm``, and with ``--zero`` or
+    ``--fsdp-scan`` the step's state
+    (:class:`~chainermn_torch.optimizers.zero.ZeroState` or
+    :class:`~chainermn_torch.optimizers.zero.FsdpState`) is
+    ``trainer.updater.optimizer``. Under FSDP the model's sharded
+    parameters read their gathered values (``--zero 3``), or the model
+    is not trained at all (``--fsdp-scan`` trains the stacked tree)."""
     _refuse(args)
     comm = create_communicator(args.communicator, device=args.device)
     if comm.is_master:
@@ -219,12 +251,31 @@ def build_trainer(args):
         pos_emb="rope" if args.rope else "learned",
         attention_window=args.window or None, device=comm.device)
     comm.bcast_data(model)
-    if args.zero:
+    if args.fsdp_scan and args.vocab % 128:
+        comm.finalize()
+        raise SystemExit("--fsdp-scan needs vocab % 128 == 0 (fused "
+                         "head+CE vocab tile)")
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=args.lr, eps=1e-8)
+
+    state_model = model
+    if args.fsdp_scan:
+        packed = stack_lm_blocks(flax_params(model))
+        shardings = dict(
+            fsdp_shardings(packed, comm),
+            blocks=fsdp_stack_shardings(packed, comm)["blocks"])
+        step, optimizer = make_fsdp_train_step(
+            None, adam, comm, packed,
+            loss_fn=make_lm_fsdp_scan_loss(model),
+            param_shardings=shardings)
+        state_model = _NoModel()
+    elif args.zero == 3:
+        step, optimizer = make_fsdp_train_step(model, adam, comm,
+                                               loss_fn=lm_loss_with_aux)
+        state_model = _NoModel()
+    elif args.zero:
         bb = args.zero_bucket_kib * 1024 if args.zero_bucket_kib else None
-
-        def adam(params):
-            return torch.optim.Adam(params, lr=args.lr, eps=1e-8)
-
         if args.zero == 1:
             step, optimizer = make_zero1_train_step(
                 model, adam, comm, loss_fn=lm_loss_with_aux,
@@ -241,7 +292,7 @@ def build_trainer(args):
                                              loss_fn=lm_loss_with_aux)
 
     it = SerialIterator(train, args.batchsize, shuffle=True, seed=0)
-    updater = StandardUpdater(it, step, comm, model=model,
+    updater = StandardUpdater(it, step, comm, model=state_model,
                               optimizer=optimizer)
     stop = ((args.iterations, "iteration") if args.iterations
             else (args.epoch, "epoch"))

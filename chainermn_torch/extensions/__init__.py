@@ -21,11 +21,13 @@ from torch import nn
 
 from chainermn_torch.comm.base import CommunicatorBase
 from chainermn_torch.extensions.checkpoint import (
-    MultiNodeCheckpointer, create_multi_node_checkpointer)
+    MultiNodeCheckpointer, ShardedLeaf, create_multi_node_checkpointer,
+    read_manifest)
 
 __all__ = ["create_multi_node_evaluator", "allreduce_persistent",
            "AllreducePersistent", "MultiNodeCheckpointer",
-           "create_multi_node_checkpointer", "install_global_except_hook"]
+           "create_multi_node_checkpointer", "install_global_except_hook",
+           "ShardedLeaf", "read_manifest"]
 
 
 def create_multi_node_evaluator(actual_evaluator,

@@ -29,12 +29,29 @@ coverage map). A snapshot does not load across the two packages, but the
 JAX checkpointer verifies and elects the port's files, and the port's
 elects the JAX package's.
 
-Waiting for later slices (``NotImplementedError``): the ``orbax``
-backend and the sharded leaves of ZeRO/FSDP states with ``set_layout``
-(ROADMAP.md queue 1 item 8b), and the chaos injection points of
-``$CHAINERMN_TPU_CHAOS`` (item 9). The ring replicas' writer
-(``resilience/replica.py``) comes with item 9 too; their read side
-(``replicas/``) is here.
+**Sharded leaves.** A :class:`ShardedLeaf` (the local tensor, the leaf's
+global shape and the global ``(start, stop)`` it covers in each
+dimension: what ``ZeroState.state_dict()`` and ``FsdpState.state_dict()``
+give) is saved under JAX's keys: ``leaf_i_nshards``, ``leaf_i_gshape``,
+``leaf_i_s0`` and ``leaf_i_idx0`` (an ``[ndim, 2]`` array), so a rank's
+file holds only its own pieces. :meth:`MultiNodeCheckpointer.maybe_load`
+restores each onto the index the template's sharded leaf at the same
+place in the structure asks for, splicing it by global index from
+whichever saved pieces intersect it (JAX's ``_SpliceTargets``): the
+rank's own file first, then its peers', so a state saved on more ranks
+restores onto fewer. A leaf whose global shape changed goes to
+``leaf_resharder`` (``checkpointing/reshard.py``: the world-stacked
+error-feedback frames regroup) or raises as another model.
+:meth:`~MultiNodeCheckpointer.set_layout` folds a shard-layout manifest
+(``zero_layout_manifest``, ``fsdp_layout_manifest``) into every publish,
+and :func:`read_manifest` reads a file's manifest back.
+
+The ``orbax`` backend is JAX's own library; the port keeps the npz
+backend, which saves and reshards sharded states (ROADMAP.md queue 3).
+Waiting for a later slice (``NotImplementedError``): the chaos injection
+points of ``$CHAINERMN_TPU_CHAOS`` (ROADMAP.md queue 1 item 9). The ring
+replicas' writer (``resilience/replica.py``) comes with item 9 too; their
+read side (``replicas/``) is here.
 """
 
 from __future__ import annotations
@@ -48,6 +65,7 @@ import queue
 import re
 import threading
 import time
+import types
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -56,7 +74,8 @@ import torch
 
 from chainermn_torch.comm.base import CommunicatorBase
 
-__all__ = ["MultiNodeCheckpointer", "create_multi_node_checkpointer"]
+__all__ = ["MultiNodeCheckpointer", "create_multi_node_checkpointer",
+           "ShardedLeaf", "read_manifest"]
 
 #: subdirectory (under the checkpointer's path) where ring-neighbor
 #: replicas land, read by the election and restore fallbacks below
@@ -83,6 +102,35 @@ def _fsync_file(fn: str) -> None:
         os.close(fd)
 
 
+def read_manifest(fn: str) -> Optional[dict]:
+    """The sidecar JSON manifest published next to snapshot file ``fn``
+    (None when missing or torn): the integrity keys (``format``,
+    ``sha256``, ``bytes``) and the coverage map (``iteration``,
+    ``world``, ``axes``, each leaf's ``gshape`` and ``nshards``, and the
+    ``layout`` given to :meth:`MultiNodeCheckpointer.set_layout`)."""
+    try:
+        with open(fn + ".json", encoding="utf-8") as fh:
+            return json.load(fh)
+    except (OSError, ValueError):
+        return None
+
+
+class ShardedLeaf:
+    """One rank's piece of a leaf split across ranks: ``local`` (the
+    tensor), ``gshape`` (the whole leaf's shape) and ``index`` (the
+    global ``(start, stop)`` it covers in each dimension)."""
+
+    __slots__ = ("local", "gshape", "index")
+
+    def __init__(self, local, gshape, index):
+        self.local = local
+        self.gshape = tuple(int(d) for d in gshape)
+        self.index = tuple((int(a), int(b)) for a, b in index)
+        if len(self.index) != len(self.gshape):
+            raise ValueError(f"index {self.index} does not match global "
+                             f"shape {self.gshape}")
+
+
 # -- state <-> flat host arrays -------------------------------------------
 
 class _Leaf:
@@ -102,6 +150,10 @@ _NUMBERS = (bool, int, float)
 def _flatten(state, leaves: list):
     """``state`` → its structure with :class:`_Leaf` placeholders;
     ``leaves`` collects the leaves in order."""
+    if isinstance(state, ShardedLeaf):
+        leaves.append(state)
+        return _Leaf(len(leaves) - 1, "sharded",
+                     str(torch.as_tensor(state.local).dtype)[6:])
     if isinstance(state, torch.Tensor):
         leaves.append(state)
         return _Leaf(len(leaves) - 1, "tensor", str(state.dtype)[6:])
@@ -121,40 +173,65 @@ def _flatten(state, leaves: list):
     return state
 
 
-def _host_arrays(state) -> Tuple[Dict[str, np.ndarray], Any]:
-    """``{leaf_i: ndarray}`` and the structure of ``state``. CUDA tensors
-    are copied into page-locked host memory asynchronously and waited for
-    once; bf16 tensors travel as their raw bits (numpy has no bf16)."""
-    leaves: list = []
-    tree = _flatten(state, leaves)
+def _host_copies(leaves: list) -> list:
+    """Each leaf's host copy (a sharded leaf's local piece): CUDA
+    tensors copied into page-locked memory without blocking (the caller
+    synchronizes), CPU tensors cloned, bf16 as its raw bits (numpy has
+    no bf16), numbers as arrays."""
     host = []
-    cuda = False
     for leaf in leaves:
-        if isinstance(leaf, torch.Tensor):
-            t = leaf.detach()
+        t = leaf.local if isinstance(leaf, ShardedLeaf) else leaf
+        if isinstance(t, torch.Tensor):
+            t = t.detach()
             if t.dtype == torch.bfloat16:
                 t = t.view(torch.int16)
             if t.is_cuda:
                 buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 buf.copy_(t, non_blocking=True)
-                cuda = True
                 host.append(buf)
             else:
                 host.append(t.clone())
         else:
-            host.append(np.array(leaf))
-    if cuda:
+            host.append(np.array(t))
+    return host
+
+
+def _leaf_arrays(leaves: list, host: list) -> Dict[str, np.ndarray]:
+    """The npz arrays of the leaves' host copies: ``leaf_i`` for a whole
+    leaf; JAX's ``leaf_i_nshards``/``_gshape``/``_s0``/``_idx0`` for a
+    sharded one."""
+    arrays: Dict[str, np.ndarray] = {}
+    for i, (leaf, h) in enumerate(zip(leaves, host)):
+        a = h.numpy() if isinstance(h, torch.Tensor) else h
+        if isinstance(leaf, ShardedLeaf):
+            arrays[f"leaf_{i}_nshards"] = np.int64(1)
+            arrays[f"leaf_{i}_gshape"] = np.asarray(leaf.gshape, np.int64)
+            arrays[f"leaf_{i}_s0"] = a
+            arrays[f"leaf_{i}_idx0"] = np.asarray(
+                leaf.index, np.int64).reshape(len(leaf.index), 2)
+        else:
+            arrays[f"leaf_{i}"] = a
+    return arrays
+
+
+def _host_arrays(state) -> Tuple[Dict[str, np.ndarray], Any]:
+    """``{leaf keys: ndarray}`` and the structure of ``state``. CUDA
+    tensors are copied into page-locked host memory asynchronously and
+    waited for once."""
+    leaves: list = []
+    tree = _flatten(state, leaves)
+    host = _host_copies(leaves)
+    if any(getattr(getattr(leaf, "local", leaf), "is_cuda", False)
+           for leaf in leaves):
         torch.cuda.synchronize()
-    arrays = {f"leaf_{i}": (h.numpy() if isinstance(h, torch.Tensor)
-                            else h) for i, h in enumerate(host)}
-    return arrays, tree
+    return _leaf_arrays(leaves, host), tree
 
 
 def _restore_leaf(arr: np.ndarray, leaf: _Leaf):
     """One saved array back to its kind: a CPU tensor in its saved
     dtype, an array, or a number."""
     arr = np.asarray(arr)
-    if leaf.kind == "tensor":
+    if leaf.kind in ("tensor", "sharded"):
         t = torch.from_numpy(np.array(arr, copy=True))
         return t.view(torch.bfloat16) if leaf.dtype == "bfloat16" else t
     if leaf.kind == "ndarray":
@@ -162,19 +239,106 @@ def _restore_leaf(arr: np.ndarray, leaf: _Leaf):
     return {"bool": bool, "int": int, "float": float}[leaf.kind](arr.item())
 
 
-def _unflatten(tree, arrays):
-    """Rebuild ``tree`` (the saved structure) with ``arrays(i)``, the
-    saved ``leaf_<i>``."""
+_MISSING = object()
+
+
+def _child(template, key):
+    """The template's entry at ``key`` (``_MISSING`` where it has none)."""
+    if isinstance(template, dict):
+        return template.get(key, _MISSING)
+    if isinstance(template, (list, tuple)) and isinstance(key, int) \
+            and key < len(template):
+        return template[key]
+    return _MISSING
+
+
+def _unflatten(tree, restore, template=_MISSING):
+    """Rebuild ``tree`` (the saved structure): each placeholder becomes
+    ``restore(leaf, template entry at the same place)``."""
     if isinstance(tree, _Leaf):
-        return _restore_leaf(arrays(tree.i), tree)
+        return restore(tree, template)
     if isinstance(tree, dict):
-        return {k: _unflatten(v, arrays) for k, v in tree.items()}
+        return {k: _unflatten(v, restore, _child(template, k))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        items = [_unflatten(v, arrays) for v in tree]
+        items = [_unflatten(v, restore, _child(template, i))
+                 for i, v in enumerate(tree)]
         if isinstance(tree, tuple) and hasattr(tree, "_fields"):
             return type(tree)(*items)
         return type(tree)(items)
     return tree
+
+
+def _bounds(index, gshape):
+    """Concrete ``(start, stop)`` per dimension of a saved ``[ndim, 2]``
+    index (JAX writes -1 for a stop at the end)."""
+    return [(int(a), int(b) if b != -1 else int(d))
+            for (a, b), d in zip(np.asarray(index), gshape)]
+
+
+class _SpliceTargets:
+    """JAX's resharding assembly of one leaf (``extensions/checkpoint.py
+    :152``): the ranges this rank needs, filled from whatever saved
+    pieces intersect them; a piece's data is read only when it
+    intersects. Saved pieces partition the leaf, so coverage is counted
+    by intersection volume, and a piece seen in two files (a primary and
+    its replica) counts once."""
+
+    def __init__(self, targets, gshape, dtype):
+        self.gshape = gshape
+        self.bounds = [list(t) for t in targets]
+        self.bufs = [np.empty(tuple(b - a for a, b in tb), dtype)
+                     for tb in self.bounds]
+        self.vols = [b.size for b in self.bufs]
+        self.covered = [0] * len(self.bufs)
+        self._seen = set()
+
+    def consume(self, src, i):
+        """Fold leaf ``i``'s pieces from one snapshot file in."""
+        if f"leaf_{i}_nshards" not in src.files:
+            return
+        for k in range(int(src[f"leaf_{i}_nshards"])):
+            idx = np.asarray(src[f"leaf_{i}_idx{k}"])
+            key = idx.tobytes()
+            if key in self._seen:
+                continue
+            sb = _bounds(idx, self.gshape)
+            arr = None
+            for t, tb in enumerate(self.bounds):
+                inter = [(max(a1, a2), min(b1, b2))
+                         for (a1, b1), (a2, b2) in zip(tb, sb)]
+                if any(b <= a for a, b in inter):
+                    continue
+                if arr is None:
+                    arr = np.asarray(src[f"leaf_{i}_s{k}"])
+                dst = tuple(slice(a - ta, b - ta)
+                            for (a, b), (ta, _) in zip(inter, tb))
+                sl = tuple(slice(a - sa, b - sa)
+                           for (a, b), (sa, _) in zip(inter, sb))
+                self.bufs[t][dst] = arr[sl]
+                self.covered[t] += int(np.prod([b - a for a, b in inter],
+                                               initial=1))
+                if self.covered[t] > self.vols[t]:
+                    raise ValueError(
+                        f"snapshot leaf {i}: saved shards overlap "
+                        f"(covered {self.covered[t]} > {self.vols[t]} "
+                        f"elements of target range {t}) — snapshot files "
+                        "are not a disjoint partition; was the snapshot "
+                        "written by mixed runs?")
+            if arr is not None:
+                self._seen.add(key)
+
+    @property
+    def complete(self) -> bool:
+        return self.covered == self.vols
+
+    def require_complete(self, i):
+        if not self.complete:
+            raise ValueError(
+                f"snapshot leaf {i}: saved shards cover only "
+                f"{self.covered}/{self.vols} elements of this process's "
+                "target ranges — snapshot incomplete (a peer process's "
+                "file is missing?)")
 
 
 def _refuse_chaos() -> None:
@@ -203,8 +367,9 @@ class MultiNodeCheckpointer:
                  backend: str = "npz"):
         if backend == "orbax":
             raise NotImplementedError(
-                "the orbax backend waits for the sharded checkpoints of a "
-                "later slice of the port (ROADMAP.md queue 1 item 8b)")
+                "the orbax backend is JAX's library and is not ported: the "
+                "npz backend saves and reshards sharded states (ROADMAP.md "
+                "queue 3)")
         if backend != "npz":
             raise ValueError(f"unknown checkpoint backend {backend!r}")
         self.name = name
@@ -222,6 +387,9 @@ class MultiNodeCheckpointer:
         # last consensus winner (one slot, replaced at each election)
         self._protected: set = set()
         self._elected: Optional[int] = None
+        #: shard-layout metadata (zero_layout_manifest /
+        #: fsdp_layout_manifest) folded into every published manifest
+        self.layout: Optional[dict] = None
         # each process may have its own filesystem: each makes the path
         os.makedirs(self.path, exist_ok=True)
         self._pre_election_barrier()
@@ -234,10 +402,11 @@ class MultiNodeCheckpointer:
         self.comm.barrier()
 
     def set_layout(self, layout: Optional[dict]) -> None:
-        """Optimizer shard-layout metadata waits for ZeRO/FSDP."""
-        raise NotImplementedError(
-            "set_layout (ZeRO/FSDP shard layouts) waits for a later slice "
-            "of the port (ROADMAP.md queue 1 item 8b)")
+        """Attach optimizer shard-layout metadata
+        (``optimizers.zero_layout_manifest`` / ``fsdp_layout_manifest``)
+        to every manifest published from now on, so tools can read a
+        file set's sharded leaves without the live step."""
+        self.layout = layout
 
     # -- async writer ---------------------------------------------------
 
@@ -345,16 +514,31 @@ class MultiNodeCheckpointer:
         self._gc()
 
     def _coverage_meta(self, arrays: dict, iteration: int) -> dict:
-        """The manifest's coverage map: saving iteration and world, and
-        each leaf's global shape (every leaf is whole: ``nshards`` 0)."""
+        """The manifest's coverage map (JAX's): saving iteration and
+        world, the communicator's mesh axes, each leaf's global shape and
+        local piece count (0 for a whole leaf), and the layout given to
+        :meth:`set_layout`."""
         leaves = {}
         for k, a in arrays.items():
+            m = re.match(r"leaf_(\d+)_nshards$", k)
+            if m:
+                leaves[m.group(1)] = {
+                    "gshape": [int(d) for d in
+                               arrays[f"leaf_{m.group(1)}_gshape"]],
+                    "nshards": int(a)}
+                continue
             m = re.match(r"leaf_(\d+)$", k)
             if m:
                 leaves[m.group(1)] = {
                     "gshape": [int(d) for d in np.shape(a)], "nshards": 0}
-        return {"iteration": int(iteration), "world": int(self.comm.size),
+        meta = {"iteration": int(iteration), "world": int(self.comm.size),
                 "leaves": leaves}
+        axes = getattr(self.comm, "mesh_shape", None)
+        if axes:
+            meta["axes"] = {str(k): int(v) for k, v in axes.items()}
+        if self.layout is not None:
+            meta["layout"] = self.layout
+        return meta
 
     def _snapshot_arrays(self, state, host_state) -> dict:
         arrays, tree = _host_arrays(state)
@@ -636,7 +820,8 @@ class MultiNodeCheckpointer:
 
     def maybe_load(self, state: Any = None,
                    iteration: Optional[int] = None,
-                   allow_incomplete: bool = False):
+                   allow_incomplete: bool = False,
+                   leaf_resharder: Optional[Any] = None):
         """Restore from the newest complete snapshot (or ``iteration``).
         Returns ``(state, iteration)``: the restored state and its
         iteration, or ``state`` unchanged and None when nothing is
@@ -645,12 +830,28 @@ class MultiNodeCheckpointer:
         The restored state has the saved structure (a fresh optimizer's
         state lacks the buffers it will hold), its tensors on the CPU in
         their saved dtypes: ``load_state_dict`` moves them where they
-        belong. A rank with no own file (a world larger than the saving
-        one) reads every leaf from its peers' files of a complete
-        snapshot; ``allow_incomplete`` skips that completeness gate. An
-        explicit ``iteration`` whose own file fails verification raises,
-        and so does a file of the JAX package (no ``__tree__``) or of a
-        sharded state."""
+        belong. A saved sharded leaf is restored onto the template: where
+        ``state`` holds a :class:`ShardedLeaf` at the same place, onto
+        its index (spliced from every saved piece that intersects it,
+        peers' files included), returning a sharded leaf; where it holds
+        a tensor, whole; where it holds nothing, the restore raises (the
+        steps' ``state_dict(template=True)`` gives a full template),
+        except on the saving world, where each rank takes its own saved
+        piece. A saved whole leaf onto a template's sharded leaf is
+        sliced.
+
+        ``leaf_resharder(i, ref, saved_gshape, fetch_full)`` (JAX's
+        hook, ``checkpointing/reshard.py:default_leaf_resharder``) is
+        asked for a leaf whose saved global shape differs from the
+        template's (``ref.shape``): ``fetch_full()`` splices the whole
+        saved leaf; it returns an array of the template's global shape,
+        or None for the different-model error.
+
+        A rank with no own file (a world larger than the saving one)
+        reads every leaf from its peers' files of a complete snapshot;
+        ``allow_incomplete`` skips that completeness gate. An explicit
+        ``iteration`` whose own file fails verification raises, and so
+        does a file of the JAX package (no ``__tree__``)."""
         self._drain()
         it = (iteration if iteration is not None
               else self.latest_common_iteration())
@@ -681,26 +882,120 @@ class MultiNodeCheckpointer:
                     opened[f] = np.load(f, allow_pickle=False)
                 return opened[f]
 
-            def leaf(i):
-                for f in sources:
-                    if f"leaf_{i}" in load(f).files:
-                        return load(f)[f"leaf_{i}"]
-                raise ValueError(f"snapshot iteration {it}: leaf {i} "
-                                 "appears in no snapshot file")
-
             first = load(sources[0])
-            if any(k.endswith("_nshards") for k in first.files):
-                raise NotImplementedError(
-                    "sharded snapshot leaves (ZeRO/FSDP) wait for a later "
-                    "slice of the port (ROADMAP.md queue 1 item 8b)")
             if "__tree__" not in first.files:
                 raise ValueError(f"{sources[0]} carries no __tree__: not a "
                                  "snapshot of the port's")
             tree = pickle.loads(first["__tree__"].tobytes())
-            return _unflatten(tree, leaf), it
+            # on the saving world, this rank's own pieces are its targets
+            own_pieces = (own is not None
+                          and self._saved_world(it) == self.comm.size)
+            restore = _Restorer(it, sources, load, leaf_resharder,
+                                own if own_pieces else None)
+            return _unflatten(tree, restore, state), it
         finally:
             for z in opened.values():
                 z.close()
+
+
+class _Restorer:
+    """One restore's leaf reader: ``restore(leaf, template)`` for each
+    saved placeholder (``maybe_load``)."""
+
+    def __init__(self, it, sources, load, leaf_resharder, own=None):
+        self.it, self.sources, self.load = it, sources, load
+        self.resharder = leaf_resharder
+        self.own = own
+
+    def _file_with(self, key: str):
+        for f in self.sources:
+            z = self.load(f)
+            if key in z.files:
+                return z
+        raise ValueError(f"snapshot iteration {self.it}: {key} appears in "
+                         "no snapshot file")
+
+    def _splice(self, i: int, gshape, dtype, targets):
+        sp = _SpliceTargets(targets, gshape, dtype)
+        for f in self.sources:
+            sp.consume(self.load(f), i)
+            if sp.complete:
+                break
+        sp.require_complete(i)
+        return sp.bufs
+
+    def _reshard(self, i, want_shape, saved_shape, fetch):
+        """The saved leaf's whole value at the template's global shape
+        ``want_shape`` (the resharder's), or the different-model
+        error."""
+        if self.resharder is not None:
+            ref = types.SimpleNamespace(shape=tuple(want_shape))
+            out = self.resharder(i, ref, tuple(saved_shape), fetch)
+            if out is not None:
+                out = np.asarray(out)
+                if tuple(out.shape) != tuple(want_shape):
+                    raise ValueError(
+                        f"leaf_resharder returned shape {tuple(out.shape)}"
+                        f" for leaf {i}; template is {tuple(want_shape)}")
+                return out
+        raise ValueError(
+            f"snapshot leaf {i}: saved global shape {tuple(saved_shape)}, "
+            f"template is {tuple(want_shape)} — different model, not a "
+            "resharding")
+
+    def __call__(self, leaf: _Leaf, template):
+        i = leaf.i
+        if leaf.kind != "sharded":
+            arr = self._file_with(f"leaf_{i}")[f"leaf_{i}"]
+            if isinstance(template, ShardedLeaf):
+                full = np.asarray(arr)
+                if full.shape != template.gshape:
+                    full = self._reshard(i, template.gshape, full.shape,
+                                         lambda: np.asarray(arr))
+                sl = tuple(slice(a, b) for a, b in template.index)
+                return ShardedLeaf(_restore_leaf(full[sl], leaf),
+                                   template.gshape, template.index)
+            shape = getattr(template, "shape", None)
+            if (self.resharder is not None and shape is not None
+                    and tuple(shape) != np.shape(arr)):
+                arr = self._reshard(i, tuple(shape), np.shape(arr),
+                                    lambda: np.asarray(arr))
+            return _restore_leaf(arr, leaf)
+        z = self._file_with(f"leaf_{i}_nshards")
+        gshape = tuple(int(d) for d in z[f"leaf_{i}_gshape"])
+        dtype = z[f"leaf_{i}_s0"].dtype
+        whole = tuple((0, d) for d in gshape)
+        if isinstance(template, ShardedLeaf):
+            if template.gshape != gshape:
+                full = self._reshard(
+                    i, template.gshape, gshape,
+                    lambda: self._splice(i, gshape, dtype, [whole])[0])
+                sl = tuple(slice(a, b) for a, b in template.index)
+                piece = full[sl]
+            else:
+                (piece,) = self._splice(i, gshape, dtype,
+                                        [template.index])
+            return ShardedLeaf(_restore_leaf(piece, leaf), template.gshape,
+                               template.index)
+        if template is _MISSING:
+            z = None if self.own is None else self.load(self.own)
+            if z is None or f"leaf_{i}_nshards" not in z.files:
+                raise ValueError(
+                    f"snapshot leaf {i} is sharded, and the template has "
+                    "no leaf at its place to restore it onto (pass the "
+                    "step state's state_dict(template=True))")
+            # the saving world: this rank's own piece, where it was
+            index = _bounds(z[f"leaf_{i}_idx0"], gshape)
+            return ShardedLeaf(_restore_leaf(z[f"leaf_{i}_s0"], leaf),
+                               gshape, index)
+        shape = getattr(template, "shape", None)
+        if shape is not None and tuple(shape) != gshape:
+            full = self._reshard(
+                i, tuple(shape), gshape,
+                lambda: self._splice(i, gshape, dtype, [whole])[0])
+        else:
+            (full,) = self._splice(i, gshape, dtype, [whole])
+        return _restore_leaf(full, leaf)
 
 
 def create_multi_node_checkpointer(name: str, comm: CommunicatorBase,

@@ -64,6 +64,11 @@ kernel is ``weight.t()``, a convolution's HWIO kernel ``weight.permute(2,
 3, 1, 0)``): the order and the layout in which the ZeRO steps pack
 parameters (``chainermn_torch/optimizers/zero.py``), so that their flat
 vectors hold JAX's numbers in JAX's places.
+
+:func:`flax_params` goes the other way, a model's parameters as the flax
+tree in flax's layout, and :func:`stacked_params_from_flax` turns a JAX
+tree (stacked by ``stack_lm_blocks`` or not) into tensors: the FSDP
+step's tree form (``chainermn_torch/optimizers/zero.py``).
 """
 
 from __future__ import annotations
@@ -76,7 +81,8 @@ import torch
 __all__ = ["convert_layer", "params_from_flax", "mlp_params_from_flax",
            "resnet_params_from_flax", "dense_stage_params_from_flax",
            "seq2seq_params_from_flax", "vit_params_from_flax",
-           "flax_param_order", "flax_layout_perm"]
+           "flax_param_order", "flax_layout_perm", "flax_params",
+           "stacked_params_from_flax", "block_param_map"]
 
 
 def _t(x) -> torch.Tensor:
@@ -368,6 +374,15 @@ def flax_param_order(model) -> List[tuple]:
     return sorted(named, key=key)
 
 
+def _layout_perm(mod) -> Optional[tuple]:
+    """The permutation into flax's layout of a module's ``weight``."""
+    if isinstance(mod, torch.nn.Linear):
+        return (1, 0)
+    if isinstance(mod, torch.nn.Conv2d):
+        return (2, 3, 1, 0)
+    return None
+
+
 def flax_layout_perm(model, name: str) -> Optional[tuple]:
     """The permutation ``p`` with ``param.permute(p)`` in flax's layout
     for the parameter ``name`` of a model :func:`flax_param_order` maps
@@ -379,9 +394,51 @@ def flax_layout_perm(model, name: str) -> Optional[tuple]:
     owner, _, attr = name.rpartition(".")
     if attr != "weight" or not isinstance(model, (MLP, TransformerLM, ViT)):
         return None
-    mod = model.get_submodule(owner)
-    if isinstance(mod, torch.nn.Linear):
-        return (1, 0)
-    if isinstance(mod, torch.nn.Conv2d):
-        return (2, 3, 1, 0)
-    return None
+    return _layout_perm(model.get_submodule(owner))
+
+
+def block_param_map(block) -> Dict[str, tuple]:
+    """A transformer block's parameters → ``{torch name: (flax path
+    within the block, permutation into flax's layout)}`` (the inverse
+    view: ``flax_leaf.permute(perm)`` is the torch tensor, a Dense
+    kernel's transpose)."""
+    out = {}
+    for name, _ in block.named_parameters():
+        owner, _, attr = name.rpartition(".")
+        mod = block.get_submodule(owner) if owner else block
+        perm = _layout_perm(mod) if attr == "weight" else None
+        out[name] = (_flax_leaf(block, owner, attr), perm)
+    return out
+
+
+def flax_params(model) -> Dict:
+    """The inverse of the converters for a model
+    :func:`flax_param_order` maps: its trainable parameters as the flax
+    ``params`` tree (nested dicts by flax path), each in flax's layout (a
+    detached view of the parameter: a Dense kernel is ``weight.t()``).
+    :func:`~chainermn_torch.models.transformer.stack_lm_blocks` takes a
+    TransformerLM's; ``params_from_flax(model, unstack_lm_blocks(tree))``
+    (numpy leaves) converts a stacked tree back."""
+    out: Dict = {}
+    for name, p in flax_param_order(model):
+        owner, _, attr = name.rpartition(".")
+        path = _flax_leaf(model, owner, attr)
+        perm = flax_layout_perm(model, name)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = p.detach().permute(perm) if perm else p.detach()
+    return out
+
+
+def stacked_params_from_flax(tree: Mapping, device=None) -> Dict:
+    """A flax ``params`` tree with numpy leaves (the JAX model's, stacked
+    by its ``stack_lm_blocks`` or not) → the same tree of f32 tensors on
+    ``device``: the tree form the FSDP step and
+    :func:`~chainermn_torch.models.transformer.make_lm_fsdp_scan_loss`
+    take (flax's layout is the tree form's own)."""
+    if isinstance(tree, Mapping):
+        return {k: stacked_params_from_flax(v, device)
+                for k, v in tree.items()}
+    t = _t(tree)
+    return t if device is None else t.to(device)

@@ -30,6 +30,12 @@ reference branch for branch:
 * one token (decode): attention over the ring-buffered page with the
   ring-inverted position mask.
 
+The FSDP scan form (JAX's ``stack_lm_blocks``, ``unstack_lm_blocks``
+and ``make_lm_fsdp_scan_loss``) works on the flax-layout parameter tree
+(``models.convert.flax_params``): the blocks stacked on a layer
+dimension, run one layer at a time by ``optimizers.fsdp_scan_apply``
+through this module's :class:`TransformerBlock`.
+
 Numerics kept from the reference: LayerNorm epsilon 1e-6, GELU with the
 tanh approximation, the LM head in f32 even in a bf16 model, learned
 positions beyond ``max_len`` read as NaN (``jnp.take``'s fill mode), f32
@@ -51,7 +57,9 @@ from chainermn_torch.ops.flash_attention import flash_attention
 from chainermn_torch.ops.rotary import apply_rope
 
 __all__ = ["TransformerBlock", "TransformerLM", "generate",
-           "dense_attention", "compute_copy", "lm_loss_with_aux"]
+           "dense_attention", "compute_copy", "lm_loss_with_aux",
+           "stack_lm_blocks", "unstack_lm_blocks",
+           "make_lm_fsdp_scan_loss"]
 
 _LN_EPS = 1e-6   # flax LayerNorm's default (torch's is 1e-5)
 
@@ -429,3 +437,134 @@ def generate(model: TransformerLM, prompt, max_new_tokens: int,
             done = done | (tok == eos_id)
         out.append(tok[:, None])
     return torch.cat(out, dim=1)
+
+
+def _stack(leaves):
+    if isinstance(leaves[0], torch.Tensor):
+        return torch.stack(leaves)
+    import numpy as np
+
+    return np.stack(leaves)
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def stack_lm_blocks(params):
+    """A TransformerLM's flax-layout tree (tensors or arrays:
+    :func:`~chainermn_torch.models.convert.flax_params`, or the JAX
+    model's converted) → the scanned-stack layout: the ``block_i``
+    subtrees stacked leaf by leaf on a leading layer dimension under
+    ``"blocks"``, everything else as it is (JAX's
+    ``models/transformer.py:508``). The layout
+    :func:`make_lm_fsdp_scan_loss` consumes; :func:`unstack_lm_blocks`
+    inverts it."""
+    names = sorted((k for k in params if k.startswith("block_")),
+                   key=lambda k: int(k.split("_")[1]))
+    if not names:
+        raise ValueError("no block_i subtrees found — not TransformerLM "
+                         "params?")
+    rest = {k: v for k, v in params.items() if not k.startswith("block_")}
+    stacked = _tree_map(lambda *ls: _stack(list(ls)),
+                        *[params[k] for k in names])
+    return {"blocks": stacked, **rest}
+
+
+def unstack_lm_blocks(packed):
+    """Inverse of :func:`stack_lm_blocks`: ``{"blocks": [L, ...], ...}``
+    → the ``block_i`` per-layer tree."""
+    blocks = packed["blocks"]
+    first = blocks
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    out = {k: v for k, v in packed.items() if k != "blocks"}
+    for i in range(first.shape[0]):
+        out[f"block_{i}"] = _tree_map(lambda leaf, i=i: leaf[i], blocks)
+    return out
+
+
+def make_lm_fsdp_scan_loss(model: TransformerLM):
+    """A tree-form FSDP ``loss_fn`` (``optimizers.make_fsdp_train_step``
+    with ``params=stack_lm_blocks(...)``) for ``model``'s configuration
+    (JAX's ``models/transformer.py:539``): the embedding and learned
+    positions, the layer stack through ``optimizers.fsdp_scan_apply``
+    (one layer gathered at a time, re-gathered in the backward) over the
+    port's own :class:`TransformerBlock` (so attention runs
+    ``flash_attention``), the final LayerNorm, then the fused head + CE
+    loss (``ops.fused_ce.fused_ce_head``: the logits never exist). The
+    numerics are :func:`~chainermn_torch.ops.fused_ce.fused_lm_loss`'s
+    on the same model. ``model`` gives the configuration only: its
+    parameters are neither read nor kept.
+
+    Refused as JAX refuses: MoE, ``tp_axis``/``seq_axis``, decode and
+    ``lm_head_tp``, and a vocabulary with no multiple-of-128 tile <=
+    2048 dividing it."""
+    from torch.func import functional_call
+
+    from chainermn_torch.models.convert import block_param_map
+    from chainermn_torch.ops.fused_ce import fused_ce_head
+    from chainermn_torch.optimizers.zero import fsdp_scan_apply, full
+
+    if getattr(model, "moe_experts_per_device", 0):
+        raise ValueError("MoE models: the load-balancing aux cannot "
+                         "thread through the scan; use the per-layer "
+                         "model with lm_loss_with_aux")
+    if (getattr(model, "tp_axis", None) is not None
+            or getattr(model, "seq_axis", None) is not None):
+        raise ValueError("tp_axis/seq_axis need shard_map axis context; "
+                         "the FSDP scan step runs under plain jit")
+    if getattr(model, "decode", False) or getattr(model, "lm_head_tp",
+                                                   False):
+        raise ValueError("decode/lm_head_tp unsupported in the FSDP "
+                         "scan loss")
+    # the JAX kernel's vocabulary tile (the port's kernels fix their own
+    # tiles; the rule and its refusal are kept)
+    if next((t for t in (2048, 1024, 512, 256, 128)
+             if model.vocab % t == 0), None) is None:
+        raise ValueError(
+            f"vocab {model.vocab} has no 128-multiple tile divisor "
+            "<= 2048; pad the vocabulary to a multiple of 128 for the "
+            "fused-CE head")
+    # the configuration, not the model: its parameters are not kept
+    dtype, d, learned = model.dtype, model.d_model, model.pos_emb == "learned"
+    max_len = model.max_len
+    block = TransformerBlock(d, model.n_heads, model.d_ff,
+                             model.n_kv_heads, dtype, model.attention,
+                             model.attention_window, model.pos_emb,
+                             model.rope_theta, device="meta")
+    names = block_param_map(block)
+
+    def block_fn(p_i, h):
+        tensors = {}
+        for name, (path, perm) in names.items():
+            t = p_i
+            for k in path:
+                t = t[k]
+            tensors[name] = t.permute(perm) if perm else t
+        return functional_call(block, tensors, (h,))
+
+    def loss_fn(_model, p, x, y, train=True, **kw):
+        del train, kw
+        x = torch.as_tensor(x).long()
+        h = F.embedding(x, full(p["tok_emb"]["embedding"]).to(dtype))
+        if learned:
+            idx = torch.arange(x.shape[1], device=x.device)
+            ok = idx < max_len
+            pe = full(p["pos_emb"])[torch.remainder(idx, max_len)]
+            h = h + pe.masked_fill(~ok[:, None], float("nan")).to(
+                dtype)[None]
+        h = fsdp_scan_apply(block_fn, p["blocks"], h)
+        ln = p["LayerNorm_0"]
+        h = F.layer_norm(h.float(), (d,), full(ln["scale"]),
+                         full(ln["bias"]), _LN_EPS).to(dtype)
+        b, l, _ = h.shape
+        w = full(p["lm_head"]["kernel"]).to(h.dtype)      # [D, V]
+        loss, acc = fused_ce_head(
+            h.reshape(b * l, d), w,
+            torch.as_tensor(y, device=h.device).reshape(-1))
+        return loss, (acc, {})
+
+    return loss_fn

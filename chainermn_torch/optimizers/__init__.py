@@ -24,9 +24,10 @@ checkpoint file keeps its own: the JAX package's
 ``load_state_dict`` loads in place, into the objects the train step
 holds.
 
-The ZeRO-1/2 step factories (:mod:`chainermn_torch.optimizers.zero`) and
-the large-batch optimizers LARS and LAMB
-(:mod:`chainermn_torch.optimizers.large_batch`) are exported here too.
+The ZeRO-1/2 and FSDP step factories
+(:mod:`chainermn_torch.optimizers.zero`) and the large-batch optimizers
+LARS and LAMB (:mod:`chainermn_torch.optimizers.large_batch`) are
+exported here too.
 """
 
 from __future__ import annotations

@@ -29,7 +29,10 @@ skip it).
 
 Both couple the elements of a leaf through its norms, so the ZeRO steps'
 probe refuses them (``chainermn_torch/optimizers/zero.py``), as JAX's
-refuses optax's.
+refuses optax's. Under FSDP each holds a shard of a leaf: the step sets
+``norm_reduce``, which sums the shards' squared norms over the group (one
+all-reduce of every leaf's partial sums), so the trust ratios are the
+whole leaves', as optax's are in JAX's global view.
 """
 
 from __future__ import annotations
@@ -68,10 +71,25 @@ def _norms(ts) -> torch.Tensor:
     return torch.stack(torch._foreach_norm(ts))
 
 
-def _trust_ratios(ps, us, coef: float, eps: float):
+def _sq_norms(ts) -> torch.Tensor:
+    """Each tensor's squared L2 norm, stacked (f64 on the CPU, as
+    :func:`_norms` sums)."""
+    if ts[0].device.type == "cpu":
+        return torch.stack([torch.linalg.vector_norm(
+            t, dtype=torch.float64) ** 2 for t in ts])
+    return torch.stack(torch._foreach_norm(ts)) ** 2
+
+
+def _trust_ratios(ps, us, coef: float, eps: float, norm_reduce=None):
     """optax ``scale_by_trust_ratio``'s factor for each leaf, as 0-d
-    tensors: ``coef·‖p‖/(‖u‖+eps)``, 1 where either norm is 0."""
-    pn, un = _norms(ps), _norms(us)
+    tensors: ``coef·‖p‖/(‖u‖+eps)``, 1 where either norm is 0.
+    ``norm_reduce(ps, sq)`` (an FSDP step's hook) turns the squared
+    norms of ``ps`` then ``us``, one vector, into the whole leaves'."""
+    if norm_reduce is None:
+        pn, un = _norms(ps), _norms(us)
+    else:
+        sq = norm_reduce(ps, torch.cat([_sq_norms(ps), _sq_norms(us)]))
+        pn, un = sq.sqrt().to(ps[0].dtype).split(len(ps))
     ratio = coef * pn / (un + eps)
     return torch.where((pn == 0) | (un == 0), torch.ones_like(ratio),
                        ratio).unbind()
@@ -100,6 +118,7 @@ class LARS(torch.optim.Optimizer):
             lr=lr, weight_decay=weight_decay,
             trust_coefficient=trust_coefficient, eps=eps,
             momentum=momentum, nesterov=nesterov))
+        self.norm_reduce = None
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -114,7 +133,8 @@ class LARS(torch.optim.Optimizer):
                 continue
             us = torch._foreach_add(gs, ps, alpha=group["weight_decay"])
             torch._foreach_mul_(us, _trust_ratios(
-                ps, us, group["trust_coefficient"], group["eps"]))
+                ps, us, group["trust_coefficient"], group["eps"],
+                self.norm_reduce))
             torch._foreach_mul_(us, [-_lr(group, st["step"]) for st in sts])
             traces = [st["trace"] for st in sts]
             torch._foreach_mul_(traces, group["momentum"])
@@ -139,6 +159,7 @@ class LAMB(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
                                       eps_root=eps_root,
                                       weight_decay=weight_decay))
+        self.norm_reduce = None
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -171,7 +192,8 @@ class LAMB(torch.optim.Optimizer):
             us = torch._foreach_div(mu_hat, nu_hat)
             torch._foreach_add_(us, torch._foreach_mul(
                 ps, group["weight_decay"]))
-            torch._foreach_mul_(us, _trust_ratios(ps, us, 1.0, 0.0))
+            torch._foreach_mul_(us, _trust_ratios(ps, us, 1.0, 0.0,
+                                                  self.norm_reduce))
             torch._foreach_mul_(us, [-_lr(group, st["step"]) for st in sts])
             torch._foreach_add_(ps, us)
             for st, c in zip(sts, counts):

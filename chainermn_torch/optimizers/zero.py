@@ -1,7 +1,8 @@
-"""ZeRO-1 and ZeRO-2: sharded optimizer state over the data axis.
+"""ZeRO-1/2 (sharded optimizer state) and ZeRO-3/FSDP (sharded
+parameters) over the data axis.
 
-Counterpart of the ZeRO-1/2 half of ``chainermn_tpu/optimizers/zero.py``
-(``:40-842``, ``:1243-1265``). The parameters are packed, in the flax
+Counterpart of ``chainermn_tpu/optimizers/zero.py``; the ZeRO-1/2 half
+(``:40-842``, ``:1243-1265``) first. The parameters are packed, in the flax
 tree's leaf order (:func:`~chainermn_torch.models.convert.flax_param_order`),
 each in flax's layout (a Dense kernel transposed,
 :func:`~chainermn_torch.models.convert.flax_layout_perm`), into flat
@@ -40,20 +41,37 @@ scale each run of 256 (or fewer) consecutive elements together, so their
 blocks, scales and codes follow the layout. A Linear's weight is then a
 transposed view (``F.linear`` takes it without a copy).
 
-The FSDP half (``make_fsdp_train_step``, ``fsdp_*``,
-``fsdp_layout_manifest``) waits for ROADMAP.md queue 1 item 8b.
+**FSDP** (``:848-1288``; :func:`make_fsdp_train_step`). JAX annotates
+each leaf's sharding and lets XLA insert the collectives; the port does
+them itself, on its own communicator: each leaf splits over the ranks
+along its first divisible dimension of its shape in flax's layout (too
+small a leaf stays whole), rank ``r`` keeping JAX's shard ``r`` (in
+flax's layout) as the trainable tensor. A ``torch.autograd.Function``
+all-gathers a leaf (or one layer of a stacked leaf) on each use, and its
+backward mean-reduce-scatters the gradient into the shard's buffer; a
+whole leaf's gradient is mean-all-reduced after the backward. A module's
+parameters read their gathers through ``torch.nn.utils.parametrize``; a
+tree of tensors (the scanned-stack form) hands its loss function
+:class:`FsdpParam` handles, which :func:`full` and
+:func:`fsdp_scan_apply` gather. A gathered tensor dies when nothing
+holds it, and :class:`FsdpState` counts the bytes alive.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
+import math
+import warnings
 import weakref
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from chainermn_torch.collectives.quantized import QUANT_BLOCK
 from chainermn_torch.comm.distributed import plan_buckets
 
 __all__ = ["make_zero1_train_step", "make_zero2_train_step", "zero1_params",
@@ -64,9 +82,6 @@ __all__ = ["make_zero1_train_step", "make_zero2_train_step", "zero1_params",
 #: the padding quantum: any world size dividing it gives the same padded
 #: global length (JAX's, so layouts and manifests agree)
 QUANTUM = 256
-
-_ITEM8B = ("waits for the FSDP and checkpointing slice of the port "
-           "(ROADMAP.md queue 1 item 8b)")
 
 _NOT_ELEMENTWISE = (
     "this optimizer is not element-wise: its update on a parameter "
@@ -299,29 +314,96 @@ class ZeroState:
         for full, shard in zip(self.fulls, self.shards):
             self.comm.all_gather_flat(shard, out=full)
 
-    def state_dict(self) -> dict:
-        """This rank's shards, the inner optimizer's state, the residuals
-        and the layout's manifest."""
-        return {"params": list(self.shards),
-                "optimizer": self.optimizer.state_dict(),
-                "residuals": list(self.residuals),
+    def state_dict(self, template: bool = False) -> dict:
+        """This rank's part of the state, for the checkpointer: each
+        shard as a :class:`~chainermn_torch.extensions.checkpoint.
+        ShardedLeaf` (tile ``r`` of its ``(padded,)`` vector), the inner
+        optimizer's state with each per-element tensor sharded as its
+        parameter, the error-feedback residuals as the world-stacked
+        ``(n, padded)`` frame JAX saves (row ``r`` this rank's), and the
+        layout's manifest. ``template=True`` (the restoring side's
+        ``maybe_load`` template) fills an optimizer that has not stepped
+        yet with state of the shapes a step would give it."""
+        from chainermn_torch.extensions.checkpoint import ShardedLeaf
+
+        r, n = self.comm.rank, self.comm.size
+        params = [ShardedLeaf(s, (p,), ((r * ln, (r + 1) * ln),))
+                  for s, p, ln in zip(self.shards, self.layout.padded,
+                                      self.layout.shard_lens)]
+        return {"params": params,
+                "optimizer": _sharded_optimizer_state(
+                    self.optimizer, self.shards, params, template),
+                "residuals": [ShardedLeaf(e[None], (n, e.numel()),
+                                          ((r, r + 1), (0, e.numel())))
+                              for e in self.residuals],
                 "layout": _manifest(self.layout, self.bucketed,
                                     self.comm.size)}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        """Load :meth:`state_dict` output in place, then gather the
-        parameters."""
+        """Load :meth:`state_dict` output in place (as saved, or restored
+        onto this world by the checkpointer), then gather the
+        parameters. A layout other than this step's (another model,
+        bucket plan or padding) is refused; the world may differ."""
         want = _manifest(self.layout, self.bucketed, self.comm.size)
-        if state["layout"] != want:
-            raise ValueError(f"the state's layout {state['layout']} is not "
-                             f"this step's {want}")
+        got = state["layout"]
+        skip = ("n", "ef_frames")
+        if {k: v for k, v in got.items() if k not in skip} != \
+                {k: v for k, v in want.items() if k not in skip}:
+            raise ValueError(f"the state's layout {got} is not this "
+                             f"step's {want}")
         for dst, src in zip(self.shards, state["params"]):
-            dst.copy_(torch.as_tensor(src))
-        self.optimizer.load_state_dict(state["optimizer"])
+            dst.copy_(_local(src))
+        self.optimizer.load_state_dict(_local_tree(state["optimizer"]))
         for dst, src in zip(self.residuals, state["residuals"]):
-            dst.copy_(torch.as_tensor(src))
+            dst.copy_(_local(src).reshape(dst.shape))
         self.gather()
+
+
+def _local(x) -> torch.Tensor:
+    """A state entry as this rank's tensor (a sharded leaf's piece)."""
+    return torch.as_tensor(getattr(x, "local", x))
+
+
+def _local_tree(tree):
+    """``tree`` with each sharded leaf replaced by its local piece."""
+    if isinstance(tree, dict):
+        return {k: _local_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_local_tree(v) for v in tree)
+    return tree.local if hasattr(tree, "local") else tree
+
+
+def _sharded_optimizer_state(optimizer, shards, params, template: bool):
+    """``optimizer.state_dict()`` with each tensor shaped like its
+    parameter's shard marked sharded like the parameter (``params[i]``:
+    the parameter's sharded leaf, or a tensor for a replicated one).
+    ``template``: an optimizer without state gets the state of one step
+    of a copy on zero gradients (its shapes, not its values, matter)."""
+    from chainermn_torch.extensions.checkpoint import ShardedLeaf
+
+    opt = optimizer
+    if template and len(opt.state) < len(shards):
+        opt = copy.deepcopy(optimizer)
+        if hasattr(opt, "norm_reduce"):
+            opt.norm_reduce = None      # the copy's step is local
+        with torch.no_grad():
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    p.grad = torch.zeros_like(p)
+            opt.step()
+    sd = opt.state_dict()
+    if opt is not optimizer:
+        sd = copy.deepcopy(sd)
+    state = {}
+    for i, per in sd["state"].items():
+        like = params[i]
+        state[i] = {
+            k: (ShardedLeaf(v, like.gshape, like.index)
+                if isinstance(like, ShardedLeaf) and torch.is_tensor(v)
+                and tuple(v.shape) == tuple(shards[i].shape) else v)
+            for k, v in per.items()}
+    return {"state": state, "param_groups": sd["param_groups"]}
 
 
 def _manifest(layout: _BucketLayout, bucketed: bool, n: int) -> dict:
@@ -584,17 +666,753 @@ def zero_layout_manifest(params, comm, bucket_bytes=None) -> dict:
     return _manifest(layout, bucket_bytes is not None, comm.size)
 
 
-def _later(name: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(f"{name} {_ITEM8B}")
-    refuse.__name__ = name
-    refuse.__doc__ = f"``{name}``: {_ITEM8B}."
-    return refuse
 
 
-make_fsdp_train_step = _later("make_fsdp_train_step")
-fsdp_shardings = _later("fsdp_shardings")
-fsdp_stack_shardings = _later("fsdp_stack_shardings")
-fsdp_scan_apply = _later("fsdp_scan_apply")
-fsdp_gather_params = _later("fsdp_gather_params")
-fsdp_layout_manifest = _later("fsdp_layout_manifest")
+# ---------------------------------------------------------------------------
+# ZeRO-3 / FSDP: every parameter sharded, gathered just in time
+# ---------------------------------------------------------------------------
+
+_STATEFUL_FSDP = (
+    "grad_reducer {name!r} is stateful (error-feedback residuals); the "
+    "FSDP step has no per-rank state to thread them through. Pass "
+    "QuantizedReducer(ef=False), or use make_data_parallel_train_step "
+    "for error feedback.")
+
+
+def _tree_items(tree, prefix=()):
+    """``(path, leaf)`` of a nested dict (keys sorted, as
+    ``jax.tree_util`` orders a dict) or list; a leaf is anything else."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_items(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_items(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def _tree_build(pairs):
+    """The nested dict of ``(path, value)`` pairs (paths of dict keys)."""
+    out: dict = {}
+    for path, v in pairs:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def _path_str(path) -> str:
+    return "/".join(str(k) for k in path)
+
+
+def _module_leaves(model: nn.Module):
+    """``(torch name, flax path, perm, parameter)`` of a module's
+    trainable parameters in the flax tree's order (any other model: its
+    own order and names)."""
+    from chainermn_torch.models.convert import (_flax_leaf,
+                                                flax_layout_perm,
+                                                flax_param_order)
+    from chainermn_torch.models.mlp import MLP
+    from chainermn_torch.models.transformer import TransformerLM
+    from chainermn_torch.models.vit import ViT
+
+    mapped = isinstance(model, (MLP, TransformerLM, ViT))
+    out = []
+    for name, p in flax_param_order(model):
+        owner, _, attr = name.rpartition(".")
+        path = (_flax_leaf(model, owner, attr) if mapped
+                else tuple(name.split(".")))
+        out.append((name, path, flax_layout_perm(model, name), p))
+    return out
+
+
+def _flax_shape(shape, perm) -> tuple:
+    shape = tuple(int(d) for d in shape)
+    return tuple(shape[i] for i in perm) if perm else shape
+
+
+def _split_dim(shape, n: int, start_dim: int) -> Optional[int]:
+    """The FSDP rule: the first dimension at index >= ``start_dim`` that
+    ``n`` divides and that has at least ``n`` rows; None (replicated) for
+    a leaf too small to split."""
+    for i, d in enumerate(shape):
+        if i >= start_dim and d >= n and d % n == 0:
+            return i
+    return None
+
+
+def _first_divisible_dim_shardings(params, comm, start_dim: int):
+    """The FSDP per-leaf rule (JAX's ``zero.py:848``) on each leaf's
+    shape in flax's layout. ``params``: a module (→ ``{parameter name:
+    split dimension in torch's layout, or None}``, in the flax tree's
+    order: the flax dimension mapped through
+    :func:`~chainermn_torch.models.convert.flax_layout_perm`) or a nested
+    dict of tensors or arrays in flax's layout (→ the same tree of split
+    dimensions)."""
+    n = comm.size
+    if isinstance(params, nn.Module):
+        out = {}
+        for name, _, perm, p in _module_leaves(params):
+            k = _split_dim(_flax_shape(p.shape, perm), n, start_dim)
+            out[name] = None if k is None else (perm[k] if perm else k)
+        return out
+    return _tree_build(
+        (path, _split_dim(tuple(np.shape(leaf)), n, start_dim))
+        for path, leaf in _tree_items(params))
+
+
+def fsdp_shardings(params, comm):
+    """Per-leaf split dimensions for fully sharded parameters: each leaf
+    splits over the communicator along its first divisible dimension in
+    flax's layout (None: replicated). See
+    :func:`_first_divisible_dim_shardings` for the forms."""
+    return _first_divisible_dim_shardings(params, comm, start_dim=0)
+
+
+def fsdp_stack_shardings(params, comm):
+    """:func:`fsdp_shardings` for trees of scanned layer stacks
+    (:func:`fsdp_scan_apply`): the same rule, but dim 0, the layer
+    dimension, is never chosen, so that each layer gathers inside its
+    own iteration."""
+    return _first_divisible_dim_shardings(params, comm, start_dim=1)
+
+
+def _find_stacked_subtree(params, n):
+    """JAX's detector (``zero.py:930``) of a scanned layer stack: a node
+    with >= 2 array leaves sharing one leading dim ``L >= 2`` divisible
+    by ``n`` (every leaf ndim >= 2, one >= 3), where the default rule
+    would shard the layer dim. The node's path, or None."""
+    groups: dict = {}
+    for path, leaf in _tree_items(params):
+        groups.setdefault(tuple(path[:-1]), []).append(
+            tuple(np.shape(leaf)))
+    for parent, shapes in groups.items():
+        if len(shapes) < 2 or not all(len(s) >= 2 for s in shapes):
+            continue
+        if not any(len(s) >= 3 for s in shapes):
+            continue
+        heads = {s[0] for s in shapes}
+        if len(heads) != 1:
+            continue
+        L = heads.pop()
+        if L >= 2 and L % n == 0:
+            return _path_str(parent) or "<root>"
+    return None
+
+
+def _index_of(gshape, dim: Optional[int], n: int, r: int) -> tuple:
+    """Rank ``r``'s global ``(start, stop)`` per dimension."""
+    idx = [(0, int(d)) for d in gshape]
+    if dim is not None:
+        ln = gshape[dim] // n
+        idx[dim] = (r * ln, (r + 1) * ln)
+    return tuple(idx)
+
+
+class _FsdpLeaf:
+    """One parameter of an FSDP step: its flax path and global flax
+    shape, its split dimension in flax's layout (None: replicated), the
+    permutation into flax's layout of the torch tensor it stands for,
+    and ``shard``, this rank's part in flax's layout (the trainable
+    tensor)."""
+
+    __slots__ = ("path", "gshape", "dim", "perm", "shard")
+
+    def __init__(self, path, gshape, dim, perm, shard):
+        self.path, self.gshape, self.dim = path, gshape, dim
+        self.perm, self.shard = perm, shard
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: leaf ``j`` (or its layer ``i``) all-gathered in flax's
+    layout. Backward: the full gradient reduced onto this rank's shard,
+    into the step's buffer (the shard's own gradient is None: a layer's
+    piece of a stack need not become a whole stack's gradient)."""
+
+    @staticmethod
+    def forward(ctx, shard, state, j, i):
+        ctx.state, ctx.j, ctx.i = state, j, i
+        return state._gather(j, i, state.param_wire)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.state._reduce(ctx.j, ctx.i, g)
+        return None, None, None, None
+
+
+class FsdpParam:
+    """A tree-form step's parameter as its loss function sees it:
+    :meth:`full` gathers the whole leaf, :meth:`layer` one layer of a
+    stack (a replicated leaf returns its tensor or a slice of it); each
+    call gathers anew, differentiably. ``shape`` is the global one, in
+    flax's layout."""
+
+    def __init__(self, state: "FsdpState", j: int):
+        self._state, self._j = state, j
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size(self._state.leaves[self._j].gshape)
+
+    def full(self) -> torch.Tensor:
+        leaf = self._state.leaves[self._j]
+        if leaf.dim is None:
+            return leaf.shard
+        return _Gather.apply(leaf.shard, self._state, self._j, None)
+
+    def layer(self, i: int) -> torch.Tensor:
+        leaf = self._state.leaves[self._j]
+        if leaf.dim is None:
+            return leaf.shard[i]
+        if leaf.dim == 0:   # a split layer dim: gather the stack, slice
+            return self.full()[i]
+        return _Gather.apply(leaf.shard, self._state, self._j, i)
+
+
+def full(x) -> torch.Tensor:
+    """An :class:`FsdpParam` gathered, or a tensor as it is."""
+    return x.full() if isinstance(x, FsdpParam) else x
+
+
+class _GatherParametrization(nn.Module):
+    """A module-form step's sharded parameter: the module's attribute
+    reads the gathered leaf in torch's layout (a view of the flax-layout
+    buffer), its registered tensor is the shard."""
+
+    def __init__(self, state: "FsdpState", j: int):
+        super().__init__()
+        self._fsdp = (state, j)    # a tuple: not a submodule
+
+    def forward(self, original):
+        state, j = self._fsdp
+        got = _Gather.apply(original, state, j, None)
+        perm = state.leaves[j].perm
+        return got.permute(_inverse(perm)) if perm else got
+
+    def right_inverse(self, value):
+        state, j = self._fsdp
+        leaf = state.leaves[j]
+        v = value.permute(leaf.perm) if leaf.perm else value
+        (a, b) = _index_of(leaf.gshape, leaf.dim, state.n,
+                           state.comm.rank)[leaf.dim]
+        return v.narrow(leaf.dim, a, b - a).detach().clone()
+
+
+def _jit_block_quantize(v: torch.Tensor, mode: str, block: int):
+    """``block_quantize`` as JAX's compiled step computes it: XLA turns
+    the division of a block's maximum by the constant qmax into a
+    product with qmax's f32 reciprocal."""
+    from chainermn_torch.collectives import quantized as q
+
+    qmax = q._QMAX[mode]
+    b = torch.nn.functional.pad(v, (0, (-v.numel()) % block)).reshape(
+        -1, block)
+    scale = q._scale(b.abs().amax(dim=1), qmax, True).to(b.dtype)
+    codes = q._codes(b, scale, qmax).reshape(-1).to(torch.int8)
+    if mode == "int4-block":
+        return q.pack_int4(codes), scale
+    return codes, scale
+
+
+def _wire_roundtrip(g: torch.Tensor, mode: str) -> torch.Tensor:
+    """JAX's ``_wire_roundtrip`` (``zero.py:1186``) of a reduced
+    full-leaf gradient in flax's layout, identical on every rank: bf16 a
+    cast and back; the block formats in blocks of 256 over the flattened
+    leaf; ``int8`` one amax/127 scale for the leaf."""
+    from chainermn_torch.collectives.quantized import block_dequantize
+
+    if not g.is_floating_point():
+        return g
+    if mode == "bf16":
+        return g.to(torch.bfloat16).to(g.dtype)
+    if mode in ("int8-block", "int4-block"):
+        q, s = _jit_block_quantize(g.reshape(-1), mode, QUANT_BLOCK)
+        return block_dequantize(q, s, g.numel(), mode, g.dtype).reshape(
+            g.shape)
+    amax = g.abs().amax()
+    scale = torch.where(amax > 0, amax * (1.0 / 127.0),
+                        torch.ones_like(amax)).to(g.dtype)
+    return torch.clamp(torch.round(g / scale), -127, 127).to(g.dtype) \
+        * scale
+
+
+class FsdpState:
+    """An FSDP step's state on this rank: ``leaves`` (each parameter's
+    path, global flax shape, split dimension and ``shard``), ``shards``
+    (the trainable tensors, in the flax tree's order: JAX's sharded
+    ``params``), ``optimizer`` (the inner optimizer over the shards: its
+    per-parameter state is sharded as its parameter), and the gathered
+    bytes alive now and at most (``gathered_bytes``,
+    ``gathered_bytes_peak``: every all-gathered leaf or layer until
+    nothing holds it; ``layer_bytes``, ``layer_bytes_peak``: the layers
+    of stacks that :func:`fsdp_scan_apply` gathered alone)."""
+
+    def __init__(self, comm, leaves: List[_FsdpLeaf], tree: bool,
+                 param_wire: Optional[str], quant_mode: Optional[str]):
+        self.comm, self.n = comm, comm.size
+        self.leaves = leaves
+        self.shards = [leaf.shard for leaf in leaves]
+        self.tree = tree
+        self.param_wire, self.quant_mode = param_wire, quant_mode
+        self.optimizer = None
+        self.gathered_bytes = 0
+        self.gathered_bytes_peak = 0
+        self.layer_bytes = 0
+        self.layer_bytes_peak = 0
+        self._grads: List[Optional[torch.Tensor]] = [None] * len(leaves)
+
+    # -- gathered bytes -------------------------------------------------
+
+    def _track(self, nbytes: int) -> None:
+        self.gathered_bytes += nbytes
+        self.gathered_bytes_peak = max(self.gathered_bytes_peak,
+                                       self.gathered_bytes)
+
+    def _track_layer(self, nbytes: int) -> None:
+        self.layer_bytes += nbytes
+        self.layer_bytes_peak = max(self.layer_bytes_peak, self.layer_bytes)
+
+    # -- the collectives ------------------------------------------------
+
+    @torch.no_grad()
+    def _gather(self, j: int, i: Optional[int],
+                wire: Optional[str]) -> torch.Tensor:
+        """Leaf ``j`` (its layer ``i``) all-gathered in flax's layout,
+        through ``wire`` (None: uncompressed)."""
+        leaf = self.leaves[j]
+        s = leaf.shard.detach()
+        k = leaf.dim
+        if i is not None:
+            s, k = s[i], k - 1
+        n, shape = self.n, tuple(s.shape)
+        flat = s.contiguous().reshape(-1)
+        # the result must be a tensor of its own, not a view: autograd
+        # hands a view on as another tensor object, and the bytes are
+        # counted on this one
+        if wire is None and k == 0:
+            out = torch.empty((n * shape[0], *shape[1:]), dtype=s.dtype,
+                              device=s.device)
+            self.comm.all_gather_flat(flat, out=out.view(-1))
+            parts = None
+        elif wire is None:
+            parts = self.comm.all_gather_flat(flat).view(n, *shape)
+        elif wire == "bf16":
+            parts = self.comm.all_gather_flat(
+                flat.to(torch.bfloat16)).view(n, *shape).to(s.dtype)
+        else:
+            from chainermn_torch.collectives.quantized import \
+                block_dequantize
+
+            blk = math.gcd(QUANT_BLOCK, flat.numel()) or 1
+            q, sc = _jit_block_quantize(flat, wire, blk)
+            qs = self.comm.all_gather_flat(q).view(n, -1)
+            ss = self.comm.all_gather_flat(sc).view(n, -1)
+            parts = torch.stack([
+                block_dequantize(qs[r], ss[r], flat.numel(), wire,
+                                 s.dtype, blk).view(shape)
+                for r in range(n)])
+        if parts is not None:
+            out = torch.cat(parts.unbind(0), dim=k)
+        nbytes = out.numel() * out.element_size()
+        self._track(nbytes)
+        weakref.finalize(out, self._track, -nbytes)
+        if i is not None:
+            self._track_layer(nbytes)
+            weakref.finalize(out, self._track_layer, -nbytes)
+        return out
+
+    @torch.no_grad()
+    def _reduce(self, j: int, i: Optional[int], g: torch.Tensor) -> None:
+        leaf, n = self.leaves[j], self.n
+        k = leaf.dim if i is None else leaf.dim - 1
+        if self.quant_mode is not None:
+            # the global view: every rank reduces the whole leaf, rounds
+            # it through the wire format and keeps its own slice later
+            red = self.comm.reduce_flat(g.reshape(-1).clone()).div_(n)
+            buf = self._grads[j]
+            (buf if i is None else buf[i]).add_(red.view(g.shape))
+            return
+        flat = (g.reshape(-1) if k == 0 else torch.cat(
+            [c.reshape(-1) for c in g.chunk(n, dim=k)]))
+        tile = self.comm.reduce_scatter_flat(flat).div_(n)
+        buf = self._grads[j]
+        dst = buf if i is None else buf[i]
+        dst.add_(tile.view(dst.shape))
+
+    def _begin(self) -> None:
+        for j, leaf in enumerate(self.leaves):
+            leaf.shard.grad = None
+            if leaf.dim is None:
+                self._grads[j] = None
+            elif self.quant_mode is not None:
+                self._grads[j] = torch.zeros(
+                    leaf.gshape, dtype=leaf.shard.dtype,
+                    device=leaf.shard.device)
+            else:
+                self._grads[j] = torch.zeros_like(leaf.shard)
+
+    @torch.no_grad()
+    def _finish(self) -> None:
+        """The shards' gradients: replicated leaves' mean-all-reduced in
+        one collective; with a quantized reducer every leaf's reduced
+        gradient rounded through its wire format, then this rank's
+        slice."""
+        r, n = self.comm.rank, self.n
+        repl = [leaf for leaf in self.leaves if leaf.dim is None]
+        if repl:
+            gs = [leaf.shard.grad if leaf.shard.grad is not None
+                  else torch.zeros_like(leaf.shard) for leaf in repl]
+            red = self.comm.reduce_flat(torch.cat(
+                [t.reshape(-1) for t in gs])).div_(n)
+            off = 0
+            for leaf in repl:
+                m = leaf.shard.numel()
+                g = red[off:off + m].view(leaf.shard.shape)
+                off += m
+                if self.quant_mode is not None:
+                    g = _wire_roundtrip(g, self.quant_mode)
+                leaf.shard.grad = g
+        for j, leaf in enumerate(self.leaves):
+            if leaf.dim is None:
+                continue
+            g = self._grads[j]
+            if self.quant_mode is not None:
+                g = _wire_roundtrip(g, self.quant_mode)
+                a, b = _index_of(leaf.gshape, leaf.dim, n, r)[leaf.dim]
+                g = g.narrow(leaf.dim, a, b - a).contiguous()
+            leaf.shard.grad = g
+            self._grads[j] = None
+
+    # -- host views -----------------------------------------------------
+
+    def optimizer_state_numel(self) -> int:
+        """Elements of the inner optimizer's tensor state on this rank."""
+        return sum(v.numel() for s in self.optimizer.state.values()
+                   for v in s.values()
+                   if torch.is_tensor(v) and v.ndim > 0)
+
+    def _sharded(self, j: int):
+        from chainermn_torch.extensions.checkpoint import ShardedLeaf
+
+        leaf = self.leaves[j]
+        if leaf.dim is None:
+            return leaf.shard
+        return ShardedLeaf(leaf.shard, leaf.gshape, _index_of(
+            leaf.gshape, leaf.dim, self.n, self.comm.rank))
+
+    def state_dict(self, template: bool = False) -> dict:
+        """This rank's part, for the checkpointer: ``params`` (a sharded
+        leaf per split parameter, the tensor of a replicated one), the
+        inner optimizer's state with each per-element tensor sharded as
+        its parameter (JAX matches them by tree-path suffix and shape),
+        and the layout's manifest; ``template`` as
+        :meth:`ZeroState.state_dict`."""
+        params = [self._sharded(j) for j in range(len(self.leaves))]
+        return {"params": params,
+                "optimizer": _sharded_optimizer_state(
+                    self.optimizer, self.shards, params, template),
+                "layout": self.manifest()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Load :meth:`state_dict` output in place (as saved, or restored
+        onto this world by the checkpointer). Another model's state is
+        refused."""
+        want = [(row["path"], row["shape"])
+                for row in self.manifest()["leaves"]]
+        got = [(row["path"], row["shape"])
+               for row in state["layout"]["leaves"]]
+        if got != want:
+            raise ValueError("the state's leaves (path, shape) are not "
+                             "this step's: another model")
+        for leaf, src in zip(self.leaves, state["params"]):
+            leaf.shard.copy_(_local(src).reshape(leaf.shard.shape))
+        self.optimizer.load_state_dict(_local_tree(state["optimizer"]))
+
+    def manifest(self) -> dict:
+        """:func:`fsdp_layout_manifest` of this step's layout."""
+        ax = self.comm.axis_name
+        return {"kind": "fsdp", "n": self.n, "leaves": [
+            {"path": _path_str(leaf.path),
+             "shape": [int(d) for d in leaf.gshape],
+             "spec": ([] if leaf.dim is None
+                      else [None] * leaf.dim + [ax])}
+            for leaf in self.leaves]}
+
+
+def _norm_reduce(comm, sharded_ids):
+    """LARS/LAMB's hook under FSDP: every leaf's partial squared norm
+    (of the parameters, then of the updates) summed over the group in
+    one all-reduce, so a shard's trust ratio is its whole leaf's (a
+    replicated leaf keeps its own)."""
+    def reduce(params, sq):
+        mask = torch.tensor([id(p) in sharded_ids for p in params] * 2,
+                            device=sq.device)
+        return torch.where(mask, comm.allreduce(sq, "sum"), sq)
+    return reduce
+
+
+class _FsdpStep:
+    """The FSDP step; ``step(x, y)`` runs it."""
+
+    def __init__(self, model, optimizer, comm, params, loss_fn, remat,
+                 param_shardings, grad_reducer, param_wire):
+        from chainermn_torch.collectives import make_grad_reducer
+        from chainermn_torch.collectives.quantized import QUANT_MODES
+        from chainermn_torch.optimizers.large_batch import LAMB, LARS
+        from chainermn_torch.training.step import classifier_loss
+
+        comm.axis_name  # raises on a multi-axis communicator (split it)
+        tree = params is not None
+        if not tree and not isinstance(model, nn.Module):
+            raise ValueError("make_fsdp_train_step needs a module, or "
+                             "params (a tree) and a loss_fn")
+        if not tree:
+            from chainermn_torch.links import batch_norm_layers
+
+            if batch_norm_layers(model):
+                raise ValueError(
+                    "FSDP steps train models without mutable collections;"
+                    " a model with batch statistics trains through "
+                    "make_data_parallel_train_step")
+        reducer = make_grad_reducer(grad_reducer, comm, op="mean")
+        if reducer is not None and reducer.stateful:
+            raise ValueError(_STATEFUL_FSDP.format(name=reducer.name))
+        quant = (getattr(reducer, "mode", None)
+                 if reducer is not None and reducer.name == "quantized"
+                 else None)
+        if param_wire == "f32":
+            param_wire = None
+        if param_wire is not None and param_wire not in QUANT_MODES:
+            raise ValueError(f"unknown param_wire {param_wire!r}; expected "
+                             f"one of {('f32',) + QUANT_MODES}")
+        if param_wire == "int8":
+            param_wire = "int8-block"
+        n, r = comm.size, comm.rank
+        self.model, self.comm, self.remat = model, comm, remat
+        self.lf = loss_fn or classifier_loss
+        if tree:
+            if param_shardings is None:
+                at = _find_stacked_subtree(params, n)
+                if at is not None:
+                    warnings.warn(
+                        f"make_fsdp_train_step: params[{at}] looks like a "
+                        "scanned layer stack (>= 2 leaves sharing a "
+                        "leading dim divisible by comm.size="
+                        f"{n}); the default fsdp_shardings rule will "
+                        "shard the LAYER dim, so each layer of "
+                        "fsdp_scan_apply gathers the whole stack and "
+                        "its per-layer liveness bound is lost. Pass "
+                        "param_shardings=fsdp_stack_shardings(params, "
+                        "comm) (or a mixed tree) to shard within layers "
+                        "instead.", UserWarning, stacklevel=3)
+            specs = dict(_tree_items(param_shardings if param_shardings
+                                     is not None
+                                     else fsdp_shardings(params, comm)))
+            items = [(path, None, torch.as_tensor(leaf))
+                     for path, leaf in _tree_items(params)]
+        else:
+            specs = (param_shardings if param_shardings is not None
+                     else fsdp_shardings(model, comm))
+            items = [(path, perm, p) for _, path, perm, p in
+                     _module_leaves(model)]
+            names = [name for name, *_ in _module_leaves(model)]
+        leaves = []
+        for k, (path, perm, t) in enumerate(items):
+            tdim = specs[path] if tree else specs[names[k]]
+            dim = (None if tdim is None else
+                   (perm.index(tdim) if perm else tdim))
+            with torch.no_grad():
+                flat = t.detach().permute(perm) if perm else t.detach()
+                if dim is not None:
+                    a, b = _index_of(flat.shape, dim, n, r)[dim]
+                    flat = flat.narrow(dim, a, b - a)
+                shard = nn.Parameter(flat.contiguous().clone())
+            leaves.append(_FsdpLeaf(path, tuple(int(d) for d in
+                                                (t.permute(perm).shape
+                                                 if perm else t.shape)),
+                                    dim, perm, shard))
+        state = FsdpState(comm, leaves, tree, param_wire, quant)
+        if tree:
+            self.params = _tree_build(
+                (leaf.path, FsdpParam(state, j))
+                for j, leaf in enumerate(leaves))
+        else:
+            self._wire_module(state, names)
+        self.state = state
+        opt = optimizer(state.shards)
+        if isinstance(opt, (LARS, LAMB)):
+            opt.norm_reduce = _norm_reduce(
+                comm, {id(leaf.shard) for leaf in leaves
+                       if leaf.dim is not None})
+        else:
+            _require_elementwise(optimizer, state.shards)
+        state.optimizer = opt
+        self.dev = leaves[0].shard.device if leaves else torch.device(
+            "cpu")
+
+    def _wire_module(self, state: FsdpState, names: List[str]) -> None:
+        """Replace each parameter of the module by its shard: a sharded
+        one through a parametrization that gathers it on every read, a
+        replicated one by the state's tensor itself."""
+        from torch.nn.utils import parametrize
+
+        for j, (name, leaf) in enumerate(zip(names, state.leaves)):
+            owner, _, attr = name.rpartition(".")
+            mod = self.model.get_submodule(owner) if owner else self.model
+            if leaf.dim is None:
+                setattr(mod, attr, leaf.shard)
+                continue
+            with torch.no_grad():
+                parametrize.register_parametrization(
+                    mod, attr, _GatherParametrization(state, j),
+                    unsafe=True)
+            # the registered tensor (right_inverse's shard) is the one
+            # the optimizer steps
+            orig = getattr(mod.parametrizations, attr).original
+            leaf.shard = state.shards[j] = orig
+
+    def _loss(self, x, y):
+        if self.state.tree:
+            loss, (acc, _) = self.lf(self.model, self.params, x, y,
+                                     train=True)
+        else:
+            loss, (acc, _) = self.lf(self.model, x, y, train=True)
+        return loss, acc
+
+    def __call__(self, x, y):
+        st = self.state
+        x = torch.as_tensor(x, device=self.dev)
+        y = torch.as_tensor(y, device=self.dev)
+        st._begin()
+        if self.remat:
+            loss, acc = checkpoint(self._loss, x, y, use_reentrant=False)
+        else:
+            loss, acc = self._loss(x, y)
+        loss.backward()
+        st._finish()
+        st.optimizer.step()
+        for s in st.shards:
+            s.grad = None
+        met = self.comm.allreduce(
+            torch.stack([loss.detach().float(), acc.detach().float()]),
+            "mean")
+        return {"main/loss": met[0], "main/accuracy": met[1]}
+
+
+def make_fsdp_train_step(model, optimizer, comm, params=None,
+                         loss_fn: Optional[Callable] = None,
+                         donate: bool = True, remat=False,
+                         param_shardings=None, grad_reducer=None,
+                         param_wire: Optional[str] = None):
+    """ZeRO-3 (FSDP): parameters and optimizer state sharded over the
+    communicator, every use gathered just in time. ``(step, state)``;
+    ``step(x, y)`` updates in place and returns ``{"main/loss",
+    "main/accuracy"}`` averaged over the communicator; ``state`` is an
+    :class:`FsdpState` (module docstring: ``optimizer`` is a factory
+    ``list[Tensor] -> torch.optim.Optimizer`` over the shards).
+
+    Two forms. **Module**: ``model`` is the module (its parameters
+    should agree on every rank), ``loss_fn(model, x, y, train)`` as the
+    data-parallel step's; each split parameter of the module becomes its
+    shard, read through a parametrization that all-gathers it on every
+    access, and a replicated one stays whole. **Tree**: ``params`` is a
+    nested dict of tensors in flax's layout (as :func:`~chainermn_torch.
+    models.transformer.stack_lm_blocks` gives) and ``loss_fn(model, p,
+    x, y, train)`` reads ``p``'s :class:`FsdpParam` leaves with
+    :func:`full` (or :func:`fsdp_scan_apply`, one layer at a time);
+    ``model`` is passed through.
+
+    Each leaf splits along its first divisible dimension in flax's
+    layout (``param_shardings``: per-leaf split dimensions overriding
+    :func:`fsdp_shardings`, in the same form; without it a tree that
+    looks like a layer stack warns, as JAX's does), so rank ``r``'s
+    shard holds JAX's shard ``r``. The gather's backward
+    mean-reduce-scatters the gradient onto the shard; replicated leaves'
+    gradients are mean-all-reduced after the backward. ``remat`` runs
+    the loss under ``torch.utils.checkpoint``, so the backward gathers
+    again. ``grad_reducer``: None, ``'flat'``, ``'hierarchical'`` and
+    ``'auto'`` are the identity; a stateless ``QuantizedReducer``
+    all-reduces each leaf's whole gradient, rounds it through its wire
+    format as JAX's global view does and keeps this rank's slice; a
+    stateful one is refused. ``param_wire`` (``'bf16'``,
+    ``'int8'``/``'int8-block'``, ``'int4-block'``; ``'f32'``/None
+    uncompressed) quantizes each rank's shard in blocks of
+    ``gcd(256, shard size)``, all-gathers codes and f32 scales and
+    dequantizes; its backward is straight-through. LARS and LAMB get
+    their trust ratios' norms summed over the group (one all-reduce a
+    step); any other optimizer must be element-wise (the ZeRO probe).
+    Models with batch statistics are refused. ``donate`` has no effect.
+    """
+    del donate
+    step = _FsdpStep(model, optimizer, comm, params, loss_fn, remat,
+                     param_shardings, grad_reducer, param_wire)
+    return step, step.state
+
+
+def fsdp_scan_apply(block_fn, stacked, h, *, remat: bool = True):
+    """Apply ``L`` homogeneous blocks over a stacked tree: a loop over
+    the layer dimension in which iteration ``i`` reads only layer ``i``
+    (an :class:`FsdpParam` gathers that layer alone; a tensor is
+    sliced), calling ``block_fn(p_i, h)``. With ``remat`` (default) each
+    iteration runs under ``torch.utils.checkpoint``, so its gathered
+    layer dies with the iteration and the backward gathers it again:
+    the peak of gathered parameters is one layer, not the model."""
+    items = list(_tree_items(stacked))
+    if not items:
+        return h
+    L = items[0][1].shape[0]
+
+    def body(i, h):
+        p_i = _tree_build(
+            (path, leaf.layer(i) if isinstance(leaf, FsdpParam)
+             else leaf[i]) for path, leaf in items)
+        return block_fn(p_i, h)
+
+    for i in range(L):
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(body, i, h, use_reentrant=False)
+        else:
+            h = body(i, h)
+    return h
+
+
+@torch.no_grad()
+def fsdp_gather_params(state: FsdpState) -> dict:
+    """The full parameter tree as host numpy in flax's layout (a
+    collective every rank calls): JAX's tree for a module-form state,
+    the given tree's structure for a tree-form one."""
+    out = []
+    for j, leaf in enumerate(state.leaves):
+        t = (leaf.shard.detach() if leaf.dim is None
+             else state._gather(j, None, None))
+        out.append((leaf.path, t.cpu().numpy().copy()))
+    return _tree_build(out)
+
+
+def fsdp_layout_manifest(params, comm, param_shardings=None) -> dict:
+    """Per-leaf path, global shape and partition spec of an FSDP layout
+    (JAX's ``zero.py:1268``, equal to it for the same tree and world):
+    ``params`` a module (its flax tree) or a tree in flax's layout;
+    ``param_shardings`` as :func:`make_fsdp_train_step` takes it. Host
+    metadata only (``checkpointer.set_layout``)."""
+    ax, n = comm.axis_name, comm.size
+    specs = (param_shardings if param_shardings is not None
+             else fsdp_shardings(params, comm))
+    rows = []
+    if isinstance(params, nn.Module):
+        for name, path, perm, p in _module_leaves(params):
+            tdim = specs[name]
+            rows.append((path, _flax_shape(p.shape, perm),
+                         None if tdim is None else
+                         (perm.index(tdim) if perm else tdim)))
+    else:
+        spec_of = dict(_tree_items(specs))
+        rows = [(path, tuple(np.shape(leaf)), spec_of[path])
+                for path, leaf in _tree_items(params)]
+    return {"kind": "fsdp", "n": n, "leaves": [
+        {"path": _path_str(path), "shape": [int(d) for d in shape],
+         "spec": [] if k is None else [None] * k + [ax]}
+        for path, shape, k in rows]}

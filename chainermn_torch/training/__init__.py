@@ -2,8 +2,8 @@
 trainer loop, the evaluator and the reports."""
 
 from chainermn_torch.training.evaluator import Evaluator
-from chainermn_torch.training.reports import (LogReport, PrintReport,
-                                              ReductionReport)
+from chainermn_torch.training.reports import (CheckpointReport, LogReport,
+                                              PrintReport, ReductionReport)
 from chainermn_torch.training.step import (classifier_loss,
                                            make_data_parallel_train_step,
                                            make_eval_step)
@@ -13,4 +13,4 @@ from chainermn_torch.training.trainer import (StandardUpdater, Trainer,
 __all__ = ["classifier_loss", "make_data_parallel_train_step",
            "make_eval_step", "default_converter", "StandardUpdater",
            "Trainer", "Evaluator", "LogReport", "PrintReport",
-           "ReductionReport"]
+           "ReductionReport", "CheckpointReport"]

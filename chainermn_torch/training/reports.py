@@ -1,9 +1,9 @@
 """Log/print reporting extensions (reference: Chainer's LogReport /
 PrintReport, attached rank-0-only in every ChainerMN example).
 
-Counterpart of ``LogReport``, ``PrintReport`` and ``ReductionReport`` in
-``chainermn_tpu/training/reports.py``; its ``TuningReport`` and
-``CheckpointReport`` wait for ROADMAP.md queue 1 items 13 and 8.
+Counterpart of ``LogReport``, ``PrintReport``, ``ReductionReport`` and
+``CheckpointReport`` in ``chainermn_tpu/training/reports.py``; its
+``TuningReport`` waits for ROADMAP.md queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ import json
 import os
 from typing import List, Optional
 
-__all__ = ["LogReport", "PrintReport", "ReductionReport"]
+__all__ = ["LogReport", "PrintReport", "ReductionReport",
+           "CheckpointReport"]
 
 
 class LogReport:
@@ -99,3 +100,40 @@ class PrintReport:
             v = trainer.observation.get(k, float("nan"))
             row.append(f"{v:>14.6g}" if isinstance(v, float) else f"{v:>14}")
         print("  ".join(row), flush=True)
+
+
+class CheckpointReport:
+    """The asynchronous snapshot plane's stats beside LogReport (JAX's
+    ``training/reports.py:120``).
+
+    ``plane`` is a :class:`~chainermn_torch.checkpointing.
+    AsyncSnapshotPlane`. The first call prints the plane's configuration
+    once; every call puts ``ckpt/stall_ms`` (the step thread's time in
+    the last save), ``ckpt/bytes``, ``ckpt/cadence`` (iterations between
+    saves), ``ckpt/pending``, ``ckpt/published`` and ``ckpt/skipped``
+    (backpressure drops) into ``trainer.observation``. Host counters
+    only."""
+
+    def __init__(self, plane, quiet: bool = False):
+        self.plane = plane
+        self.quiet = quiet
+        self._printed = False
+
+    def __call__(self, trainer):
+        p = self.plane
+        if not self._printed and not self.quiet:
+            print(f"ckpt plane: backpressure="
+                  f"{getattr(p, 'backpressure', 'sync')} "
+                  f"max_pending={getattr(p, 'max_pending', 0)} "
+                  f"replicator="
+                  f"{'on' if getattr(p, 'replicator', None) else 'off'}",
+                  flush=True)
+            self._printed = True
+        obs = trainer.observation
+        obs["ckpt/stall_ms"] = round(
+            float(getattr(p, "stall_ms_last", 0.0)), 3)
+        obs["ckpt/bytes"] = int(getattr(p, "bytes_last", 0))
+        obs["ckpt/cadence"] = int(getattr(p, "cadence_last", 0))
+        obs["ckpt/pending"] = int(getattr(p, "pending", 0))
+        obs["ckpt/published"] = int(getattr(p, "published", 0))
+        obs["ckpt/skipped"] = int(getattr(p, "skipped", 0))

@@ -157,9 +157,31 @@ the final line:
    then ResNet-50 ``--loader`` at batch 256, 224² and the ViT at batch 64,
    224², 8 iterations each between two SGD runs; (d) ``train_lm --zero 1
    --zero-bucket-kib 4096`` at full width (f32, seq 2048, batch 4);
-15. a ``{"kernels": [...]}`` line (a row for each kernel's bf16 body and
-   one for its f32 body, which only the ZeRO phase's f32 runs launch),
-   the card line, and last
+15. fsdp — FSDP (ZeRO-3), the scanned-stack LM loss, sharded
+   checkpoints and the snapshot plane: (a) the 135M LM of ``train``
+   (bf16 over f32 parameters, seq 2048, batch 4, fused loss) on one NCCL
+   rank through ``make_fsdp_train_step`` plain, with ``remat``, and over
+   the stacked tree (``stack_lm_blocks`` + ``make_lm_fsdp_scan_loss``),
+   each 4 steps from the seed's weights held to the data-parallel step on
+   the same batch: ms/step, tokens/s per chip, peak GiB, the peak of live
+   gathered bytes (the scan's stacked layers within one layer's bytes),
+   and each kernel's launches (zeroed just before each run and read just
+   after: the scan launches flash_fwd 24, flash_bwd 12 and each CE kernel
+   once a step); then that scan state through ``AsyncSnapshotPlane``
+   (stall ms against the synchronous save's ms, bytes, the same file);
+   (b) 4 host-staged ranks of this card, the LM at full width but 2
+   layers, f32, seq 512, two sequences a rank: FSDP with SGD-momentum,
+   FSDP-scan, ``param_wire="int8-block"``, ``QuantizedReducer(ef=False)``
+   and LAMB, each held to one rank running the data-parallel step on all
+   eight sequences (the quantized runs within half a quantization step of
+   their exact values); (c) that world's FSDP-scan state and a ZeRO-1
+   int8-block state with error feedback, saved on 4 ranks, restored bit
+   for bit onto 4 and onto 2 (the residual frame regrouped, its mean
+   kept); (d) ``train_lm --zero 3`` and ``--fsdp-scan`` at full width
+   (f32, seq 2048, batch 4): ms/step, peak GiB, losses finite and falling;
+16. a ``{"kernels": [...]}`` line (a row for each kernel's bf16 body and
+   one for its f32 body, which only the ZeRO and FSDP phases' f32 runs
+   launch), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one, or when run
@@ -3507,6 +3529,751 @@ def zero(seed: int, card: str):
     return counts, f32
 
 
+FSDP = dict(steps=4, world_ranks=4, world_layers=2, world_seq=512,
+            world_per_rank=2, world_steps=2, restore_ranks=2,
+            lm_iterations=4, lm_batch=4, lm_lr=3e-4)
+# FSDP on one rank against the data-parallel step, bf16 compute: as ZeRO
+# (a), the gathered parameters are views in flax's layout (a Linear's
+# weight transposed), so cuBLAS takes other kernels and bf16 activations
+# round in other places, and AdamW moves a weight whose gradient is near
+# zero by up to 2 lr on those last bits: the ZeRO bounds.
+TOL_FSDP_LOSS_REL = TOL_ZERO_LOSS_REL
+TOL_FSDP_UPDATE_REL = TOL_ZERO_UPDATE_REL
+# 4 host-staged ranks against one rank fed all eight sequences, f32: the
+# ZeRO world's bounds (the same products, the reduction in another
+# order); the quantized runs' losses as ZeRO's int8-block run's, and
+# their quantized values within half a quantization step (below)
+TOL_FSDP_WORLD_LOSS_REL = TOL_ZERO_WORLD_LOSS_REL
+TOL_FSDP_WORLD_UPDATE_REL = TOL_ZERO_WORLD_UPDATE_REL
+TOL_FSDP_QUANT_LOSS_REL = TOL_ZERO_QUANT_LOSS_REL
+# mean of the error-feedback frame after regrouping 4 rows into 2: f32
+# sums in another grouping, a few ulps of the largest residual
+TOL_FSDP_EF_MEAN = 2 ** -20
+# a quantized value against its exact one, in half quantization steps:
+# round(x / s) is within 1/2 + |x / s| 2^-24 of x / s (the division
+# rounds) and |x / s| <= 127, and the product q s rounds once more, so
+# |x - q s| <= s/2 + 2 x 127 s 2^-24
+TOL_FSDP_HALF_STEPS = 1 + 4 * 127 * 2 ** -24
+
+_FSDP_COMMON = r"""
+import hashlib, json, os, sys, time
+import numpy as np
+import torch
+from chainermn_torch.checkpointing import reshard_state
+from chainermn_torch.collectives import QuantizedReducer
+from chainermn_torch.comm import create_communicator
+from chainermn_torch.extensions import (ShardedLeaf,
+                                        create_multi_node_checkpointer)
+from chainermn_torch.models.convert import flax_params
+from chainermn_torch.models.transformer import (TransformerLM,
+    make_lm_fsdp_scan_loss, stack_lm_blocks, unstack_lm_blocks)
+from chainermn_torch.ops import _cuda
+from chainermn_torch.ops.fused_ce import fused_lm_loss
+from chainermn_torch.optimizers import (LAMB, create_multi_node_optimizer,
+    fsdp_gather_params, fsdp_shardings, fsdp_stack_shardings,
+    make_fsdp_train_step, make_zero1_train_step, zero1_params,
+    zero_layout_manifest)
+from chainermn_torch.training.step import make_data_parallel_train_step
+torch.backends.cuda.matmul.allow_tf32 = False
+layers, seq, per, steps = map(int, sys.argv[1:5])
+ckdir = sys.argv[5]
+comm = create_communicator('non_cuda_aware')
+r, n = comm.rank, comm.size
+OPTS = {'sgd': lambda ps: torch.optim.SGD(ps, lr=0.1, momentum=0.9),
+        'lamb': lambda ps: LAMB(ps, 1e-2, weight_decay=1e-4)}
+def lm():
+    torch.manual_seed(0)
+    return TransformerLM(vocab=32768, d_model=768, n_heads=12,
+                         n_layers=layers, d_ff=3072, max_len=seq,
+                         pos_emb='rope', device=comm.device)
+def items(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from items(tree[k], path + (k,))
+    else:
+        yield path, tree
+def flat(tree):
+    return torch.cat([torch.as_tensor(v).detach().reshape(-1).float().cpu()
+                      for _, v in items(tree)])
+def scan_step(model, make):
+    packed = stack_lm_blocks(flax_params(model))
+    sh = dict(fsdp_shardings(packed, comm),
+              blocks=fsdp_stack_shardings(packed, comm)['blocks'])
+    return make_fsdp_train_step(None, make, comm, packed,
+                                loss_fn=make_lm_fsdp_scan_loss(model),
+                                param_shardings=sh)
+def zero_ef_step(model):
+    return make_zero1_train_step(
+        model, OPTS['sgd'], comm, loss_fn=fused_lm_loss,
+        grad_reducer=QuantizedReducer(comm, wire_format='int8-block'))
+def sha(t):
+    if torch.is_tensor(t):
+        t = t.detach().cpu().contiguous().numpy()
+    return hashlib.sha256(np.ascontiguousarray(t).tobytes()).hexdigest()
+def whole(v):
+    # a sharded leaf whole on every rank (a collective)
+    if not isinstance(v, ShardedLeaf):
+        return v
+    dims = [d for d, (a, b) in enumerate(v.index) if b - a != v.gshape[d]]
+    if not dims:
+        return v.local
+    return torch.cat(comm.allgather(v.local).unbind(0), dim=dims[0])
+def digest(state, params):
+    # a hash of every parameter and optimizer tensor, whole
+    h = [sha(v) for _, v in items(params)]
+    for j, per_param in sorted(state.state_dict()['optimizer']['state']
+                               .items()):
+        for k, v in sorted(per_param.items()):
+            h.append(sha(whole(v)) if torch.is_tensor(getattr(
+                v, 'local', v)) else repr(v))
+    return hashlib.sha256(''.join(h).encode()).hexdigest()
+def fsdp_digest(state):
+    return digest(state, fsdp_gather_params(state))
+def zero_digest(state, model):
+    return digest(state, {k: v for k, v in
+                          zero1_params(state, model).items()})
+def regrouped_row(state):
+    # this rank's row of the frame regrouped onto half the ranks: the
+    # pair mean (a + b) / 2, as ef_frame_regroup computes it
+    pair = comm.split(('block', 2))
+    row = pair.allreduce(state.residuals[0], 'sum') / 2
+    pair.finalize()
+    return row
+def frame_mean(state):
+    return (comm.allreduce(state.residuals[0], 'sum') / n).cpu()
+"""
+
+_FSDP_WORLD_SCRIPT = _FSDP_COMMON + r"""
+one = comm.split(('block', 1))       # this rank alone: the reference
+g = torch.Generator().manual_seed(1)
+toks = torch.randint(0, 32768, (steps, n * per, seq + 1), generator=g).to(
+    comm.device)
+refs = {}
+for opt, make in OPTS.items():
+    ref = lm()
+    p0 = flat(flax_params(ref))
+    rstep = make_data_parallel_train_step(
+        ref, create_multi_node_optimizer(make(ref.parameters()), one), one,
+        loss_fn=fused_lm_loss)
+    losses = [rstep(toks[s, :, :-1], toks[s, :, 1:])['main/loss'].item()
+              for s in range(steps)]
+    refs[opt] = (losses, flat(flax_params(ref)), p0)
+    del ref, rstep
+_cuda.reset_launches()
+out = {'ref': {k: v[0] for k, v in refs.items()}, 'runs': {},
+       'device': str(comm.device)}
+mine = slice(r * per, (r + 1) * per)
+keep = {}
+for name, form, wire, red, opt in (
+        ('fsdp', 'module', None, None, 'sgd'),
+        ('fsdp-scan', 'scan', None, None, 'sgd'),
+        ('fsdp-wire-int8-block', 'module', 'int8-block', None, 'sgd'),
+        ('fsdp-reducer-int8-block', 'module', None, 'int8-block', 'sgd'),
+        ('fsdp-lamb', 'module', None, None, 'lamb')):
+    model = lm()
+    if form == 'scan':
+        step, st = scan_step(model, OPTS[opt])
+        del model
+    else:
+        step, st = make_fsdp_train_step(
+            model, OPTS[opt], comm, loss_fn=fused_lm_loss, param_wire=wire,
+            grad_reducer=(None if red is None else QuantizedReducer(
+                comm, wire_format=red, ef=False)))
+    quant = {}
+    if wire is not None:
+        # each rank's shards through the wire's codec: within half a
+        # step of each block's scale
+        from chainermn_torch.collectives.quantized import block_dequantize
+        from chainermn_torch.optimizers.zero import _jit_block_quantize
+        worst = 0.0
+        for s_ in st.shards:
+            v = s_.detach().reshape(-1)
+            blk = np.gcd(256, v.numel())
+            q, sc = _jit_block_quantize(v, wire, blk)
+            d = (block_dequantize(q, sc, v.numel(), wire, v.dtype, blk)
+                 - v).abs().reshape(-1, blk)
+            worst = max(worst, (d / (sc[:, None] / 2)).max().item())
+        quant['wire_worst_half_steps'] = worst
+    comm.barrier()
+    t0 = time.perf_counter()
+    if red is not None:
+        # every reduced leaf's round trip through the wire format: within
+        # half a quantization step of its input, block by block
+        import chainermn_torch.optimizers.zero as zmod
+        plain_rt = zmod._wire_roundtrip
+        seen = []
+        def checked(g, mode):
+            o = plain_rt(g, mode)
+            b = torch.nn.functional.pad(g.reshape(-1), (0, (-g.numel()) % 256))
+            amax = b.view(-1, 256).abs().amax(1)
+            sc = torch.where(amax > 0, amax * (1.0 / 127.0),
+                             torch.ones_like(amax))
+            e = torch.nn.functional.pad((o - g).reshape(-1), (
+                0, (-g.numel()) % 256)).view(-1, 256).abs()
+            seen.append((e / (sc[:, None] / 2)).max().item())
+            return o
+        zmod._wire_roundtrip = checked
+    losses = []
+    for s in range(steps):
+        losses.append(step(toks[s, mine, :-1], toks[s, mine, 1:])[
+            'main/loss'].item())
+    if red is not None:
+        zmod._wire_roundtrip = plain_rt
+        quant['reduced_worst_half_steps'] = max(seen)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    tree = fsdp_gather_params(st)
+    if form == 'scan':
+        tree = unstack_lm_blocks(tree)
+    p = flat(tree)
+    ref_losses, p_ref, p0 = refs[opt]
+    upd = ((p - p_ref).norm() / (p_ref - p0).norm()).item()
+    out['runs'][name] = dict(
+        opt=opt, form=form, quantized=bool(wire or red), losses=losses,
+        ms=ms, update_rel=upd, state_bytes=st.optimizer_state_numel() * 4,
+        gathered_peak=st.gathered_bytes_peak,
+        layer_peak=st.layer_bytes_peak,
+        fingerprint=[p.double().sum().item(), (p.double() ** 2).sum().item()],
+        **quant)
+    if name == 'fsdp-scan':
+        keep['scan'] = st
+    del step, st, p, tree
+    torch.cuda.empty_cache()
+# the ZeRO-1 int8-block state with error feedback, for the checkpoints
+model = lm()
+zstep, zst = zero_ef_step(model)
+for s in range(steps):
+    zstep(toks[s, mine, :-1], toks[s, mine, 1:])
+out['launches'] = _cuda.launches()
+out['launches_f32'] = _cuda.launches(torch.float32)
+out['staged_bytes'] = comm.staged_bytes
+
+# (c): save both states on this world, restore them onto it
+saved, ck_ms = {}, {}
+scan = keep['scan']
+for kind, st, layout in (
+        ('fsdp-scan', scan, scan.manifest()),
+        ('zero-ef', zst, zero_layout_manifest(model, comm))):
+    ck = create_multi_node_checkpointer(kind, comm, path=ckdir)
+    ck.set_layout(layout)
+    comm.barrier()
+    t0 = time.perf_counter()
+    ck.save(st.state_dict(), steps)
+    comm.barrier()
+    ck_ms[kind] = (time.perf_counter() - t0) * 1e3
+saved['fsdp-scan'] = fsdp_digest(scan)
+saved['zero-ef'] = zero_digest(zst, model)
+saved['zero-ef-row2'] = sha(regrouped_row(zst))
+mean4 = frame_mean(zst)
+saved['ef_max'] = zst.residuals[0].abs().max().item()
+if r == 0:
+    np.save(os.path.join(ckdir, 'ef_mean4.npy'), mean4.numpy())
+rows2 = comm.allgather_obj(saved['zero-ef-row2'])
+saved['zero-ef-rows2'] = [rows2[0], rows2[2]]
+del keep, scan
+torch.cuda.empty_cache()
+restored = {}
+t0 = time.perf_counter()
+model2 = lm()
+_, st2 = scan_step(model2, OPTS['sgd'])
+del model2
+ck = create_multi_node_checkpointer('fsdp-scan', comm, path=ckdir)
+sd, it = reshard_state(ck, st2.state_dict(template=True))
+st2.load_state_dict(sd)
+restored['fsdp-scan'] = fsdp_digest(st2)
+del st2, sd
+model3 = lm()
+_, zst3 = zero_ef_step(model3)
+ck = create_multi_node_checkpointer('zero-ef', comm, path=ckdir)
+sd, it = reshard_state(ck, zst3.state_dict(template=True))
+zst3.load_state_dict(sd)
+restored['zero-ef'] = zero_digest(zst3, model3)
+restored['ms'] = (time.perf_counter() - t0) * 1e3
+out['ckpt'] = dict(saved=saved, restored=restored, save_ms=ck_ms,
+                   file_bytes={k: os.path.getsize(os.path.join(
+                       ckdir, k, f'snapshot_iter_{steps}.{r}'))
+                       for k in ('fsdp-scan', 'zero-ef')})
+outs = comm.allgather_obj(out)
+if r == 0:
+    with open(os.path.join(ckdir, 'saved.json'), 'w') as f:
+        json.dump(saved, f)
+one.finalize()
+comm.finalize()
+if r == 0:
+    print('fsdp world ' + json.dumps(outs), flush=True)
+"""
+
+_FSDP_RESTORE_SCRIPT = _FSDP_COMMON + r"""
+t0 = time.perf_counter()
+model = lm()
+_, st = scan_step(model, OPTS['sgd'])
+del model
+ck = create_multi_node_checkpointer('fsdp-scan', comm, path=ckdir)
+sd, it = reshard_state(ck, st.state_dict(template=True))
+st.load_state_dict(sd)
+got = {'fsdp-scan': fsdp_digest(st), 'iteration': it}
+del st, sd
+model = lm()
+_, zst = zero_ef_step(model)
+ck = create_multi_node_checkpointer('zero-ef', comm, path=ckdir)
+sd, it = reshard_state(ck, zst.state_dict(template=True))
+zst.load_state_dict(sd)
+got['zero-ef'] = zero_digest(zst, model)
+got['row'] = sha(zst.residuals[0])
+mean2 = frame_mean(zst)
+got['ms'] = (time.perf_counter() - t0) * 1e3
+if r == 0:
+    mean4 = torch.from_numpy(np.load(os.path.join(ckdir, 'ef_mean4.npy')))
+    got['mean_err'] = (mean2 - mean4).abs().max().item()
+rows = comm.allgather_obj(got['row'])
+outs = comm.allgather_obj(got)
+comm.finalize()
+if r == 0:
+    outs[0]['rows'] = rows
+    print('fsdp restore ' + json.dumps(outs[0]), flush=True)
+"""
+
+
+def _flax_flat(tree):
+    """A flax-layout tree (tensors or arrays) as one f32 CPU vector, its
+    leaves in sorted-path order."""
+    import torch
+
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        else:
+            out.append(torch.as_tensor(t).detach().reshape(-1).float().cpu())
+
+    walk(tree)
+    return torch.cat(out)
+
+
+def _fsdp_full_width(seed: int, card: str):
+    """(a): the full-width LM on one NCCL rank through FSDP, FSDP with
+    remat and FSDP over the scanned stack, against the data-parallel
+    step. Returns the FSDP runs' launch counts (all on bf16 inputs) and
+    the scan's state (for (c))."""
+    import torch
+
+    from chainermn_torch.comm import create_communicator
+    from chainermn_torch.models.convert import flax_params
+    from chainermn_torch.models.transformer import (make_lm_fsdp_scan_loss,
+                                                    stack_lm_blocks,
+                                                    unstack_lm_blocks)
+    from chainermn_torch.ops import _cuda
+    from chainermn_torch.ops.fused_ce import fused_lm_loss
+    from chainermn_torch.optimizers import (create_multi_node_optimizer,
+                                            fsdp_gather_params,
+                                            fsdp_shardings,
+                                            fsdp_stack_shardings,
+                                            make_fsdp_train_step)
+    from chainermn_torch.training.step import make_data_parallel_train_step
+
+    f = FSDP
+    toks = train_tokens(seed)
+    x = torch.as_tensor(toks[:, :-1], device="cuda").long()
+    y = torch.as_tensor(toks[:, 1:], device="cuda").long()
+    comm = create_communicator("pure_nccl")
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=1e-4)
+
+    counts = {name: 0 for name in ("flash_fwd", "flash_bwd", "ce_fwd",
+                                   "ce_dh", "ce_dw")}
+    per_step = {
+        "fsdp": dict(flash_fwd=12, flash_bwd=12, ce_fwd=1, ce_dh=1,
+                     ce_dw=1),
+        # remat recomputes the whole loss: every forward kernel twice
+        "fsdp-remat": dict(flash_fwd=24, flash_bwd=12, ce_fwd=2, ce_dh=1,
+                           ce_dw=1),
+        # the scan recomputes each block: flash_fwd twice a layer
+        "fsdp-scan": dict(flash_fwd=24, flash_bwd=12, ce_fwd=1, ce_dh=1,
+                          ce_dw=1)}
+    ref = start = scan_state = None
+    for name in ("dp", "fsdp", "fsdp-remat", "fsdp-scan"):
+        model = build_model(seed, torch.bfloat16, "flash")
+        if start is None:
+            start = _flax_flat(flax_params(model))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = opt = None
+        layer = rest = 0
+        if name == "dp":
+            opt = create_multi_node_optimizer(adamw(model.parameters()),
+                                              comm)
+            step = make_data_parallel_train_step(model, opt, comm,
+                                                 loss_fn=fused_lm_loss)
+        elif name == "fsdp-scan":
+            packed = stack_lm_blocks(flax_params(model))
+            layer = sum(leaf[0].numel() * 4
+                        for leaf in _leaves_of(packed["blocks"]))
+            rest = sum(leaf.numel() * 4 for k, v in packed.items()
+                       if k != "blocks" for leaf in _leaves_of(v))
+            sh = dict(fsdp_shardings(packed, comm),
+                      blocks=fsdp_stack_shardings(packed, comm)["blocks"])
+            step, state = make_fsdp_train_step(
+                None, adamw, comm, packed,
+                loss_fn=make_lm_fsdp_scan_loss(model), param_shardings=sh)
+            del packed
+            model = None
+        else:
+            step, state = make_fsdp_train_step(
+                model, adamw, comm, loss_fn=fused_lm_loss,
+                remat=name == "fsdp-remat")
+        _cuda.reset_launches()
+        losses = [step(x, y)["main/loss"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(f["steps"] - 1):
+            losses.append(step(x, y)["main/loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / (f["steps"] - 1)
+        launched = _cuda.launches()
+        launched_f32 = _cuda.launches(torch.float32)
+        peak = torch.cuda.max_memory_allocated()
+        losses = torch.stack(losses).tolist()
+        if state is None:
+            flat = _flax_flat(flax_params(model))
+            sbytes = sum(t.numel() * t.element_size()
+                         for s in opt.state.values() for t in s.values()
+                         if torch.is_tensor(t) and t.ndim)
+        else:
+            tree = fsdp_gather_params(state)
+            if name == "fsdp-scan":
+                tree = unstack_lm_blocks(tree)
+            flat = _flax_flat(tree)
+            sbytes = state.optimizer_state_numel() * 4
+        extra = ""
+        if ref is None:
+            ref = (losses, flat)
+        else:
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, ref[0]))
+            upd = ((flat - ref[1]).norm() / (ref[1] - start).norm()).item()
+            want = {k: v * f["steps"] for k, v in per_step[name].items()}
+            extra = (f", vs dp: worst relative loss difference "
+                     f"{loss_err:.3e} (tolerance {TOL_FSDP_LOSS_REL}), "
+                     f"relative update difference {upd:.4f} (tolerance "
+                     f"{TOL_FSDP_UPDATE_REL}), peak of live gathered bytes "
+                     f"{state.gathered_bytes_peak:,}")
+            if name == "fsdp-scan":
+                extra += (f" (stacked layers {state.layer_bytes_peak:,}; "
+                          f"one layer {layer:,}, the unstacked leaves "
+                          f"{rest:,})")
+                if not 0 < state.layer_bytes_peak <= layer:
+                    raise PhaseError(
+                        f"fsdp-scan: the layers' gathered peak "
+                        f"{state.layer_bytes_peak:,} B is not within one "
+                        f"layer's {layer:,} B")
+            if loss_err > TOL_FSDP_LOSS_REL or upd > TOL_FSDP_UPDATE_REL:
+                raise PhaseError(f"fsdp {name} disagrees with the "
+                                 f"data-parallel step{extra}")
+            if launched != want or any(launched_f32.values()):
+                raise PhaseError(f"fsdp {name}: launches {launched} (f32 "
+                                 f"{launched_f32}), expected {want}, none "
+                                 f"f32")
+            for k in counts:
+                counts[k] += launched[k]
+        if not all(math.isfinite(v) for v in losses):
+            raise PhaseError(f"fsdp {name}: a loss is not finite")
+        print(f"fsdp {name}: 135M LM bf16, seq {TRAIN['seq_len']}, batch "
+              f"{TRAIN['batch']}, one NCCL rank, {f['steps']} steps: "
+              f"{dt * 1e3:.3f} ms/step, tokens/s per chip "
+              f"{TRAIN['batch'] * TRAIN['seq_len'] / dt:.1f}, peak "
+              f"{peak / 2 ** 30:.3f} GiB, optimizer state {sbytes:,} B, "
+              f"losses {[round(v, 5) for v in losses]}, launches "
+              f"{launched}{extra} ({card})", flush=True)
+        if name == "fsdp-scan":
+            scan_state = state
+        del model, step, state, opt, flat
+        torch.cuda.empty_cache()
+    comm.finalize()
+    return counts, scan_state
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves_of(tree[k])
+    else:
+        yield tree
+
+
+def _fsdp_world(card: str):
+    """(b) and (c)'s resharding: 4 host-staged ranks of this card, then 2
+    restoring their snapshots. Returns the 4 ranks' launches, and those
+    of them on f32 inputs (all)."""
+    import tempfile
+
+    f = FSDP
+    per = f["world_per_rank"]
+    n = f["world_ranks"]
+    argv = [str(f["world_layers"]), str(f["world_seq"]), str(per),
+            str(f["world_steps"])]
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        outs = run_ranks([sys.executable, "-c", _FSDP_WORLD_SCRIPT, *argv,
+                          d], n, timeout=600)
+        world = json.loads([ln for ln in outs[0].splitlines()
+                            if ln.startswith("fsdp world ")][-1][
+                                len("fsdp world "):])
+        outs = run_ranks([sys.executable, "-c", _FSDP_RESTORE_SCRIPT,
+                          *argv, d], f["restore_ranks"], timeout=400)
+        back = json.loads([ln for ln in outs[0].splitlines()
+                           if ln.startswith("fsdp restore ")][-1][
+                               len("fsdp restore "):])
+    counts, f32 = {}, {}
+    for w in world:
+        for k, v in w["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        for k, v in w["launches_f32"].items():
+            f32[k] = f32.get(k, 0) + v
+    w0 = world[0]
+    steps = f["world_steps"] * n
+    for name, run in w0["runs"].items():
+        ref = w0["ref"][run["opt"]]
+        errs = [abs(a - b) / abs(b) for a, b in zip(run["losses"], ref)]
+        same = all(w["runs"][name]["fingerprint"] == run["fingerprint"]
+                   and w["runs"][name]["losses"] == run["losses"]
+                   for w in world)
+        quant = ""
+        if "wire_worst_half_steps" in run:
+            quant = (f", dequantized shards within "
+                     f"{run['wire_worst_half_steps']:.6f} half steps "
+                     f"(worst rank 0; tolerance {TOL_FSDP_HALF_STEPS:.6f})")
+        if "reduced_worst_half_steps" in run:
+            quant = (f", each reduced leaf's round trip within "
+                     f"{run['reduced_worst_half_steps']:.6f} half "
+                     f"quantization steps of its input (rank 0; tolerance "
+                     f"{TOL_FSDP_HALF_STEPS:.6f})")
+        print(f"fsdp world {name}: 4 host-staged ranks of one card, LM "
+              f"d 768 x {f['world_layers']} layers f32, seq "
+              f"{f['world_seq']}, {per} sequences a rank, "
+              f"{'SGD momentum 0.9' if run['opt'] == 'sgd' else 'LAMB'}, "
+              f"{f['world_steps']} steps: {run['ms']:.1f} ms/step (rank "
+              f"0), losses {[round(v, 6) for v in run['losses']]} vs one "
+              f"rank fed every batch {[round(v, 6) for v in ref]} "
+              f"(relative {[float(f'{e:.3e}') for e in errs]}), relative "
+              f"update difference {run['update_rel']:.4f}, optimizer "
+              f"state {run['state_bytes']:,} B a rank, peak of live "
+              f"gathered bytes {run['gathered_peak']:,} (stacked layers "
+              f"{run['layer_peak']:,}){quant}, gathered parameters equal "
+              f"on every rank {same} ({card})", flush=True)
+        # the first loss precedes any update: exact parameters, except
+        # that the int8 wire's forward already reads quantized ones
+        wire = "wire_worst_half_steps" in run
+        ok = same and errs[0] <= (TOL_FSDP_QUANT_LOSS_REL if wire
+                                  else TOL_FSDP_WORLD_LOSS_REL)
+        if run["quantized"]:
+            ok = ok and max(errs) <= TOL_FSDP_QUANT_LOSS_REL and all(
+                w["runs"][name].get(k, 0.0) <= TOL_FSDP_HALF_STEPS
+                for w in world for k in ("wire_worst_half_steps",
+                                         "reduced_worst_half_steps"))
+        else:
+            ok = ok and (max(errs) <= TOL_FSDP_WORLD_LOSS_REL
+                         and run["update_rel"] <= TOL_FSDP_WORLD_UPDATE_REL)
+        if not ok:
+            raise PhaseError(f"fsdp world {name} disagrees with one rank "
+                             f"fed every batch: {run}")
+    ck = w0["ckpt"]
+    saved = ck["saved"]
+    same4 = all(w["ckpt"]["restored"][k] == saved[k]
+                for w in world for k in ("fsdp-scan", "zero-ef"))
+    same2 = (back["fsdp-scan"] == saved["fsdp-scan"]
+             and back["zero-ef"] == saved["zero-ef"]
+             and back["rows"] == saved["zero-ef-rows2"])
+    mean_ok = back["mean_err"] <= TOL_FSDP_EF_MEAN * saved["ef_max"]
+    print(f"fsdp checkpoint: FSDP-scan (SGD) and ZeRO-1 int8-block with "
+          f"error feedback saved on 4 ranks, rank 0's files "
+          f"{ck['file_bytes']['fsdp-scan']:,} and "
+          f"{ck['file_bytes']['zero-ef']:,} B, save ms "
+          f"{ck['save_ms']['fsdp-scan']:.1f} and "
+          f"{ck['save_ms']['zero-ef']:.1f}: restored bit for bit onto 4 "
+          f"{same4} (rank 0 {ck['restored']['ms']:.1f} ms), onto 2 "
+          f"{same2} ({back['ms']:.1f} ms, every parameter, momentum and "
+          f"regrouped residual row hashed whole); the residuals' mean "
+          f"after regrouping within {back['mean_err']:.3e} of the saved "
+          f"one (tolerance {TOL_FSDP_EF_MEAN} x max |e| "
+          f"{saved['ef_max']:.3e}) ({card})", flush=True)
+    if not (same4 and same2 and mean_ok):
+        raise PhaseError(f"fsdp checkpoint: a restore differs: {ck} "
+                         f"{back}")
+    # each rank's forward-backward passes (steps: of all 4 ranks): five
+    # FSDP runs, the scan's flash_fwd twice a layer, and the ZeRO-1 run
+    # whose state (c) saves: 7 flash_fwd a layer, 6 flash_bwd, 6 of each
+    # CE kernel
+    layers = f["world_layers"]
+    want = {"flash_fwd": 7 * layers * steps, "flash_bwd": 6 * layers * steps,
+            "ce_fwd": 6 * steps, "ce_dh": 6 * steps, "ce_dw": 6 * steps}
+    if counts != want or f32 != want:
+        raise PhaseError(f"fsdp world: launches {counts} (f32 {f32}), "
+                         f"expected {want}, all f32")
+    print(f"fsdp world: devices {sorted({w['device'] for w in world})}, "
+          f"launches of the 4 ranks {counts} (all f32), host-staged bytes "
+          f"(rank 0) {w0['staged_bytes']:,} ({card})", flush=True)
+    return counts, f32
+
+
+def _fsdp_plane(state, card: str):
+    """(c)'s snapshot plane: the 135M FSDP-scan state (bf16 run's f32
+    parameters and AdamW state) saved synchronously, then through
+    ``AsyncSnapshotPlane`` twice; the snapshots must agree."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from chainermn_torch.checkpointing import AsyncSnapshotPlane
+    from chainermn_torch.comm import create_communicator
+    from chainermn_torch.extensions import create_multi_node_checkpointer
+
+    comm = create_communicator("pure_nccl")
+    d = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    try:
+        sd = state.state_dict()
+        sync = create_multi_node_checkpointer("sync", comm, path=d,
+                                              cp_interval=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync.save(sd, 1)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        ck = create_multi_node_checkpointer("plane", comm, path=d,
+                                            cp_interval=1)
+        plane = AsyncSnapshotPlane(ck)
+        stalls, flushes = [], []
+        for it in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plane.save(state.state_dict(), it)
+            stalls.append(plane.stall_ms_last)
+            plane.flush()
+            flushes.append((time.perf_counter() - t0) * 1e3)
+        plane.close()
+        with np.load(os.path.join(sync.path, "snapshot_iter_1.0")) as a, \
+                np.load(os.path.join(ck.path, "snapshot_iter_2.0")) as b:
+            same = set(a.files) == set(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in a.files)
+        print(f"fsdp plane: the 135M FSDP-scan state (f32 parameters and "
+              f"AdamW moments, {plane.bytes_last:,} B): synchronous save "
+              f"{sync_ms:.1f} ms; AsyncSnapshotPlane stall "
+              f"{stalls[0]:.1f} ms (first save, pinned buffers allocated) "
+              f"and {stalls[1]:.1f} ms (second), save to published "
+              f"{flushes[0]:.1f} and {flushes[1]:.1f} ms; files equal to "
+              f"the synchronous one {same} ({card})", flush=True)
+        if not same:
+            raise PhaseError("fsdp plane: the plane's snapshot differs "
+                             "from the synchronous save's")
+    finally:
+        comm.finalize()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _fsdp_train_lm(card: str):
+    """(d): ``train_lm --zero 3`` and ``--fsdp-scan`` at full width, f32.
+    Returns their launches, and those on f32 inputs (all)."""
+    import tempfile
+
+    import torch
+
+    from chainermn_torch.examples import train_lm
+    from chainermn_torch.ops import _cuda
+
+    f = FSDP
+    steps = f["lm_iterations"]
+    counts, f32 = {}, {}
+    for flags, want in (
+            (["--zero", "3"], {"flash_fwd": 12 * steps,
+                               "flash_bwd": 12 * steps, "ce_fwd": 0,
+                               "ce_dh": 0, "ce_dw": 0}),
+            (["--fsdp-scan"], {"flash_fwd": 24 * steps,
+                               "flash_bwd": 12 * steps, "ce_fwd": steps,
+                               "ce_dh": steps, "ce_dw": steps})):
+        with tempfile.TemporaryDirectory(dir=os.path.join(HERE,
+                                                          "build")) as d:
+            argv = flags + [
+                "--lr", str(f["lm_lr"]),
+                "--d-model", "768", "--n-heads", "12", "--n-layers", "12",
+                "--vocab", "32768", "--seq-len", "2048", "--batchsize",
+                str(f["lm_batch"]), "--n-train",
+                str(f["lm_batch"] * steps), "--iterations", str(steps),
+                "--out", d]
+            trainer, _ = train_lm.build_trainer(train_lm.parse_args(argv))
+            step, losses, marks = trainer.updater.step_fn, [], []
+
+            def timed(*arrays):
+                m = step(*arrays)
+                losses.append(m["main/loss"])
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                return m
+
+            trainer.updater.step_fn = timed
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _cuda.reset_launches()
+            try:
+                trainer.run()
+                torch.cuda.synchronize()
+            finally:
+                trainer.updater.comm.finalize()
+            launched = _cuda.launches()
+            launched_f32 = _cuda.launches(torch.float32)
+            peak = torch.cuda.max_memory_allocated()
+            state = trainer.updater.optimizer
+            ms = (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3
+            losses = [float(v) for v in losses]
+        label = " ".join(flags)
+        print(f"fsdp train_lm {label}: d 768 x 12 layers, vocab 32768, seq "
+              f"2048, batch {f['lm_batch']}, f32, Adam {f['lm_lr']}: "
+              f"{ms:.3f} ms/step after "
+              f"the first of {steps}, tokens/s per chip "
+              f"{f['lm_batch'] * 2048 / ms * 1e3:.1f}, peak "
+              f"{peak / 2 ** 30:.3f} GiB, peak of live gathered bytes "
+              f"{state.gathered_bytes_peak:,} (stacked layers "
+              f"{state.layer_bytes_peak:,}), losses "
+              f"{[round(v, 5) for v in losses]}, launches {launched} "
+              f"({card})", flush=True)
+        if not all(math.isfinite(v) for v in losses) or not (
+                losses[-1] < losses[0]):
+            raise PhaseError(f"train_lm {label}: the losses are not finite "
+                             f"and falling: {losses}")
+        if launched != want or launched_f32 != want:
+            raise PhaseError(f"train_lm {label}: launches {launched} (f32 "
+                             f"{launched_f32}), expected {want}, all f32")
+        for k, v in launched.items():
+            counts[k] = counts.get(k, 0) + v
+            f32[k] = f32.get(k, 0) + v
+        del trainer, state
+        torch.cuda.empty_cache()
+    return counts, f32
+
+
+def fsdp(seed: int, card: str):
+    """FSDP, the scanned stack, sharded checkpoints and the snapshot
+    plane, (a)-(d) of the module docstring. Returns the launches of the
+    phase's main-path runs, and those of them on f32 inputs."""
+    import torch
+
+    counts, scan_state = _fsdp_full_width(seed, card)
+    _fsdp_plane(scan_state, card)
+    del scan_state
+    torch.cuda.empty_cache()
+    f32 = {k: 0 for k in counts}
+    for part in (lambda: _fsdp_world(card), lambda: _fsdp_train_lm(card)):
+        got, got_f32 = part()
+        for k, n in got.items():
+            counts[k] = counts.get(k, 0) + n
+        for k, n in got_f32.items():
+            f32[k] = f32.get(k, 0) + n
+        torch.cuda.empty_cache()
+    return counts, f32
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3675,6 +4442,7 @@ def main(argv=None) -> int:
     ckpt_counts = checkpoint(card)
     red_counts = reducers(args.seed, card)
     zero_counts, zero_f32 = zero(args.seed, card)
+    fsdp_counts, fsdp_f32 = fsdp(args.seed, card)
 
     sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:168"),
                "flash_bwd": ("flash_bwd.cu", "flash_attention.py:399"),
@@ -3686,18 +4454,21 @@ def main(argv=None) -> int:
     kernels = []
     for name, (src, tpu) in sources.items():
         # serving, training, the ViT, its checkpoint runs and the ZeRO
-        # phase drive flash (and the ZeRO phase the CE kernels): a count
-        # is the sum of the main-path runs (the MNIST, CIFAR, ResNet-50,
-        # seq2seq, model-parallel and reducer runs add none). The phases
-        # before the ZeRO phase run bf16 models; its f32 runs' launches go
-        # to the f32 bodies' own rows
+        # and FSDP phases drive flash (and the ZeRO and FSDP phases the CE
+        # kernels): a count is the sum of the main-path runs (the MNIST,
+        # CIFAR, ResNet-50, seq2seq, model-parallel and reducer runs add
+        # none). The phases before the ZeRO phase run bf16 models; the
+        # f32 runs' launches of the ZeRO and FSDP phases go to the f32
+        # bodies' own rows
         bf16 = (train_counts[name] + mnist_counts[name]
                 + cifar_counts[name] + r50_counts[name] + s2s_counts[name]
                 + mp_counts.get(name, 0) + vit_counts[name]
                 + ckpt_counts[name] + red_counts.get(name, 0)
-                + zero_counts.get(name, 0) - zero_f32.get(name, 0) + (
+                + zero_counts.get(name, 0) - zero_f32.get(name, 0)
+                + fsdp_counts.get(name, 0) - fsdp_f32.get(name, 0) + (
                     counts["flash_fwd"] if name == "flash_fwd" else 0))
-        for row, n in ((name, bf16), (f"{name}_f32", zero_f32.get(name, 0))):
+        f32 = zero_f32.get(name, 0) + fsdp_f32.get(name, 0)
+        for row, n in ((name, bf16), (f"{name}_f32", f32)):
             kernels.append({
                 "name": row, "route": "cuda",
                 "source": f"chainermn_torch/csrc/{src}",

@@ -1,7 +1,8 @@
 """Card-only tests of the port's hand-written CUDA kernels (flash
 forward and backward, the fused CE's forward, dh and dW) and of the
-training step on the card (the data-parallel step, and a ZeRO-1 step
-against the same step on the CPU). A CUDA kernel has no CPU mode, so
+training step on the card (the data-parallel step, a ZeRO-1 step against
+the same step on the CPU, and FSDP, plain and over the scanned stack,
+against the data-parallel step with their kernel launches). A CUDA kernel has no CPU mode, so
 without a GPU every test here skips.
 
 This file imports no JAX, so it runs on a GPU machine without the JAX
@@ -764,3 +765,89 @@ def test_zero1_step_on_the_card_matches_the_cpu(cuda, tmp_path):
     for k, v in want.items():
         torch.testing.assert_close(got[k], v, rtol=1e-4, atol=1e-6,
                                    msg=k)
+
+
+# -- FSDP on the card ---------------------------------------------------------
+
+def _fsdp_runs(form, steps=2):
+    """A small f32 LM (2 layers, vocab 256, seq 64, batch 4) on one NCCL
+    rank: ``steps`` SGD steps (0.1, momentum 0.9) of the data-parallel
+    step with ``fused_lm_loss`` and of the FSDP step (``form`` ``module``:
+    the model's parameters sharded, the same loss; ``scan``: the stacked
+    tree through ``make_lm_fsdp_scan_loss``). Returns each run's losses
+    and final parameters, and the FSDP run's launches and state."""
+    from chainermn_torch.models.convert import flax_params, params_from_flax
+    from chainermn_torch.models.transformer import (make_lm_fsdp_scan_loss,
+                                                    stack_lm_blocks,
+                                                    unstack_lm_blocks)
+    from chainermn_torch.optimizers import (fsdp_gather_params,
+                                            fsdp_shardings,
+                                            fsdp_stack_shardings,
+                                            make_fsdp_train_step)
+
+    def lm():
+        torch.manual_seed(0)
+        return TransformerLM(vocab=256, d_model=64, n_heads=4, n_layers=2,
+                             d_ff=128, max_len=64, device="cuda")
+
+    def sgd(ps):
+        return torch.optim.SGD(ps, lr=0.1, momentum=0.9)
+
+    toks = torch.randint(0, 256, (steps, 4, 65),
+                         generator=torch.Generator().manual_seed(1)).cuda()
+    comm = create_communicator("pure_nccl")
+    try:
+        model = lm()
+        dp = make_data_parallel_train_step(
+            model, create_multi_node_optimizer(sgd(model.parameters()),
+                                               comm), comm,
+            loss_fn=fused_lm_loss)
+        dp_losses = [dp(t[:, :-1], t[:, 1:])["main/loss"].item()
+                     for t in toks]
+        dp_params = {k: v.detach().cpu() for k, v in
+                     model.named_parameters()}
+        model = lm()
+        if form == "scan":
+            packed = stack_lm_blocks(flax_params(model))
+            sh = dict(fsdp_shardings(packed, comm),
+                      blocks=fsdp_stack_shardings(packed, comm)["blocks"])
+            step, state = make_fsdp_train_step(
+                None, sgd, comm, packed,
+                loss_fn=make_lm_fsdp_scan_loss(model), param_shardings=sh)
+        else:
+            step, state = make_fsdp_train_step(model, sgd, comm,
+                                               loss_fn=fused_lm_loss)
+        _cuda.reset_launches()
+        losses = [step(t[:, :-1], t[:, 1:])["main/loss"].item()
+                  for t in toks]
+        launched = _cuda.launches(torch.float32)
+        tree = fsdp_gather_params(state)
+        if form == "scan":
+            tree = unstack_lm_blocks(tree)
+        params = params_from_flax(lm(), tree)
+        return dp_losses, dp_params, losses, params, launched, state
+    finally:
+        comm.finalize()
+
+
+@pytest.mark.parametrize("form", ["module", "scan"])
+def test_fsdp_step_on_the_card_launches_the_kernels_and_matches_dp(cuda,
+                                                                   form):
+    """FSDP on one NCCL rank against the data-parallel step on the same
+    rank: losses at rtol 1e-5, parameters at rtol 1e-4 and atol 1e-6
+    after 2 steps. The module form reads the gathered ``lm_head`` as a
+    transposed view of its flax-layout buffer, which the CE wrapper makes
+    contiguous once a call, so the kernels accept it. Launches a step,
+    all on f32 inputs: the scan recomputes each block in the backward, so
+    flash_fwd twice a layer, flash_bwd once, and each CE kernel once; the
+    module form has no remat: flash_fwd once a layer."""
+    dp_losses, dp_params, losses, params, launched, state = _fsdp_runs(
+        form)
+    per_layer = 2 if form == "scan" else 1
+    assert launched == {"flash_fwd": 2 * 2 * per_layer, "flash_bwd": 2 * 2,
+                        "ce_fwd": 2, "ce_dh": 2, "ce_dw": 2}
+    assert losses == pytest.approx(dp_losses, rel=1e-5)
+    for k, v in dp_params.items():
+        torch.testing.assert_close(params[k], v, rtol=1e-4, atol=1e-6,
+                                   msg=k)
+    assert state.gathered_bytes == 0 and state.gathered_bytes_peak > 0

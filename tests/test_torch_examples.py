@@ -975,20 +975,24 @@ def test_train_lm_matches_the_jax_steps(tmp_path, mode):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--zero", "3"], NotImplementedError, "item 8b"),
-    (["--fsdp-scan"], NotImplementedError, "item 8b"),
+    (["--zero", "3", "--moe", "2"], NotImplementedError, "item 10"),
+    (["--fsdp-scan"], SystemExit, "vocab % 128"),
     (["--moe", "2"], NotImplementedError, "item 10"),
     (["--ring"], NotImplementedError, "item 10"),
     (["--seq-impl", "ulysses"], NotImplementedError, "item 10"),
     (["--autotune-blocks"], NotImplementedError, "item 6"),
     (["--zero", "3", "--zero-bucket-kib", "64"], SystemExit,
      "applies to --zero 1/2 only"),
-    (["--fsdp-scan", "--zero", "1"], SystemExit, "exclusive")],
+    (["--fsdp-scan", "--zero", "1"], SystemExit, "exclusive"),
+    (["--fsdp-scan", "--vocab", "128", "--moe", "2"], SystemExit,
+     "does not compose with --moe")],
     ids=["zero3", "fsdp-scan", "moe", "ring", "seq-impl", "autotune",
-         "zero3-bucket", "fsdp-scan-zero"])
+         "zero3-bucket", "fsdp-scan-zero", "fsdp-scan-moe"])
 def test_train_lm_refuses_what_waits_for_later_slices(flags, error, match):
-    """Each later-slice flag raises naming its item; JAX's own refusals
-    exit with its messages."""
+    """Each later-slice flag raises naming its item (with ``--zero 3``
+    too); JAX's own refusals exit with its messages (``--fsdp-scan`` on
+    a vocabulary that is not a multiple of 128, or with ``--zero`` or
+    ``--moe``)."""
     from chainermn_torch.examples import train_lm
 
     with pytest.raises(error, match=match):

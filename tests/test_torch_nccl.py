@@ -31,9 +31,16 @@ kernels, ``lm_loss_with_aux``, SGD 0.1 with momentum 0.9) trains 2 steps,
 each rank on its own batch of 2, through ``make_data_parallel_train_step``
 with each reducer (flat, hierarchical with ``intra=2``, auto, and
 quantized int8-block with error feedback) and through ZeRO-1 and ZeRO-2
-(``n_microbatches=2``), flat and bucketed (16 KiB); each is held against
-the same model on the same rank fed all four batches at once (the mean
-loss of the concatenated batch, whose gradient is the ranks' mean). The
+(``n_microbatches=2``), flat and bucketed (16 KiB), and through FSDP
+(the model's parameters sharded; with SGD and with LAMB, whose trust
+ratios take the whole leaves' norms) and FSDP over the scanned stack
+(``make_lm_fsdp_scan_loss``: the fused CE kernels, each block recomputed
+in the backward); each is held against the same model on the same rank
+fed all four batches at once (the mean loss of the concatenated batch,
+whose gradient is the ranks' mean; LAMB against LAMB, where one
+parameter in a thousand may differ by up to 2 lr a step: LAMB's
+update, like Adam's, moves a weight whose gradient sits at the sums'
+noise by about lr with whichever sign the last bits give). The
 unquantized runs: losses at rtol 1e-5 and parameters at rtol 1e-4, atol
 1e-6 (the same f32 sums in another order and on another card). The
 int8-block run: the first loss at rtol 1e-5 (no update has happened yet)
@@ -292,7 +299,14 @@ import torch
 from chainermn_torch.collectives import HierarchicalReducer, make_grad_reducer
 from chainermn_torch.comm import create_communicator
 from chainermn_torch.models.transformer import TransformerLM, lm_loss_with_aux
-from chainermn_torch.optimizers import (create_multi_node_optimizer,
+from chainermn_torch.models.convert import flax_params, params_from_flax
+from chainermn_torch.models.transformer import (make_lm_fsdp_scan_loss,
+                                                stack_lm_blocks,
+                                                unstack_lm_blocks)
+from chainermn_torch.optimizers import (LAMB, create_multi_node_optimizer,
+                                        fsdp_gather_params, fsdp_shardings,
+                                        fsdp_stack_shardings,
+                                        make_fsdp_train_step,
                                         make_zero1_train_step,
                                         make_zero2_train_step, zero1_params)
 from chainermn_torch.training import make_data_parallel_train_step
@@ -344,7 +358,25 @@ def close(a, b, rtol, atol, what):
         what, (a - b).abs().max().item())
 
 
-def check(name, step, params_of, quantized=False):
+def reference(make):
+    # one rank fed every batch, with optimizer make: losses, parameters
+    ref = lm()
+    opt = make(ref.parameters())
+    losses = []
+    for s in range(STEPS):
+        x, y = toks[s, ..., :-1].reshape(n * B, L), toks[s, ..., 1:].reshape(
+            n * B, L)
+        opt.zero_grad()
+        loss = lm_loss_with_aux(ref, x, y)[0]
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    return losses, {k: v.detach() for k, v in ref.named_parameters()}
+
+
+def check(name, step, params_of, quantized=False, ref=None,
+          normalized_lr=None):
+    ref_l, ref_p = ref or (ref_losses, ref_final)
     losses = []
     for s in range(STEPS):
         m = step(toks[s, r, :, :-1], toks[s, r, :, 1:])
@@ -359,10 +391,19 @@ def check(name, step, params_of, quantized=False):
         close(torch.tensor(losses[0]), torch.tensor(ref_losses[0]), 1e-5,
               0, (name, "loss"))
         return
-    close(torch.tensor(losses), torch.tensor(ref_losses), 1e-5, 0,
+    close(torch.tensor(losses), torch.tensor(ref_l), 1e-5, 0,
           (name, "losses"))
     for k, v in params_of().items():
-        close(v, ref_final[k], 1e-4, 1e-6, (name, k))
+        if normalized_lr is None:
+            close(v, ref_p[k], 1e-4, 1e-6, (name, k))
+            continue
+        # an Adam-normalized update moves a weight whose gradient is at
+        # the sums' noise by up to lr a step, whichever sign the last
+        # bits give: one weight in a thousand may take that bound instead
+        d = (v - ref_p[k]).abs()
+        off = d > 1e-6 + 1e-4 * ref_p[k].abs()
+        assert off.sum().item() <= max(1, v.numel() // 1000), (name, k)
+        assert d.max().item() <= 2 * normalized_lr * STEPS, (name, k)
     print(f"RANK{r} {name} losses {losses}", flush=True)
 
 
@@ -398,6 +439,37 @@ for stage in (1, 2):
               lambda: zero1_params(state, model, bb))
         assert state.optimizer_state_numel() == sum(state.layout.padded) // n
 
+
+def fsdp_params(state, scan):
+    tree = fsdp_gather_params(state)
+    if scan:
+        tree = unstack_lm_blocks(tree)
+    return {k: v.to(dev) for k, v in params_from_flax(lm(), tree).items()}
+
+
+def lamb(params):
+    return LAMB(params, 1e-2, weight_decay=1e-4)
+
+
+for name, make, ref, lr in (("fsdp", sgd, None, None),
+                            ("fsdp-lamb", lamb, reference(lamb), 1e-2)):
+    model = lm()
+    comm.bcast_data(model)
+    step, state = make_fsdp_train_step(model, make, comm,
+                                       loss_fn=lm_loss_with_aux)
+    check(name, step, lambda: fsdp_params(state, False), ref=ref,
+          normalized_lr=lr)
+model = lm()
+comm.bcast_data(model)
+packed = stack_lm_blocks(flax_params(model))
+sh = dict(fsdp_shardings(packed, comm),
+          blocks=fsdp_stack_shardings(packed, comm)["blocks"])
+step, state = make_fsdp_train_step(None, sgd, comm, packed,
+                                   loss_fn=make_lm_fsdp_scan_loss(model),
+                                   param_shardings=sh)
+check("fsdp-scan", step, lambda: fsdp_params(state, True))
+assert state.gathered_bytes == 0
+
 comm.barrier()
 comm.finalize()
 print(f"RANK{r} OK", flush=True)
@@ -405,8 +477,8 @@ print(f"RANK{r} OK", flush=True)
 
 
 def test_training_steps_across_four_cards():
-    """The data-parallel step with every reducer and ZeRO-1/2 (flat and
-    bucketed) on four NCCL ranks against one rank fed every batch (module
-    docstring)."""
+    """The data-parallel step with every reducer, ZeRO-1/2 (flat and
+    bucketed) and FSDP (plain, LAMB, the scanned stack) on four NCCL
+    ranks against one rank fed every batch (module docstring)."""
     _four_cards()
     assert_ranks_ok(run_world(TRAIN_WORKER, 4, timeout=400))

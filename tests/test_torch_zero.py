@@ -35,7 +35,8 @@ the JAX package's (``chainermn_tpu/optimizers/zero.py``).
   ``zero1_params`` refuses a layout other than the state's (``:221``);
   mixed dtypes, a multi-axis communicator, a batch that the micro-batches
   do not divide and a stateful reducer without ``reduce_scatter_flat_ef``
-  raise; the FSDP names raise naming item 8b.
+  raise; the FSDP step refuses a stateful reducer, an unknown
+  ``param_wire`` and a model with batch statistics with JAX's texts.
 """
 
 import functools
@@ -423,11 +424,19 @@ def test_refusals_keep_jaxs_messages(comm):
     with pytest.raises(ValueError, match="spans axes"):
         tz.make_zero1_train_step(MLP(n_units=4, device="cpu"), fac,
                                  TwoAxes())
-    for name in ("make_fsdp_train_step", "fsdp_shardings",
-                 "fsdp_stack_shardings", "fsdp_scan_apply",
-                 "fsdp_gather_params", "fsdp_layout_manifest"):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            getattr(tz, name)()
+    from chainermn_torch.collectives import QuantizedReducer
+    from chainermn_torch.models.resnet import CifarResNet
+
+    with pytest.raises(ValueError, match="is stateful .error-feedback "
+                                         "residuals.; the FSDP step"):
+        tz.make_fsdp_train_step(MLP(n_units=4, device="cpu"), fac, comm,
+                                grad_reducer=QuantizedReducer(comm))
+    with pytest.raises(ValueError, match="unknown param_wire 'fp8'"):
+        tz.make_fsdp_train_step(MLP(n_units=4, device="cpu"), fac, comm,
+                                param_wire="fp8")
+    with pytest.raises(ValueError, match="batch statistics"):
+        tz.make_fsdp_train_step(CifarResNet(depth=8, device="cpu"), fac,
+                                comm)
 
 
 def test_dropping_step_and_state_frees_the_flat_vectors(comm):
