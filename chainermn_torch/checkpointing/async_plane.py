@@ -22,16 +22,20 @@ published), ``'skip'`` drops the new snapshot and counts it (the stall
 stays bounded, the cadence thins under a slow disk).
 ``drain(deadline_s=)`` waits for the queue until an absolute monotonic
 deadline; :meth:`~AsyncSnapshotPlane.emergency_save` drains within the
-deadline it is given, then writes the synchronous last-chance snapshot.
+slice of the grace window that ``reserve_grace`` leaves it, then writes
+the synchronous last-chance snapshot against the whole window.
 
 A crash between the copy and the publish loses only the snapshot in
 flight: nothing partial becomes visible (the publish is a rename), and
 the election falls back to the newest verified iteration.
 
-Waiting for ROADMAP.md queue 1 item 9: the ring replicator
-(``replicator=``), the chaos harness's ``on_offload`` hooks, and
-``reserve_grace`` (the slice of the preemption window that the JAX
-plane's emergency drain reserves).
+``replicator=`` (a :class:`~chainermn_torch.resilience.replica.
+PeerReplicator`) runs one ring round on the writer thread per
+:meth:`~AsyncSnapshotPlane.save` call, after the publish (a skipped save
+still owes its round: the peers count on it). The chaos harness's
+``on_offload`` hooks sit at both stages: ``offload`` on the step thread
+before the copies (``slow_offload``), ``writer`` on the writer thread
+before the publish (``stall_writer``).
 """
 
 from __future__ import annotations
@@ -50,11 +54,13 @@ from chainermn_torch.extensions.checkpoint import (MultiNodeCheckpointer,
                                                    ShardedLeaf, _flatten,
                                                    _host_copies,
                                                    _leaf_arrays)
+from chainermn_torch.resilience import chaos as _chaos
+from chainermn_torch.resilience.preemption import reserve_grace
 
 __all__ = ["AsyncSnapshotPlane"]
 
-_ITEM9 = ("waits for the resilience slice of the port (ROADMAP.md queue 1 "
-          "item 9)")
+# the idle writer's poll: it settles replica rounds owed by skipped saves
+_POLL_S = 0.05
 
 
 def _device_copy(leaf):
@@ -101,14 +107,15 @@ class AsyncSnapshotPlane:
             raise ValueError("AsyncSnapshotPlane writes the npz backend")
         if max_pending < 1:
             raise ValueError(f"max_pending must be >= 1: {max_pending}")
-        if replicator is not None:
-            raise NotImplementedError(f"the ring replicator {_ITEM9}")
         self.ck = checkpointer
         self.backpressure = backpressure
         self.max_pending = max_pending
-        self.replicator = None
+        self.replicator = replicator
         self._queue: queue.Queue = queue.Queue(maxsize=max_pending)
         self._writer: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._owed_replica = 0
         self._error: Optional[BaseException] = None
         self._stream = None
         self.published = 0
@@ -152,6 +159,8 @@ class AsyncSnapshotPlane:
         self._raise_pending()
         self._ensure_writer()
         t0 = time.monotonic()
+        # chaos: a congested device-to-host link stretches THIS stall
+        _chaos.on_offload(self.ck._file(int(iteration)), "offload")
         leaves: list = []
         tree = _flatten(state, leaves)
         leaves = [_device_copy(l) for l in leaves]
@@ -166,6 +175,11 @@ class AsyncSnapshotPlane:
                 self.skipped += 1
         else:
             self._queue.put(item)
+        if self.replicator is not None:
+            with self._lock:
+                # one ring round owed per save CALL (even a skipped one):
+                # peers at the same cadence are counting on it
+                self._owed_replica += 1
         if self._last_iter is not None:
             self.cadence_last = int(iteration) - self._last_iter
         self._last_iter = int(iteration)
@@ -178,6 +192,7 @@ class AsyncSnapshotPlane:
     def _ensure_writer(self):
         if self._writer is not None and self._writer.is_alive():
             return
+        self._stop.clear()
         self._writer = threading.Thread(
             target=self._writer_loop, name=f"ckpt-plane-{self.ck.name}",
             daemon=True)
@@ -200,11 +215,14 @@ class AsyncSnapshotPlane:
 
     def _publish(self, item) -> None:
         tree, leaves, host, event, iteration, host_state = item
+        ck = self.ck
+        # chaos: stretch the offload-to-publish window (a SIGKILL drill
+        # lands its kill in here)
+        _chaos.on_offload(ck._file(iteration), "writer")
         if event is not None:
             event.synchronize()
         arrays = _leaf_arrays(leaves, host)
         del leaves
-        ck = self.ck
         arrays["__world__"] = np.int64(ck.comm.size)
         arrays["__tree__"] = np.frombuffer(
             pickle.dumps(tree, pickle.HIGHEST_PROTOCOL), np.uint8).copy()
@@ -221,7 +239,15 @@ class AsyncSnapshotPlane:
 
     def _writer_loop(self):
         while True:
-            item = self._queue.get()
+            try:
+                item = self._queue.get(timeout=_POLL_S)
+            except queue.Empty:
+                # idle: settle replica rounds owed by skipped saves (no
+                # item carried them), so peers' receives do not starve
+                self._run_owed_replica()
+                if self._stop.is_set():
+                    return
+                continue
             try:
                 if item is None:
                     return
@@ -232,7 +258,22 @@ class AsyncSnapshotPlane:
                 # the snapshot's buffers go back to the allocators now,
                 # not when the next one arrives
                 item = None
+                self._run_owed_replica()
                 self._queue.task_done()
+
+    def _run_owed_replica(self):
+        while True:
+            with self._lock:
+                if self._owed_replica <= 0:
+                    return
+                self._owed_replica -= 1
+            try:
+                # drain=False: this IS the writer thread; the
+                # checkpointer's own queue is not in use
+                self.replicator.replicate(drain=False)
+            except Exception as e:
+                # best-effort by design, as the replicator's store is
+                warnings.warn(f"async replica push failed: {e}")
 
     def _raise_pending(self):
         if self._error is not None:
@@ -269,11 +310,11 @@ class AsyncSnapshotPlane:
         self._raise_pending()
 
     def close(self):
-        """Drain and stop the writer (the Trainer's finally block calls
-        it on every extension)."""
+        """Drain, settle owed replica rounds, and stop the writer (the
+        Trainer's finally block calls it on every extension)."""
         if self._writer is not None and self._writer.is_alive():
             self._queue.join()
-            self._queue.put(None)
+            self._stop.set()    # the writer exits after the owed rounds
             self._writer.join()
         self._writer = None
         self._raise_pending()
@@ -288,12 +329,12 @@ class AsyncSnapshotPlane:
                   host_state=host_fn() if callable(host_fn) else None)
 
     def emergency_save(self, trainer, deadline_s: Optional[float] = None):
-        """Preemption or crash: drain the snapshots in flight until
-        ``deadline_s``, then the checkpointer's synchronous last-chance
-        save against the same deadline (JAX's plane first reserves a
-        slice of the grace window for the drain: ``reserve_grace``, item
-        9)."""
-        self.drain(deadline_s)
+        """Preemption or crash: drain the snapshot in flight within a
+        RESERVED slice of the grace window (``reserve_grace``), then the
+        checkpointer's synchronous last-chance save against the original
+        deadline. One window covers both phases: the drain's budget is
+        subtracted from it, never added."""
+        self.drain(reserve_grace(deadline_s))
         return self.ck.emergency_save(trainer, deadline_s=deadline_s)
 
     # -- read side (drain first) ------------------------------------------

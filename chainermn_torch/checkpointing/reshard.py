@@ -144,8 +144,8 @@ def reshard_state(ck, state: Any, iteration: Optional[int] = None,
     splice path, world-stacked EF frames regroup through
     :func:`default_leaf_resharder`. Returns ``(state, iteration)`` like
     ``maybe_load``. This is the load half of an elastic resume (the
-    host-side rebalancing around it, ``resilience/elastic.py``, comes
-    with ROADMAP.md queue 1 item 9). The template's sharded leaves
+    host-side rebalancing around it is ``resilience/elastic.py``'s
+    ``elastic_resume``). The template's sharded leaves
     (``state_dict(template=True)`` of the restoring world's ZeRO or FSDP
     state) say which piece each rank restores."""
     return ck.maybe_load(state, iteration=iteration,

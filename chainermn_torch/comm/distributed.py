@@ -269,6 +269,7 @@ class DistributedCommunicator(CommunicatorBase):
         self._device_mesh = None
         self._finalize_with = None
         self._own_groups = ()
+        self._obj_plane = None
         if self._nccl_p2p and self._size > 1:
             shared = duplicate_devices(self.allgather_obj(_device_id(dev)))
             if shared:
@@ -474,6 +475,7 @@ class DistributedCommunicator(CommunicatorBase):
         sub.__dict__.update(self.__dict__)
         sub._finalize_with = None
         sub._device_mesh = None
+        sub._obj_plane = None
         sub.collective_bytes = sub.staged_bytes = 0
         sub._family = tuple(tuple(g) for g in family)
         members = next(g for g in sub._family if me in g)
@@ -958,6 +960,31 @@ class DistributedCommunicator(CommunicatorBase):
         """The bucket of :meth:`allreduce_grad`: ``dcn_bucket_bytes``, or
         ``DEFAULT_BUCKET_BYTES``."""
         return self._bucket_bytes or DEFAULT_BUCKET_BYTES
+
+    # -- the store-backed host plane --------------------------------------
+
+    @property
+    def object_plane(self):
+        """This communicator's :class:`~chainermn_torch.comm.object_plane.
+        ObjectPlane`: object messages over the world's store, whose every
+        wait is guarded (the abort key, the store's liveness). Its
+        ``send_obj`` returns without waiting for the receiver."""
+        if self._obj_plane is None:
+            from chainermn_torch.comm.object_plane import ObjectPlane
+
+            world = self._members == tuple(range(dist.get_world_size()))
+            self._obj_plane = ObjectPlane(
+                self._rank, self._size, namespace="" if world else
+                "g" + "_".join(map(str, self._members)))
+        return self._obj_plane
+
+    def host_barrier(self, timeout_ms: Optional[int] = None) -> None:
+        """Barrier over the store (JAX ``host_barrier``): every wait is
+        guarded, so a dead peer yields a bounded ``JobAbortedError`` or
+        ``TimeoutError``, not an endless rendezvous. For host-side sync
+        points (checkpoint elections); :meth:`barrier` stays the array
+        route's barrier."""
+        self.object_plane.barrier(timeout_ms)
 
     # -- misc -----------------------------------------------------------
 

@@ -129,14 +129,13 @@ def install_global_except_hook(communicator: CommunicatorBase = None):
     """Fail-fast job abort: any uncaught exception tears the process
     down instead of leaving its peers waiting inside a collective
     (reference: chainermn/global_except_hook.py, which prints the
-    traceback and calls ``MPI_Abort``). The hook prints the traceback and
-    hard-exits with status 13 (``os._exit``: no interpreter shutdown that
-    could block on a collective). The JAX package also posts an abort key
-    that peers' object-plane probes raise on within seconds; that waits
-    for the port's ``ObjectPlane`` (ROADMAP.md queue 1 item 2), so here
-    the peers learn of the abort from their process group's own
-    timeouts. ``communicator`` is accepted for the reference's signature.
-    Returns the hook it replaced."""
+    traceback and calls ``MPI_Abort``). The hook prints the traceback,
+    posts the abort poison key in a world of more than one rank (the
+    store-backed object plane: peers' guarded waits and watchdogs raise
+    ``JobAbortedError`` within one probe slice), and hard-exits with
+    status 13 (``os._exit``: no interpreter shutdown that could block on
+    a collective). ``communicator`` is accepted for the reference's
+    signature. Returns the hook it replaced."""
     del communicator
     prev_hook = sys.excepthook
 
@@ -147,6 +146,16 @@ def install_global_except_hook(communicator: CommunicatorBase = None):
             traceback.print_exception(exc_type, exc_value, exc_tb)
             sys.stderr.flush()
         finally:
+            try:
+                import torch.distributed as dist
+
+                if dist.is_initialized() and dist.get_world_size() > 1:
+                    from chainermn_torch.comm.object_plane import post_abort
+
+                    post_abort(f"{exc_type.__name__}: {exc_value} "
+                               f"(rank {dist.get_rank()})")
+            except Exception:
+                pass
             os._exit(ABORT_EXIT_CODE)
 
     sys.excepthook = _hook

@@ -48,10 +48,11 @@ and :func:`read_manifest` reads a file's manifest back.
 
 The ``orbax`` backend is JAX's own library; the port keeps the npz
 backend, which saves and reshards sharded states (ROADMAP.md queue 3).
-Waiting for a later slice (``NotImplementedError``): the chaos injection
-points of ``$CHAINERMN_TPU_CHAOS`` (ROADMAP.md queue 1 item 9). The ring
-replicas' writer (``resilience/replica.py``) comes with item 9 too; their
-read side (``replicas/``) is here.
+The chaos harness (``$CHAINERMN_TPU_CHAOS``) hooks every publish
+(``on_publish`` before, ``on_checkpoint`` after); the ring replicas'
+writer is ``resilience/replica.py``, their read side (``replicas/``) is
+here. The election's barrier is the communicator's store-backed
+``host_barrier``.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ import numpy as np
 import torch
 
 from chainermn_torch.comm.base import CommunicatorBase
+from chainermn_torch.resilience import chaos as _chaos
 
 __all__ = ["MultiNodeCheckpointer", "create_multi_node_checkpointer",
            "ShardedLeaf", "read_manifest"]
@@ -80,9 +82,6 @@ __all__ = ["MultiNodeCheckpointer", "create_multi_node_checkpointer",
 #: subdirectory (under the checkpointer's path) where ring-neighbor
 #: replicas land, read by the election and restore fallbacks below
 REPLICA_DIRNAME = "replicas"
-
-_CHAOS_ENV = "CHAINERMN_TPU_CHAOS"
-
 
 def _sha256_file(fn: str) -> str:
     h = hashlib.sha256()
@@ -341,14 +340,6 @@ class _SpliceTargets:
                 "file is missing?)")
 
 
-def _refuse_chaos() -> None:
-    if os.environ.get(_CHAOS_ENV):
-        raise NotImplementedError(
-            f"${_CHAOS_ENV} is set, but the checkpointer's chaos injection "
-            "points (on_publish, on_checkpoint) wait for a later slice of "
-            "the port (ROADMAP.md queue 1 item 9)")
-
-
 class MultiNodeCheckpointer:
     """Snapshot and restore a training state, one file per process.
 
@@ -399,7 +390,14 @@ class MultiNodeCheckpointer:
         return self.comm.rank
 
     def _pre_election_barrier(self):
-        self.comm.barrier()
+        """The store-backed host barrier when the communicator offers one
+        (bounded waits, watchdog-abortable: a dead peer raises instead of
+        hanging); the communicator's barrier otherwise."""
+        hb = getattr(self.comm, "host_barrier", None)
+        if callable(hb):
+            hb()
+        else:
+            self.comm.barrier()
 
     def set_layout(self, layout: Optional[dict]) -> None:
         """Attach optimizer shard-layout metadata
@@ -492,8 +490,13 @@ class MultiNodeCheckpointer:
         """Atomic, verifiable publish: tmp name, fsync, rename, then the
         sidecar manifest with the file's SHA-256 (itself tmp + fsync +
         rename). A torn or corrupted file fails verification and is left
-        out of the election instead of poisoning the restore."""
-        _refuse_chaos()
+        out of the election instead of poisoning the restore. The chaos
+        harness's hooks sit on both sides: ``on_publish`` before any byte
+        is written (``enospc`` raises with nothing published,
+        ``slow_disk`` stalls), ``on_checkpoint`` after the publish
+        (``corrupt``/``truncate`` damage a fully valid file, as a bad
+        disk would)."""
+        _chaos.on_publish(fn)
         tmp = fn + ".npz"
         np.savez(tmp, **arrays)
         _fsync_file(tmp)
@@ -511,6 +514,7 @@ class MultiNodeCheckpointer:
             except OSError:
                 pass
         os.replace(mtmp, fn + ".json")
+        _chaos.on_checkpoint(fn)
         self._gc()
 
     def _coverage_meta(self, arrays: dict, iteration: int) -> dict:
@@ -568,7 +572,6 @@ class MultiNodeCheckpointer:
         ``StandardUpdater.host_state_dict``) under this rank's file for
         ``iteration``. Returns the file name."""
         self._raise_pending()
-        _refuse_chaos()
         fn = self._file(iteration)
         arrays = self._snapshot_arrays(state, host_state)
         meta = self._coverage_meta(arrays, iteration)

@@ -15,8 +15,9 @@ iteration under an optional per-iteration token budget:
 3. **Retirement** — slots whose request emitted ``eos_id`` or reached its
    budget are freed.
 
-Not ported yet: handoff and session export/import, ``swap_weights`` and
-the chaos hook.
+Each step starts with the chaos hook (``resilience/chaos.py``
+``on_step``, the JAX engine's). Not ported yet: handoff and session
+export/import, ``swap_weights``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from chainermn_torch.resilience import chaos
 from chainermn_torch.serving.kv_cache import ServingStep
 from chainermn_torch.serving.reports import ServingReport
 from chainermn_torch.serving.sampling import init_keys, request_key
@@ -345,8 +347,9 @@ class Engine:
         return emitted
 
     def step(self) -> dict:
-        """One scheduler iteration: token budget → prefill (chunked or
-        monolithic) → decode_k → retirement."""
+        """One scheduler iteration: chaos hook → token budget → prefill
+        (chunked or monolithic) → decode_k → retirement."""
+        chaos.on_step(self.iteration)
         self.iteration += 1
         budget = self.config.token_budget
         avail = (float("inf") if budget is None

@@ -21,7 +21,6 @@ replacing the references would leave the step training the old ones.
 
 from __future__ import annotations
 
-import os
 import time
 import traceback
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -29,15 +28,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from chainermn_torch.resilience import chaos, watchdog
 from chainermn_torch.resilience.preemption import (PREEMPTED_EXIT_CODE,
                                                    install_preemption_handler)
 
 __all__ = ["default_converter", "StandardUpdater", "Trainer"]
-
-# the JAX package's chaos and watchdog switches, whose hooks the port's
-# loop does not have yet
-_CHAOS_ENV = "CHAINERMN_TPU_CHAOS"
-_WATCHDOG_ENV = "CHAINERMN_TPU_WATCHDOG"
 
 
 def default_converter(batch):
@@ -161,16 +156,23 @@ class Trainer:
     With ``handle_preemption=True`` (default) the run installs a
     SIGTERM/SIGINT flag handler and polls it every step: a preemption
     fires ``emergency_save`` on every extension offering it (the
-    multi-node checkpointer), then ends the loop cleanly with
+    multi-node checkpointer, the snapshot plane) against the guard's
+    ``grace_deadline()``, then ends the loop cleanly with
     ``trainer.preempted`` set, and :meth:`exit_code` gives
     :data:`PREEMPTED_EXIT_CODE`. Any exception leaving the step loop gets
-    the same last-chance checkpoint and is re-raised. There is no grace
-    deadline yet (``reserve_grace`` comes with ROADMAP.md queue 1 item
-    9). Extensions with a ``close`` method are closed when the run ends,
-    however it ends.
-    The JAX package's chaos hook and peer-death watchdog wait for
-    ROADMAP.md queue 1 item 9: :meth:`run` refuses their environment
-    variables rather than ignore them.
+    the same last-chance checkpoint (without a deadline) and is
+    re-raised. Extensions with a ``close`` method are closed when the run
+    ends, however it ends.
+
+    Each step starts as the JAX loop's does: the chaos hook
+    (``$CHAINERMN_TPU_CHAOS``: ``chaos.on_step(iteration)``), then the
+    watchdog's poll (``$CHAINERMN_TPU_WATCHDOG=1`` starts it in a world
+    of more than one rank), then the preemption poll. A collective that
+    raises while the watchdog runs (a killed peer closes gloo's
+    connections; an aborted NCCL group raises) is confirmed with the
+    watchdog: when it finds a dead peer or a posted abort key, the run
+    raises :class:`~chainermn_torch.comm.object_plane.JobAbortedError`
+    from the error, which ``main_exit_code`` maps to exit 75.
     """
 
     def __init__(self, updater: StandardUpdater,
@@ -203,16 +205,18 @@ class Trainer:
         self.observation["epoch"] = self.updater.epoch
         self.observation["elapsed_time"] = time.time() - start
 
-    def _emergency_checkpoint(self) -> None:
-        """Fire ``emergency_save`` on every extension offering it.
-        Failures are printed, not raised: this runs on the way out of a
-        dying or preempted run, where a save error must not mask how the
-        run ended."""
+    def _emergency_checkpoint(self, deadline_s: Optional[float] = None
+                              ) -> None:
+        """Fire ``emergency_save`` on every extension offering it, within
+        ``deadline_s`` (``time.monotonic``; None: no deadline). Failures
+        are printed, not raised: this runs on the way out of a dying or
+        preempted run, where a save error must not mask how the run
+        ended."""
         for e in self._extensions:
             fn = getattr(e.ext, "emergency_save", None)
             if callable(fn):
                 try:
-                    fn(self)
+                    fn(self, deadline_s=deadline_s)
                 except Exception:
                     traceback.print_exc()
 
@@ -232,26 +236,33 @@ class Trainer:
                 "this Trainer already ran and finalized its extensions; "
                 "construct a new Trainer (re-attaching extensions) to "
                 "resume")
-        if (os.environ.get(_CHAOS_ENV) or os.environ.get(
-                _WATCHDOG_ENV, "").lower() not in ("", "0", "false")):
-            raise NotImplementedError(
-                f"${_CHAOS_ENV} / ${_WATCHDOG_ENV} are set, but the chaos "
-                "hook and the watchdog wait for a later slice of the port "
-                "(ROADMAP.md queue 1 item 9)")
         guard = (install_preemption_handler() if self.handle_preemption
                  else None)
+        wd = watchdog.maybe_start_watchdog()
         start = time.time()
         try:
             try:
                 while not self._stopped():
+                    # chaos first: an injected SIGTERM at this step is
+                    # visible to the preemption poll below
+                    chaos.on_step(self.updater.iteration)
+                    if wd is not None:
+                        wd.check()
                     if guard is not None and guard.requested:
                         self.preempted = True
-                        self._emergency_checkpoint()
+                        self._emergency_checkpoint(guard.grace_deadline())
                         break
                     try:
                         self.updater.update()
                     except StopIteration:
                         break  # non-repeating iterator exhausted
+                    except Exception as err:
+                        if wd is not None and wd.confirm():
+                            try:
+                                wd.check()
+                            except Exception as aborted:
+                                raise aborted from err
+                        raise
                     due = [e for e in self._extensions
                            if e.due(self.updater)]
                     if due:
@@ -268,6 +279,10 @@ class Trainer:
         finally:
             if guard is not None:
                 guard.uninstall()
+            if wd is not None:
+                # a peer that finishes first stops beating: the run is
+                # over, so nothing is watched any more
+                watchdog.stop_watchdog()
             for e in self._extensions:
                 close = getattr(e.ext, "close", None)
                 if e.closed or not callable(close):

@@ -179,9 +179,28 @@ the final line:
    for bit onto 4 and onto 2 (the residual frame regrouped, its mean
    kept); (d) ``train_lm --zero 3`` and ``--fsdp-scan`` at full width
    (f32, seq 2048, batch 4): ms/step, peak GiB, losses finite and falling;
-16. a ``{"kernels": [...]}`` line (a row for each kernel's bf16 body and
-   one for its f32 body, which only the ZeRO and FSDP phases' f32 runs
-   launch), the card line, and last
+16. resilience — fault tolerance, every run a subprocess with a timeout:
+   (a) the checkpoint phase's ViT under the port's supervisor
+   (``python -m chainermn_torch.tools.supervise`` around
+   ``train_imagenet --snapshot-every k --resume``) with a chaos SIGKILL
+   at step k+2 in the first incarnation: the second elects snapshot k,
+   restores it bit for bit and finishes, its losses within a bf16
+   tolerance of the uninterrupted run's, 12 flash_fwd and 12 flash_bwd
+   a step in each incarnation, and the time from the kill to the first
+   resumed step; (b) in that second incarnation a chaos ``corrupt`` of
+   snapshot 2k, after which the election falls back to k; (c) a chaos
+   SIGTERM: the emergency snapshot written within the grace window, exit
+   143 (save ms against the grace); (d) 4 host-staged ranks of this card
+   on the FSDP phase's 2-layer f32 LM (``train_lm --fsdp-scan``) with the
+   watchdog (heartbeat 200 ms, timeout 1000 ms) and an
+   ``AsyncSnapshotPlane`` with a ``PeerReplicator``: rank 3 killed, every
+   survivor exits 75 (the seconds each took), then 2 ranks resume
+   through ``elastic_resume`` with rank 3's files gone, its shard from
+   its ring replica, the state bit for bit the saved files', the next
+   losses finite and falling;
+17. a ``{"kernels": [...]}`` line (a row for each kernel's bf16 body and
+   one for its f32 body, which only the ZeRO, FSDP and resilience phases'
+   f32 runs launch), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one, or when run
@@ -2729,7 +2748,8 @@ def checkpoint(card: str):
     ``TOL_CKPT_LOSS_REL``. Prints the snapshot bytes, the synchronous
     save, the async save's stall on the training thread, and the resume,
     in ms. Returns the three runs' launch counts (each process checks its
-    own: 12 flash_fwd and 12 flash_bwd a step)."""
+    own: 12 flash_fwd and 12 flash_bwd a step) and the uninterrupted
+    run's losses."""
     import tempfile
 
     v = VIT
@@ -2790,7 +2810,7 @@ def checkpoint(card: str):
         _expect_vit_launches(r["launches"], r["steps"], f"checkpoint {mode}")
         total = {name: total.get(name, 0) + c
                  for name, c in r["launches"].items()}
-    return total
+    return total, full["losses"]
 
 
 REDUCERS = dict(timed_calls=5, mnist_units=1000, mnist_n_train=8192,
@@ -4274,6 +4294,574 @@ def fsdp(seed: int, card: str):
     return counts, f32
 
 
+RESIL = dict(kill_step=6, corrupt_iteration=8, sigterm_step=3,
+             sigterm_iterations=5, grace_s=30, heartbeat_ms=200,
+             heartbeat_timeout_ms=1000, probe_ms=500, world_ranks=4,
+             world_kill_rank=3, world_kill_step=5, world_every=2,
+             world_per_rank=2, world_seq=512, world_layers=2,
+             shrink_ranks=2, shrink_steps=3, world_lr=1e-3)
+# a survivor of a killed rank, from the kill to its exit: the heartbeat
+# timeout, two beats of the watchdog's cadence, one probe slice, and the
+# way out (the emergency snapshot of its ~50 MB shard and the writer's
+# last replica round, each bounded by a probe slice, plus the process's
+# exit): 5 s on top of the detection
+RESIL_EXIT_SLACK_S = 5.0
+
+_RESIL_VIT_SCRIPT = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+from chainermn_torch.examples import train_imagenet
+from chainermn_torch.extensions import checkpoint as ck_mod
+from chainermn_torch.ops import _cuda
+from chainermn_torch.resilience import chaos, main_exit_code
+from chainermn_torch.resilience.preemption import grace_seconds
+from chainermn_torch.resilience.supervisor import restart_count
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+log, k = sys.argv[1], int(sys.argv[2])
+argv = sys.argv[3:]
+inc = restart_count()
+out = open(f"{log}.{inc}", "a")
+
+
+def note(**kv):
+    out.write(json.dumps(kv) + "\n")
+    out.flush()
+    os.fsync(out.fileno())
+
+
+real_on_step = chaos.on_step
+
+
+def on_step(it):
+    # the moment before the chaos hook: a kill there is the kill's time
+    note(event="pre", iteration=it, t=time.time())
+    real_on_step(it)
+
+
+chaos.on_step = on_step
+trainer, model = train_imagenet.build_trainer(
+    train_imagenet.parse_args(argv))
+up = trainer.updater
+ck = next(e.ext for e in trainer._extensions
+          if isinstance(e.ext, ck_mod.MultiNodeCheckpointer))
+built = {"event": "built", "iteration": up.iteration, "t": time.time()}
+if up.iteration == k:
+    path = os.path.join(trainer.out, "imagenet", f"snapshot_iter_{k}.0")
+    now, _ = ck_mod._host_arrays(up.state)
+    with np.load(path) as z:
+        saved = {n: z[n] for n in z.files if n.startswith("leaf_")}
+    built["leaves"] = len(now)
+    built["bitwise"] = set(now) == set(saved) and all(
+        now[n].dtype == saved[n].dtype and now[n].shape == saved[n].shape
+        and now[n].tobytes() == saved[n].tobytes() for n in saved)
+note(**built)
+# the snapshot is published before training goes on, so that the kill
+# two steps later finds it
+trainer.extend(lambda t: ck.flush(), trigger=(k, "iteration"))
+step = up.step_fn
+
+
+def recording(*arrays):
+    c0 = _cuda.launches()
+    m = step(*arrays)
+    loss = float(m["main/loss"])
+    c1 = _cuda.launches()
+    note(event="step", iteration=up.iteration + 1, loss=loss, t=time.time(),
+         launches={n: c1[n] - c0.get(n, 0) for n in c1})
+    return m
+
+
+up.step_fn = recording
+plain_emergency = ck.emergency_save
+
+
+def timed_emergency(trainer, deadline_s=None):
+    t0 = time.monotonic()
+    fn = plain_emergency(trainer, deadline_s=deadline_s)
+    t1 = time.monotonic()
+    note(event="emergency", ms=(t1 - t0) * 1e3, grace_s=grace_seconds(),
+         left_s=None if deadline_s is None else deadline_s - t1,
+         file=fn, valid=fn is not None and ck._verify_snapshot_file(fn))
+    return fn
+
+
+ck.emergency_save = timed_emergency
+code = main_exit_code(lambda: (trainer.run(), trainer)[1])
+if code == 0:
+    # the chaos corrupt of the last snapshot: the election falls back
+    last = os.path.join(ck.path, f"snapshot_iter_{up.iteration}.0")
+    note(event="election", last_valid=ck._verify_snapshot_file(last),
+         elected=ck.latest_common_iteration())
+up.comm.finalize()
+note(event="exit", code=code, t=time.time())
+out.close()
+sys.stdout.flush()
+os._exit(code)
+"""
+
+
+_RESIL_WORLD_SCRIPT = r"""
+import hashlib, json, math, os, sys, time
+import numpy as np
+import torch
+from chainermn_torch.checkpointing import AsyncSnapshotPlane
+from chainermn_torch.examples import train_lm
+from chainermn_torch.examples.train_lm import synthetic_text
+from chainermn_torch.extensions import ShardedLeaf
+from chainermn_torch.extensions import checkpoint as ck_mod
+from chainermn_torch.ops import _cuda
+from chainermn_torch.resilience import (PeerReplicator, chaos,
+                                        elastic_resume, main_exit_code)
+
+torch.backends.cuda.matmul.allow_tf32 = False
+mode, d, layers, seq, per, iters, every, lr = sys.argv[1:9]
+layers, seq, per, iters, every = map(int, (layers, seq, per, iters, every))
+argv = ["--fsdp-scan", "--communicator", "non_cuda_aware", "--rope",
+        "--d-model", "768", "--n-heads", "12", "--n-layers", str(layers),
+        "--vocab", "32768", "--seq-len", str(seq), "--batchsize", str(per),
+        "--n-train", "256", "--iterations", str(iters), "--lr", lr,
+        "--out", os.path.join(d, "out")]
+rank = int(os.environ["RANK"])
+report = {"rank": rank}
+
+
+def write():
+    with open(os.path.join(d, f"{mode}.{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+real_on_step = chaos.on_step
+
+
+def on_step(it):
+    report["pre"] = [it, time.time()]
+    write()                 # the killed rank's last record is the kill
+    real_on_step(it)
+
+
+chaos.on_step = on_step
+trainer, _ = train_lm.build_trainer(train_lm.parse_args(argv))
+up = trainer.updater
+comm = up.comm
+ck = ck_mod.MultiNodeCheckpointer("lm", comm, path=d, cp_interval=10)
+losses = []
+step = up.step_fn
+
+
+def recording(*arrays):
+    m = step(*arrays)
+    losses.append(float(m["main/loss"]))
+    return m
+
+
+up.step_fn = recording
+
+
+def whole(v):
+    # a sharded leaf whole on every rank (a collective)
+    if not isinstance(v, ShardedLeaf):
+        return np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
+    dims = [i for i, (a, b) in enumerate(v.index) if b - a != v.gshape[i]]
+    if not dims:
+        return v.local.detach().cpu().numpy()
+    parts = comm.allgather_obj(v.local.detach().cpu().numpy())
+    return np.concatenate(parts, axis=dims[0])
+
+
+def saved_leaves(it, world):
+    # each leaf of iteration it whole, from the files by their indices
+    files = []
+    for r in range(world):
+        for sub in ("", ck_mod.REPLICA_DIRNAME):
+            fn = os.path.join(ck.path, sub, f"snapshot_iter_{it}.{r}")
+            if os.path.exists(fn) and ck._verify_snapshot_file(fn):
+                files.append((sub, fn))
+                break
+    out, z = {}, [np.load(fn) for _, fn in files]
+    n = max(int(k.split("_")[1]) for f in z for k in f.files
+            if k.startswith("leaf_")) + 1
+    for i in range(n):
+        whole_key = f"leaf_{i}"
+        f0 = next((f for f in z if whole_key in f.files), None)
+        if f0 is not None:
+            out[i] = np.asarray(f0[whole_key])
+            continue
+        gshape = tuple(int(x) for x in next(
+            f for f in z if f"leaf_{i}_gshape" in f.files)[f"leaf_{i}_gshape"])
+        buf = None
+        for f in z:
+            idx = np.asarray(f[f"leaf_{i}_idx0"])
+            piece = np.asarray(f[f"leaf_{i}_s0"])
+            if buf is None:
+                buf = np.empty(gshape, piece.dtype)
+            buf[tuple(slice(int(a), int(b) if b != -1 else g)
+                      for (a, b), g in zip(idx, gshape))] = piece
+        out[i] = buf
+    for f in z:
+        f.close()
+    return out, [sub for sub, _ in files]
+
+
+if mode == "kill":
+    plane = AsyncSnapshotPlane(ck, replicator=PeerReplicator(ck))
+    trainer.extend(plane, trigger=(every, "iteration"))
+    # each snapshot and its ring round are done before training goes on,
+    # so the kill finds the last snapshot's replicas written
+    trainer.extend(lambda t: plane.flush(), trigger=(every, "iteration"))
+    plain_emergency = plane.emergency_save
+
+    def timed_emergency(trainer, deadline_s=None):
+        t0 = time.monotonic()
+        try:
+            return plain_emergency(trainer, deadline_s=deadline_s)
+        finally:
+            report["emergency_ms"] = (time.monotonic() - t0) * 1e3
+
+    plane.emergency_save = timed_emergency
+    _cuda.reset_launches()
+    t_run = time.time()
+    code = main_exit_code(lambda: (trainer.run(), trainer)[1])
+    report.update(code=code, losses=losses, launches=_cuda.launches(),
+                  launches_f32=_cuda.launches(torch.float32))
+    write()
+    sys.stdout.flush()
+    os._exit(code)
+
+# mode "shrink": resume on fewer ranks from the files left; the restored
+# tree (the saved structure, this world's pieces) against the files
+got = {}
+plain_load = ck.maybe_load
+
+
+def capture(*a, **kw):
+    got["out"] = plain_load(*a, **kw)
+    return got["out"]
+
+
+ck.maybe_load = capture
+gdata = synthetic_text(256, seq, 32768, seed=0)
+plan = elastic_resume(ck, up, global_dataset=gdata, shuffle=True, seed=0)
+restored, it = got["out"]
+saved, sources = saved_leaves(it, plan.saved_world)
+leaves = []
+ck_mod._flatten(restored, leaves)
+same = len(leaves) == len(saved) and all(
+    np.array_equal(whole(v).reshape(np.shape(saved[i])), saved[i])
+    and whole(v).dtype == saved[i].dtype
+    for i, v in enumerate(leaves))
+trainer.stop_n = it + int(sys.argv[9])
+_cuda.reset_launches()
+trainer.run()
+report.update(action=plan.action, iteration=it, saved_world=plan.saved_world,
+              new_world=plan.new_world, sources=sources, bitwise=bool(same),
+              leaves=len(leaves), losses=losses, launches=_cuda.launches(),
+              launches_f32=_cuda.launches(torch.float32))
+write()
+comm.host_barrier()
+sys.stdout.flush()
+os._exit(0)
+"""
+
+
+def _world_ranks(argv, n: int, timeout: float, env: dict, d: str):
+    """``argv`` as ranks 0..n-1 of one world on this card (a free
+    localhost port, output to files under ``d``); returns each rank's exit
+    code, output and the wall time it exited, killing any rank past
+    ``timeout``."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    base = dict(os.environ, PYTHONPATH=HERE, WORLD_SIZE=str(n),
+                LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port), **env)
+    logs = [open(os.path.join(d, f"rank{r}.{port}.log"), "w+")
+            for r in range(n)]
+    procs = [subprocess.Popen(argv, cwd=HERE, stdout=logs[r],
+                              stderr=subprocess.STDOUT, text=True,
+                              env=dict(base, RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(n)]
+    ended = [None] * n
+    try:
+        deadline = time.monotonic() + timeout
+        while None in ended:
+            for r, p in enumerate(procs):
+                if ended[r] is None and p.poll() is not None:
+                    ended[r] = time.time()
+            if time.monotonic() > deadline:
+                raise PhaseError(f"{argv[:3]}: a rank outlived {timeout} s")
+            time.sleep(0.01)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    return [(p.returncode, out, t) for p, out, t in zip(procs, outs, ended)]
+
+
+def _read_jsonl(path):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def _resil_supervised(card: str, d: str, full_losses):
+    """(a) and (b): the supervised ViT, killed at k+2 in its first
+    incarnation, resumed from k in its second (whose snapshot 2k chaos
+    corrupts). Returns the launches of both incarnations."""
+    v, r = VIT, RESIL
+    k, n = v["ckpt_every"], v["ckpt_iterations"]
+    log = os.path.join(d, "vit")
+    argv = _vit_argv(os.path.join(d, "vit_out"), n, v["ckpt_n_train"],
+                     "--warmup-epochs", str(v["ckpt_warmup_epochs"]),
+                     "--snapshot-every", str(k), "--resume")
+    spec = (f"kill@step={r['kill_step']},signal=SIGKILL,run=0;"
+            f"corrupt@match=snapshot_iter_{r['corrupt_iteration']},run=1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "chainermn_torch.tools.supervise",
+         "--max-restarts", "2", "--", sys.executable, "-c",
+         _RESIL_VIT_SCRIPT, log, str(k), *argv],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE,
+                           CHAINERMN_TPU_CHAOS=spec),
+        capture_output=True, text=True, timeout=600)
+    inc0, inc1 = _read_jsonl(log + ".0"), _read_jsonl(log + ".1")
+    text = (proc.stdout + proc.stderr)[-3000:]
+    if proc.returncode != 0 or not inc1:
+        raise PhaseError(f"resilience (a): the supervisor exited "
+                         f"{proc.returncode}:\n{text}")
+    if "(crash)" not in proc.stderr or "(clean)" not in proc.stderr:
+        raise PhaseError(f"resilience (a): the supervisor saw no crash and "
+                         f"clean finish:\n{text}")
+    kill_t = [e["t"] for e in inc0 if e["event"] == "pre"][-1]
+    steps0 = [e for e in inc0 if e["event"] == "step"]
+    steps1 = [e for e in inc1 if e["event"] == "step"]
+    built1 = next(e for e in inc1 if e["event"] == "built")
+    election = next(e for e in inc1 if e["event"] == "election")
+    ttr_ms = (steps1[0]["t"] - kill_t) * 1e3
+    up_ms = (built1["t"] - kill_t) * 1e3        # restart, model, restore
+    resumed = [e["loss"] for e in steps1]
+    err = max(abs(a - b) / abs(b) for a, b in zip(resumed, full_losses[k:]))
+    want = {"flash_fwd": 12, "flash_bwd": 12, "ce_fwd": 0, "ce_dh": 0,
+            "ce_dw": 0}
+    bad = [e for e in steps0 + steps1 if e["launches"] != want]
+    print(f"resilience (a): supervised train_imagenet --model vit "
+          f"--snapshot-every {k} --resume, chaos SIGKILL at step "
+          f"{r['kill_step']} of incarnation 0 (after {len(steps0)} steps): "
+          f"incarnation 1 resumed at iteration {built1['iteration']}, "
+          f"{built1.get('leaves')} leaves bitwise the saved npz: "
+          f"{built1.get('bitwise')}; time to recover {ttr_ms:.1f} ms (kill "
+          f"to the first resumed step; {up_ms:.1f} ms of it to the restored "
+          f"trainer: the supervisor's backoff, a new process, the model and "
+          f"the restore; the rest the first step); losses "
+          f"uninterrupted {[round(l, 5) for l in full_losses]}, resumed "
+          f"{[round(l, 5) for l in resumed]}, worst relative difference "
+          f"{err:.2e} (tolerance {TOL_CKPT_LOSS_REL}); launches a step "
+          f"{want} in all {len(steps0) + len(steps1)} steps: {not bad} "
+          f"({card})", flush=True)
+    print(f"resilience (b): chaos corrupt of snapshot_iter_"
+          f"{r['corrupt_iteration']}.0 after its publish: verifies "
+          f"{election['last_valid']}, the election falls back to "
+          f"{election['elected']} ({card})", flush=True)
+    if built1["iteration"] != k or not built1.get("bitwise"):
+        raise PhaseError("resilience (a): the resumed state is not "
+                         "snapshot k")
+    if (len(steps0) != r["kill_step"] or len(resumed) != n - k
+            or err > TOL_CKPT_LOSS_REL or bad):
+        raise PhaseError("resilience (a): steps, losses or launches are off")
+    if election["last_valid"] or election["elected"] != k:
+        raise PhaseError("resilience (b): the torn snapshot was elected")
+    total = {}
+    for e in steps0 + steps1:
+        for name, c in e["launches"].items():
+            total[name] = total.get(name, 0) + c
+    return total
+
+
+def _resil_preemption(card: str, d: str):
+    """(c): a chaos SIGTERM; the emergency snapshot within the grace
+    window, exit 143. Returns the run's launches."""
+    v, r = VIT, RESIL
+    log = os.path.join(d, "sigterm")
+    argv = _vit_argv(os.path.join(d, "sigterm_out"),
+                     r["sigterm_iterations"], v["ckpt_n_train"],
+                     "--snapshot-every", "1000", "--resume")
+    proc = subprocess.run(
+        [sys.executable, "-c", _RESIL_VIT_SCRIPT, log, "1000", *argv],
+        cwd=HERE, env=dict(
+            os.environ, PYTHONPATH=HERE, CHAINERMN_TPU_PREEMPTION_GRACE_S=str(
+                r["grace_s"]),
+            CHAINERMN_TPU_CHAOS=f"kill@step={r['sigterm_step']},"
+                                "signal=SIGTERM"),
+        capture_output=True, text=True, timeout=300)
+    ev = _read_jsonl(log + ".0")
+    em = [e for e in ev if e["event"] == "emergency"]
+    steps = [e for e in ev if e["event"] == "step"]
+    if proc.returncode != 143 or not em:
+        raise PhaseError(f"resilience (c): exit {proc.returncode}, "
+                         f"emergency saves {em}:\n"
+                         f"{(proc.stdout + proc.stderr)[-3000:]}")
+    e = em[0]
+    print(f"resilience (c): chaos SIGTERM at step {r['sigterm_step']}: "
+          f"emergency snapshot {os.path.basename(e['file'] or '-')} in "
+          f"{e['ms']:.1f} ms against the {e['grace_s']:.0f} s grace "
+          f"(CHAINERMN_TPU_PREEMPTION_GRACE_S; {e['left_s']:.3f} s left), "
+          f"valid {e['valid']}, exit {proc.returncode} after "
+          f"{len(steps)} steps ({card})", flush=True)
+    if not e["valid"] or e["left_s"] is None or e["left_s"] < 0:
+        raise PhaseError("resilience (c): no valid emergency snapshot "
+                         "within the grace window")
+    total = {}
+    for s_ in steps:
+        for name, c in s_["launches"].items():
+            total[name] = total.get(name, 0) + c
+    return total
+
+
+def _resil_world(card: str, d: str):
+    """(d): 4 host-staged ranks with the watchdog and ring replicas, rank
+    3 killed; then 2 ranks resume through ``elastic_resume``. Returns the
+    launches of both worlds (all on f32 inputs)."""
+    from chainermn_torch.extensions.checkpoint import REPLICA_DIRNAME
+
+    r = RESIL
+    n, dead = r["world_ranks"], r["world_kill_rank"]
+    iters = r["world_kill_step"] + 3
+    common = [str(r["world_layers"]), str(r["world_seq"]),
+              str(r["world_per_rank"]), str(iters), str(r["world_every"]),
+              str(r["world_lr"])]
+    env = {"CHAINERMN_TPU_WATCHDOG": "1",
+           "CHAINERMN_TPU_HEARTBEAT_MS": str(r["heartbeat_ms"]),
+           "CHAINERMN_TPU_HEARTBEAT_TIMEOUT_MS": str(
+               r["heartbeat_timeout_ms"]),
+           "CHAINERMN_TPU_RPC_PROBE_MS": str(r["probe_ms"]),
+           "CHAINERMN_TPU_CHAOS": f"kill@step={r['world_kill_step']},"
+                                  f"rank={dead},signal=SIGKILL"}
+    res = _world_ranks([sys.executable, "-c", _RESIL_WORLD_SCRIPT, "kill", d,
+                        *common], n, 600, env, d)
+    reps = []
+    for i in range(n):
+        path = os.path.join(d, f"kill.{i}.json")
+        reps.append(json.load(open(path)) if os.path.exists(path) else {})
+    codes = [rc for rc, _, _ in res]
+    want = [75] * n
+    want[dead] = -9
+    if codes != want or "pre" not in reps[dead]:
+        raise PhaseError(f"resilience (d): exit codes {codes}, expected "
+                         f"{want}:\n" + "\n".join(
+                             f"rank {i}: {out[-1500:]}"
+                             for i, (_, out, _) in enumerate(res)))
+    kill_t = reps[dead]["pre"][1]
+    survivors = [i for i in range(n) if i != dead]
+    # a survivor stuck in a collective no error reaches is ended by its
+    # watchdog (no report); the others leave through JobAbortedError
+    took = [round(res[i][2] - kill_t, 3) for i in survivors]
+    how = ["JobAbortedError" if "code" in reps[i] else "watchdog exit"
+           for i in survivors]
+    saves = [round(reps[i].get("emergency_ms", 0.0), 1) for i in survivors]
+    before = next((reps[i]["losses"] for i in survivors
+                   if reps[i].get("losses")), [])
+    bound = (r["heartbeat_timeout_ms"] + 2 * r["heartbeat_ms"]
+             + r["probe_ms"]) / 1e3 + RESIL_EXIT_SLACK_S
+    job = os.path.join(d, "lm")
+    def held(sub):
+        # {rank: iterations} of the snapshot files under job/sub
+        out = {}
+        path = os.path.join(job, sub)
+        for f in sorted(os.listdir(path)) if os.path.isdir(path) else ():
+            if f.startswith("snapshot_iter_") and not f.endswith(".json"):
+                it, rank = f[len("snapshot_iter_"):].split(".")
+                out.setdefault(int(rank), []).append(int(it))
+        return {k: sorted(v) for k, v in sorted(out.items())}
+
+    print(f"resilience (d) kill: snapshot files by rank {held('')}, ring "
+          f"replicas by source rank {held(REPLICA_DIRNAME)} ({card})",
+          flush=True)
+    warned = [ln for _, out, _ in res for ln in out.splitlines()
+              if "replica" in ln and ("fail" in ln or "could not" in ln)]
+    if warned:
+        print("resilience (d) kill: " + "; ".join(warned[:4]), flush=True)
+    # rank 3's disk is gone with it: only its ring replicas remain
+    for f in os.listdir(job):
+        if f.startswith("snapshot_iter_") and f.split(".")[1] == str(dead):
+            os.remove(os.path.join(job, f))
+    outs = _world_ranks([sys.executable, "-c", _RESIL_WORLD_SCRIPT, "shrink",
+                         d, *common, str(r["shrink_steps"])],
+                        r["shrink_ranks"], 600, {}, d)
+    if any(rc != 0 for rc, _, _ in outs):
+        raise PhaseError("resilience (d): the shrunken world failed:\n"
+                         + "\n".join(f"rank {i} exited {rc}: {out[-2000:]}"
+                                     for i, (rc, out, _) in enumerate(outs))
+                         + "\nthe killed world's ranks:\n" + "\n".join(
+                             f"rank {i}: {out[-1500:]}"
+                             for i, (_, out, _) in enumerate(res)))
+    back = [json.load(open(os.path.join(d, f"shrink.{i}.json")))
+            for i in range(r["shrink_ranks"])]
+    b0 = back[0]
+    losses = b0["losses"]
+    print(f"resilience (d): train_lm --fsdp-scan (d 768, {r['world_layers']}"
+          f" layers, vocab 32768, seq {r['world_seq']}, f32, Adam "
+          f"{r['world_lr']}) on {n} host-staged ranks of this card with the "
+          f"watchdog (heartbeat {r['heartbeat_ms']} ms, timeout "
+          f"{r['heartbeat_timeout_ms']} ms, probe {r['probe_ms']} ms) and "
+          f"an AsyncSnapshotPlane with a PeerReplicator every "
+          f"{r['world_every']} iterations: rank {dead} SIGKILLed at step "
+          f"{r['world_kill_step']}, survivors exited "
+          f"{[codes[i] for i in survivors]} ({how}) {took} s after the kill "
+          f"(bound {bound:.1f} s; their emergency saves ms {saves}); losses "
+          f"before the kill {[round(l, 5) for l in before]}; then {r['shrink_ranks']} ranks: plan "
+          f"{b0['action']} at iteration {b0['iteration']} (saved world "
+          f"{b0['saved_world']}, new {b0['new_world']}), files read "
+          f"{['replica' if s_ else 'primary' for s_ in b0['sources']]}, "
+          f"{b0['leaves']} leaves bitwise the saved files: "
+          f"{all(b['bitwise'] for b in back)}; next losses "
+          f"{[round(l, 5) for l in losses]} ({card})", flush=True)
+    if any(t > bound for t in took):
+        raise PhaseError("resilience (d): a survivor outlived the bound")
+    if (b0["action"] not in ("shrink", "reshard")
+            or not all(b["bitwise"] for b in back)
+            or b0["sources"][dead] != REPLICA_DIRNAME):
+        raise PhaseError("resilience (d): the shrunken restore is off")
+    if not all(math.isfinite(l) for l in losses) or not (
+            losses[-1] < losses[0]):
+        raise PhaseError(f"resilience (d): the resumed losses are not "
+                         f"finite and falling: {losses}")
+    counts, f32 = {}, {}
+    for rep in reps[:dead] + reps[dead + 1:] + back:
+        for name, c in rep.get("launches", {}).items():
+            counts[name] = counts.get(name, 0) + c
+        for name, c in rep.get("launches_f32", {}).items():
+            f32[name] = f32.get(name, 0) + c
+    return counts, f32
+
+
+def resilience(card: str, full_losses):
+    """(a)-(d) of the module docstring, each a subprocess with a timeout.
+    Returns the launches of their runs, and those on f32 inputs."""
+    import tempfile
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        counts = _resil_supervised(card, d, full_losses)
+        for name, c in _resil_preemption(card, d).items():
+            counts[name] = counts.get(name, 0) + c
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        world, f32 = _resil_world(card, d)
+    for name, c in world.items():
+        counts[name] = counts.get(name, 0) + c
+    return counts, f32
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4439,10 +5027,12 @@ def main(argv=None) -> int:
     mp_counts = model_parallel(card)
     torch.cuda.empty_cache()
     vit_counts = vit(args.seed, card, args.profile)
-    ckpt_counts = checkpoint(card)
+    ckpt_counts, full_losses = checkpoint(card)
     red_counts = reducers(args.seed, card)
     zero_counts, zero_f32 = zero(args.seed, card)
     fsdp_counts, fsdp_f32 = fsdp(args.seed, card)
+    torch.cuda.empty_cache()
+    res_counts, res_f32 = resilience(card, full_losses)
 
     sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:168"),
                "flash_bwd": ("flash_bwd.cu", "flash_attention.py:399"),
@@ -4453,21 +5043,23 @@ def main(argv=None) -> int:
         name: worst[name] for name in sources if name != "flash_fwd"}}
     kernels = []
     for name, (src, tpu) in sources.items():
-        # serving, training, the ViT, its checkpoint runs and the ZeRO
-        # and FSDP phases drive flash (and the ZeRO and FSDP phases the CE
-        # kernels): a count is the sum of the main-path runs (the MNIST,
-        # CIFAR, ResNet-50, seq2seq, model-parallel and reducer runs add
-        # none). The phases before the ZeRO phase run bf16 models; the
-        # f32 runs' launches of the ZeRO and FSDP phases go to the f32
-        # bodies' own rows
+        # serving, training, the ViT, its checkpoint runs, the ZeRO and
+        # FSDP phases and the resilience runs drive flash (and the ZeRO,
+        # FSDP and resilience phases the CE kernels): a count is the sum
+        # of the main-path runs (the MNIST, CIFAR, ResNet-50, seq2seq,
+        # model-parallel and reducer runs add none). The phases before the
+        # ZeRO phase run bf16 models; the f32 runs' launches of the ZeRO,
+        # FSDP and resilience phases go to the f32 bodies' own rows
         bf16 = (train_counts[name] + mnist_counts[name]
                 + cifar_counts[name] + r50_counts[name] + s2s_counts[name]
                 + mp_counts.get(name, 0) + vit_counts[name]
                 + ckpt_counts[name] + red_counts.get(name, 0)
                 + zero_counts.get(name, 0) - zero_f32.get(name, 0)
-                + fsdp_counts.get(name, 0) - fsdp_f32.get(name, 0) + (
+                + fsdp_counts.get(name, 0) - fsdp_f32.get(name, 0)
+                + res_counts.get(name, 0) - res_f32.get(name, 0) + (
                     counts["flash_fwd"] if name == "flash_fwd" else 0))
-        f32 = zero_f32.get(name, 0) + fsdp_f32.get(name, 0)
+        f32 = (zero_f32.get(name, 0) + fsdp_f32.get(name, 0)
+               + res_f32.get(name, 0))
         for row, n in ((name, bf16), (f"{name}_f32", f32)):
             kernels.append({
                 "name": row, "route": "cuda",

@@ -506,16 +506,35 @@ def test_emergency_save_publishes_synchronously(comm, tmp_path):
     assert not os.path.exists(fn7)
 
 
-def test_later_slices_raise(comm, tmp_path, monkeypatch):
+def test_later_slices_raise(comm, tmp_path):
     """The orbax backend (JAX's library, not ported: ROADMAP.md queue 3)
-    and the chaos switch (queue 1 item 9) raise."""
+    raises."""
     with pytest.raises(NotImplementedError, match="queue 3"):
         create_multi_node_checkpointer("o", comm, path=str(tmp_path),
                                        backend="orbax")
+
+
+@pytest.mark.parametrize("spec", [
+    "corrupt@match=snapshot_iter_2", "truncate@match=snapshot_iter_2,keep=9",
+    "enospc@match=snapshot_iter_2"])
+def test_chaos_hooks_damage_or_refuse_a_publish(comm, tmp_path, monkeypatch,
+                                                spec):
+    """The checkpointer's chaos points (``$CHAINERMN_TPU_CHAOS``):
+    ``corrupt`` and ``truncate`` damage the published file after its
+    manifest (verification catches it and the election falls back),
+    ``enospc`` refuses the publish with nothing written."""
     ck = create_multi_node_checkpointer("c", comm, path=str(tmp_path))
-    monkeypatch.setenv("CHAINERMN_TPU_CHAOS", "corrupt@match=snapshot")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ck.save(_Port.state(1), 1)
+    ck.save(_Port.state(1), 1)
+    monkeypatch.setenv("CHAINERMN_TPU_CHAOS", spec)
+    fn = os.path.join(ck.path, "snapshot_iter_2.0")
+    if spec.startswith("enospc"):
+        with pytest.raises(OSError, match="No space left"):
+            ck.save(_Port.state(2), 2)
+        assert not os.path.exists(fn)
+    else:
+        ck.save(_Port.state(2), 2)
+        assert os.path.exists(fn) and not ck._verify_snapshot_file(fn)
+    assert ck.latest_common_iteration() == 1
 
 
 # -- several ranks ------------------------------------------------------------

@@ -412,10 +412,55 @@ def test_plane_writer_errors_surface_on_flush(comm, tmp_path):
     with pytest.raises(RuntimeError, match="disk full"):
         plane.flush()
     plane.close()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        AsyncSnapshotPlane(ck, replicator=object())
     with pytest.raises(ValueError, match="backpressure"):
         AsyncSnapshotPlane(ck, backpressure="drop")
+
+
+class _Ring:
+    """Rank 0 of a two-rank ring whose store-backed plane loops back: what
+    it sends to its right neighbour comes back from its left."""
+
+    rank, size = 0, 2
+    inter_rank, inter_size = 0, 1
+
+    def __init__(self):
+        self.sent = []
+        self.object_plane = self
+
+    def barrier(self):
+        pass
+
+    def send_obj(self, obj, dest, tag=0):
+        assert dest == 1 and tag == 7
+        self.sent.append(obj)
+
+    def recv_obj(self, src, tag=0):
+        assert src == 1 and tag == 7
+        return self.sent[-1]
+
+
+def test_plane_replicator_writes_a_ring_replica(tmp_path):
+    """``AsyncSnapshotPlane(replicator=PeerReplicator(ck))`` runs one ring
+    round a save on its writer thread, after the publish: the newest
+    verified snapshot goes to the neighbour, whose copy (here this
+    rank's own, looped back) lands under ``replicas/`` with its manifest
+    and verifies; a round with nothing new sends an empty payload."""
+    from chainermn_torch.resilience import PeerReplicator
+
+    ring = _Ring()
+    ck = create_multi_node_checkpointer("p", ring, path=str(tmp_path))
+    plane = AsyncSnapshotPlane(ck, replicator=PeerReplicator(ck))
+    plane.save(_state(1), 3)
+    plane.flush()
+    primary = os.path.join(ck.path, "snapshot_iter_3.0")
+    replica = os.path.join(ck.replica_path, "snapshot_iter_3.0")
+    with open(primary, "rb") as a, open(replica, "rb") as b:
+        assert a.read() == b.read()
+    assert ck._verify_snapshot_file(replica)
+    assert ck._replica_iters_on_disk() == [3]
+    plane.replicator.replicate()          # nothing new since iteration 3
+    assert ring.sent[-1] == {"iteration": None}
+    plane.close()
 
 
 def test_checkpoint_report_and_emergency_save(comm, tmp_path, capsys):

@@ -1,7 +1,7 @@
 """The MNIST slice against the JAX package: the port's ``Trainer`` /
 ``StandardUpdater`` / ``Evaluator`` / ``LogReport`` train the MLP as the
 JAX ones do from the same converted parameters and batches; triggers,
-closing extensions, preemption and the refused chaos/watchdog switches;
+closing extensions, preemption and the chaos/watchdog switches;
 and the port's MNIST example in a 2-rank gloo world against one rank fed
 both ranks' batches.
 
@@ -44,7 +44,7 @@ from chainermn_torch.datasets import (SubDataset, load_mnist, split_indices,
 from chainermn_torch.iterators import SerialIterator
 from chainermn_torch.models import MLP
 from chainermn_torch.models.convert import mlp_params_from_flax
-from chainermn_torch.resilience import main_exit_code
+from chainermn_torch.resilience import PREEMPTED_EXIT_CODE, main_exit_code
 from chainermn_torch.training import (Evaluator, LogReport, PrintReport,
                                       StandardUpdater, Trainer,
                                       classifier_loss,
@@ -245,21 +245,34 @@ def test_trainer_closes_extensions_on_exit(comm):
     assert closed == [True, True]
 
 
-@pytest.mark.parametrize("var,value,raises", [
-    ("CHAINERMN_TPU_CHAOS", "kill@step=1", True),
-    ("CHAINERMN_TPU_WATCHDOG", "1", True),
-    ("CHAINERMN_TPU_WATCHDOG", "0", False)])
-def test_chaos_and_watchdog_switches_are_refused(comm, monkeypatch, var,
-                                                 value, raises):
+@pytest.mark.parametrize("var,value", [
+    ("CHAINERMN_TPU_CHAOS", "kill@step=1,signal=SIGTERM"),
+    ("CHAINERMN_TPU_WATCHDOG", "1"),
+    ("CHAINERMN_TPU_WATCHDOG", "0")])
+def test_chaos_and_watchdog_switches_drive_the_run(comm, monkeypatch, var,
+                                                   value):
+    """The run honours the JAX package's switches: a chaos kill at step 1
+    (a SIGTERM, which the run's own handler takes: a preemption at
+    iteration 1); ``$CHAINERMN_TPU_WATCHDOG=1`` starts no watchdog in a
+    world of one (the two-rank case is in ``test_torch_resilience.py``),
+    and ``0`` none at all."""
+    from chainermn_torch.resilience import guard, watchdog
+
     monkeypatch.setenv(var, value)
-    trainer = _tiny_trainer(comm, (1, "iteration"))
-    if raises:
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            trainer.run()
-        assert trainer.updater.iteration == 0
-    else:
+    trainer = _tiny_trainer(comm, (3, "iteration"))
+    seen = []
+    trainer.extend(lambda t: seen.append(watchdog.current_watchdog()),
+                   trigger=(1, "iteration"))
+    try:
         trainer.run()
-        assert trainer.updater.iteration == 1
+    finally:
+        guard().reset()     # the process-wide flag outlives the run
+    if var == "CHAINERMN_TPU_CHAOS":
+        assert trainer.preempted and trainer.updater.iteration in (1, 2)
+        assert trainer.exit_code() == PREEMPTED_EXIT_CODE
+    else:
+        assert not trainer.preempted and trainer.updater.iteration == 3
+        assert seen == [None] * 3
 
 
 def test_host_state_round_trip_draws_the_same_next_batch(comm):
@@ -295,7 +308,7 @@ from chainermn_torch.datasets import synthetic_mnist
 from chainermn_torch.iterators import SerialIterator
 from chainermn_torch.models import MLP
 from chainermn_torch.optimizers import create_multi_node_optimizer
-from chainermn_torch.resilience import main_exit_code
+from chainermn_torch.resilience import PREEMPTED_EXIT_CODE, main_exit_code
 from chainermn_torch.training import (StandardUpdater, Trainer,
                                       make_data_parallel_train_step)
 import torch
