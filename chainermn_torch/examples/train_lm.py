@@ -34,13 +34,25 @@ flag, and the port adds none). ``--batchsize`` is each rank's batch
 (the JAX script's is global); ``--iterations`` stops after N iterations
 instead of epochs.
 
+The intra-layer parallel flags (``chainermn_torch.parallel``):
+
+* ``--moe N``: the FFN becomes a Switch MoE (``--moe-top-k 2``: GShard
+  top-2) with N experts on each rank, the experts split over the ranks
+  (capacity factor 2.0), initialised by ``init_expert_parallel_state``
+  and trained by ``make_expert_parallel_train_step`` with plain Adam and
+  ``lm_loss_with_aux`` (the load-balancing term added); it takes
+  precedence over ``--zero``, as in JAX;
+* ``--ring``: after training, sequence-parallel inference of the trained
+  weights on the first training sequence (rank 0's), split over the
+  ranks (``--seq-impl ring|ring_flash|ulysses``, default ``ring``), with
+  the next-token accuracy printed; skipped, with JAX's messages, after a
+  MoE, GQA, ZeRO, FSDP-scan or ``bhld`` run, and for Ulysses when the
+  ranks do not divide ``--n-heads``.
+
 JAX's own refusals are kept: ``--zero 3`` with ``--zero-bucket-kib``,
 ``--fsdp-scan`` with ``--zero``, with ``--moe``, or with a vocabulary
-that is not a multiple of 128. Waiting for later slices
-(``NotImplementedError``): ``--moe``, ``--ring`` and ``--seq-impl``
-(ROADMAP.md queue 1 item 10);
-``--autotune-blocks`` does not apply while the CUDA kernels fix their own
-tiles (item 6).
+that is not a multiple of 128. ``--autotune-blocks`` does not apply while
+the CUDA kernels fix their own tiles (ROADMAP.md queue 1 item 6).
 
     python -m chainermn_torch.examples.train_lm --epoch 2
     python -m chainermn_torch.examples.train_lm --zero 1 \\
@@ -51,6 +63,10 @@ tiles (item 6).
         --vocab 128 --n-train 256 --batchsize 16 --epoch 1 --fsdp-scan
     torchrun --nproc-per-node 2 -m chainermn_torch.examples.train_lm \\
         --device cpu --zero 1 --n-train 256 --batchsize 8 --epoch 1
+    torchrun --nproc-per-node 2 -m chainermn_torch.examples.train_lm \\
+        --device cpu --moe 2 --moe-top-k 2 --n-train 64 --iterations 2
+    torchrun --nproc-per-node 2 -m chainermn_torch.examples.train_lm \\
+        --device cpu --ring --seq-impl ulysses --n-train 64 --iterations 2
 """
 
 from __future__ import annotations
@@ -58,6 +74,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -79,10 +96,9 @@ from chainermn_torch.optimizers import (create_multi_node_optimizer,
 from chainermn_torch.resilience.supervisor import main_exit_code
 from chainermn_torch.training import (LogReport, PrintReport,
                                       StandardUpdater, Trainer,
-                                      make_data_parallel_train_step)
-
-_ITEM10 = ("waits for the parallel slice of the port (ROADMAP.md queue 1 "
-           "item 10)")
+                                      init_expert_parallel_state,
+                                      make_data_parallel_train_step,
+                                      make_expert_parallel_train_step)
 
 
 def synthetic_text(n: int, length: int, vocab: int, seed: int = 0):
@@ -113,13 +129,14 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--n-train", type=int, default=2048)
     p.add_argument("--moe", type=int, default=0, metavar="N",
-                   help="experts per device (waits for item 10)")
-    p.add_argument("--moe-top-k", type=int, default=1)
+                   help="experts per device (0 = dense FFN)")
+    p.add_argument("--moe-top-k", type=int, default=1,
+                   help="experts per token (1 = Switch, 2 = GShard)")
     p.add_argument("--ring", action="store_true",
-                   help="sequence-parallel attention demo (waits for "
-                        "item 10)")
+                   help="sequence-parallel attention demo after training "
+                        "(implementation: --seq-impl)")
     p.add_argument("--seq-impl", choices=["ring", "ring_flash", "ulysses"],
-                   default=None,
+                   default="ring",
                    help="sequence-parallel attention used by --ring")
     p.add_argument("--fsdp-scan", action="store_true",
                    help="FSDP over a scanned layer stack (one layer "
@@ -156,7 +173,7 @@ def parse_args(argv=None):
 
 
 def _refuse(args) -> None:
-    """JAX's own refusals first, then what waits for a later slice."""
+    """JAX's own refusals, then what does not apply to the port."""
     if args.fsdp_scan and args.zero:
         raise SystemExit("--fsdp-scan and --zero are exclusive")
     if args.zero == 3 and args.zero_bucket_kib:
@@ -168,12 +185,6 @@ def _refuse(args) -> None:
         raise SystemExit("--fsdp-scan does not compose with --moe (the "
                          "load-balancing aux cannot thread through the "
                          "scan)")
-    if args.moe:
-        raise NotImplementedError(f"--moe {_ITEM10}")
-    if args.ring:
-        raise NotImplementedError(f"--ring {_ITEM10}")
-    if args.seq_impl is not None:
-        raise NotImplementedError(f"--seq-impl {_ITEM10}")
     if args.autotune_blocks:
         raise NotImplementedError(
             "--autotune-blocks does not apply: the port's CUDA flash "
@@ -244,13 +255,21 @@ def build_trainer(args):
             comm, shuffle=True, seed=0)
 
     torch.manual_seed(0)
+    moe = {}
+    if args.moe > 0:
+        moe = dict(moe_experts_per_device=args.moe,
+                   expert_axis=comm.axis_name, capacity_factor=2.0,
+                   moe_top_k=args.moe_top_k, comms={comm.axis_name: comm})
     model = TransformerLM(
         vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_kv_heads=args.n_kv_heads or None, n_layers=args.n_layers,
         d_ff=4 * args.d_model, max_len=args.seq_len,
         pos_emb="rope" if args.rope else "learned",
-        attention_window=args.window or None, device=comm.device)
-    comm.bcast_data(model)
+        attention_window=args.window or None, device=comm.device, **moe)
+    if args.moe > 0:
+        specs = init_expert_parallel_state(model, comm, seed=0)
+    else:
+        comm.bcast_data(model)
     if args.fsdp_scan and args.vocab % 128:
         comm.finalize()
         raise SystemExit("--fsdp-scan needs vocab % 128 == 0 (fused "
@@ -260,7 +279,15 @@ def build_trainer(args):
         return torch.optim.Adam(params, lr=args.lr, eps=1e-8)
 
     state_model = model
-    if args.fsdp_scan:
+    if args.moe > 0:
+        # plain Adam: the expert gradients stay on their ranks, the
+        # shared ones are summed inside the step
+        optimizer = torch.optim.Adam(model.parameters(), lr=args.lr,
+                                     eps=1e-8)
+        step = make_expert_parallel_train_step(model, optimizer, comm,
+                                               specs,
+                                               loss_fn=lm_loss_with_aux)
+    elif args.fsdp_scan:
         packed = stack_lm_blocks(flax_params(model))
         shardings = dict(
             fsdp_shardings(packed, comm),
@@ -306,9 +333,54 @@ def build_trainer(args):
     return trainer, model
 
 
+def ring_demo(args, trainer, model) -> Optional[float]:
+    """``--ring``: sequence-parallel inference of the trained weights.
+    Rank 0's first training sequence is split over the ranks (rank r
+    holds positions ``[r·L/n, (r+1)·L/n)``, ``pos_offset`` keeps them
+    global), the model runs with ``attention=--seq-impl``, and the
+    next-token accuracy over the whole sequence is returned (None where
+    JAX's skip rules apply, with its messages)."""
+    comm = trainer.updater.comm
+    if (args.moe > 0 or args.n_kv_heads or args.zero or args.fsdp_scan
+            or args.qkv_layout != "blhd"):
+        if comm.is_master:
+            print("--ring demo skipped: it reuses the trained params, and "
+                  "a MoE/GQA/ZeRO/fsdp-scan/bhld run produces a different "
+                  "param structure/layout than the sequence-parallel "
+                  "model expects", flush=True)
+        return None
+    if args.seq_impl == "ulysses" and args.n_heads % comm.size:
+        if comm.is_master:
+            print(f"--ring demo skipped: ulysses needs --n-heads "
+                  f"divisible by the {comm.size}-device axis", flush=True)
+        return None
+    ax = comm.axis_name
+    ring = TransformerLM(
+        vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+        n_layers=args.n_layers, d_ff=4 * args.d_model,
+        max_len=args.seq_len, attention=args.seq_impl, seq_axis=ax,
+        pos_emb="rope" if args.rope else "learned", comms={ax: comm},
+        device=comm.device)
+    ring.load_state_dict(model.state_dict())
+    x, y = comm.bcast_obj(trainer.updater.iterator.dataset[0])
+    l_local = args.seq_len // comm.size
+    lo = comm.rank * l_local
+    toks = torch.as_tensor(np.asarray(x)[None, lo:lo + l_local],
+                           device=comm.device)
+    with torch.no_grad():
+        pred = ring(toks, pos_offset=lo).argmax(-1)[0]
+    hits = (pred == torch.as_tensor(np.asarray(y)[lo:lo + l_local],
+                                    device=comm.device)).float().mean()
+    acc = float(comm.allreduce(hits, "mean"))
+    if comm.is_master:
+        print(f"{args.seq_impl}-attention (seq sharded over {comm.size} "
+              f"devices) next-token acc: {acc:.4f}", flush=True)
+    return acc
+
+
 def main(argv=None) -> Trainer:
     args = parse_args(argv)
-    trainer, _ = build_trainer(args)
+    trainer, model = build_trainer(args)
     comm = trainer.updater.comm
     try:
         trainer.run()
@@ -322,6 +394,8 @@ def main(argv=None) -> Trainer:
                   f"{tokens / obs['elapsed_time']:.1f} tokens/sec "
                   f"({tokens / obs['elapsed_time'] / comm.size:.1f} "
                   "/chip)", flush=True)
+        if args.ring and not trainer.preempted:
+            ring_demo(args, trainer, model)
     finally:
         comm.finalize()
     return trainer

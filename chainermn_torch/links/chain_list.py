@@ -26,7 +26,7 @@ where every device holds every stage's parameters. Here each rank holds
 only its own stages, so there is nothing for the budget to guard: the
 constructor keeps the argument and checks nothing (ROADMAP.md queue 3).
 The pipeline lowerings (``to_hetero_pipeline``, ``to_branching_pipeline``)
-wait for the port's ``parallel/`` (ROADMAP.md queue 1 item 10).
+wait for the port's pipelines (ROADMAP.md queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -174,10 +174,10 @@ class MultiNodeChainList(nn.Module):
 
     def to_hetero_pipeline(self, *args, **kwargs):
         raise NotImplementedError(
-            "the 1F1B pipeline lowering waits for the port's parallel/ "
-            "(ROADMAP.md queue 1 item 10)")
+            "the 1F1B pipeline lowering waits for the port's pipelines "
+            "(ROADMAP.md queue 1 item 10b)")
 
     def to_branching_pipeline(self, *args, **kwargs):
         raise NotImplementedError(
             "the branching pipeline lowering waits for the port's "
-            "parallel/ (ROADMAP.md queue 1 item 10)")
+            "pipelines (ROADMAP.md queue 1 item 10b)")

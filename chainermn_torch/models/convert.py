@@ -46,6 +46,17 @@ same path (the port's ``MultiNodeBatchNormalization`` keeps no
   the way the JAX package's ``bhld_to_blhd_params`` maps it. The port
   needs no second compute layout: its kernels read q/k/v through strides.
 
+The tensor-parallel and MoE forms of the LM (``tp_axis``,
+``lm_head_tp``, ``moe_experts_per_device``) convert the same way, one
+rank at a time: a column- or row-parallel layer's ``Dense_0`` is its
+``dense`` ``nn.Linear``, ``tp_ffn``'s ``ColumnParallelDense_0``/
+``RowParallelDense_0`` are its ``column``/``row``, and the MoE tables
+``moe/w1``..``b2`` and ``moe/router`` carry over.
+:func:`rank_params_from_flax` cuts rank r's tree out of the ranks'
+stacked one; :func:`dense_params_from_ranks` gathers a rank set's state
+dicts into the dense (or all-experts-local) twin's and
+:func:`rank_params_from_dense` cuts them back out.
+
 :func:`vit_params_from_flax` converts the ViT: ``patchify`` as a
 ``conv`` (HWIO → OIHW), ``cls_token`` and ``pos_emb`` as they are, each
 ``block_<i>``'s fused ``qkv`` (split by the port's output chunks, as in
@@ -82,7 +93,9 @@ __all__ = ["convert_layer", "params_from_flax", "mlp_params_from_flax",
            "resnet_params_from_flax", "dense_stage_params_from_flax",
            "seq2seq_params_from_flax", "vit_params_from_flax",
            "flax_param_order", "flax_layout_perm", "flax_params",
-           "stacked_params_from_flax", "block_param_map"]
+           "stacked_params_from_flax", "block_param_map",
+           "rank_params_from_flax", "dense_params_from_ranks",
+           "rank_params_from_dense"]
 
 
 def _t(x) -> torch.Tensor:
@@ -271,28 +284,148 @@ def _bhld_block(bp: Mapping, d: int) -> Dict:
 def params_from_flax(model, tree: Mapping) -> Dict[str, torch.Tensor]:
     """Flax TransformerLM ``params`` (numpy leaves) → a state dict for
     ``model`` (a :class:`chainermn_torch.models.TransformerLM` of the
-    same configuration)."""
-    sd = {**convert_layer("embed", tree["tok_emb"], prefix="tok_emb."),
-          **convert_layer("layer_norm", tree["LayerNorm_0"], prefix="ln_f."),
-          **convert_layer("dense", tree["lm_head"], prefix="lm_head.")}
-    if model.pos_emb == "learned":
-        sd["pos_embedding"] = _t(tree["pos_emb"])
-    for i in range(model.n_layers):
-        bp = _bhld_block(tree[f"block_{i}"], model.d_model)
-        pre = f"blocks.{i}."
-        dense = {"attn_out": "attn_out", "ffn_in": "ffn_in",
-                 "ffn_out": "ffn_out"}
-        if "qkv" in bp:
-            dense["qkv"] = "qkv"
-        else:
-            dense.update(q_proj="q_proj", kv_proj="kv_proj")
-        for src, dst in dense.items():
-            sd.update(convert_layer("dense", bp[src], prefix=pre + dst + "."))
-        for src, dst in (("LayerNorm_0", "ln_attn"),
-                         ("LayerNorm_1", "ln_ffn")):
-            sd.update(convert_layer("layer_norm", bp[src],
-                                    prefix=pre + dst + "."))
+    same configuration): each parameter from its flax path
+    (:func:`flax_param_order`'s names), in the port's layout. A tensor-
+    or expert-parallel model takes one rank's tree
+    (:func:`rank_params_from_flax` cuts it from the ranks' stacked one)."""
+    tree = {k: (_bhld_block(v, model.d_model) if k.startswith("block_")
+                else v) for k, v in tree.items()}
+    sd = {}
+    for name, _ in model.named_parameters():
+        owner, _, attr = name.rpartition(".")
+        leaf = tree
+        for part in _flax_leaf(model, owner, attr):
+            leaf = leaf[part]
+        t = _t(leaf)
+        perm = flax_layout_perm(model, name)
+        sd[name] = t.permute(perm).contiguous() if perm else t
     return sd
+
+
+def _per_rank(path) -> bool:
+    """Whether a flax leaf of a tensor- or expert-parallel LM is this
+    rank's own: a column- or row-parallel layer's ``Dense_0`` (not the
+    row-parallel layer's replicated ``bias``), or an expert table."""
+    if "moe" in path:
+        return path[-1] in ("w1", "b1", "w2", "b2")
+    return "Dense_0" in path
+
+
+def rank_params_from_flax(model, tree: Mapping, rank: int,
+                          size: int) -> Dict[str, torch.Tensor]:
+    """A tensor- or expert-parallel TransformerLM's flax tree as
+    ``shard_map(..., out_specs=P(axis))`` returns it (each leaf the
+    ``size`` ranks' leaves concatenated on axis 0: a column-parallel
+    kernel ``[d, out/n]`` becomes ``[n·d, out/n]``, a replicated leaf
+    repeats, the expert tables ``[e_local, ...]`` become ``[n·e_local,
+    ...]``) → rank ``rank``'s state dict for ``model`` (the port model of
+    that rank). A rank's own leaves come from its slice; the router and
+    the other shared leaves from rank 0's, as
+    ``init_expert_parallel_state`` replicates them."""
+    def cut(node, path):
+        if isinstance(node, Mapping):
+            return {k: cut(v, path + (k,)) for k, v in node.items()}
+        a = np.asarray(node)
+        if a.shape[0] % size:
+            raise ValueError(f"leaf {'/'.join(path)} {a.shape} does not "
+                             f"split over {size} ranks")
+        per = a.shape[0] // size
+        i = rank if _per_rank(path) else 0
+        return a[i * per:(i + 1) * per]
+
+    return params_from_flax(model, cut(tree, ()))
+
+
+def _block_of(key: str) -> str:
+    """``"blocks.<i>."`` for a block's parameter, ``""`` otherwise."""
+    if not key.startswith("blocks."):
+        return ""
+    return key[:key.index(".", len("blocks.")) + 1]
+
+
+_EXPERT_TABLES = ("w1", "b1", "w2", "b2")
+
+# a dense parameter ← its tensor-parallel pieces: (the pieces' name in
+# the block, the axis they stack on)
+_TP_PIECES = {"attn_out.weight": ("attn_out.dense.weight", 1),
+              "ffn_in.weight": ("tp_ffn.column.dense.weight", 0),
+              "ffn_in.bias": ("tp_ffn.column.dense.bias", 0),
+              "ffn_out.weight": ("tp_ffn.row.dense.weight", 1),
+              "lm_head.weight": ("lm_head.dense.weight", 0)}
+
+
+def _expert_table(key: str) -> bool:
+    return ".moe." in key and key.rpartition(".")[2] in _EXPERT_TABLES
+
+
+def dense_params_from_ranks(model, sds) -> Dict[str, torch.Tensor]:
+    """The state dicts of a tensor- or expert-parallel rank set (rank
+    order) → the state dict of ``model``, the same LM with every head,
+    FFN column, vocabulary row and expert on one rank (its dense or
+    all-experts-local twin). The dense q is the ranks' q rows side by
+    side; the dense k is each rank's first ``kv`` half, the dense v each
+    rank's second half; ``attn_out``'s and ``tp_ffn``'s row kernels
+    stack on the input axis; the expert tables concatenate in rank order
+    (expert ``r·e_local + j`` is rank r's j-th); every shared leaf is
+    rank 0's."""
+    first = sds[0]
+    out: Dict[str, torch.Tensor] = {}
+    for key in model.state_dict():
+        blk = _block_of(key)
+        local = key[len(blk):]
+        if _expert_table(key):
+            out[key] = torch.cat([sd[key] for sd in sds])
+        elif key in first:
+            out[key] = first[key]
+        elif local in ("qkv.weight", "q_proj.weight", "kv_proj.weight"):
+            q = torch.cat([sd[blk + "q_proj.dense.weight"] for sd in sds])
+            halves = [sd[blk + "kv_proj.dense.weight"].chunk(2)
+                      for sd in sds]
+            kv = [torch.cat([h[i] for h in halves]) for i in (0, 1)]
+            out[key] = {"qkv.weight": torch.cat([q, *kv]),
+                        "q_proj.weight": q,
+                        "kv_proj.weight": torch.cat(kv)}[local]
+        elif local == "ffn_out.bias":
+            out[key] = first[blk + "tp_ffn.row.bias"]
+        else:
+            piece, dim = _TP_PIECES[local]
+            out[key] = torch.cat([sd[blk + piece] for sd in sds], dim)
+    return out
+
+
+def rank_params_from_dense(model, sd, rank: int,
+                           size: int) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`dense_params_from_ranks`: the dense (or
+    all-experts-local) twin's state dict ``sd`` → rank ``rank``'s state
+    dict for ``model``, the tensor- or expert-parallel model of that
+    rank of ``size``."""
+    def part(t, dim=0):
+        return t.chunk(size, dim)[rank].contiguous()
+
+    pieces = {piece: (whole, dim)
+              for whole, (piece, dim) in _TP_PIECES.items()}
+    out: Dict[str, torch.Tensor] = {}
+    for key in model.state_dict():
+        blk = _block_of(key)
+        local = key[len(blk):]
+        fused = blk + "qkv.weight" in sd
+        if _expert_table(key):
+            out[key] = part(sd[key])
+        elif local == "q_proj.dense.weight":
+            out[key] = part(sd[blk + "qkv.weight"].chunk(3)[0] if fused
+                            else sd[blk + "q_proj.weight"])
+        elif local == "kv_proj.dense.weight":
+            kv = (torch.cat(sd[blk + "qkv.weight"].chunk(3)[1:]) if fused
+                  else sd[blk + "kv_proj.weight"])
+            out[key] = torch.cat([part(t) for t in kv.chunk(2)])
+        elif local == "tp_ffn.row.bias":
+            out[key] = sd[blk + "ffn_out.bias"]
+        elif local in pieces:
+            whole, dim = pieces[local]
+            out[key] = part(sd[blk + whole], dim)
+        else:
+            out[key] = sd[key]
+    return out
 
 
 def vit_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -324,7 +457,9 @@ def vit_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 # the port's layer names → flax's (the LM's and the ViT's; ``blocks.<i>``
 # is ``block_<i>``, the MLP's ``l<k>`` is ``Dense_<k-1>``)
 _FLAX_NAMES = {"ln_attn": "LayerNorm_0", "ln_ffn": "LayerNorm_1",
-               "ln_f": "LayerNorm_0", "pos_embedding": "pos_emb"}
+               "ln_f": "LayerNorm_0", "pos_embedding": "pos_emb",
+               "dense": "Dense_0", "column": "ColumnParallelDense_0",
+               "row": "RowParallelDense_0"}
 
 
 def _flax_leaf(model, owner: str, attr: str):

@@ -12,6 +12,7 @@ gives the same parameters on every device.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,12 +28,15 @@ _TRUNC_STD = 0.87962566103423978
 
 
 @torch.no_grad()
-def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
     """flax's ``lecun_normal`` in place: a normal of variance 1/fan_in
-    truncated at two standard deviations, drawn from torch's global
-    generator."""
+    truncated at two standard deviations, drawn from ``generator`` (torch's
+    global generator by default)."""
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                                 generator=generator)
 
 
 def flax_dense(n_in: int, n_out: int) -> nn.Linear:

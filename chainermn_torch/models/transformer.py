@@ -2,11 +2,17 @@
 
 Counterpart of ``chainermn_tpu/models/transformer.py``'s
 ``TransformerBlock`` / ``TransformerLM`` / ``generate`` /
-``lm_loss_with_aux`` in the ``blhd`` layout with the dense FFN: MHA
+``lm_loss_with_aux`` / ``tp_lm_loss`` in the ``blhd`` layout: MHA
 (fused ``qkv``) or GQA/MQA (``q_proj`` + ``kv_proj``), learned or rope
 positions, ``attention_window``, ``attention="flash"`` (the CUDA kernels
 on the card, their plain versions on the CPU; differentiable) or
-``"reference"``, ``remat`` and ``return_hidden``.
+``"reference"``, ``remat`` and ``return_hidden``; and the intra-layer
+parallel forms of ``chainermn_torch.parallel``: Megatron tensor
+parallelism (``tp_axis``, with ``lm_head_tp``), sequence parallelism
+(``attention`` in ``ring``/``ring_flash``/``ulysses`` with
+``seq_axis``) and the expert-parallel MoE FFN
+(``moe_experts_per_device``), each over the communicator its axis
+names in ``comms``.
 
 Parameters are f32 and the computation runs in ``dtype``, as flax's
 ``param_dtype`` / ``dtype`` split does: every Dense layer, the embedding
@@ -55,9 +61,18 @@ from torch.utils.checkpoint import checkpoint
 from chainermn_torch.device import resolve_device
 from chainermn_torch.ops.flash_attention import flash_attention
 from chainermn_torch.ops.rotary import apply_rope
+from chainermn_torch.parallel.expert_parallel import ExpertParallelMLP
+from chainermn_torch.parallel.ring_attention import (
+    local_attention_reference as dense_attention, ring_attention,
+    ring_flash_attention)
+from chainermn_torch.parallel.tensor_parallel import (
+    ColumnParallelDense, RowParallelDense, TensorParallelMLP,
+    pmax_stop_gradient, vocab_parallel_cross_entropy)
+from chainermn_torch.parallel.ulysses import ulysses_attention
 
 __all__ = ["TransformerBlock", "TransformerLM", "generate",
            "dense_attention", "compute_copy", "lm_loss_with_aux",
+           "tp_lm_loss",
            "stack_lm_blocks", "unstack_lm_blocks",
            "make_lm_fsdp_scan_loss"]
 
@@ -79,23 +94,37 @@ def _dense(lin: nn.Linear, x: torch.Tensor,
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
-def dense_attention(q, k, v, causal: bool = False,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Single-device full attention in f32 (the reference's
-    ``local_attention_reference``); k/v carry as many heads as q."""
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        lq, lk = q.shape[1], k.shape[1]
-        keep = (torch.arange(lk, device=q.device)[None, :]
-                <= torch.arange(lq, device=q.device)[:, None])
-        s = s.masked_fill(~keep, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+_SEQ_ATTENTION = ("ring", "ring_flash", "ulysses")
+
+
+def _axis_comm(comms: Dict, name: str):
+    """The communicator over mesh axis ``name`` (the model's ``comms``)."""
+    if name not in comms:
+        raise ValueError(f"no communicator for the mesh axis {name!r}: pass "
+                         f"comms={{{name!r}: comm.over_mesh(mesh, "
+                         f"axes=({name!r},))}}")
+    return comms[name]
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: causal attention + dense GELU FFN."""
+    """Pre-LN block: causal attention + (dense | tensor-parallel | MoE)
+    GELU FFN.
+
+    The sharded forms keep JAX's field names for their mesh axes, and
+    ``comms`` maps each axis name to the communicator over it:
+
+    * ``tp_axis``: Megatron attention (column-parallel ``q_proj`` and
+      ``kv_proj``, each rank's ``kv`` its own k heads then its own v
+      heads; attention on the local heads; the row-parallel ``attn_out``)
+      and the ``tp_ffn`` column/row pair;
+    * ``attention`` in ``ring``/``ring_flash``/``ulysses`` with
+      ``seq_axis``: the sequence split over that axis, causal attention
+      on global positions (``pos_offset`` is this rank's first position);
+    * ``moe_experts_per_device > 0``: the FFN is an
+      :class:`~chainermn_torch.parallel.ExpertParallelMLP` over
+      ``expert_axis``; :meth:`forward_with_aux` returns its load-balancing
+      term.
+    """
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  n_kv_heads: Optional[int] = None,
@@ -103,11 +132,17 @@ class TransformerBlock(nn.Module):
                  attention: str = "flash",
                  attention_window: Optional[int] = None,
                  pos_emb: str = "learned", rope_theta: float = 10000.0,
-                 device=None):
+                 seq_axis: Optional[str] = None,
+                 tp_axis: Optional[str] = None,
+                 moe_experts_per_device: int = 0,
+                 expert_axis: str = "expert",
+                 capacity_factor: float = 1.25, moe_top_k: int = 1,
+                 comms: Optional[Dict] = None, device=None):
         super().__init__()
-        if attention not in ("flash", "reference"):
-            raise ValueError(f"attention must be 'flash' or 'reference', "
-                             f"got {attention!r}")
+        if attention not in ("flash", "reference", *_SEQ_ATTENTION):
+            raise ValueError(f"attention must be one of 'flash', "
+                             f"'reference', 'ring', 'ring_flash', "
+                             f"'ulysses', got {attention!r}")
         if attention_window is not None and attention != "flash":
             raise ValueError(
                 "attention_window is supported on the 'flash' path")
@@ -116,45 +151,104 @@ class TransformerBlock(nn.Module):
         if n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads ({n_heads}) must be a multiple of "
                              f"n_kv_heads ({self.n_kv_heads})")
+        hkv = self.n_kv_heads
+        comms = dict(comms or {})
+        tp, ntp = None, 1      # this rank holds n_heads / ntp heads
+        if tp_axis is not None:
+            if moe_experts_per_device > 0:
+                raise ValueError(
+                    "tp_axis does not compose with decode or the MoE FFN")
+            if attention not in ("flash", "reference"):
+                raise ValueError(
+                    "tp_axis supports the 'flash'/'reference' attention "
+                    "paths")
+            tp = _axis_comm(comms, tp_axis)
+            ntp = tp.size
+            if n_heads % ntp or hkv % ntp:
+                raise ValueError(
+                    f"heads ({n_heads}/{hkv}) must divide by the "
+                    f"'{tp_axis}' axis size ({ntp})")
+        elif hkv != n_heads and attention not in ("flash", "reference"):
+            raise ValueError(
+                "n_kv_heads < n_heads is supported on the 'flash' and "
+                "'reference' attention paths")
+        if attention in _SEQ_ATTENTION and seq_axis is None:
+            raise ValueError(f"attention={attention!r} requires seq_axis")
         self.d_head = d_model // n_heads
         self.dtype = dtype
         self.attention = attention
         self.attention_window = attention_window
         self.pos_emb = pos_emb
         self.rope_theta = rope_theta
+        self.seq_axis, self.tp_axis = seq_axis, tp_axis
+        self.moe_experts_per_device = moe_experts_per_device
+        self.expert_axis = expert_axis
+        self.seq_comm = (_axis_comm(comms, seq_axis)
+                         if attention in _SEQ_ATTENTION else None)
         lin = dict(device=device)      # f32 parameters; compute in dtype
         self.ln_attn = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
-        if self.n_kv_heads == n_heads:
-            self.qkv = nn.Linear(d_model, 3 * d_model, bias=False, **lin)
+        self.local_heads, self.local_kv_heads = n_heads // ntp, hkv // ntp
+        if tp_axis is not None:
+            self.q_proj = ColumnParallelDense(d_model, d_model, tp,
+                                              use_bias=False, dtype=dtype,
+                                              **lin)
+            self.kv_proj = ColumnParallelDense(d_model, 2 * hkv * self.d_head,
+                                               tp, use_bias=False,
+                                               dtype=dtype, **lin)
+            self.attn_out = RowParallelDense(d_model // ntp, d_model, tp,
+                                             use_bias=False, dtype=dtype,
+                                             **lin)
         else:
-            self.q_proj = nn.Linear(d_model, d_model, bias=False, **lin)
-            self.kv_proj = nn.Linear(
-                d_model, 2 * self.n_kv_heads * self.d_head, bias=False, **lin)
-        self.attn_out = nn.Linear(d_model, d_model, bias=False, **lin)
+            if hkv == n_heads:
+                self.qkv = nn.Linear(d_model, 3 * d_model, bias=False, **lin)
+            else:
+                self.q_proj = nn.Linear(d_model, d_model, bias=False, **lin)
+                self.kv_proj = nn.Linear(d_model, 2 * hkv * self.d_head,
+                                         bias=False, **lin)
+            self.attn_out = nn.Linear(d_model, d_model, bias=False, **lin)
         self.ln_ffn = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
-        self.ffn_in = nn.Linear(d_model, d_ff, **lin)
-        self.ffn_out = nn.Linear(d_ff, d_model, **lin)
+        if tp_axis is not None:
+            self.tp_ffn = TensorParallelMLP(d_model, d_ff, d_model, tp,
+                                            dtype=dtype, **lin)
+        elif moe_experts_per_device > 0:
+            self.moe = ExpertParallelMLP(
+                d_model, d_ff, _axis_comm(comms, expert_axis),
+                experts_per_device=moe_experts_per_device,
+                capacity_factor=capacity_factor, top_k=moe_top_k,
+                dtype=dtype, **lin)
+        else:
+            self.ffn_in = nn.Linear(d_model, d_ff, **lin)
+            self.ffn_out = nn.Linear(d_ff, d_model, **lin)
 
     def _project(self, x):
-        """h = LN(x) → q [b, l, H, dh], k/v [b, l, Hkv, dh]; the fused
-        outputs split into equal chunks as ``jnp.split`` does."""
+        """h = LN(x) → q [b, l, H, dh], k/v [b, l, Hkv, dh] (this rank's
+        heads under ``tp_axis``); the fused outputs split into equal
+        chunks as ``jnp.split`` does."""
         b, l, _ = x.shape
         h = _layer_norm(self.ln_attn, x, self.dtype)
-        if self.n_kv_heads == self.n_heads:
+        if self.tp_axis is not None:
+            q = self.q_proj(h)
+            k, v = self.kv_proj(h).chunk(2, dim=-1)
+        elif self.n_kv_heads == self.n_heads:
             q, k, v = _dense(self.qkv, h, self.dtype).chunk(3, dim=-1)
         else:
             q = _dense(self.q_proj, h, self.dtype)
             k, v = _dense(self.kv_proj, h, self.dtype).chunk(2, dim=-1)
-        return (q.reshape(b, l, self.n_heads, self.d_head),
-                k.reshape(b, l, self.n_kv_heads, self.d_head),
-                v.reshape(b, l, self.n_kv_heads, self.d_head))
+        return (q.reshape(b, l, self.local_heads, self.d_head),
+                k.reshape(b, l, self.local_kv_heads, self.d_head),
+                v.reshape(b, l, self.local_kv_heads, self.d_head))
 
     def _repeat_kv(self, t):
         g = self.n_heads // self.n_kv_heads
         return t if g == 1 else t.repeat_interleave(g, dim=2)
 
     def _slab_attention(self, q, k, v):
-        """Causal self-attention over the slab (training-path kernels)."""
+        """Causal self-attention over the slab (training-path kernels);
+        the sequence-parallel forms over the whole split sequence."""
+        if self.attention in _SEQ_ATTENTION:
+            fn = {"ring": ring_attention, "ring_flash": ring_flash_attention,
+                  "ulysses": ulysses_attention}[self.attention]
+            return fn(q, k, v, self.seq_comm, causal=True)
         if self.attention == "flash":
             return flash_attention(q, k, v, causal=True,
                                    window=self.attention_window)
@@ -162,20 +256,37 @@ class TransformerBlock(nn.Module):
                                causal=True)
 
     def _tail(self, x, att):
+        """The output projection and the FFN: ``(x, aux)``, aux the MoE
+        load-balancing term (None without MoE)."""
         b, l, _ = x.shape
-        x = x + _dense(self.attn_out, att.reshape(b, l, -1), self.dtype)
+        att = att.reshape(b, l, -1)
+        if self.tp_axis is not None:
+            x = x + self.attn_out(att.to(self.dtype))
+        else:
+            x = x + _dense(self.attn_out, att, self.dtype)
         h = _layer_norm(self.ln_ffn, x, self.dtype)
+        if self.tp_axis is not None:
+            return x + self.tp_ffn(h), None
+        if self.moe_experts_per_device > 0:
+            y, aux = self.moe(h.reshape(b * l, -1))
+            return x + y.reshape(b, l, -1), aux
         y = F.gelu(_dense(self.ffn_in, h, self.dtype), approximate="tanh")
-        return x + _dense(self.ffn_out, y, self.dtype)
+        return x + _dense(self.ffn_out, y, self.dtype), None
 
-    def forward(self, x, pos_offset=0):
-        """Full forward. ``pos_offset``: scalar or per-row ``[b]``."""
+    def forward_with_aux(self, x, pos_offset=0):
+        """Full forward → ``(x, aux)``; ``pos_offset``: scalar or per-row
+        ``[b]`` (the sequence-parallel forms: this rank's first global
+        position)."""
         q, k, v = self._project(x)
         if self.pos_emb == "rope":
             pos = _positions(pos_offset, x.shape[1], x.device)
             q = apply_rope(q, pos, self.rope_theta)
             k = apply_rope(k, pos, self.rope_theta)
         return self._tail(x, self._slab_attention(q, k, v))
+
+    def forward(self, x, pos_offset=0):
+        """Full forward. ``pos_offset``: scalar or per-row ``[b]``."""
+        return self.forward_with_aux(x, pos_offset)[0]
 
     def forward_cached(self, x, page: Dict[str, torch.Tensor],
                        chunked: bool = False):
@@ -216,7 +327,7 @@ class TransformerBlock(nn.Module):
             att = self._slab_attention(q, k, v)
         else:
             att = self._decode_attention(q, kc, vc, rows, per_slot)
-        return self._tail(x, att)
+        return self._tail(x, att)[0]
 
     def _grouped_scores(self, q, kc):
         """f32 scores of q ``[b, l, H, dh]`` against a whole page ``[b,
@@ -283,6 +394,14 @@ class TransformerLM(nn.Module):
     ``dtype`` where the JAX model does (see the module docstring).
     ``remat`` recomputes each block's activations in the backward
     (``torch.utils.checkpoint``, non-reentrant) while grad is enabled.
+
+    The sharded forms take JAX's fields (``seq_axis``, ``tp_axis``,
+    ``moe_experts_per_device``, ``expert_axis``, ``capacity_factor``,
+    ``moe_top_k``; see :class:`TransformerBlock`) and ``comms``, the
+    communicator over each named axis. ``lm_head_tp`` makes the head
+    column-parallel over ``tp_axis`` (this rank's contiguous vocabulary
+    slice of the logits; pair it with :func:`tp_lm_loss`). With
+    ``seq_axis``, ``pos_offset`` is this rank's first global position.
     """
 
     def __init__(self, vocab: int, d_model: int = 256, n_heads: int = 8,
@@ -292,11 +411,19 @@ class TransformerLM(nn.Module):
                  attention_window: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
                  attention: str = "flash", remat: bool = False,
-                 return_hidden: bool = False, device=None):
+                 return_hidden: bool = False,
+                 seq_axis: Optional[str] = None,
+                 tp_axis: Optional[str] = None, lm_head_tp: bool = False,
+                 moe_experts_per_device: int = 0,
+                 expert_axis: str = "expert",
+                 capacity_factor: float = 1.25, moe_top_k: int = 1,
+                 comms: Optional[Dict] = None, device=None):
         super().__init__()
         if pos_emb not in ("learned", "rope"):
             raise ValueError(f"pos_emb must be 'learned' or 'rope', got "
                              f"{pos_emb!r}")
+        if lm_head_tp and tp_axis is None:
+            raise ValueError("lm_head_tp requires tp_axis")
         dev = resolve_device(device)
         self.vocab, self.d_model, self.n_heads = vocab, d_model, n_heads
         self.n_kv_heads = n_kv_heads or n_heads
@@ -305,6 +432,12 @@ class TransformerLM(nn.Module):
         self.attention_window = attention_window
         self.dtype, self.attention = dtype, attention
         self.remat, self.return_hidden = remat, return_hidden
+        self.seq_axis, self.tp_axis = seq_axis, tp_axis
+        self.lm_head_tp = lm_head_tp
+        self.moe_experts_per_device = moe_experts_per_device
+        self.expert_axis = expert_axis
+        self.capacity_factor, self.moe_top_k = capacity_factor, moe_top_k
+        self.comms = dict(comms or {})
         self.tok_emb = nn.Embedding(vocab, d_model, device=dev)
         if pos_emb == "learned":
             self.pos_embedding = nn.Parameter(
@@ -312,14 +445,24 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             TransformerBlock(d_model, n_heads, d_ff, n_kv_heads, dtype,
                              attention, attention_window, pos_emb,
-                             rope_theta, device=dev)
+                             rope_theta, seq_axis=seq_axis, tp_axis=tp_axis,
+                             moe_experts_per_device=moe_experts_per_device,
+                             expert_axis=expert_axis,
+                             capacity_factor=capacity_factor,
+                             moe_top_k=moe_top_k, comms=self.comms,
+                             device=dev)
             for _ in range(n_layers))
         self.ln_f = nn.LayerNorm(d_model, eps=_LN_EPS, device=dev)
-        self.lm_head = nn.Linear(d_model, vocab, bias=False, device=dev)
+        if lm_head_tp:
+            self.lm_head = ColumnParallelDense(
+                d_model, vocab, _axis_comm(self.comms, tp_axis),
+                use_bias=False, dtype=torch.float32, device=dev)
+        else:
+            self.lm_head = nn.Linear(d_model, vocab, bias=False, device=dev)
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.weight.device
+        return self.ln_f.weight.device
 
     def _embed(self, tokens, pos_offset):
         # flax nn.Embed(dtype=...): the table is cast, then gathered
@@ -337,22 +480,33 @@ class TransformerLM(nn.Module):
     def _head(self, x):
         return self.lm_head(_layer_norm(self.ln_f, x, self.dtype).float())
 
-    def forward_hidden(self, tokens, pos_offset=0):
-        """Final post-LN hidden states ``[B, L, d_model]`` in ``dtype``."""
+    def _hidden_with_aux(self, tokens, pos_offset):
         x = self._embed(tokens, pos_offset)
         remat = self.remat and torch.is_grad_enabled()
+        aux = None
         for blk in self.blocks:
             if remat:
-                x = checkpoint(blk, x, pos_offset, use_reentrant=False)
+                x, a = checkpoint(blk.forward_with_aux, x, pos_offset,
+                                  use_reentrant=False)
             else:
-                x = blk(x, pos_offset=pos_offset)
-        return _layer_norm(self.ln_f, x, self.dtype)
+                x, a = blk.forward_with_aux(x, pos_offset=pos_offset)
+            if a is not None:     # flax's sow into "losses", summed
+                aux = a if aux is None else aux + a
+        return _layer_norm(self.ln_f, x, self.dtype), aux
+
+    def forward_hidden(self, tokens, pos_offset=0):
+        """Final post-LN hidden states ``[B, L, d_model]`` in ``dtype``."""
+        return self._hidden_with_aux(tokens, pos_offset)[0]
+
+    def forward_with_aux(self, tokens, pos_offset=0):
+        """``(logits, aux)``: aux is the sum of the MoE layers'
+        load-balancing terms (JAX's ``losses`` collection), None for a
+        model without MoE."""
+        h, aux = self._hidden_with_aux(tokens, pos_offset)
+        return (h if self.return_hidden else self.lm_head(h.float())), aux
 
     def forward(self, tokens, pos_offset=0):
-        h = self.forward_hidden(tokens, pos_offset)
-        if self.return_hidden:
-            return h
-        return self.lm_head(h.float())
+        return self.forward_with_aux(tokens, pos_offset)[0]
 
     def forward_cached(self, tokens, cache, chunked: bool = False):
         """The decode twin: tokens ``[B, l]`` at each row's cache cursor;
@@ -382,15 +536,46 @@ def compute_copy(model: TransformerLM) -> TransformerLM:
 
 def lm_loss_with_aux(model, x, y, train: bool = True, mutable=None,
                      aux_weight: float = 0.01):
-    """Next-token cross-entropy on the f32 logits and argmax accuracy, in
-    the step-factory loss signature (``training/step.py``). The dense
-    model has no MoE load-balancing term, so the aux is 0."""
-    del train, mutable, aux_weight  # no dropout, no mutable state, no MoE
-    logits = model(x)
+    """Next-token cross-entropy on the f32 logits plus ``aux_weight`` ·
+    the MoE layers' load-balancing terms (none in a dense model), and
+    argmax accuracy, in the step-factory loss signature
+    (``training/step.py``)."""
+    del train, mutable  # no dropout, no mutable state
+    logits, aux = model.forward_with_aux(x)
     y = torch.as_tensor(y, device=logits.device).long()
     loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            y.reshape(-1))
+    if aux is not None:
+        loss = loss + aux_weight * aux
     acc = (logits.argmax(-1) == y).float().mean()
+    return loss, (acc, {})
+
+
+def tp_lm_loss(model, x, y, train: bool = True, mutable=None):
+    """Loss of an ``lm_head_tp`` model, in the step-factory signature:
+    the vocabulary-parallel cross-entropy of this rank's logit slice (one
+    max and two sums of ``[B, L]`` over ``tp_axis``; the full vocabulary
+    never gathers), the same on every rank. Accuracy is the global argmax:
+    the rank holding the largest logit contributes its index (ties: the
+    highest rank wins)."""
+    del train, mutable
+    if not getattr(model, "lm_head_tp", False):
+        raise ValueError(
+            "tp_lm_loss expects an lm_head_tp model (sharded logits); a "
+            "replicated head would inflate the psum'd normalizer by the "
+            "axis size and desynchronize gradients")
+    comm = _axis_comm(model.comms, model.tp_axis)
+    logits = model(x)
+    y = torch.as_tensor(y, device=logits.device).long()
+    loss = vocab_parallel_cross_entropy(logits, y, comm).mean()
+    vl = logits.shape[-1]
+    local_max = logits.detach().amax(-1)
+    local_arg = (comm.rank * vl + logits.detach().argmax(-1)).float()
+    mine = local_max == pmax_stop_gradient(local_max, comm)
+    pred = pmax_stop_gradient(
+        torch.where(mine, local_arg, torch.full_like(local_arg, -1.0)),
+        comm)
+    acc = (pred == y.float()).float().mean()
     return loss, (acc, {})
 
 

@@ -406,6 +406,10 @@ def fused_lm_loss(model, x, y, train: bool = True, mutable=None,
         raise ValueError(
             "fused_lm_loss drops the MoE load-balancing aux; use "
             "lm_loss_with_aux for MoE models")
+    if getattr(model, "lm_head_tp", False):
+        raise ValueError(
+            "fused_lm_loss needs the replicated lm_head; use tp_lm_loss "
+            "for lm_head_tp models")
     if mutable:
         raise ValueError(
             "fused_lm_loss does not thread mutable collections "

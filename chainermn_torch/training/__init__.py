@@ -4,13 +4,15 @@ trainer loop, the evaluator and the reports."""
 from chainermn_torch.training.evaluator import Evaluator
 from chainermn_torch.training.reports import (CheckpointReport, LogReport,
                                               PrintReport, ReductionReport)
-from chainermn_torch.training.step import (classifier_loss,
-                                           make_data_parallel_train_step,
-                                           make_eval_step)
+from chainermn_torch.training.step import (
+    classifier_loss, init_expert_parallel_state,
+    make_data_parallel_train_step, make_eval_step,
+    make_expert_parallel_train_step)
 from chainermn_torch.training.trainer import (StandardUpdater, Trainer,
                                               default_converter)
 
 __all__ = ["classifier_loss", "make_data_parallel_train_step",
-           "make_eval_step", "default_converter", "StandardUpdater",
+           "make_eval_step", "init_expert_parallel_state",
+           "make_expert_parallel_train_step", "default_converter", "StandardUpdater",
            "Trainer", "Evaluator", "LogReport", "PrintReport",
            "ReductionReport", "CheckpointReport"]

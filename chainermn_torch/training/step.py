@@ -37,6 +37,15 @@ masks differ across ranks and micro-steps and repeat for the same
 the model's dropout seeds a generator on its device from it per site, so
 a ``remat`` recomputation draws the same masks.
 
+``init_expert_parallel_state`` and ``make_expert_parallel_train_step``
+are the counterparts of JAX's for models with expert-parallel (MoE)
+layers: each rank draws its own experts and takes rank 0's shared
+leaves; the step backpropagates ``loss / n`` on every rank, sums the
+shared leaves' gradients over the ranks (shard_map's replication typing
+in JAX: the router among them), leaves the experts' alone (the
+all-to-all's backward already brought every rank's tokens home) and runs
+a plain optimizer.
+
 ``make_eval_step`` is the counterpart of the JAX ``make_eval_step``: the
 loss and accuracy of each rank's batch under ``torch.no_grad()`` and
 with ``train=False`` (running statistics), averaged over ranks (the JAX
@@ -58,7 +67,8 @@ from chainermn_torch.links import batch_norm_layers, frozen_batch_stats
 from chainermn_torch.ops.dropout import fold_in
 
 __all__ = ["classifier_loss", "make_data_parallel_train_step",
-           "make_eval_step"]
+           "make_eval_step", "init_expert_parallel_state",
+           "make_expert_parallel_train_step"]
 
 
 def _accepts(model, name: str) -> bool:
@@ -202,3 +212,77 @@ def make_eval_step(model, comm, loss_fn: Optional[Callable] = None):
                 "validation/main/accuracy": m[1]}
 
     return eval_step
+
+
+def _is_expert_path(name: str, expert_key: str = "moe") -> bool:
+    """True for a rank's own expert tables: a parameter under
+    ``expert_key`` that is not the router (the router is replicated, a
+    data-parallel parameter)."""
+    parts = name.split(".")
+    return (any(expert_key in p for p in parts)
+            and not any("router" in p for p in parts))
+
+
+def init_expert_parallel_state(model, comm, seed: int = 0,
+                               expert_key: str = "moe") -> Dict[str, bool]:
+    """Initialise a model with expert-parallel layers in place: each rank
+    draws its own expert tables from a generator seeded with ``seed``
+    folded with its rank (on the parameters' device), and every other
+    leaf, the router among them, takes rank 0's values (``bcast_data``).
+    Returns ``{parameter name: is a per-rank expert table}``, the
+    counterpart of JAX's ``param_specs``."""
+    from chainermn_torch.parallel import ExpertParallelMLP
+
+    specs = {name: _is_expert_path(name, expert_key)
+             for name, _ in model.named_parameters()}
+    comm.bcast_data([p for name, p in model.named_parameters()
+                     if not specs[name]])
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(
+        fold_in(seed, comm.rank))
+    for mod in model.modules():
+        if isinstance(mod, ExpertParallelMLP):
+            mod.reset_experts(gen)
+    return specs
+
+
+def make_expert_parallel_train_step(model, optimizer, comm,
+                                    param_specs: Optional[Dict] = None,
+                                    loss_fn: Optional[Callable] = None,
+                                    expert_key: str = "moe"):
+    """Build ``step(x, y) -> {"main/loss", "main/accuracy"}`` for a model
+    with expert-parallel layers, each rank on its own batch.
+
+    The objective is the mean of the ranks' losses: every rank
+    backpropagates ``loss / n``; the shared parameters' gradients are
+    summed over the ranks; the expert tables' gradients already hold
+    every rank's tokens (the all-to-all's backward), so no collective
+    touches them. ``optimizer`` is a PLAIN torch optimizer over the
+    model's parameters (not ``create_multi_node_optimizer``, which would
+    reduce again). ``param_specs`` is what
+    :func:`init_expert_parallel_state` returns (None: from
+    ``expert_key``). The metrics are the means over the ranks."""
+    lf = loss_fn or classifier_loss
+    specs = param_specs or {name: _is_expert_path(name, expert_key)
+                            for name, _ in model.named_parameters()}
+    shared = [p for name, p in model.named_parameters()
+              if p.requires_grad and not specs[name]]
+    device = next(model.parameters()).device
+    n = comm.size
+
+    def step(x, y) -> Dict[str, torch.Tensor]:
+        x = torch.as_tensor(x, device=device)
+        y = torch.as_tensor(y, device=device)
+        optimizer.zero_grad(set_to_none=True)
+        loss, (acc, _) = lf(model, x, y, train=True)
+        (loss / n).backward()
+        for p in shared:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        comm.allreduce_grad([p.grad for p in shared], "sum")
+        optimizer.step()
+        m = comm.allreduce(torch.stack([loss.detach().float(),
+                                        acc.detach().float()]), "mean")
+        return {"main/loss": m[0], "main/accuracy": m[1]}
+
+    return step

@@ -11,7 +11,8 @@ the final line:
    one ``nvcc`` per source, all started together; then the tensor-core
    instructions in the SASS of the two flash libraries and of the fused
    CE (``HMMA``, from mma.sync, none of which may be 0; ``HGMMA``, from
-   wgmma, which the fused CE's forward must have), and ptxas's registers
+   wgmma, which the fused CE's forward must have; dumped on the host
+   beside phase 3's checks), and ptxas's registers
    and spill bytes of the main path's tensor-core kernels (flash at d 64,
    the bf16 CE forward, the bf16 CE backward at D 768) and of the f32
    kernels (``flash_fwd_fma<64>``, ``flash_bwd_fma<64>``, ``ce_fwd_fma``,
@@ -30,8 +31,12 @@ the final line:
    enough to split dW into ranges of h's rows; for the f32 flash forward a
    ragged 129-row query and a fully masked row; for the f32 flash
    backward ragged key tiles (Lk 129 and 200), GQA 12 | 4, a window
-   across key tiles, a fully masked row, d 8 and 128, causal Lq > Lk; a
-   second CE call must give the same bits), then timed
+   across key tiles, a fully masked row, d 8 and 128, causal Lq > Lk; the
+   parallel phase's shapes in bf16 and f32: a ring-flash block of 512
+   tokens, full and causal, Ulysses' and TP's 3 heads over 2048 tokens,
+   the MoE LM's one sequence, and the backward of each block a ring's last
+   rank sees on the output and lse merged over all four, as ring-flash
+   passes them; a second CE call must give the same bits), then timed
    beside the plain version, its bound and the PyTorch call that computes
    the same function (a yardstick only, the port never calls it; SDPA is
    first held against the plain versions): flash at the serving and
@@ -198,9 +203,36 @@ the final line:
    through ``elastic_resume`` with rank 3's files gone, its shard from
    its ring replica, the state bit for bit the saved files', the next
    losses finite and falling;
-17. a ``{"kernels": [...]}`` line (a row for each kernel's bf16 body and
-   one for its f32 body, which only the ZeRO, FSDP and resilience phases'
-   f32 runs launch), the card line, and last
+17. parallel — the TransformerLM's intra-layer parallelism
+   (``chainermn_torch.parallel``) on 4 host-staged ranks of this card
+   (``non_cuda_aware``), the 135M LM at full width and depth (bf16 over
+   f32 parameters, rope, weights from ``--seed``): (a) one sequence of
+   2048 split over the ranks through ``ring``, ``ring_flash`` and
+   ``ulysses`` attention: logits, loss and the gradients summed over the
+   ranks held to the one-rank flash model's, launches per rank (ring_flash
+   12·(r+1) of each flash kernel, Ulysses 12, the plain ring none), the
+   attention alone at [1, 2048, 12, 64] beside one-rank flash; (b) tensor
+   parallelism over the 4 (3 heads, d_ff 768, a vocabulary slice of 8192
+   a rank, ``lm_head_tp``, ``tp_lm_loss``): the loss and every gradient,
+   gathered into the dense layout, held to the dense model's, then 4 Adam
+   steps with falling losses and the replicated leaves bitwise equal on
+   every rank; (c) ``train_lm --moe 2``'s configuration (8 experts over
+   the 4, capacity factor 2.0) with top-1 and top-2, a sequence of 2048 a
+   rank: one f32 step (TF32 off) held to the one-process oracle (every
+   expert on one rank, each rank's tokens run apart), then 4 bf16 steps
+   (ms/step, falling losses, shared leaves bitwise equal and expert
+   leaves differing across ranks, 12 launches of each flash kernel a step
+   and no CE kernel), then the share of tokens dropped in one no-grad
+   forward of the trained weights, outside the timed steps; (d)
+   ``train_lm --ring --seq-impl ring|ring_flash|ulysses`` and ``--moe 2
+   --moe-top-k 1|2`` at full width but 2 layers (f32, seq 2048), 2
+   iterations each, the ring runs printing the trained weights' next-token
+   accuracy (a check: its ms/step is not a per-step metric of the LM); a
+   failed rank fails the run;
+18. a line of each phase's wall seconds, a ``{"kernels": [...]}`` line
+   (a row for each kernel's bf16 body and
+   one for its f32 body, which only the ZeRO, FSDP, resilience and
+   parallel phases' f32 runs launch), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one, or when run
@@ -210,6 +242,7 @@ from a directory that does not hold the ``chainermn_torch`` package.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import math
 import os
@@ -397,6 +430,23 @@ F32_PATH_CASES = [
     ("f32-vit-32", 4, 4, 4, 6, 6, 64, "float32", False, None, False),
 ]
 
+# the parallel phase's shapes: a ring-flash block of 512 tokens a rank
+# (non-causal below the diagonal, causal on it), Ulysses' and TP's 3
+# local heads over the whole 2048, the MoE LM's one sequence; in bf16
+# ((a)-(c)) and f32 ((c)'s oracle step, (d)'s train_lm runs)
+PARALLEL_CASES = [
+    (name, b, lq, lk, hq, hkv, d, dtype, causal, None, False)
+    for dtype in ("bfloat16", "float32")
+    for name, b, lq, lk, hq, hkv, d, causal in (
+        (f"ring-block-{dtype}", 1, 512, 512, 12, 12, 64, False),
+        (f"ring-diagonal-{dtype}", 1, 512, 512, 12, 12, 64, True),
+        (f"ulysses-tp-{dtype}", 1, 2048, 2048, 3, 3, 64, True),
+        (f"moe-{dtype}", 1, 2048, 2048, 12, 12, 64, True))]
+# ring-flash's backward gets the merged output and lse of every block a
+# rank saw, not its block's own: rank 3 of 4 merges three full blocks and
+# the causal diagonal
+RING_MERGE = dict(ranks=4, rank=3, block=512, heads=12, d=64)
+
 
 # the f32 backward's key tiles (128 keys at d <= 64, 64 above): a ragged
 # last tile (Lk 129: one key; 200), GQA summed in the CTA, a window
@@ -453,6 +503,7 @@ def check_kernels(gen):
         # the ViT's shapes, timed below
         *VIT_CASES,
         *F32_PATH_CASES,
+        *PARALLEL_CASES,
     ]
     worst = {}
     for (name, b, lq, lk, hq, hkv, d, dtype, causal, window,
@@ -883,6 +934,7 @@ def check_flash_bwd(gen):
         *VIT_CASES,
         *F32_PATH_CASES,
         *F32_BWD_EDGE_CASES,
+        *PARALLEL_CASES,
     ]
     worst = {}
     for (name, b, lq, lk, hq, hkv, d, dtype, causal, window,
@@ -932,6 +984,61 @@ def check_flash_bwd(gen):
                                  "on late keys")
             del bad
         del q, k, v, dout, out, lse, got, ref
+    worst.update(check_ring_merge_bwd(gen))
+    return worst
+
+
+def check_ring_merge_bwd(gen):
+    """flash_bwd against its plain version on ring-flash's inputs: each
+    visible block's backward with the output and lse merged over all the
+    blocks (``merge_block``, as the ring's forward merges them), for the
+    last rank of a causal ring. Returns the max error of each dtype."""
+    import torch
+
+    from chainermn_torch.ops.flash_attention import (
+        flash_attention_backward_reference, flash_attention_bwd_cuda,
+        flash_attention_reference)
+    from chainermn_torch.parallel.ring_attention import merge_block
+
+    m = RING_MERGE
+    shape = (1, m["block"], m["heads"], m["d"])
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        def rand():
+            return torch.randn(*shape, device="cuda",
+                               generator=gen).to(dtype)
+
+        q, dout = rand(), rand()
+        blocks = [(rand(), rand(), src == m["rank"])
+                  for src in range(m["rank"] + 1)]
+        o = torch.zeros(shape, dtype=torch.float32, device="cuda")
+        lse = torch.full((1, m["heads"], m["block"]), float("-inf"),
+                         device="cuda")
+        for k, v, causal in blocks:
+            o, lse = merge_block(o, lse, *flash_attention_reference(
+                q, k, v, causal))
+        out = o.to(dtype)
+        errs = []
+        for src, (k, v, causal) in enumerate(blocks):
+            got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
+            torch.cuda.synchronize()
+            ref = flash_attention_backward_reference(q, k, v, out, lse, dout,
+                                                     causal)
+            res = [_close(g, r, dtype) for g, r in zip(got, ref)]
+            ok = all(r[3] for r in res)
+            print(f"kernel flash_bwd case=ring-merged block {src} of rank "
+                  f"{m['rank']} ({'causal diagonal' if causal else 'full'})"
+                  f" shape=[1,{m['block']},{m['heads']},{m['d']}] "
+                  f"{str(dtype)[6:]} on the merged out and lse "
+                  + " ".join(_fmt(n, r) for n, r in zip(("dq", "dk", "dv"),
+                                                        res))
+                  + f" {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise PhaseError(f"flash_bwd disagrees with its plain "
+                                 f"version on ring-flash's merged out and "
+                                 f"lse (block {src}, {dtype})")
+            errs.append(max(r[0] for r in res))
+        worst[f"ring-merged-{str(dtype)[6:]}"] = max(errs)
     return worst
 
 
@@ -4862,6 +4969,541 @@ def resilience(card: str, full_losses):
     return counts, f32
 
 
+PARALLEL = dict(ranks=4, seq=2048, layers=12, moe_experts=2, moe_steps=4,
+                tp_steps=4, lr=3e-4, attn_iters=5, lm_layers=2,
+                lm_iterations=2)
+# the expert-parallel step in f32 (TF32 off) against the one-process
+# oracle (all 8 experts on one rank, each rank's tokens run apart, so the
+# capacities are the same): the same f32 products in other batch shapes
+# and orders over 12 layers; a routing flip would be off by O(1)
+TOL_MOE_ORACLE_LOSS_REL = 1e-4
+TOL_MOE_ORACLE_GRAD = 1e-3
+
+_PARALLEL_WORLD_SCRIPT = r"""
+import hashlib, json, os, sys, time, torch
+import torch.nn.functional as F
+from chainermn_torch.comm import create_communicator
+from chainermn_torch.examples import train_lm
+from chainermn_torch.models.convert import (dense_params_from_ranks,
+                                            rank_params_from_dense)
+from chainermn_torch.models.transformer import (TransformerLM,
+                                                lm_loss_with_aux, tp_lm_loss)
+from chainermn_torch.ops import _cuda
+from chainermn_torch.ops.flash_attention import flash_attention
+from chainermn_torch.parallel import (ring_attention, ring_flash_attention,
+                                      ulysses_attention)
+from chainermn_torch.training import (init_expert_parallel_state,
+                                      make_expert_parallel_train_step)
+seed, seq, layers, experts, moe_steps, tp_steps, iters = map(
+    int, sys.argv[1:8])
+lr = float(sys.argv[8])
+lm_layers, lm_iterations = map(int, sys.argv[9:11])
+workdir = sys.argv[11]
+torch.backends.cuda.matmul.allow_tf32 = False
+comm = create_communicator('non_cuda_aware')
+r, n = comm.rank, comm.size
+solo = comm.split(('block', 1))     # this rank alone: the MoE oracle
+dev = comm.device
+ll = seq // n
+mine = slice(r * ll, (r + 1) * ll)
+CFG = dict(vocab=32768, d_model=768, n_heads=12, n_layers=layers,
+           d_ff=3072, max_len=seq, pos_emb='rope', device=dev)
+out = {'device': str(dev), 'staged_bytes': 0}
+totals = {'all': {}, 'f32': {}}
+
+
+def segment():
+    # the main path's launches since the last reset, added to the totals
+    got = _cuda.launches()
+    for key, counts in (('all', got), ('f32', _cuda.launches(torch.float32))):
+        for k, v in counts.items():
+            totals[key][k] = totals[key].get(k, 0) + v
+    _cuda.reset_launches()
+    return got
+
+
+def lm(dtype=torch.bfloat16, **kw):
+    torch.manual_seed(seed)
+    return TransformerLM(**CFG, dtype=dtype, **kw)
+
+
+def rel(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def worst(grads, ref):
+    w, name = 0.0, ''
+    for k, g in ref.items():
+        e = rel(grads[k], g) if torch.isfinite(grads[k]).all() else 1e30
+        if e > w:
+            w, name = e, k
+    return w, name
+
+
+def sha(t):
+    return hashlib.sha256(t.detach().float().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def gather_to_root(tensors):
+    # rank 0: for each rank, its tensors (in order); the others: None
+    got = [comm.gather(t.detach(), 0) for t in tensors]
+    return None if r else [[g[i] for g in got] for i in range(n)]
+
+
+g = torch.Generator().manual_seed(seed + 1)
+toks = torch.randint(0, 32768, (1, seq + 1), generator=g).to(dev)
+x, y = toks[:, :-1], toks[:, 1:]
+# the one-rank flash model on the whole sequence: the oracle of (a), (b)
+ref = lm()
+base = {k: v.clone() for k, v in ref.state_dict().items()}
+logits = ref(x)
+ref_loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           y.reshape(-1))
+ref_loss.backward()
+ref_logits = logits.detach()[:, mine].float()
+ref_grads = {k: p.grad.float() for k, p in ref.named_parameters()}
+del ref, logits
+_cuda.reset_launches()
+
+# (a) sequence parallelism: the sequence split over the ranks
+out['seq'] = {}
+for impl in ('ring', 'ring_flash', 'ulysses'):
+    model = lm(attention=impl, seq_axis='sp', comms={'sp': comm})
+    model.load_state_dict(base)
+    times = []
+    for rep in range(2):
+        model.zero_grad(set_to_none=True)
+        comm.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model(x[:, mine], pos_offset=r * ll)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               y[:, mine].reshape(-1))
+        (loss / n).backward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if rep == 0:
+            launched = segment()
+    segment()
+    comm.allreduce_grad([p.grad for p in model.parameters()], 'sum')
+    gw, gname = worst({k: p.grad for k, p in model.named_parameters()},
+                      ref_grads)
+    # the attention alone at [1, L, 12, 64], forward and backward, every
+    # rank at once (the ranks share the card and a host-staged gloo ring)
+    fn = {'ring': ring_attention, 'ring_flash': ring_flash_attention,
+          'ulysses': ulysses_attention}[impl]
+    qkv = [torch.randn(1, ll, 12, 64, device=dev, dtype=torch.bfloat16,
+                       requires_grad=True) for _ in range(3)]
+    do = torch.randn(1, ll, 12, 64, device=dev, dtype=torch.bfloat16)
+    fn(*qkv, comm, causal=True).backward(do)
+    comm.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*qkv, comm, causal=True).backward(do)
+    torch.cuda.synchronize()
+    attn_ms = (time.perf_counter() - t0) / iters * 1e3
+    _cuda.reset_launches()
+    out['seq'][impl] = dict(
+        loss=comm.allreduce(loss.detach(), 'mean').item(),
+        ref_loss=ref_loss.item(), logits_rel=rel(logits.detach(),
+                                                 ref_logits),
+        grad_rel=gw, grad_name=gname, launches=launched, ms=times[1],
+        attn_ms=attn_ms)
+    del model, logits, loss
+    torch.cuda.empty_cache()
+if r == 0:
+    # one-rank flash at [1, L, 12, 64] while the others wait
+    qkv = [torch.randn(1, seq, 12, 64, device=dev, dtype=torch.bfloat16,
+                       requires_grad=True) for _ in range(3)]
+    do = torch.randn(1, seq, 12, 64, device=dev, dtype=torch.bfloat16)
+    flash_attention(*qkv, causal=True).backward(do)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        flash_attention(*qkv, causal=True).backward(do)
+    torch.cuda.synchronize()
+    out['flash_one_rank_ms'] = (time.perf_counter() - t0) / iters * 1e3
+    _cuda.reset_launches()
+comm.barrier()
+
+# (b) tensor parallelism over the ranks: the oracle's weights cut
+tp = lm(tp_axis='tp', lm_head_tp=True, comms={'tp': comm})
+tp.load_state_dict(rank_params_from_dense(tp, base, r, n))
+loss, (acc, _) = tp_lm_loss(tp, x, y)
+loss.backward()
+out['tp'] = dict(loss=loss.item(), ref_loss=ref_loss.item(),
+                 launches=segment())
+names = [k for k, _ in tp.named_parameters()]
+pieces = gather_to_root([p.grad for _, p in tp.named_parameters()])
+if r == 0:
+    dense = lm()
+    gd = dense_params_from_ranks(dense, [dict(zip(names, pr))
+                                         for pr in pieces])
+    out['tp']['grad_rel'], out['tp']['grad_name'] = worst(gd, ref_grads)
+    del dense, gd
+del pieces
+opt = torch.optim.Adam(tp.parameters(), lr=lr, eps=1e-8)
+losses, marks = [], []
+comm.barrier()
+marks.append(time.perf_counter())
+for _ in range(tp_steps):
+    opt.zero_grad(set_to_none=True)
+    loss, _ = tp_lm_loss(tp, x, y)
+    loss.backward()
+    opt.step()
+    losses.append(loss.item())
+    marks.append(time.perf_counter())
+out['tp'].update(
+    losses=losses, ms=(marks[-1] - marks[1]) / (tp_steps - 1) * 1e3,
+    step_launches=segment(),
+    shared={k: sha(p) for k, p in tp.named_parameters()
+            if '.dense.' not in k})
+del tp, opt
+torch.cuda.empty_cache()
+
+# (c) expert parallelism: experts split over the ranks, a sequence each
+gm = torch.Generator().manual_seed(seed + 100 + r)
+mt = torch.randint(0, 32768, (1, seq + 1), generator=gm).to(dev)
+mx, my = mt[:, :-1], mt[:, 1:]
+allx = comm.allgather(mt)                 # [n, 1, seq + 1]: the oracle's
+out['moe'] = {}
+for k in (1, 2):
+    moe_kw = dict(moe_experts_per_device=experts, expert_axis='e',
+                  capacity_factor=2.0, moe_top_k=k)
+    # one step in f32 against the one-process oracle
+    model = lm(torch.float32, comms={'e': comm}, **moe_kw)
+    specs = init_expert_parallel_state(model, comm, seed=seed)
+    own = [q for q, e in specs.items() if e]
+    tables = gather_to_root([dict(model.named_parameters())[q]
+                             for q in own])
+    sd0 = {q: v.clone() for q, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=lr, eps=1e-8)
+    step = make_expert_parallel_train_step(model, opt, comm, specs,
+                                           loss_fn=lm_loss_with_aux)
+    res = dict(loss=step(mx, my)['main/loss'].item(), launches=segment())
+    grads = gather_to_root([dict(model.named_parameters())[q].grad
+                            for q in own])
+    if r == 0:
+        oracle = lm(torch.float32, comms={'e': solo},
+                    **dict(moe_kw, moe_experts_per_device=experts * n))
+        oracle.load_state_dict(dense_params_from_ranks(
+            oracle, [dict(sd0, **dict(zip(own, t))) for t in tables]))
+        total = 0.0
+        for i in range(n):
+            part, _ = lm_loss_with_aux(oracle, allx[i][:, :-1],
+                                       allx[i][:, 1:])
+            (part / n).backward()
+            total += part.item() / n
+        shared = {q: p.grad for q, p in model.named_parameters()}
+        got = dense_params_from_ranks(
+            oracle, [dict(shared, **dict(zip(own, gr))) for gr in grads])
+        res['oracle_loss'] = total
+        res['grad_rel'], res['grad_name'] = worst(
+            got, {q: p.grad for q, p in oracle.named_parameters()})
+        del oracle, got, shared
+        _cuda.reset_launches()
+    del model, opt, step, tables, grads
+    torch.cuda.empty_cache()
+    comm.barrier()
+    # steps in bf16: shared leaves the same on every rank, experts not
+    model = lm(comms={'e': comm}, **moe_kw)
+    specs = init_expert_parallel_state(model, comm, seed=seed)
+    opt = torch.optim.Adam(model.parameters(), lr=lr, eps=1e-8)
+    step = make_expert_parallel_train_step(model, opt, comm, specs,
+                                           loss_fn=lm_loss_with_aux)
+    losses, marks = [], []
+    comm.barrier()
+    marks.append(time.perf_counter())
+    for _ in range(moe_steps):
+        losses.append(step(mx, my)['main/loss'].item())
+        marks.append(time.perf_counter())
+    res.update(losses=losses, step_launches=segment(),
+               ms=(marks[-1] - marks[1]) / (moe_steps - 1) * 1e3)
+    # the share of tokens dropped, outside the timed steps: one no-grad
+    # forward of the trained weights on the same tokens, each MoE layer's
+    # routing read from its input
+    routed = []
+
+    def count(mod, args, _out):
+        routed.append((mod.route(args[0])[0].sum(),
+                       args[0].shape[0] * mod.top_k))
+
+    hooks = [mod.register_forward_hook(count) for name, mod in
+             model.named_modules() if name.endswith('.moe')]
+    with torch.no_grad():
+        model.forward_with_aux(mx)
+    for h in hooks:
+        h.remove()
+    segment()
+    res.update(
+        dropped=1 - sum(a.item() for a, _ in routed)
+        / sum(b for _, b in routed),
+        shared={q: sha(p) for q, p in model.named_parameters()
+                if not specs[q]},
+        experts={q: sha(p) for q, p in model.named_parameters()
+                 if specs[q]})
+    out['moe'][k] = res
+    del model, opt, step
+    torch.cuda.empty_cache()
+out['launches'], out['launches_f32'] = totals['all'], totals['f32']
+out['staged_bytes'] = comm.staged_bytes
+outs = comm.allgather_obj(out)
+solo.finalize()
+if r == 0:
+    print('parallel world ' + json.dumps(outs), flush=True)
+
+# (d) train_lm's flags in the same world: the example's communicator is
+# this one
+comm.barrier()
+t_lm = time.perf_counter()
+finalize, comm.finalize = comm.finalize, lambda: None
+train_lm.create_communicator = lambda *a, **kw: comm
+layers, iterations = lm_layers, lm_iterations
+runs = {}
+for name, flags in (('ring', ['--ring', '--seq-impl', 'ring']),
+                    ('ring_flash', ['--ring', '--seq-impl', 'ring_flash']),
+                    ('ulysses', ['--ring', '--seq-impl', 'ulysses']),
+                    ('moe2-top1', ['--moe', '2', '--moe-top-k', '1']),
+                    ('moe2-top2', ['--moe', '2', '--moe-top-k', '2'])):
+    args = train_lm.parse_args(flags + [
+        '--communicator', 'non_cuda_aware', '--d-model', '768',
+        '--n-heads', '12', '--n-layers', str(layers), '--vocab', '32768',
+        '--seq-len', '2048', '--batchsize', '1', '--n-train',
+        str(n * iterations), '--iterations', str(iterations), '--rope',
+        '--out', os.path.join(workdir, name)])
+    trainer, model = train_lm.build_trainer(args)
+    step, losses, marks = trainer.updater.step_fn, [], []
+
+    def timed(*arrays):
+        m = step(*arrays)
+        losses.append(float(m['main/loss']))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return m
+
+    trainer.updater.step_fn = timed
+    comm.barrier()
+    _cuda.reset_launches()
+    marks.append(time.perf_counter())
+    trainer.run()
+    train_launches = _cuda.launches()
+    acc = train_lm.ring_demo(args, trainer, model) if args.ring else None
+    runs[name] = dict(losses=losses, acc=acc, train=train_launches,
+                      launches=_cuda.launches(),
+                      launches_f32=_cuda.launches(torch.float32),
+                      ms=(marks[-1] - marks[1]) / max(1, len(marks) - 2)
+                      * 1e3)
+    del trainer, model
+    torch.cuda.empty_cache()
+lm_s = time.perf_counter() - t_lm
+staged = comm.staged_bytes
+outs = comm.allgather_obj(runs)
+finalize()
+if r == 0:
+    print('parallel train_lm ' + json.dumps(
+        dict(runs=outs, wall_s=lm_s, staged_bytes=staged)), flush=True)
+"""
+
+
+def _check_parallel_world(world, card: str):
+    """(a)-(c) of the ``parallel`` phase from each rank's results."""
+    p = PARALLEL
+    n, layers = p["ranks"], p["layers"]
+    w0 = world[0]
+    # (a) sequence parallelism
+    for impl in ("ring", "ring_flash", "ulysses"):
+        rows = [w["seq"][impl] for w in world]
+        a = rows[0]
+        want = [{"flash_fwd": f, "flash_bwd": f}
+                for f in ([0] * n if impl == "ring" else
+                          [layers] * n if impl == "ulysses" else
+                          [layers * (r + 1) for r in range(n)])]
+        got = [{k: row["launches"].get(k, 0) for k in ("flash_fwd",
+                                                       "flash_bwd")}
+               for row in rows]
+        gap = abs(a["loss"] - a["ref_loss"])
+        lw = max(row["logits_rel"] for row in rows)
+        print(f"parallel (a) {impl}: the 135M LM (bf16 over f32, 12 "
+              f"layers, rope), one sequence of {p['seq']} split over {n} "
+              f"host-staged ranks of one card ({p['seq'] // n} a rank): "
+              f"loss {a['loss']:.6f} vs the one-rank flash model's "
+              f"{a['ref_loss']:.6f} (gap {gap:.6f}, tolerance "
+              f"{TOL_TRAIN_LOSS}), worst relative logits error {lw:.5f} and "
+              f"gradient error {a['grad_rel']:.5f} ({a['grad_name']}; "
+              f"gradients summed over the ranks; tolerance "
+              f"{TOL_TRAIN_GRAD}); launches per rank {got}; a forward and "
+              f"backward {[round(row['ms'], 3) for row in rows]} ms per "
+              f"rank; the attention alone at [1, {p['seq']}, 12, 64] "
+              f"(forward and backward, host-staged ring) "
+              f"{[round(row['attn_ms'], 3) for row in rows]} ms per rank "
+              f"beside one-rank flash {w0['flash_one_rank_ms']:.3f} ms "
+              f"({card})", flush=True)
+        if gap > TOL_TRAIN_LOSS or lw > TOL_TRAIN_GRAD or (
+                a["grad_rel"] > TOL_TRAIN_GRAD):
+            raise PhaseError(f"parallel (a) {impl} disagrees with the "
+                             "one-rank flash model")
+        if got != want:
+            raise PhaseError(f"parallel (a) {impl}: launches {got}, "
+                             f"expected {want}")
+    # (b) tensor parallelism
+    t = w0["tp"]
+    gap = abs(t["loss"] - t["ref_loss"])
+    same = all(w["tp"]["shared"] == t["shared"] for w in world)
+    losses = t["losses"]
+    print(f"parallel (b) tensor parallelism over {n} ranks (3 heads, d_ff "
+          f"768 and a vocabulary slice of {32768 // n} a rank, lm_head_tp, "
+          f"tp_lm_loss): loss {t['loss']:.6f} vs the dense model's "
+          f"{t['ref_loss']:.6f} (gap {gap:.6f}), worst relative gradient "
+          f"error {t['grad_rel']:.5f} ({t['grad_name']}; the ranks' "
+          f"gradients gathered into the dense layout), launches "
+          f"{[w['tp']['launches'] for w in world]}; {p['tp_steps']} Adam "
+          f"steps {[round(v, 5) for v in losses]}, {t['ms']:.3f} ms/step "
+          f"(rank 0), {len(t['shared'])} replicated leaves bitwise equal on "
+          f"every rank {same} ({card})", flush=True)
+    if gap > TOL_TRAIN_LOSS or t["grad_rel"] > TOL_TRAIN_GRAD:
+        raise PhaseError("parallel (b): the TP LM disagrees with the dense "
+                         "model on its gathered weights")
+    want = {"flash_fwd": layers, "flash_bwd": layers}
+    steps_want = {k: v * p["tp_steps"] for k, v in want.items()}
+    for w in world:
+        got = {k: w["tp"]["launches"].get(k, 0) for k in want}
+        got_steps = {k: w["tp"]["step_launches"].get(k, 0) for k in want}
+        if got != want or got_steps != steps_want:
+            raise PhaseError(f"parallel (b): launches {got}, {got_steps}, "
+                             f"expected {want}, {steps_want}")
+    if not same or not all(math.isfinite(v) for v in losses) or not (
+            losses[-1] < losses[0]):
+        raise PhaseError(f"parallel (b): losses {losses}, replicated "
+                         f"leaves equal {same}")
+    # (c) expert parallelism
+    for k in ("1", "2"):
+        m = w0["moe"][k]
+        lgap = abs(m["loss"] - m["oracle_loss"]) / abs(m["oracle_loss"])
+        same = all(w["moe"][k]["shared"] == m["shared"] for w in world)
+        differ = len({json.dumps(w["moe"][k]["experts"],
+                                 sort_keys=True) for w in world}) == n
+        losses = m["losses"]
+        print(f"parallel (c) expert parallelism, top-{k}: "
+              f"{p['moe_experts'] * n} experts over {n} ranks, capacity "
+              f"factor 2.0, one sequence of {p['seq']} a rank; one f32 step "
+              f"(TF32 off): loss {m['loss']:.6f} vs the one-process oracle's "
+              f"{m['oracle_loss']:.6f} (relative {lgap:.2e}, tolerance "
+              f"{TOL_MOE_ORACLE_LOSS_REL}), worst relative gradient error "
+              f"{m['grad_rel']:.2e} ({m['grad_name']}, tolerance "
+              f"{TOL_MOE_ORACLE_GRAD}); {p['moe_steps']} bf16 steps: losses "
+              f"{[round(v, 5) for v in losses]}, {m['ms']:.3f} ms/step "
+              f"(rank 0), tokens dropped "
+              f"{[round(w['moe'][k]['dropped'], 5) for w in world]} per "
+              f"rank, launches a rank {m['step_launches']}, shared leaves "
+              f"bitwise equal on every rank {same}, expert leaves differ "
+              f"{differ} ({card})", flush=True)
+        if lgap > TOL_MOE_ORACLE_LOSS_REL or (
+                m["grad_rel"] > TOL_MOE_ORACLE_GRAD):
+            raise PhaseError(f"parallel (c) top-{k}: the expert-parallel "
+                             "step disagrees with the one-process oracle")
+        want = {"flash_fwd": layers * p["moe_steps"],
+                "flash_bwd": layers * p["moe_steps"], "ce_fwd": 0,
+                "ce_dh": 0, "ce_dw": 0}
+        for w in world:
+            got = {q: w["moe"][k]["step_launches"].get(q, 0) for q in want}
+            if got != want:
+                raise PhaseError(f"parallel (c) top-{k}: launches {got}, "
+                                 f"expected {want}")
+        if not (same and differ) or not all(
+                math.isfinite(v) for v in losses) or not (
+                    losses[-1] < losses[0]):
+            raise PhaseError(f"parallel (c) top-{k}: losses {losses}, "
+                             f"shared equal {same}, experts differ "
+                             f"{differ}")
+
+
+def _check_parallel_lm(runs, card: str):
+    """(d): ``train_lm``'s parallel flags on the 4 ranks."""
+    p = PARALLEL
+    n, layers, it = p["ranks"], p["lm_layers"], p["lm_iterations"]
+    for name in runs[0]:
+        rows = [w[name] for w in runs]
+        r0 = rows[0]
+        demo = {"ring": [0] * n, "ulysses": [layers] * n,
+                "ring_flash": [layers * (r + 1) for r in range(n)]}.get(
+                    name, [0] * n)
+        want = [{"flash_fwd": layers * it + demo[r],
+                 "flash_bwd": layers * it, "ce_fwd": 0, "ce_dh": 0,
+                 "ce_dw": 0} for r in range(n)]
+        got = [{k: row["launches"].get(k, 0) for k in want[0]}
+               for row in rows]
+        print(f"parallel (d) train_lm {name}: d 768 x {layers} layers, "
+              f"vocab 32768, seq 2048, batch 1 a rank, f32, {n} host-staged "
+              f"ranks, {it} iterations: losses "
+              f"{[round(v, 5) for v in r0['losses']]}, {r0['ms']:.3f} "
+              f"ms/step (rank 0; a check-only figure at 2 layers, not a "
+              f"per-step metric of the LM)"
+              + (f", next-token accuracy of the trained weights "
+                 f"{r0['acc']:.4f}" if r0["acc"] is not None else "")
+              + f", launches per rank {got} ({card})", flush=True)
+        if not all(math.isfinite(v) for v in r0["losses"]) or (
+                len(r0["losses"]) != it):
+            raise PhaseError(f"train_lm {name}: losses {r0['losses']}")
+        if name in ("ring", "ring_flash", "ulysses") and r0["acc"] is None:
+            raise PhaseError(f"train_lm {name}: no accuracy line")
+        if got != want or any(row["launches"] != row["launches_f32"]
+                              for row in rows):
+            raise PhaseError(f"train_lm {name}: launches {got}, expected "
+                             f"{want}, all f32")
+
+
+def parallel(seed: int, card: str):
+    """The ``parallel`` phase: (a)-(d) in one world of 4 host-staged
+    ranks. Returns the main path's launches summed over the ranks, and
+    those on f32 inputs."""
+    import tempfile
+
+    p = PARALLEL
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        outs = run_ranks([sys.executable, "-c", _PARALLEL_WORLD_SCRIPT,
+                          str(seed), str(p["seq"]), str(p["layers"]),
+                          str(p["moe_experts"]), str(p["moe_steps"]),
+                          str(p["tp_steps"]), str(p["attn_iters"]),
+                          str(p["lr"]), str(p["lm_layers"]),
+                          str(p["lm_iterations"]), d], p["ranks"],
+                         timeout=900)
+    world_s = time.perf_counter() - t0
+    world = json.loads([ln for ln in outs[0].splitlines()
+                        if ln.startswith("parallel world ")][-1][
+                            len("parallel world "):])
+    _check_parallel_world(world, card)
+    lm = json.loads([ln for ln in outs[0].splitlines()
+                     if ln.startswith("parallel train_lm ")][-1][
+                         len("parallel train_lm "):])
+    runs = lm["runs"]
+    for line in outs[0].splitlines():
+        if "next-token acc" in line:
+            print(f"parallel (d) {line} ({card})", flush=True)
+    _check_parallel_lm(runs, card)
+    counts, f32 = {}, {}
+    for w in world:
+        for k, v in w["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        for k, v in w["launches_f32"].items():
+            f32[k] = f32.get(k, 0) + v
+    for w in runs:
+        for row in w.values():
+            for k, v in row["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+                f32[k] = f32.get(k, 0) + v
+    print(f"parallel: one world of {p['ranks']} ranks, {world_s:.1f} s of "
+          f"wall (process start included; (d) {lm['wall_s']:.1f} s of it), "
+          f"host-staged bytes (rank 0) {lm['staged_bytes']:,}, "
+          f"main-path launches of every rank {counts} (f32 {f32}) "
+          f"({card})", flush=True)
+    return counts, f32
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4895,13 +5537,20 @@ def main(argv=None) -> int:
 
     card = card_line()
     print(f"card: {card}", flush=True)
+    # each phase's wall seconds, printed before the kernels line
+    marks = [("start", time.perf_counter())]
+
+    def mark(phase: str) -> None:
+        marks.append((phase, time.perf_counter()))
 
     t0 = time.perf_counter()
     took = _cuda.build_all(variants=[
         *LIFTED_CAPS.items(), ("fused_ce", CE_LAYOUT)])
     print(f"build: {json.dumps(took)} total "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    count_tensor_core_ops(card)
+    # the SASS dumps run on the host beside the (untimed) kernel checks
+    sass_pool = concurrent.futures.ThreadPoolExecutor(1)
+    sass = sass_pool.submit(count_tensor_core_ops, card)
     print("ptxas: " + "; ".join(
         [f"{name}_mma<64> {_usage(mma64_usage(name))}"
          for name in ("flash_fwd", "flash_bwd")]
@@ -4926,15 +5575,20 @@ def main(argv=None) -> int:
         for n, p in ((n, plan(n, 768, 32768)) for n in (1024, 8192)))
         + f" (D 768, V 32768; {card})", flush=True)
 
+    mark("build")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     worst = check_kernels(gen)
     bwd_worst = check_flash_bwd(gen)
     worst["flash_bwd"] = bwd_worst["train"]
-    # the f32 bodies: the worst of their cases on the ZeRO phase's path
-    f32_cases = [c[0] for c in F32_PATH_CASES] + ["f32"]
+    # the f32 bodies: the worst of their cases on the f32 phases' paths
+    f32_cases = [c[0] for c in F32_PATH_CASES + PARALLEL_CASES
+                 if c[7] == "float32"] + ["f32"]
     worst["flash_fwd_f32"] = max(worst[c] for c in f32_cases)
-    worst["flash_bwd_f32"] = max(bwd_worst[c] for c in f32_cases)
+    worst["flash_bwd_f32"] = max(bwd_worst[c] for c in
+                                 f32_cases + ["ring-merged-float32"])
     worst.update(check_fused_ce(gen))
+    sass.result()
+    sass_pool.shutdown()
     def show(name, where, row, extra=""):
         if "launch_ms" in row:
             extra += (f", the launch alone {row.pop('launch_ms'):.4f} ms "
@@ -4990,6 +5644,7 @@ def main(argv=None) -> int:
     times.update(f32_times)
     compare_launch_bounds(gen, card)
     compare_ce_layouts(gen, card)
+    mark("kernels")
 
     model = build_model(args.seed, torch.bfloat16, "flash")
     prompts = prompts_for(args.seed, model.vocab)
@@ -5014,25 +5669,45 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
 
+    mark("slice")
     train_counts, _ = train(args.seed, card)
     if args.profile:
         profile_training(args.seed, args.profile, card)
     torch.cuda.empty_cache()
+    mark("train")
     mnist_counts = mnist(card, args.profile)
+    mark("mnist")
     cifar_counts = cifar(card, args.profile)
+    mark("cifar")
     torch.cuda.empty_cache()
     r50_counts = resnet50(args.seed, card, args.profile)
+    mark("resnet50")
     torch.cuda.empty_cache()
     s2s_counts = seq2seq(card, args.profile)
+    mark("seq2seq")
     mp_counts = model_parallel(card)
+    mark("model_parallel")
     torch.cuda.empty_cache()
     vit_counts = vit(args.seed, card, args.profile)
+    mark("vit")
     ckpt_counts, full_losses = checkpoint(card)
+    mark("checkpoint")
     red_counts = reducers(args.seed, card)
+    mark("reducers")
     zero_counts, zero_f32 = zero(args.seed, card)
+    mark("zero")
     fsdp_counts, fsdp_f32 = fsdp(args.seed, card)
+    mark("fsdp")
     torch.cuda.empty_cache()
     res_counts, res_f32 = resilience(card, full_losses)
+    mark("resilience")
+    torch.cuda.empty_cache()
+    par_counts, par_f32 = parallel(args.seed, card)
+    mark("parallel")
+    print("phases (s of wall): " + json.dumps(
+        {name: round(t - marks[i][1], 1)
+         for i, (name, t) in enumerate(marks[1:])})
+        + f", total {marks[-1][1] - marks[0][1]:.1f} ({card})", flush=True)
 
     sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:168"),
                "flash_bwd": ("flash_bwd.cu", "flash_attention.py:399"),
@@ -5043,23 +5718,25 @@ def main(argv=None) -> int:
         name: worst[name] for name in sources if name != "flash_fwd"}}
     kernels = []
     for name, (src, tpu) in sources.items():
-        # serving, training, the ViT, its checkpoint runs, the ZeRO and
-        # FSDP phases and the resilience runs drive flash (and the ZeRO,
+        # serving, training, the ViT, its checkpoint runs, the ZeRO,
+        # FSDP, resilience and parallel phases drive flash (and the ZeRO,
         # FSDP and resilience phases the CE kernels): a count is the sum
         # of the main-path runs (the MNIST, CIFAR, ResNet-50, seq2seq,
         # model-parallel and reducer runs add none). The phases before the
         # ZeRO phase run bf16 models; the f32 runs' launches of the ZeRO,
-        # FSDP and resilience phases go to the f32 bodies' own rows
+        # FSDP, resilience and parallel phases go to the f32 bodies' own
+        # rows
         bf16 = (train_counts[name] + mnist_counts[name]
                 + cifar_counts[name] + r50_counts[name] + s2s_counts[name]
                 + mp_counts.get(name, 0) + vit_counts[name]
                 + ckpt_counts[name] + red_counts.get(name, 0)
                 + zero_counts.get(name, 0) - zero_f32.get(name, 0)
                 + fsdp_counts.get(name, 0) - fsdp_f32.get(name, 0)
-                + res_counts.get(name, 0) - res_f32.get(name, 0) + (
+                + res_counts.get(name, 0) - res_f32.get(name, 0)
+                + par_counts.get(name, 0) - par_f32.get(name, 0) + (
                     counts["flash_fwd"] if name == "flash_fwd" else 0))
         f32 = (zero_f32.get(name, 0) + fsdp_f32.get(name, 0)
-               + res_f32.get(name, 0))
+               + res_f32.get(name, 0) + par_f32.get(name, 0))
         for row, n in ((name, bf16), (f"{name}_f32", f32)):
             kernels.append({
                 "name": row, "route": "cuda",

@@ -974,30 +974,62 @@ def test_train_lm_matches_the_jax_steps(tmp_path, mode):
     np.testing.assert_allclose([s[2] for s in seen], want, rtol=1e-5)
 
 
+_LM_PARALLEL_WORKER = r"""
+import os, sys
+from chainermn_torch.examples import train_lm
+train_lm.main(sys.argv[1:])
+print(f"RANK{os.environ['RANK']} OK", flush=True)
+"""
+
+LM_PARALLEL_ARGS = ["--device", "cpu", "--n-train", "32", "--batchsize",
+                    "4", "--iterations", "2", "--seq-len", "16", "--vocab",
+                    "32", "--d-model", "32", "--n-heads", "4"]
+
+
 @pytest.mark.parametrize("flags,error,match", [
-    (["--zero", "3", "--moe", "2"], NotImplementedError, "item 10"),
+    (["--zero", "3", "--moe", "2"], None, None),
     (["--fsdp-scan"], SystemExit, "vocab % 128"),
-    (["--moe", "2"], NotImplementedError, "item 10"),
-    (["--ring"], NotImplementedError, "item 10"),
-    (["--seq-impl", "ulysses"], NotImplementedError, "item 10"),
+    (["--moe", "2", "--moe-top-k", "2"], None, None),
+    (["--ring"], None, "ring-attention"),
+    (["--ring", "--seq-impl", "ulysses"], None, "ulysses-attention"),
+    (["--ring", "--seq-impl", "ring_flash"], None, "ring_flash-attention"),
     (["--autotune-blocks"], NotImplementedError, "item 6"),
     (["--zero", "3", "--zero-bucket-kib", "64"], SystemExit,
      "applies to --zero 1/2 only"),
     (["--fsdp-scan", "--zero", "1"], SystemExit, "exclusive"),
     (["--fsdp-scan", "--vocab", "128", "--moe", "2"], SystemExit,
      "does not compose with --moe")],
-    ids=["zero3", "fsdp-scan", "moe", "ring", "seq-impl", "autotune",
-         "zero3-bucket", "fsdp-scan-zero", "fsdp-scan-moe"])
-def test_train_lm_refuses_what_waits_for_later_slices(flags, error, match):
-    """Each later-slice flag raises naming its item (with ``--zero 3``
-    too); JAX's own refusals exit with its messages (``--fsdp-scan`` on
-    a vocabulary that is not a multiple of 128, or with ``--zero`` or
-    ``--moe``)."""
+    ids=["zero3", "fsdp-scan", "moe", "ring", "seq-impl", "seq-impl-flash",
+         "autotune", "zero3-bucket", "fsdp-scan-zero", "fsdp-scan-moe"])
+def test_train_lm_refuses_what_waits_for_later_slices(tmp_path, flags,
+                                                       error, match):
+    """JAX's own refusals exit with its messages (``--fsdp-scan`` on a
+    vocabulary that is not a multiple of 128, or with ``--zero`` or
+    ``--moe``); ``--autotune-blocks`` does not apply (item 6). The
+    parallel flags that waited for their slice now run, on 2 CPU ranks:
+    ``--moe`` (with ``--zero 3`` too, which the MoE branch takes first,
+    as in JAX) and ``--ring`` with each ``--seq-impl``, which prints the
+    trained weights' next-token accuracy."""
     from chainermn_torch.examples import train_lm
 
-    with pytest.raises(error, match=match):
-        train_lm.build_trainer(train_lm.parse_args(
-            ["--device", "cpu", *flags]))
+    if error is not None:
+        with pytest.raises(error, match=match):
+            train_lm.build_trainer(train_lm.parse_args(
+                ["--device", "cpu", *flags]))
+        return
+    results = run_world(_LM_PARALLEL_WORKER, 2, timeout=120, args=[
+        *LM_PARALLEL_ARGS, *flags, "--out", str(tmp_path)])
+    assert_ranks_ok(results)
+    out = results[0][1]
+    final = [ln for ln in out.splitlines() if ln.startswith("final: ")]
+    assert len(final) == 1, out[-2000:]
+    loss = float(final[0].split("loss=")[1].split()[0])
+    assert np.isfinite(loss), final
+    if match is not None:
+        acc = [ln for ln in out.splitlines()
+               if ln.startswith(match) and "next-token acc: " in ln]
+        assert len(acc) == 1, out[-2000:]
+        assert 0.0 <= float(acc[0].rsplit(" ", 1)[1]) <= 1.0
 
 
 def test_train_lm_trains_from_a_bpe_text_file(tmp_path, capsys):

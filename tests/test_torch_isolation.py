@@ -67,7 +67,7 @@ def test_importing_the_port_loads_no_jax_module():
             "chainermn_torch.examples.train_imagenet, "
             "chainermn_torch.functions, chainermn_torch.links.chain_list, "
             "chainermn_torch.models.seq2seq, chainermn_torch.datasets.bpe, "
-            "chainermn_torch.comm.p2p, "
+            "chainermn_torch.comm.p2p, chainermn_torch.parallel, "
             "chainermn_torch.examples.train_seq2seq, "
             "chainermn_torch.examples.train_mnist_model_parallel, "
             "chainermn_torch.examples.train_mnist_eager_p2p, "

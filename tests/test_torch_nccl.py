@@ -49,6 +49,13 @@ an element (rank r's code rounds by at most half a step of its block's
 scale, which is at most max|g_r| / 127, and the reduced gradient is the
 mean of the four ranks'). ``WORLD_DEVICE=cpu`` runs the same world on gloo
 (a check before the card).
+
+A fourth 4-rank world runs the TransformerLM's intra-layer parallelism
+over NCCL at a small width (vocab 256, d_model 64, 2 layers, seq 64, f32,
+TF32 off): ring_flash and Ulysses attention with the sequence split over
+the cards, Megatron TP with ``lm_head_tp`` and ``tp_lm_loss``, and the
+expert-parallel step (8 experts, top-2), each held on every rank to one
+rank (``PARALLEL_WORKER``; ``WORLD_DEVICE=cpu`` too).
 """
 
 import pytest
@@ -482,3 +489,133 @@ def test_training_steps_across_four_cards():
     ranks against one rank fed every batch (module docstring)."""
     _four_cards()
     assert_ranks_ok(run_world(TRAIN_WORKER, 4, timeout=400))
+
+
+PARALLEL_WORKER = r"""
+import os
+import torch
+import torch.nn.functional as F
+from chainermn_torch.comm import create_communicator
+from chainermn_torch.models.convert import (dense_params_from_ranks,
+                                            rank_params_from_dense)
+from chainermn_torch.models.transformer import (TransformerLM,
+                                                lm_loss_with_aux, tp_lm_loss)
+from chainermn_torch.training import (init_expert_parallel_state,
+                                      make_expert_parallel_train_step)
+
+torch.backends.cuda.matmul.allow_tf32 = False
+DEV = os.environ.get("WORLD_DEVICE", "cuda")
+comm = create_communicator("pure_nccl", device=DEV)
+r, dev, n = comm.rank, comm.device, comm.size
+solo = comm.split(("block", 1))          # this rank alone: the oracles
+TOL = 1e-4
+L, V = 64, 256
+ll = L // n
+mine = slice(r * ll, (r + 1) * ll)
+CFG = dict(vocab=V, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+           max_len=L, pos_emb="rope", device=dev)
+g = torch.Generator().manual_seed(1)
+toks = torch.randint(0, V, (1, L + 1), generator=g).to(dev)
+x, y = toks[:, :-1], toks[:, 1:]
+
+
+def lm(**kw):
+    torch.manual_seed(0)
+    return TransformerLM(**CFG, **kw)
+
+
+def close(got, want, what):
+    for k, w in want.items():
+        e = ((got[k].float() - w.float()).norm()
+             / w.float().norm().clamp_min(1e-30)).item()
+        assert e <= TOL, (what, k, e)
+
+
+def ce(logits, targets):
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
+
+
+# the one-rank model on the whole sequence
+ref = lm()
+base = {k: v.clone() for k, v in ref.state_dict().items()}
+logits = ref(x)
+ref_loss = ce(logits, y)
+ref_loss.backward()
+ref_logits = logits.detach()[:, mine]
+ref_grads = {k: p.grad for k, p in ref.named_parameters()}
+
+# ring_flash and Ulysses: the sequence split over the four cards
+for impl in ("ring_flash", "ulysses"):
+    model = lm(attention=impl, seq_axis="sp", comms={"sp": comm})
+    model.load_state_dict(base)
+    out = model(x[:, mine], pos_offset=r * ll)
+    loss = ce(out, y[:, mine])
+    (loss / n).backward()
+    comm.allreduce_grad([p.grad for p in model.parameters()], "sum")
+    close({"logits": out.detach()}, {"logits": ref_logits}, impl)
+    total = comm.allreduce(loss.detach(), "mean")
+    assert abs(total.item() - ref_loss.item()) <= TOL * ref_loss.item()
+    close({k: p.grad for k, p in model.named_parameters()}, ref_grads,
+          impl)
+
+# tensor parallelism: the dense weights cut over the four cards
+tp = lm(tp_axis="tp", lm_head_tp=True, comms={"tp": comm})
+tp.load_state_dict(rank_params_from_dense(tp, base, r, n))
+loss, _ = tp_lm_loss(tp, x, y)
+loss.backward()
+assert abs(loss.item() - ref_loss.item()) <= TOL * ref_loss.item()
+names = [k for k, _ in tp.named_parameters()]
+stacks = [comm.allgather(p.grad) for _, p in tp.named_parameters()]
+got = dense_params_from_ranks(lm(), [dict(zip(names, (s[i] for s in stacks)))
+                                     for i in range(n)])
+close(got, ref_grads, "tp")
+
+# the expert-parallel step (8 experts over the four cards) against the
+# one-process oracle on this card: each rank's tokens run apart
+moe_kw = dict(expert_axis="e", capacity_factor=2.0, moe_top_k=2)
+model = lm(moe_experts_per_device=2, comms={"e": comm}, **moe_kw)
+specs = init_expert_parallel_state(model, comm, seed=0)
+own = [q for q, e in specs.items() if e]
+sd = model.state_dict()
+tables = [comm.allgather(sd[q]) for q in own]
+sd0 = {q: v.clone() for q, v in sd.items()}
+gm = torch.Generator().manual_seed(10 + r)
+mt = torch.randint(0, V, (1, L + 1), generator=gm).to(dev)
+allx = comm.allgather(mt)
+step = make_expert_parallel_train_step(
+    model, torch.optim.SGD(model.parameters(), lr=0.0), comm, specs,
+    loss_fn=lm_loss_with_aux)
+m = step(mt[:, :-1], mt[:, 1:])
+oracle = lm(moe_experts_per_device=2 * n, comms={"e": solo}, **moe_kw)
+oracle.load_state_dict(dense_params_from_ranks(
+    oracle, [dict(sd0, **{q: t[i] for q, t in zip(own, tables)})
+             for i in range(n)]))
+total = 0.0
+for i in range(n):
+    part, _ = lm_loss_with_aux(oracle, allx[i][:, :-1], allx[i][:, 1:])
+    (part / n).backward()
+    total += part.item() / n
+assert abs(m["main/loss"].item() - total) <= TOL * total
+grads = {q: p.grad for q, p in model.named_parameters()}
+want = {q: (p.grad.chunk(n)[r] if specs[q] else p.grad)
+        for q, p in oracle.named_parameters()}
+close(grads, want, "moe")
+
+comm.barrier()
+solo.finalize()
+comm.finalize()
+print(f"RANK{r} OK", flush=True)
+"""
+
+
+def test_parallel_forms_across_four_cards():
+    """ring_flash and Ulysses attention, Megatron TP with the
+    vocabulary-parallel loss, and the expert-parallel step (top-2, 8
+    experts) on four NCCL ranks at a small width (f32, TF32 off), each
+    held on every rank to one rank: the one-rank model on the whole
+    sequence, the dense model's gradients, and the one-process MoE
+    oracle; relative L2 error 1e-4 (the same f32 sums split over cards
+    and merged in another order)."""
+    _four_cards()
+    assert_ranks_ok(run_world(PARALLEL_WORKER, 4, timeout=300))
