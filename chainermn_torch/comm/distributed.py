@@ -72,6 +72,7 @@ import operator
 import os
 import pickle
 import socket
+import time
 from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -251,6 +252,9 @@ class DistributedCommunicator(CommunicatorBase):
         self._pending: List[Tuple[Any, torch.Tensor]] = []
         self._pending_bytes = 0
         self.staged_bytes = 0
+        #: host seconds spent in :meth:`exchange` (waiting for the peers
+        #: included): what a pipeline's hops cost its ranks
+        self.exchange_seconds = 0.0
         self.allreduce_grad_dtype = allreduce_grad_dtype
         self._bucket_bytes = dcn_bucket_bytes
         self.name = "non_cuda_aware" if host_staged else "pure_nccl"
@@ -477,6 +481,7 @@ class DistributedCommunicator(CommunicatorBase):
         sub._device_mesh = None
         sub._obj_plane = None
         sub.collective_bytes = sub.staged_bytes = 0
+        sub.exchange_seconds = 0.0
         sub._family = tuple(tuple(g) for g in family)
         members = next(g for g in sub._family if me in g)
         sub._members = members
@@ -573,11 +578,16 @@ class DistributedCommunicator(CommunicatorBase):
         return _OPS[op]
 
     def allreduce(self, x, op: str = "sum"):
-        """All-reduce of this rank's tensor → a new tensor."""
+        """All-reduce of this rank's tensor → a new tensor. A meta tensor
+        (shapes only: the pipelines' ``eval_shape``) passes through."""
         red = self._op(op)
-        buf = self._out(torch.as_tensor(x), copy=True)
-        dist.all_reduce(buf, red, group=self._arrays)
-        y = self._in(buf)
+        x = torch.as_tensor(x)
+        if x.is_meta:
+            y = x.clone()
+        else:
+            buf = self._out(x, copy=True)
+            dist.all_reduce(buf, red, group=self._arrays)
+            y = self._in(buf)
         return y / self._size if op == "mean" else y
 
     def bcast(self, x, root: int = 0):
@@ -715,7 +725,15 @@ class DistributedCommunicator(CommunicatorBase):
         """Several point-to-point messages at once: ``sends`` of
         ``(dest, tag, tree)`` and ``recvs`` of ``(src, tag)``; returns the
         received trees in ``recvs``' order. Headers go first, every send
-        before any receive, so two ranks may swap messages in one call."""
+        before any receive, so two ranks may swap messages in one call.
+        The call's host time adds to ``exchange_seconds``."""
+        t0 = time.perf_counter()
+        try:
+            return self._exchange(sends, recvs)
+        finally:
+            self.exchange_seconds += time.perf_counter() - t0
+
+    def _exchange(self, sends, recvs) -> List[Any]:
         outgoing, wanted = [], []
         for dest, tag, tree in sends:
             self._check_peer(dest)

@@ -25,14 +25,22 @@ The JAX package's replicated-parameter budget guards its SPMD executor,
 where every device holds every stage's parameters. Here each rank holds
 only its own stages, so there is nothing for the budget to guard: the
 constructor keeps the argument and checks nothing (ROADMAP.md queue 3).
-The pipeline lowerings (``to_hetero_pipeline``, ``to_branching_pipeline``)
-wait for the port's pipelines (ROADMAP.md queue 1 item 10b).
+The pipeline lowerings give each rank only its own stage's parameters
+under a micro-batched schedule: ``to_hetero_pipeline`` (a linear chain,
+1F1B) and ``to_branching_pipeline`` (a DAG), over the chain list's
+communicator. They need every stage's activation shapes, so the chain
+list keeps, for a stage this rank does not own, a copy of the declared
+module on the meta device (shapes and dtypes only, no data, not
+registered): the module the caller passed is left as it is and may be
+freed.
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -54,12 +62,24 @@ def _as_tuple(x) -> Tuple[int, ...]:
     return (int(x),)
 
 
+def _meta_copy(module: nn.Module) -> nn.Module:
+    """A copy of ``module`` whose parameters and buffers are meta tensors
+    of the same shapes and dtypes (none of the data is copied)."""
+    memo = {}
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        m = t.detach().to("meta")
+        memo[id(t)] = (nn.Parameter(m, t.requires_grad)
+                       if isinstance(t, nn.Parameter) else m)
+    return copy.deepcopy(module, memo)
+
+
 @dataclass
 class _Stage:
     module: Optional[nn.Module]      # None on ranks that do not own it
     rank: int                        # owner rank
     rank_in: Tuple[int, ...]         # () → consumes the global input
     rank_out: Tuple[int, ...]        # () → produces a model output
+    shapes: Any = None               # the module, or its meta copy
 
 
 class _Replicate(torch.autograd.Function):
@@ -116,7 +136,8 @@ class MultiNodeChainList(nn.Module):
         if mine:
             self.add_module(f"stage{i}", module)
         self._stages.append(_Stage(module if mine else None, int(rank),
-                                   _as_tuple(rank_in), _as_tuple(rank_out)))
+                                   _as_tuple(rank_in), _as_tuple(rank_out),
+                                   module if mine else _meta_copy(module)))
 
     def _stage_inputs(self, st: _Stage, x, messages):
         if not st.rank_in:
@@ -172,12 +193,111 @@ class MultiNodeChainList(nn.Module):
             outputs = [pseudo_connect(token, y) for y in outputs]
         return outputs[0] if len(outputs) == 1 else tuple(outputs)
 
-    def to_hetero_pipeline(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the 1F1B pipeline lowering waits for the port's pipelines "
-            "(ROADMAP.md queue 1 item 10b)")
+    # ------------------------------------------------------------------
 
-    def to_branching_pipeline(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the branching pipeline lowering waits for the port's "
-            "pipelines (ROADMAP.md queue 1 item 10b)")
+    def _check_linear(self):
+        """The chain must be rank 0 → 1 → … → S-1 with no branching."""
+        S = len(self._stages)
+        for i, st in enumerate(self._stages):
+            ok = (st.rank == i
+                  and st.rank_in == (() if i == 0 else (i - 1,))
+                  and st.rank_out == (() if i == S - 1 else (i + 1,)))
+            if not ok:
+                raise ValueError(
+                    f"stage {i} (rank={st.rank}, rank_in={st.rank_in}, "
+                    f"rank_out={st.rank_out}) breaks the linear chain "
+                    "0→1→…→S-1; branching/reordered graphs run on the "
+                    "SPMD apply() executor instead"
+                )
+
+    def _stage_params(self, params):
+        """Each stage's parameter dict: ``params[i]`` where given, else
+        this rank's own stages' parameters and the others' meta tensors
+        (never read: the lowering runs them on meta)."""
+        return [params[i] if params is not None and params[i] is not None
+                else dict(st.shapes.named_parameters())
+                for i, st in enumerate(self._stages)]
+
+    def to_hetero_pipeline(self, params: Optional[Sequence[Any]] = None,
+                           sample_mb=None, **pipe_kwargs):
+        """Lower a LINEAR chain onto the 1F1B pipeline (memory scaling).
+
+        Args:
+          params: each stage's parameters (a dict of name → tensor, the
+            module's ``named_parameters()``), or None for the stages' own:
+            this rank's stage holds data, the others' are meta tensors.
+          sample_mb: one micro-batch example (a tensor, a meta tensor or a
+            ``(shape, dtype)`` pair) of the chain's input — a MICRO-batch:
+            the 1F1B caller splits its global batch into ``[M, mb, ...]``.
+          pipe_kwargs: forwarded to :class:`HeteroPipeline`
+            (``wire_dtype``, ``int_bound``, ``head_in_loss``). By
+            default (``head_in_loss=True``) the final stage and the
+            caller's ``loss_fn`` run on the last rank only — so
+            ``loss_fn`` must not contain collectives over these ranks;
+            pass ``head_in_loss=False`` (the full-width wire format) if
+            it does.
+
+        Returns the :class:`~chainermn_torch.parallel.HeteroPipeline` over
+        the chain list's communicator: ``pack_params(comm.rank)`` gives
+        this rank's flat row and
+        :func:`~chainermn_torch.parallel.hetero_pipeline_1f1b_value_and_grad`
+        runs the training step. Each rank then holds ONLY its own stage's
+        parameters.
+        """
+        from torch.func import functional_call
+
+        from chainermn_torch.parallel import HeteroPipeline
+
+        self._check_linear()
+
+        def stage_fn(module):
+            return lambda p, h: functional_call(module, p, (h,))
+
+        stage_defs = [(stage_fn(st.shapes), p) for st, p in
+                      zip(self._stages, self._stage_params(params))]
+        return HeteroPipeline(stage_defs, sample_mb, self.comm,
+                              **pipe_kwargs)
+
+    def to_branching_pipeline(self, params: Optional[Sequence[Any]] = None,
+                              sample_mb=None, **pipe_kwargs):
+        """Lower a BRANCHING (DAG) chain graph onto the scheduled
+        pipeline executor — a rank a stage, each holding only its own
+        parameters — for the graphs ``to_hetero_pipeline`` rejects.
+
+        Requirements (checked): stage ``i`` declared with ``rank=i``
+        (rank ``i`` runs stage ``i``; relabel if needed — the declaration
+        order is already topological because producers come first);
+        exactly one output stage (``rank_out=()``) — its output feeds the
+        caller's ``loss_fn``; a multi-input stage's module takes its
+        inputs in ``rank_in`` order.
+
+        Returns a :class:`~chainermn_torch.parallel.BranchingPipeline`
+        over the chain list's communicator: ``pack_params(comm.rank)`` and
+        :func:`~chainermn_torch.parallel.branching_pipeline_value_and_grad`
+        on every rank (reference: branching MultiNodeChainList graphs,
+        chainermn/links/multi_node_chain_list.py).
+        """
+        from torch.func import functional_call
+
+        from chainermn_torch.parallel import BranchingPipeline
+
+        for i, st in enumerate(self._stages):
+            if st.rank != i:
+                raise ValueError(
+                    f"stage {i} declared rank {st.rank}: the pipeline "
+                    "lowering places stage i on device i — relabel ranks "
+                    "to the declaration order")
+        rank_to_idx = {st.rank: i for i, st in enumerate(self._stages)}
+        preds = [tuple(rank_to_idx[r] for r in st.rank_in)
+                 for st in self._stages]
+
+        def stage_fn(module):
+            return lambda p, *xs: functional_call(module, p, xs)
+
+        stage_defs = [
+            (stage_fn(st.shapes), p, pr)
+            for st, p, pr in zip(self._stages, self._stage_params(params),
+                                 preds)
+        ]
+        return BranchingPipeline(stage_defs, sample_mb, self.comm,
+                                 **pipe_kwargs)

@@ -80,6 +80,21 @@ vectors hold JAX's numbers in JAX's places.
 tree in flax's layout, and :func:`stacked_params_from_flax` turns a JAX
 tree (stacked by ``stack_lm_blocks`` or not) into tensors: the FSDP
 step's tree form (``chainermn_torch/optimizers/zero.py``).
+
+The pipelines' stages take their parameters as flax-layout trees, so a
+test feeds the same converted tree to the JAX function and the port's
+and compares the same gradient trees. :func:`block_param_map` maps any
+module whose layers it names — a :class:`TransformerBlock` (dense or
+tensor-parallel), the pipeline LM's ``EmbedIn`` (``tok`` ↔ flax's
+``tok/embedding``, ``pos``) and ``HeadOut`` (``ln_f`` ↔ ``LayerNorm_0``,
+``out`` ↔ the bias-free Dense ``out/kernel``): :func:`module_flax_tree`
+gives a module's parameters (or a state dict of its names, such as
+:func:`rank_params_from_dense`'s cut of a tensor-parallel rank) as that
+tree, :func:`module_params_from_flax` the module's parameters back from
+it (views, a Dense kernel transposed), :func:`flax_tree_apply` the
+module run on such a tree, and :func:`stage_stack_from_flax` cuts rank
+``d``'s ``[V, ...]`` chunks out of the interleaved ``[V, S, ...]`` stage
+stack.
 """
 
 from __future__ import annotations
@@ -95,7 +110,9 @@ __all__ = ["convert_layer", "params_from_flax", "mlp_params_from_flax",
            "flax_param_order", "flax_layout_perm", "flax_params",
            "stacked_params_from_flax", "block_param_map",
            "rank_params_from_flax", "dense_params_from_ranks",
-           "rank_params_from_dense"]
+           "rank_params_from_dense", "module_flax_tree",
+           "module_params_from_flax", "flax_tree_apply",
+           "stage_stack_from_flax"]
 
 
 def _t(x) -> torch.Tensor:
@@ -576,4 +593,71 @@ def stacked_params_from_flax(tree: Mapping, device=None) -> Dict:
         return {k: stacked_params_from_flax(v, device)
                 for k, v in tree.items()}
     t = _t(tree)
+    return t if device is None else t.to(device)
+
+
+def _tree_leaf(tree: Mapping, path) -> torch.Tensor:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def module_flax_tree(module: torch.nn.Module, state: Optional[Mapping] = None,
+                     device=None) -> Dict:
+    """``module``'s parameters (or ``state``, a state dict of its names)
+    as the flax-layout tree that :func:`block_param_map` names: new
+    contiguous f32 tensors on ``device`` (default: where they are)."""
+    state = state if state is not None else dict(module.named_parameters())
+    out: Dict = {}
+    for name, (path, perm) in block_param_map(module).items():
+        t = state[name].detach()
+        t = (t.permute(perm) if perm else t).contiguous().float()
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t if device is None else t.to(device)
+    return out
+
+
+def _from_tree(names: Mapping, tree: Mapping) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, (path, perm) in names.items():
+        t = _tree_leaf(tree, path)
+        out[name] = t.permute(perm) if perm else t
+    return out
+
+
+def module_params_from_flax(module: torch.nn.Module,
+                            tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax-layout tree (:func:`module_flax_tree`'s form; tensors) →
+    ``module``'s parameters by name, each a view of its leaf in the
+    module's layout."""
+    return _from_tree(block_param_map(module), tree)
+
+
+def flax_tree_apply(module: torch.nn.Module):
+    """``(tree, *args) -> module(*args)`` with the module's parameters
+    read from a flax-layout tree (``torch.func.functional_call``): the
+    pipelines' ``(params, h) -> h`` stage form over a port module, and the
+    FSDP scan's layer. The module only gives the computation; it may live
+    on the meta device."""
+    from torch.func import functional_call
+
+    names = block_param_map(module)
+
+    def fn(tree, *args):
+        return functional_call(module, _from_tree(names, tree), args)
+
+    return fn
+
+
+def stage_stack_from_flax(tree: Mapping, rank: int, device=None) -> Dict:
+    """The interleaved pipeline's ``[V, S, ...]`` stage stack (numpy
+    leaves, JAX's arrangement of its ``[N, ...]`` logical stages) → rank
+    ``rank``'s ``[V, ...]`` chunks as f32 tensors on ``device``: logical
+    stages ``v·S + rank``."""
+    if isinstance(tree, Mapping):
+        return {k: stage_stack_from_flax(v, rank, device)
+                for k, v in tree.items()}
+    t = _t(np.asarray(tree)[:, rank])
     return t if device is None else t.to(device)

@@ -687,9 +687,7 @@ def make_lm_fsdp_scan_loss(model: TransformerLM):
     Refused as JAX refuses: MoE, ``tp_axis``/``seq_axis``, decode and
     ``lm_head_tp``, and a vocabulary with no multiple-of-128 tile <=
     2048 dividing it."""
-    from torch.func import functional_call
-
-    from chainermn_torch.models.convert import block_param_map
+    from chainermn_torch.models.convert import flax_tree_apply
     from chainermn_torch.ops.fused_ce import fused_ce_head
     from chainermn_torch.optimizers.zero import fsdp_scan_apply, full
 
@@ -716,20 +714,10 @@ def make_lm_fsdp_scan_loss(model: TransformerLM):
     # the configuration, not the model: its parameters are not kept
     dtype, d, learned = model.dtype, model.d_model, model.pos_emb == "learned"
     max_len = model.max_len
-    block = TransformerBlock(d, model.n_heads, model.d_ff,
-                             model.n_kv_heads, dtype, model.attention,
-                             model.attention_window, model.pos_emb,
-                             model.rope_theta, device="meta")
-    names = block_param_map(block)
-
-    def block_fn(p_i, h):
-        tensors = {}
-        for name, (path, perm) in names.items():
-            t = p_i
-            for k in path:
-                t = t[k]
-            tensors[name] = t.permute(perm) if perm else t
-        return functional_call(block, tensors, (h,))
+    block_fn = flax_tree_apply(TransformerBlock(
+        d, model.n_heads, model.d_ff, model.n_kv_heads, dtype,
+        model.attention, model.attention_window, model.pos_emb,
+        model.rope_theta, device="meta"))
 
     def loss_fn(_model, p, x, y, train=True, **kw):
         del train, kw

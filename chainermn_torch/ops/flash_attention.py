@@ -313,7 +313,9 @@ class _FlashAttention(torch.autograd.Function):
         if q.is_cuda:
             out, lse = flash_attention_cuda(q, k, v, causal, scale,
                                             segment_ids, window)
-        elif q.device.type == "cpu":
+        elif q.device.type in ("cpu", "meta"):
+            # meta tensors carry shapes only (the pipelines' eval_shape):
+            # the plain version's ops give the output's shape and dtype
             out, lse = flash_attention_reference(q, k, v, causal, scale,
                                                  segment_ids, window)
         else:

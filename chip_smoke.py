@@ -34,7 +34,8 @@ the final line:
    across key tiles, a fully masked row, d 8 and 128, causal Lq > Lk; the
    parallel phase's shapes in bf16 and f32: a ring-flash block of 512
    tokens, full and causal, Ulysses' and TP's 3 heads over 2048 tokens,
-   the MoE LM's one sequence, and the backward of each block a ring's last
+   the MoE LM's one sequence (the f32 pipelines' (a), (b) and (d) too),
+   the pipeline TP x PP's 6 heads over 2048 tokens, and the backward of each block a ring's last
    rank sees on the output and lse merged over all four, as ring-flash
    passes them; a second CE call must give the same bits), then timed
    beside the plain version, its bound and the PyTorch call that computes
@@ -229,11 +230,37 @@ the final line:
    iterations each, the ring runs printing the trained weights' next-token
    accuracy (a check: its ms/step is not a per-step metric of the LM); a
    failed rank fails the run;
-18. a line of each phase's wall seconds, a ``{"kernels": [...]}`` line
+18. pipeline — the micro-batched pipelines (``chainermn_torch.parallel``
+   and ``chainermn_torch.examples.train_pipeline_lm``), in the parallel
+   phase's world of 4 host-staged ranks, the 135M LM's block at full
+   width (d_model 768, 12 heads, d_ff 3072, vocab 32768, seq 2048, f32
+   parameters and compute with TF32 off, weights from ``--seed``): (a)
+   the interleaved 1F1B, S 4 x V 3 = 12 blocks, 8 micro-batches of
+   [1, 2048], the embedding outside and the head in the loss hook: one
+   step's loss and every gradient (the embedding, each block, the head)
+   held to the one-rank sequential oracle (the same blocks in one
+   process, the mean over micro-batches, plain autograd), each rank's
+   flash_fwd and flash_bwd launches (2·V·M and V·M: the forward, its
+   remat and the backward, nothing on bubble ticks), the schedule's T and
+   idle share of tick slots, then 4 Adam steps: ms/step, peak GiB per
+   rank, host-staged exchange ms per tick (the communicator's
+   ``exchange_seconds``), losses finite and falling, and one step's stage
+   work timed on the card with CUDA events, each rank alone in turn; (b)
+   ``--hetero`` (embed + 2 blocks + head, a rank each): the wire 1 x 2048
+   x 768 elements, one step held to the oracle, then 4 steps, losses
+   falling in each; (c) TP x PP,
+   S 2 x T 2, one block a stage: the loss and every gradient gathered
+   into the dense layout held to the dense pipeline's, then 3 Adam steps
+   with the ``model``-replicated leaves bitwise equal along ``model``;
+   (d) ``MultiNodeChainList.to_branching_pipeline`` on a diamond over the
+   4 ranks: the loss and gradients held to the chain list's own run; a
+   failed check or rank fails the run, and the phase's wall seconds are
+   printed;
+19. a line of each phase's wall seconds, a ``{"kernels": [...]}`` line
    (a row for each kernel's bf16 body and
-   one for its f32 body, which only the ZeRO, FSDP, resilience and
-   parallel phases' f32 runs launch), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   one for its f32 body, which only the ZeRO, FSDP, resilience,
+   parallel and pipeline phases' f32 runs launch), the card line, and
+   last ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one, or when run
 from a directory that does not hold the ``chainermn_torch`` package.
@@ -433,7 +460,9 @@ F32_PATH_CASES = [
 # the parallel phase's shapes: a ring-flash block of 512 tokens a rank
 # (non-causal below the diagonal, causal on it), Ulysses' and TP's 3
 # local heads over the whole 2048, the MoE LM's one sequence; in bf16
-# ((a)-(c)) and f32 ((c)'s oracle step, (d)'s train_lm runs)
+# ((a)-(c)) and f32 ((c)'s oracle step, (d)'s train_lm runs). The
+# pipeline phase's (a), (b) and (d) run the MoE LM's shape in f32; its
+# (c), TP x PP, splits the 12 heads over T 2: 6 local heads
 PARALLEL_CASES = [
     (name, b, lq, lk, hq, hkv, d, dtype, causal, None, False)
     for dtype in ("bfloat16", "float32")
@@ -441,7 +470,8 @@ PARALLEL_CASES = [
         (f"ring-block-{dtype}", 1, 512, 512, 12, 12, 64, False),
         (f"ring-diagonal-{dtype}", 1, 512, 512, 12, 12, 64, True),
         (f"ulysses-tp-{dtype}", 1, 2048, 2048, 3, 3, 64, True),
-        (f"moe-{dtype}", 1, 2048, 2048, 12, 12, 64, True))]
+        (f"moe-{dtype}", 1, 2048, 2048, 12, 12, 64, True),
+        (f"pipeline-tp-{dtype}", 1, 2048, 2048, 6, 6, 64, True))]
 # ring-flash's backward gets the merged output and lse of every block a
 # rank saw, not its block's own: rank 3 of 4 merges three full blocks and
 # the causal diagonal
@@ -4978,6 +5008,16 @@ PARALLEL = dict(ranks=4, seq=2048, layers=12, moe_experts=2, moe_steps=4,
 # and orders over 12 layers; a routing flip would be off by O(1)
 TOL_MOE_ORACLE_LOSS_REL = 1e-4
 TOL_MOE_ORACLE_GRAD = 1e-3
+# the pipeline phase: (a) and (b) against the one-rank sequential oracle
+# (the same blocks and kernels on the same inputs, f32 with TF32 off: the
+# schedule changes only the order in which the micro-batches' gradients
+# are summed), (c) against the dense pipeline (each TP sum split over two
+# ranks), (d) against the chain list's own run; relative L2 error a leaf.
+# A message paired with another's payload, a chunk on the wrong rank or a
+# doubled cotangent is off by O(1)
+TOL_PIPE_LOSS_REL = 1e-5
+TOL_PIPE_GRAD = 1e-4
+PIPE_STEPS = 4
 
 _PARALLEL_WORLD_SCRIPT = r"""
 import hashlib, json, os, sys, time, torch
@@ -5301,10 +5341,301 @@ for name, flags in (('ring', ['--ring', '--seq-impl', 'ring']),
 lm_s = time.perf_counter() - t_lm
 staged = comm.staged_bytes
 outs = comm.allgather_obj(runs)
-finalize()
 if r == 0:
     print('parallel train_lm ' + json.dumps(
         dict(runs=outs, wall_s=lm_s, staged_bytes=staged)), flush=True)
+""" + r"""
+# the pipeline phase (item 10b) in the same world: the 135M LM's block at
+# full width, f32 parameters and compute (TF32 off), weights from the seed
+from torch import nn
+from chainermn_torch.examples import train_pipeline_lm as tpl
+from chainermn_torch.links import MultiNodeChainList
+from chainermn_torch.models.convert import (dense_params_from_ranks,
+                                            module_params_from_flax)
+from chainermn_torch.models.transformer import TransformerBlock
+from chainermn_torch.parallel import (branching_pipeline_value_and_grad,
+                                      build_interleaved_schedule)
+from chainermn_torch.parallel.pipeline import (schedule_idle_share,
+                                               tree_leaves, tree_map,
+                                               tree_unflatten)
+for name in ('base', 'ref_grads', 'ref_logits', 'allx', 'qkv', 'do'):
+    globals().pop(name, None)   # the earlier phases' tensors
+torch.cuda.empty_cache()
+comm.barrier()
+t_pipe = time.perf_counter()
+_cuda.reset_launches()
+totals = {'all': {}, 'f32': {}}
+PIPE = ['--vocab', '32768', '--d-model', '768', '--n-heads', '12',
+        '--d-ff', '3072', '-L', str(seq), '--mb-size', '1', '--lr', str(lr),
+        '--communicator', 'non_cuda_aware', '--seed', str(seed)]
+pipe_steps = int(sys.argv[12])
+
+
+def on(tree):
+    return tree_map(lambda x: x.to(dev), tree)
+
+
+def worst_pair(pairs):
+    # (relative L2 error, name) of the worst (got, want, name) pair
+    w, name = -1.0, ''
+    for g_, w_, nm in pairs:
+        e = rel(g_, w_) if torch.isfinite(g_).all() else 1e30
+        if e > w:
+            w, name = e, nm
+    return w, name
+
+
+def timed_steps(model, data, steps, mem0, stage):
+    # losses, ms/step, the stage communicator's exchange ms a step and
+    # this rank's peak GiB over `steps`: the peak above mem0, what the rank
+    # held before it built the model
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = []
+    comm.barrier()
+    torch.cuda.synchronize()
+    t0, x0 = time.perf_counter(), stage.exchange_seconds
+    for _ in range(steps):
+        toks_, tgts_ = next(data)
+        losses.append(model.step(toks_, tgts_))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) - mem0
+    exchange_ms = (stage.exchange_seconds - x0) / steps * 1e3
+    return dict(losses=losses, ms=ms, exchange_ms=exchange_ms,
+                peak_gib=peak / 2 ** 30, step_launches=segment())
+
+
+def stage_card_ms(model, toks, tgts):
+    # the card time (CUDA events) of this rank's stage work in one step,
+    # each rank alone on the card in turn: every chunk's forward, its
+    # re-run and backward on each micro-batch, and on the last rank the
+    # head's loss and gradients, the calls the 1F1B engine makes
+    x = model._embed(model.embed_tree, toks).detach()
+    chunks = [tree_map(lambda t_: t_[v], model.stage_tree)
+              for v in range(model.V)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ms = 0.0
+    for q in range(n):
+        comm.barrier()
+        if q != r:
+            continue
+        torch.cuda.synchronize()
+        ev[0].record()
+        for ch in chunks:
+            lv = [t_.detach().requires_grad_(True) for t_ in
+                  tree_leaves(ch)]
+            live = tree_unflatten(ch, lv)
+            for j in range(x.shape[0]):
+                with torch.no_grad():
+                    y = model._stage(ch, x[j])
+                with torch.enable_grad():
+                    hv = x[j].detach().requires_grad_(True)
+                    out = model._stage(live, hv)
+                    torch.autograd.grad(out, lv + [hv],
+                                        torch.ones_like(out))
+                if r == n - 1 and ch is chunks[-1]:
+                    hl = [t_.detach().requires_grad_(True) for t_ in
+                          tree_leaves(model.head_tree)]
+                    with torch.enable_grad():
+                        yv = y.detach().requires_grad_(True)
+                        lj = model.head_loss(
+                            tree_unflatten(model.head_tree, hl), yv,
+                            tgts[j])
+                        torch.autograd.grad(lj, [yv] + hl)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1])
+    comm.barrier()
+    _cuda.reset_launches()      # not the main path's
+    return ms
+
+
+pout = {}
+# (a) the interleaved 1F1B at full depth: S 4 x V 3 = 12 blocks, M 8
+args = tpl.parse_args(PIPE + ['-V', '3', '-M', '8'])
+mem0 = torch.cuda.memory_allocated(dev)
+model = tpl.PipelineLM(args, comm, seed=seed)
+data = tpl.batches(args, 8, dev)
+toks, tgts = next(data)
+loss, (ge, gs, gh) = model.value_and_grad(toks, tgts)
+torch.cuda.synchronize()
+sched = build_interleaved_schedule(4, 3, 8)
+a = dict(loss=loss.item(), launches=segment(), T=sched.T,
+         idle=schedule_idle_share(sched),
+         depths=[sched.depth_act, sched.depth_fin, sched.depth_bin])
+chunks = gather_to_root(tree_leaves(gs))
+if r == 0:
+    e, blocks, h = tpl.init_trees(args, seed, range(12))
+    oloss, (oe, ob, oh) = tpl.sequential_value_and_grad(
+        args, on(e), [on(b) for b in blocks], on(h), toks, tgts)
+    pairs = ([(g_, w_, 'embedding') for g_, w_ in
+              zip(tree_leaves(ge), tree_leaves(oe))]
+             + [(g_, w_, 'head') for g_, w_ in
+                zip(tree_leaves(gh), tree_leaves(oh))])
+    for d in range(n):
+        for v in range(3):
+            pairs += [(g_[v], w_, f'block {v * n + d}') for g_, w_ in
+                      zip(chunks[d], tree_leaves(ob[v * n + d]))]
+    a['oracle_loss'] = oloss
+    a['grad_rel'], a['grad_name'] = worst_pair(pairs)
+    del blocks, ob, oe, oh, pairs
+_cuda.reset_launches()      # the oracle's launches are not the main path's
+del chunks
+torch.cuda.empty_cache()
+a.update(timed_steps(model, data, pipe_steps, mem0, model.stage))
+a['exchange_ms_per_tick'] = a.pop('exchange_ms') / sched.T
+a['stage_card_ms'] = stage_card_ms(model, toks, tgts)
+pout['a'] = a
+del model
+torch.cuda.empty_cache()
+
+# (b) --hetero: embed + 2 blocks + head, a rank each, M 8
+hargs = tpl.parse_args(PIPE + ['--hetero', '-M', '8'])
+mem0 = torch.cuda.memory_allocated(dev)
+hm = tpl.HeteroPipelineLM(hargs, comm, seed=seed)
+data = tpl.batches(hargs, 8, dev)
+toks, tgts = next(data)
+loss, g = hm.value_and_grad(toks, tgts)
+torch.cuda.synchronize()
+b = dict(loss=loss.item(), launches=segment(), wire=hm.pipe.wire_elems,
+         param_elems=hm.pipe.param_elems)
+rows = comm.gather(g.detach(), 0)
+if r == 0:
+    e, blocks, h = tpl.init_trees(hargs, seed, [1, 2])
+    oloss, (oe, ob, oh) = tpl.sequential_value_and_grad(
+        hargs, on(e), [on(x) for x in blocks], on(h), toks, tgts)
+    pairs = []
+    for s_, tree in enumerate([oe, *ob, oh]):
+        flat = torch.cat([x.reshape(-1) for x in tree_leaves(tree)])
+        pairs.append((rows[s_][:flat.numel()], flat, f'stage {s_}'))
+    b['oracle_loss'] = oloss
+    b['grad_rel'], b['grad_name'] = worst_pair(pairs)
+    del blocks, ob, pairs
+_cuda.reset_launches()
+del rows
+torch.cuda.empty_cache()
+b.update(timed_steps(hm, data, pipe_steps, mem0, hm.pipe.comm))
+# the classic schedule's ticks: 2 (S - 1) + M
+b['exchange_ms_per_tick'] = b.pop('exchange_ms') / (2 * 3 + 8)
+pout['b'] = b
+del hm
+torch.cuda.empty_cache()
+
+# (c) TP x PP: S 2 x T 2, one block a stage, M 4, against the dense
+# pipeline (S 2) on ranks {0, 2} and {1, 3} from the same seed
+targs = tpl.parse_args(PIPE + ['--tp', '2', '-V', '1', '-M', '4'])
+mem0 = torch.cuda.memory_allocated(dev)
+tp = tpl.PipelineLM(targs, comm, seed=seed)
+data = tpl.batches(targs, 4, dev)
+toks, tgts = next(data)
+tl, (te, ts, th) = tp.value_and_grad(toks, tgts)
+torch.cuda.synchronize()
+c = dict(loss=tl.item(), launches=segment())
+pair = comm.split(('stride', 2))
+dense = tpl.PipelineLM(tpl.parse_args(PIPE + ['-V', '1', '-M', '4']), pair,
+                       seed=seed)
+dl, (de, ds, dh) = dense.value_and_grad(toks, tgts)
+_cuda.reset_launches()      # the reference's launches
+s_, t_ = divmod(r, 2)
+vl = 32768 // 2
+tblock = TransformerBlock(768, 12, 3072, tp_axis='model',
+                          comms={'model': tp.model}, device='meta')
+dblock = TransformerBlock(768, 12, 3072, device='meta')
+own = {k: v.detach().cpu() for k, v in module_params_from_flax(
+    tblock, tree_map(lambda x: x[0], ts)).items()}
+got = dense_params_from_ranks(dblock, tp.model.allgather_obj(own))
+want = module_params_from_flax(dblock, tree_map(lambda x: x[0], ds))
+pairs = ([(got[k].to(dev), want[k], f'block {s_} {k}') for k in want]
+         + [(g_, w_, 'embedding') for g_, w_ in
+            zip(tree_leaves(te), tree_leaves(de))]
+         + [(g_, w_, 'head LayerNorm') for g_, w_ in
+            zip(tree_leaves(th['LayerNorm_0']),
+                tree_leaves(dh['LayerNorm_0']))]
+         + [(th['out']['kernel'], dh['out']['kernel'][:, t_ * vl:
+                                                      (t_ + 1) * vl],
+             'head kernel slice')])
+c['dense_loss'] = dl.item()
+c['grad_rel'], c['grad_name'] = worst_pair(pairs)
+del dense, got, want, pairs, own, de, ds, dh
+pair.finalize()
+torch.cuda.empty_cache()
+c.update(timed_steps(tp, data, 3, mem0, tp.stage))
+c['shared'] = {
+    'embed': [sha(x) for x in tree_leaves(tp.embed_tree)],
+    'head_ln': [sha(x) for x in tree_leaves(tp.head_tree['LayerNorm_0'])],
+    'ln': [sha(x) for k_ in ('LayerNorm_0', 'LayerNorm_1')
+           for x in tree_leaves(tp.stage_tree[k_])],
+    'row_bias': sha(tp.stage_tree['tp_ffn']['RowParallelDense_0']['bias'])}
+c['own'] = sha(tp.stage_tree['tp_ffn']['ColumnParallelDense_0']['Dense_0'][
+    'kernel'])
+c['coords'] = [s_, t_]
+pout['c'] = c
+del tp
+torch.cuda.empty_cache()
+
+
+# (d) MultiNodeChainList.to_branching_pipeline on a diamond over the ranks
+class Part(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.dense = nn.Linear(768, 768)
+
+    def forward(self, x):
+        return torch.tanh(self.dense(x))
+
+
+class Join(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.a = nn.Linear(768, 768, bias=False)
+        self.b = nn.Linear(768, 768, bias=False)
+
+    def forward(self, x, y):
+        return torch.tanh(self.a(x) + self.b(y))
+
+
+torch.manual_seed(seed)
+mods = [m.to(dev) for m in (Part(), Part(), Part(), Join())]
+chain = MultiNodeChainList(comm)
+chain.add_link(mods[0], rank=0, rank_in=None, rank_out=(1, 2))
+chain.add_link(mods[1], rank=1, rank_in=0, rank_out=3)
+chain.add_link(mods[2], rank=2, rank_in=0, rank_out=3)
+chain.add_link(mods[3], rank=3, rank_in=(1, 2), rank_out=None)
+gd = torch.Generator().manual_seed(seed + 7)
+xs = torch.randn(4, seq, 768, generator=gd).to(dev)
+ys = torch.randn(4, seq, 768, generator=gd).to(dev)
+
+
+def mse(y_, t_):
+    return ((y_ - t_) ** 2).mean()
+
+
+total = 0.0
+for j in range(4):
+    part = mse(chain(xs[j]), ys[j]) / 4
+    part.backward()
+    total += part.item()
+want = {k: p.grad for k, p in mods[r].named_parameters()}
+bp = chain.to_branching_pipeline(None, ((seq, 768), torch.float32))
+segment()
+loss, g = branching_pipeline_value_and_grad(
+    bp, mse, bp.pack_params(r), bp.encode_inputs(xs), ys)
+torch.cuda.synchronize()
+got = bp.unpack_grads(g, r)
+d = dict(loss=loss.item(), chain_loss=total, launches=segment(),
+         wire=bp.wire_elems, depth=bp.depth)
+d['grad_rel'], d['grad_name'] = worst_pair(
+    [(got[k], want[k], f'stage {r} {k}') for k in want])
+pout['d'] = d
+del chain, mods, bp
+torch.cuda.empty_cache()
+pout['launches'], pout['launches_f32'] = totals['all'], totals['f32']
+pout['wall_s'] = time.perf_counter() - t_pipe
+pout['staged_bytes'] = comm.staged_bytes - staged
+outs = comm.allgather_obj(pout)
+finalize()
+if r == 0:
+    print('pipeline world ' + json.dumps(outs), flush=True)
 """
 
 
@@ -5455,6 +5786,127 @@ def _check_parallel_lm(runs, card: str):
                              f"{want}, all f32")
 
 
+def _check_pipeline(world, card: str):
+    """(a)-(d) of the ``pipeline`` phase from each rank's results."""
+    n, steps = PARALLEL["ranks"], PIPE_STEPS
+    a0 = world[0]["a"]
+
+    def oracle(tag, row, ref_key):
+        gap = abs(row["loss"] - row[ref_key]) / abs(row[ref_key])
+        if gap > TOL_PIPE_LOSS_REL or row["grad_rel"] > TOL_PIPE_GRAD:
+            raise PhaseError(f"pipeline {tag}: loss {row['loss']} vs "
+                             f"{row[ref_key]} (relative {gap:.2e}), worst "
+                             f"gradient {row['grad_rel']:.2e} "
+                             f"({row['grad_name']})")
+        return gap
+
+    def falling(tag, losses, must_fall):
+        if not all(math.isfinite(v) for v in losses) or (
+                must_fall and not losses[-1] < losses[0]):
+            raise PhaseError(f"pipeline {tag}: losses {losses}")
+
+    def launches(tag, rows, want):
+        got = [{k: row.get(k, 0) for k in want[0]} for row in rows]
+        if got != want:
+            raise PhaseError(f"pipeline {tag}: launches {got}, expected "
+                             f"{want}")
+        return got
+
+    # (a) interleaved 1F1B, S 4 x V 3, M 8: every rank 2·V·M flash_fwd
+    # (the forward and its remat) and V·M flash_bwd a step, no CE kernel
+    V, M = 3, 8
+    want = [{"flash_fwd": 2 * V * M, "flash_bwd": V * M, "ce_fwd": 0,
+             "ce_dh": 0, "ce_dw": 0}] * n
+    got = launches("(a)", [w["a"]["launches"] for w in world], want)
+    launches("(a) timed", [w["a"]["step_launches"] for w in world],
+             [{k: v * steps for k, v in row.items()} for row in want])
+    gap = oracle("(a)", a0, "oracle_loss")
+    falling("(a)", a0["losses"], True)
+    print(f"pipeline (a) interleaved 1F1B: the 135M LM's block at full "
+          f"width (d 768, 12 heads, d_ff 3072, vocab 32768, seq "
+          f"{PARALLEL['seq']}, f32, TF32 off), S {n} x V {V} = {n * V} "
+          f"blocks, M {M} micro-batches of [1, {PARALLEL['seq']}], the "
+          f"embedding outside and the head in the loss hook, {n} host-staged "
+          f"ranks: loss {a0['loss']:.6f} vs the one-rank sequential oracle's "
+          f"{a0['oracle_loss']:.6f} (relative {gap:.2e}, tolerance "
+          f"{TOL_PIPE_LOSS_REL}), worst relative gradient error "
+          f"{a0['grad_rel']:.2e} ({a0['grad_name']}, tolerance "
+          f"{TOL_PIPE_GRAD}); launches per rank {got}; schedule T "
+          f"{a0['T']} ticks, idle share of tick slots {a0['idle']:.4f}, "
+          f"depths (act, fwd inbox, bwd inbox) {a0['depths']}; {steps} Adam "
+          f"steps {[round(v, 5) for v in a0['losses']]}, "
+          f"{[round(w['a']['ms'], 3) for w in world]} ms/step per rank, "
+          f"peak {[round(w['a']['peak_gib'], 3) for w in world]} GiB per "
+          f"rank (its model, optimizer and steps), host-staged exchange "
+          f"{[round(w['a']['exchange_ms_per_tick'], 3) for w in world]} "
+          f"ms per tick per rank; a step's stage work alone on the card "
+          f"(CUDA events, each rank in turn) "
+          f"{[round(w['a']['stage_card_ms'], 3) for w in world]} ms per "
+          f"rank, {sum(w['a']['stage_card_ms'] for w in world):.3f} ms in "
+          f"all ({card})", flush=True)
+    # (b) --hetero: embed, 2 blocks, head; the blocks' ranks launch flash
+    b0 = world[0]["b"]
+    if b0["wire"] != PARALLEL["seq"] * 768:
+        raise PhaseError(f"pipeline (b): wire {b0['wire']} elements, not "
+                         f"1 x {PARALLEL['seq']} x 768")
+    want = [{"flash_fwd": 2 * M if 0 < r < n - 1 else 0,
+             "flash_bwd": M if 0 < r < n - 1 else 0} for r in range(n)]
+    got = launches("(b)", [w["b"]["launches"] for w in world], want)
+    gap = oracle("(b)", b0, "oracle_loss")
+    falling("(b)", b0["losses"], True)
+    print(f"pipeline (b) --hetero: embed + 2 blocks + head, one stage a "
+          f"rank, M {M}, wire {b0['wire']} elements (1 x {PARALLEL['seq']} "
+          f"x 768, not vocabulary-wide), rows of {b0['param_elems']} f32: "
+          f"loss {b0['loss']:.6f} vs the oracle's {b0['oracle_loss']:.6f} "
+          f"(relative {gap:.2e}), worst relative gradient error "
+          f"{b0['grad_rel']:.2e} ({b0['grad_name']}); launches per rank "
+          f"{got}; {steps} Adam steps {[round(v, 5) for v in b0['losses']]}, "
+          f"{[round(w['b']['ms'], 3) for w in world]} ms/step per rank, peak "
+          f"{[round(w['b']['peak_gib'], 3) for w in world]} GiB per rank, "
+          f"host-staged exchange "
+          f"{[round(w['b']['exchange_ms_per_tick'], 3) for w in world]} ms "
+          f"per tick per rank ({card})", flush=True)
+    # (c) TP x PP, S 2 x T 2, M 4: one TP block a rank
+    c0 = world[0]["c"]
+    gap = oracle("(c)", c0, "dense_loss")
+    for w in world:
+        oracle("(c)", w["c"], "dense_loss")
+    M = 4
+    launches("(c)", [w["c"]["launches"] for w in world],
+             [{"flash_fwd": 2 * M, "flash_bwd": M}] * n)
+    cells = {tuple(w["c"]["coords"]): w["c"] for w in world}
+    same = all(cells[(s, 0)]["shared"] == cells[(s, 1)]["shared"]
+               and cells[(s, 0)]["own"] != cells[(s, 1)]["own"]
+               and cells[(s, 0)]["losses"] == cells[(s, 1)]["losses"]
+               for s in range(2))
+    falling("(c)", c0["losses"], True)
+    print(f"pipeline (c) TP x PP: S 2 x T 2 (6 heads, d_ff 1536 and a "
+          f"vocabulary slice of 16384 a rank), M {M}: loss "
+          f"{c0['loss']:.6f} vs the dense pipeline's {c0['dense_loss']:.6f} "
+          f"(relative {gap:.2e}), worst relative gradient error "
+          f"{max(w['c']['grad_rel'] for w in world):.2e} (the ranks' "
+          f"gradients gathered into the dense layout); 3 Adam steps "
+          f"{[round(v, 5) for v in c0['losses']]}, "
+          f"{[round(w['c']['ms'], 3) for w in world]} ms/step per rank, "
+          f"peak {[round(w['c']['peak_gib'], 3) for w in world]} GiB per "
+          f"rank, model-replicated leaves bitwise equal along model {same} "
+          f"({card})", flush=True)
+    if not same:
+        raise PhaseError("pipeline (c): model-replicated leaves differ "
+                         "along model")
+    # (d) the chain list's diamond
+    for w in world:
+        oracle("(d)", w["d"], "chain_loss")
+    d0 = world[0]["d"]
+    print(f"pipeline (d) MultiNodeChainList.to_branching_pipeline on a "
+          f"diamond over {n} ranks (Linear 768 + tanh stages, a join of two "
+          f"768-wide inputs, 4 micro-batches of [{PARALLEL['seq']}, 768]): "
+          f"loss {d0['loss']:.6f} vs the chain's own run "
+          f"{d0['chain_loss']:.6f}, worst relative gradient error "
+          f"{max(w['d']['grad_rel'] for w in world):.2e}, depths "
+          f"{d0['depth']} ({card})", flush=True)
+
+
 def parallel(seed: int, card: str):
     """The ``parallel`` phase: (a)-(d) in one world of 4 host-staged
     ranks. Returns the main path's launches summed over the ranks, and
@@ -5470,8 +5922,8 @@ def parallel(seed: int, card: str):
                           str(p["moe_experts"]), str(p["moe_steps"]),
                           str(p["tp_steps"]), str(p["attn_iters"]),
                           str(p["lr"]), str(p["lm_layers"]),
-                          str(p["lm_iterations"]), d], p["ranks"],
-                         timeout=900)
+                          str(p["lm_iterations"]), d, str(PIPE_STEPS)],
+                         p["ranks"], timeout=900)
     world_s = time.perf_counter() - t0
     world = json.loads([ln for ln in outs[0].splitlines()
                         if ln.startswith("parallel world ")][-1][
@@ -5485,6 +5937,10 @@ def parallel(seed: int, card: str):
         if "next-token acc" in line:
             print(f"parallel (d) {line} ({card})", flush=True)
     _check_parallel_lm(runs, card)
+    pipe = json.loads([ln for ln in outs[0].splitlines()
+                       if ln.startswith("pipeline world ")][-1][
+                           len("pipeline world "):])
+    _check_pipeline(pipe, card)
     counts, f32 = {}, {}
     for w in world:
         for k, v in w["launches"].items():
@@ -5496,12 +5952,23 @@ def parallel(seed: int, card: str):
             for k, v in row["launches"].items():
                 counts[k] = counts.get(k, 0) + v
                 f32[k] = f32.get(k, 0) + v
+    # the pipeline phase runs f32 models only
+    for w in pipe:
+        for k, v in w["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        for k, v in w["launches_f32"].items():
+            f32[k] = f32.get(k, 0) + v
+    print(f"pipeline: {pipe[0]['wall_s']:.1f} s of wall in the parallel "
+          f"phase's world, host-staged bytes (rank 0) "
+          f"{pipe[0]['staged_bytes']:,}, main-path launches of every rank "
+          f"{[w['launches'] for w in pipe]} ({card})", flush=True)
     print(f"parallel: one world of {p['ranks']} ranks, {world_s:.1f} s of "
-          f"wall (process start included; (d) {lm['wall_s']:.1f} s of it), "
+          f"wall (process start included; (d) {lm['wall_s']:.1f} s and the "
+          f"pipeline phase {pipe[0]['wall_s']:.1f} s of it), "
           f"host-staged bytes (rank 0) {lm['staged_bytes']:,}, "
           f"main-path launches of every rank {counts} (f32 {f32}) "
           f"({card})", flush=True)
-    return counts, f32
+    return counts, f32, pipe[0]["wall_s"]
 
 
 def main(argv=None) -> int:
@@ -5702,11 +6169,12 @@ def main(argv=None) -> int:
     res_counts, res_f32 = resilience(card, full_losses)
     mark("resilience")
     torch.cuda.empty_cache()
-    par_counts, par_f32 = parallel(args.seed, card)
+    par_counts, par_f32, pipe_s = parallel(args.seed, card)
     mark("parallel")
     print("phases (s of wall): " + json.dumps(
-        {name: round(t - marks[i][1], 1)
-         for i, (name, t) in enumerate(marks[1:])})
+        {**{name: round(t - marks[i][1], 1)
+            for i, (name, t) in enumerate(marks[1:])},
+         "pipeline (in parallel)": round(pipe_s, 1)})
         + f", total {marks[-1][1] - marks[0][1]:.1f} ({card})", flush=True)
 
     sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:168"),
@@ -5719,8 +6187,9 @@ def main(argv=None) -> int:
     kernels = []
     for name, (src, tpu) in sources.items():
         # serving, training, the ViT, its checkpoint runs, the ZeRO,
-        # FSDP, resilience and parallel phases drive flash (and the ZeRO,
-        # FSDP and resilience phases the CE kernels): a count is the sum
+        # FSDP, resilience, parallel and pipeline phases drive flash (and
+        # the ZeRO, FSDP and resilience phases the CE kernels): a count is
+        # the sum
         # of the main-path runs (the MNIST, CIFAR, ResNet-50, seq2seq,
         # model-parallel and reducer runs add none). The phases before the
         # ZeRO phase run bf16 models; the f32 runs' launches of the ZeRO,

@@ -315,9 +315,37 @@ def test_add_link_requires_rank_and_keeps_only_own_stages():
     chain.add_link(Part(4, 4), rank=1, rank_in=0)
     assert [n for n, _ in chain.named_parameters()] == [
         "stage1.dense.weight", "stage1.dense.bias"]
+    # the pipeline lowerings: stage 0's module, not this rank's, is read
+    # for its shapes only; this rank's row is stage 1's parameters
     for lower in (chain.to_hetero_pipeline, chain.to_branching_pipeline):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            lower([], None)
+        pipe = lower(None, torch.zeros(2, 3))
+        assert pipe.S == 2 and pipe.param_elems == 4 * 4 + 4
+        own = dict(chain.named_parameters())
+        np.testing.assert_array_equal(
+            pipe.pack_params(1)[:4 * 4 + 4].numpy(), torch.cat(
+                [own["stage1.dense.bias"],
+                 own["stage1.dense.weight"].reshape(-1)]).detach().numpy())
+
+
+def test_stages_of_other_ranks_keep_no_data():
+    """A stage this rank does not own is kept as a meta copy for the
+    lowerings' shapes: the caller's module is untouched and not held."""
+    import gc
+    import weakref
+
+    chain = MultiNodeChainList(_fake_comm(rank=1))
+    other = Part(3, 4)
+    chain.add_link(other, rank=0, rank_out=1)
+    chain.add_link(Part(4, 4), rank=1, rank_in=0)
+    kept = chain._stages[0].shapes
+    assert all(p.is_meta for p in kept.parameters())
+    assert [tuple(p.shape) for p in kept.parameters()] == [
+        tuple(p.shape) for p in other.parameters()]
+    assert not any(p.is_meta for p in other.parameters())
+    gone = weakref.ref(other)
+    del other
+    gc.collect()
+    assert gone() is None
 
 
 def test_one_rank_chain_runs_every_stage_locally():

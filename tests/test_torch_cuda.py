@@ -2,7 +2,8 @@
 forward and backward, the fused CE's forward, dh and dW) and of the
 training step on the card (the data-parallel step, a ZeRO-1 step against
 the same step on the CPU, and FSDP, plain and over the scanned stack,
-against the data-parallel step with their kernel launches). A CUDA kernel has no CPU mode, so
+against the data-parallel step with their kernel launches, and a pipeline
+stage's remat backward through the flash kernels). A CUDA kernel has no CPU mode, so
 without a GPU every test here skips.
 
 This file imports no JAX, so it runs on a GPU machine without the JAX
@@ -278,6 +279,54 @@ def test_gradient_flows_through_the_cuda_flash_path(cuda):
     for g, r in zip(grads, ref):
         assert g.abs().max() > 0
         torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-4)
+
+
+def test_pipeline_stage_backward_runs_the_cuda_flash_path(cuda):
+    """One stage rank of the interleaved 1F1B schedule (S 1, V 2 chunks,
+    the wrap from chunk 0 to chunk 1 kept on the rank) over flash
+    TransformerBlocks on the card: each chunk runs its forward twice a
+    micro-batch (the forward and its remat in the backward) and its
+    backward once, so flash_fwd launches 2·V·M times and flash_bwd V·M;
+    the gradients are nonzero and equal the same step on the CPU's plain
+    versions at rtol = atol = 1e-4."""
+    from types import SimpleNamespace
+
+    from chainermn_torch.examples import train_pipeline_lm as tpl
+    from chainermn_torch.models.convert import flax_tree_apply
+    from chainermn_torch.models.transformer import TransformerBlock
+    from chainermn_torch.parallel import (
+        pipeline_interleaved_1f1b_value_and_grad, stack_stage_params)
+    from chainermn_torch.parallel.pipeline import tree_leaves, tree_map
+
+    V, M = 2, 3
+    args = tpl.parse_args(["--d-model", "64", "--n-heads", "4", "--d-ff",
+                           "128", "-L", "96"])
+    _, blocks, _ = tpl.init_trees(args, 0, range(V))
+    stacked = stack_stage_params(blocks)
+    stage = flax_tree_apply(TransformerBlock(64, 4, 128, device="meta"))
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(M, 2, 96, 64, generator=g)
+    y = torch.randn(M, 2, 96, 64, generator=g)
+    one = SimpleNamespace(rank=0, size=1)
+
+    def mse(out, tgt):
+        return ((out - tgt) ** 2).mean()
+
+    def run(dev):
+        return pipeline_interleaved_1f1b_value_and_grad(
+            stage, mse, tree_map(lambda t: t.to(dev), stacked), x.to(dev),
+            y.to(dev), one, V)
+
+    _cuda.reset_launches()
+    loss, grads = run(cuda)
+    launched = _cuda.launches()
+    assert launched["flash_fwd"] == 2 * V * M
+    assert launched["flash_bwd"] == V * M
+    ref_loss, ref = run("cpu")
+    torch.testing.assert_close(loss.cpu(), ref_loss, rtol=1e-4, atol=1e-4)
+    for got, want in zip(tree_leaves(grads), tree_leaves(ref)):
+        assert got.abs().max() > 0
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
 # name: (n, d, v, dtype, ties)

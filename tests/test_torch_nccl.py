@@ -56,6 +56,17 @@ TF32 off): ring_flash and Ulysses attention with the sequence split over
 the cards, Megatron TP with ``lm_head_tp`` and ``tp_lm_loss``, and the
 expert-parallel step (8 experts, top-2), each held on every rank to one
 rank (``PARALLEL_WORKER``; ``WORLD_DEVICE=cpu`` too).
+
+A fifth 4-rank world runs the pipelines over NCCL on the pipeline LM
+example's model at a small width (vocab 256, d_model 64, 4 heads, seq 64,
+4 micro-batches of one sequence, f32, TF32 off): the interleaved 1F1B
+(S 4, V 2) and TP x PP at S 2 (T 2), where one peer is both the next and
+the previous stage so each tick's forward activation and backward
+cotangent travel between the same two cards in one order. Each step's
+loss and every gradient (the embedding, each block gathered into the
+dense layout, the head) is held on every rank to the one-rank oracle: the
+same blocks in logical order on this card, plain autograd
+(``PIPELINE_WORKER``; ``WORLD_DEVICE=cpu`` too).
 """
 
 import pytest
@@ -619,3 +630,88 @@ def test_parallel_forms_across_four_cards():
     and merged in another order)."""
     _four_cards()
     assert_ranks_ok(run_world(PARALLEL_WORKER, 4, timeout=300))
+
+
+PIPELINE_WORKER = r"""
+import os
+import torch
+from chainermn_torch.comm import create_communicator
+from chainermn_torch.examples import train_pipeline_lm as tpl
+from chainermn_torch.models.convert import (dense_params_from_ranks,
+                                            module_params_from_flax)
+from chainermn_torch.models.transformer import TransformerBlock
+from chainermn_torch.parallel.pipeline import tree_leaves, tree_map
+
+torch.backends.cuda.matmul.allow_tf32 = False
+DEV = os.environ.get("WORLD_DEVICE", "cuda")
+comm = create_communicator("pure_nccl", device=DEV)
+r, dev = comm.rank, comm.device
+TOL = 1e-4
+ARGV = ["--vocab", "256", "--d-model", "64", "--n-heads", "4", "--d-ff",
+        "128", "-L", "64", "--mb-size", "1", "-M", "4", "--device", DEV]
+
+
+def rel(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def close(got, want, what):
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        e = rel(a, b)
+        assert e <= TOL, (what, e)
+
+
+def oracle(args, blocks):
+    e, bs, h = tpl.init_trees(args, 0, blocks)
+    on = lambda t: tree_map(lambda x: x.to(dev), t)
+    return tpl.sequential_value_and_grad(
+        args, on(e), [on(b) for b in bs], on(h), toks, tgts)
+
+
+args = tpl.parse_args(ARGV + ["-V", "2"])
+toks, tgts = next(tpl.batches(args, 4, dev))
+
+# the interleaved 1F1B, S 4 x V 2: logical stage v*4 + r on this card
+model = tpl.PipelineLM(args, comm, seed=0)
+loss, (ge, gs, gh) = model.value_and_grad(toks, tgts)
+oloss, (oe, ob, oh) = oracle(args, range(8))
+assert abs(loss.item() - oloss) <= TOL * abs(oloss), (loss.item(), oloss)
+close(ge, oe, "embedding")
+close(gh, oh, "head")
+for v in range(2):
+    close(tree_map(lambda x: x[v], gs), ob[v * 4 + r], f"chunk {v}")
+
+# TP x PP at S 2: rank r is stage r // 2, model rank r % 2
+targs = tpl.parse_args(ARGV + ["-V", "1", "--tp", "2"])
+tp = tpl.PipelineLM(targs, comm, seed=0)
+s, t = divmod(r, 2)
+loss, (ge, gs, gh) = tp.value_and_grad(toks, tgts)
+oloss, (oe, ob, oh) = oracle(targs, range(2))
+assert abs(loss.item() - oloss) <= TOL * abs(oloss), (loss.item(), oloss)
+close(ge, oe, "embedding")
+close(gh["LayerNorm_0"], oh["LayerNorm_0"], "head LayerNorm")
+close(gh["out"]["kernel"], oh["out"]["kernel"][:, t * 128:(t + 1) * 128],
+      "head kernel slice")
+block = TransformerBlock(64, 4, 128, tp_axis="model",
+                         comms={"model": tp.model}, device="meta")
+dense = TransformerBlock(64, 4, 128, device="meta")
+own = {k: v.detach().cpu() for k, v in module_params_from_flax(
+    block, tree_map(lambda x: x[0], gs)).items()}
+got = dense_params_from_ranks(dense, tp.model.allgather_obj(own))
+want = module_params_from_flax(dense, ob[s])
+for k in want:
+    assert rel(got[k].to(dev), want[k]) <= TOL, ("tp block", k)
+comm.barrier()
+comm.finalize()
+print(f"RANK{r} OK", flush=True)
+"""
+
+
+def test_pipelines_across_four_cards():
+    """The interleaved 1F1B (S 4, V 2) and TP x PP at S 2 on four NCCL
+    ranks, each step held on every rank to the one-rank oracle on its
+    card; relative L2 error 1e-4 a leaf (the same f32 sums in other
+    orders; a message paired with another's payload is off by O(1))."""
+    _four_cards()
+    assert_ranks_ok(run_world(PIPELINE_WORKER, 4, timeout=300))
