@@ -216,6 +216,19 @@ def _guard_rpc(fn, budget_ms: Optional[int] = None,
     return result.get("v")
 
 
+def _store_call(fn, store: Optional[Any] = None):
+    """Run one store RPC (``add``, ``set``) that returns or raises at
+    once; on an error, the liveness check decides what the caller sees:
+    a job abort or a lost store raise the plane's own errors
+    (:class:`JobAbortedError`, "store unreachable"), never the raw
+    transport error, and any other error is raised as it was."""
+    try:
+        return fn()
+    except Exception:  # noqa: BLE001 — converted or re-raised below
+        _coordinator_alive(store)
+        raise
+
+
 def _wait_key(key: str, timeout_ms: int, store: Optional[Any] = None) -> None:
     """Poll until ``key`` exists, probing the job's liveness every probe
     slice (fail-fast); ``TimeoutError`` after ``timeout_ms``."""
@@ -439,13 +452,18 @@ class ObjectPlane:
         client = _client(self._store)
         # arrivals are counted by the store's add; the last arrival posts
         # the done key every rank waits for
-        if int(client.add(f"{name}/arrived", 1)) >= self.process_count:
-            client.set(f"{name}/done", "1")
-        _wait_key(f"{name}/done", timeout_ms, self._store)
+        # the done key every rank waits for; every store call goes
+        # through the liveness conversion, as every wait does
+        store = self._store
+        if int(_store_call(lambda: client.add(f"{name}/arrived", 1),
+                           store)) >= self.process_count:
+            _store_call(lambda: client.set(f"{name}/done", "1"), store)
+        _wait_key(f"{name}/done", timeout_ms, store)
         # rank 0 leaves last: under env:// its process hosts the store,
         # and a peer still polling for the done key must find it there
-        if int(client.add(f"{name}/left", 1)) >= self.process_count:
-            client.set(f"{name}/all_left", "1")
+        if int(_store_call(lambda: client.add(f"{name}/left", 1),
+                           store)) >= self.process_count:
+            _store_call(lambda: client.set(f"{name}/all_left", "1"), store)
         if self.process_index == 0:
             _wait_key(f"{name}/all_left", timeout_ms, self._store)
 

@@ -581,17 +581,24 @@ def tp_lm_loss(model, x, y, train: bool = True, mutable=None):
 
 @torch.no_grad()
 def generate(model: TransformerLM, prompt, max_new_tokens: int,
-             eos_id: Optional[int] = None, pad_id: int = 0,
-             use_cache: bool = True) -> torch.Tensor:
-    """Greedy autoregressive generation: prompt int ``[B, Lp]`` → int64
-    ``[B, Lp + max_new_tokens]`` (argmax, first index on ties, as
-    ``jnp.argmax``). The prompt prefills once into a page sized to the
-    stream, then decodes one token at a time; ``use_cache=False``
-    recomputes the whole prefix each step (the audit path). ``eos_id``:
-    once a row emits it, later positions emit ``pad_id``. Sampled
-    generation waits for the port of ``jax.random``'s stream."""
+             rng=None, temperature: float = 1.0,
+             top_k: Optional[int] = None, eos_id: Optional[int] = None,
+             pad_id: int = 0, use_cache: bool = True) -> torch.Tensor:
+    """Autoregressive generation: prompt int ``[B, Lp]`` → int64 ``[B,
+    Lp + max_new_tokens]``. The prompt prefills once into a page sized to
+    the stream, then decodes one token at a time; ``use_cache=False``
+    recomputes the whole prefix each step (the audit path, same draws).
+
+    ``rng=None`` → greedy argmax (first index on ties, as
+    ``jnp.argmax``); else an integer seed of this package's sampling
+    stream (``serving/sampling.py``: one draw per token, row ``i``
+    keyed by the seed and ``i``; not ``jax.random``'s bits), sampling at
+    ``temperature``, truncated to the ``top_k`` highest logits when
+    given. ``eos_id``: once a row emits it, later positions emit
+    ``pad_id``."""
     from chainermn_torch.serving.kv_cache import (decode_apply, init_cache,
                                                   prefill_apply)
+    from chainermn_torch.serving.sampling import _row_keys, sample_tokens
 
     prompt = torch.as_tensor(prompt, device=model.device).long()
     b, lp = prompt.shape
@@ -601,6 +608,17 @@ def generate(model: TransformerLM, prompt, max_new_tokens: int,
                          f"max_len ({model.max_len})")
     if max_new_tokens == 0:
         return prompt
+    keys = None if rng is None else _row_keys(int(rng), b, prompt.device)
+    temps = torch.full((b,), float(temperature), device=prompt.device)
+    top_ks = torch.full((b,), int(top_k or 0), device=prompt.device)
+
+    def sample(logits):
+        nonlocal keys
+        if keys is None:
+            return logits.argmax(-1)
+        tok, keys = sample_tokens(logits, keys, temps, top_ks)
+        return tok
+
     if use_cache:
         cache = init_cache(model, b, total)
         logits, cache = prefill_apply(
@@ -608,7 +626,7 @@ def generate(model: TransformerLM, prompt, max_new_tokens: int,
             torch.arange(b, device=prompt.device))
     else:
         logits = model(prompt)[:, -1]
-    tok = logits.argmax(-1)
+    tok = sample(logits)
     done = tok == eos_id if eos_id is not None else None
     out = [prompt, tok[:, None]]
     for _ in range(max_new_tokens - 1):
@@ -616,7 +634,7 @@ def generate(model: TransformerLM, prompt, max_new_tokens: int,
             logits, cache = decode_apply(model, cache, tok)
         else:
             logits = model(torch.cat(out, dim=1))[:, -1]
-        tok = logits.argmax(-1)
+        tok = sample(logits)
         if eos_id is not None:
             tok = torch.where(done, torch.full_like(tok, pad_id), tok)
             done = done | (tok == eos_id)

@@ -4,8 +4,8 @@ A copy of ``chainermn_tpu/serving/reports.py``'s ``ServingReport`` (the
 port imports nothing of the JAX package): admission → first token
 (TTFT) → per-token cadence → retirement, plus queue depth and slot
 occupancy, recorded as plain floats against an injectable clock
-(``time_fn``). The wire envelope and the fleet-merge view wait for the
-fleet port.
+(``time_fn``), and the version-tagged wire envelope a cross-process
+replica ships its telemetry home in.
 """
 
 from __future__ import annotations
@@ -14,7 +14,15 @@ import json
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["ServingReport", "percentile"]
+__all__ = ["ServingReport", "ReceivedServingReport", "percentile",
+           "REPORT_WIRE_VERSION"]
+
+#: version tag on every serialized report envelope — bump on any change
+#: to the ``raw()`` schema so a mixed-version fleet fails loudly instead
+#: of merging mis-shaped telemetry
+#: (1 → 2: speculative-decoding counters — draft_tokens_proposed/
+#: accepted, spec_dispatches, spec_tokens_emitted)
+REPORT_WIRE_VERSION = 2
 
 
 def percentile(samples: List[float], q: float) -> float:
@@ -203,3 +211,56 @@ class ServingReport:
 
     def json(self) -> str:
         return json.dumps(self.summary(), sort_keys=True)
+
+    # ----------------------------------------------------------------
+    # wire serialization (cross-process fleet merge)
+    # ----------------------------------------------------------------
+
+    def to_wire(self) -> dict:
+        """Version-tagged, JSON-safe envelope of :meth:`raw` — the form
+        a cross-process replica ships its telemetry home in (fleet_lm
+        ``--hosts`` report files). Everything in ``raw()`` is ints and
+        floats, and Python's float repr round-trips exactly through
+        ``json.dumps``/``loads``, so the pooled-percentile merge on the
+        far side sees bit-identical samples."""
+        return {"version": REPORT_WIRE_VERSION, "kind": "serving_report",
+                "raw": self.raw()}
+
+    @staticmethod
+    def from_wire(wire: dict) -> "ReceivedServingReport":
+        """Rehydrate a :meth:`to_wire` envelope (version-checked) into
+        an object ``FleetReport.merge`` accepts alongside live ones."""
+        if not isinstance(wire, dict) or wire.get("kind") != "serving_report":
+            raise ValueError(
+                f"not a serving_report envelope: {type(wire).__name__}")
+        if wire.get("version") != REPORT_WIRE_VERSION:
+            raise ValueError(
+                f"serving_report wire version {wire.get('version')!r} "
+                f"!= {REPORT_WIRE_VERSION} (mixed-version fleet?)")
+        return ReceivedServingReport(wire["raw"])
+
+
+class ReceivedServingReport:
+    """A peer replica's telemetry, deserialized from the wire: exposes
+    the same :meth:`raw` surface ``FleetReport.merge`` pools, nothing
+    else (a received report cannot record new events)."""
+
+    def __init__(self, raw: dict):
+        missing = [k for k in ("ttft_s", "token_gap_s",
+                               "queue_depth_samples", "occupancy_samples",
+                               "submitted", "completed", "aborted",
+                               "tokens_emitted", "host_bytes",
+                               "draft_tokens_proposed",
+                               "draft_tokens_accepted",
+                               "spec_dispatches", "spec_tokens_emitted",
+                               "wall_s")
+                   if k not in raw]
+        if missing:
+            raise ValueError(
+                f"serving_report raw block missing keys: {missing}")
+        self._raw = {k: (list(v) if isinstance(v, list) else v)
+                     for k, v in raw.items()}
+
+    def raw(self) -> dict:
+        return {k: (list(v) if isinstance(v, list) else v)
+                for k, v in self._raw.items()}

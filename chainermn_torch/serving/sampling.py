@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["request_key", "init_keys", "split_keys", "sample_tokens"]
+__all__ = ["request_key", "init_keys", "split_keys", "sample_tokens",
+           "draft_shadow_keys"]
 
 _M32 = 0xFFFFFFFF
 
@@ -33,6 +34,14 @@ def request_key(seed: int, device=None) -> torch.Tensor:
 def init_keys(n: int, device=None) -> torch.Tensor:
     """The engine's resting key state: ``[n, 2]`` zeros."""
     return torch.zeros((n, 2), dtype=torch.int64, device=device)
+
+
+def _row_keys(seed: int, n: int, device=None) -> torch.Tensor:
+    """``[n, 2]`` key rows of one seed, a distinct stream a row (the row
+    index is mixed into the seed word), each at counter 0."""
+    rows = torch.arange(n, dtype=torch.int64, device=device)
+    mixed = _fmix32((int(seed) & _M32) ^ _mul32(rows + 1, 0x9E3779B9))
+    return torch.stack([mixed, torch.zeros_like(mixed)], dim=1)
 
 
 def split_keys(keys: torch.Tensor):
@@ -91,3 +100,16 @@ def sample_tokens(logits: torch.Tensor, keys: torch.Tensor, temperature,
     sampled = (scaled + gumbel_noise(sub, v)).argmax(-1)
     tokens = torch.where(temperature > 0, sampled, greedy)
     return tokens, new_keys
+
+
+def draft_shadow_keys(keys: torch.Tensor) -> torch.Tensor:
+    """SHADOW copy of the target's per-slot key rows for a speculative
+    draft pass (``serving/speculative.py``): the draft samples its
+    proposals with the SAME key values, at the same stream positions,
+    that the target will verify with, so the Gumbel-max draws coincide
+    wherever the two models' logits are close. The shadow is thrown away
+    after every round; only the verify pass advances the real rows, one
+    draw per emitted token, which keeps accepted streams equal to plain
+    decode's. A draft-sampled token is never committed from this stream
+    without a verify pass blessing it."""
+    return keys.clone()

@@ -2,7 +2,8 @@
 only) on the port's snapshots: a two-rank FSDP file set whose ring
 replicas the ``PeerReplicator`` wrote, read with ``inspect``, ``verify``
 and ``reshard-dry-run`` as the tool reads the JAX package's, unedited.
-A damaged file fails ``verify``."""
+A damaged file fails ``verify``. The world also runs the serving
+plane's ``pull_weights`` (rank 0's weights reach rank 1)."""
 
 import os
 import subprocess
@@ -32,6 +33,16 @@ for it, (x, y) in enumerate(batches() * 2, 1):
     if it % 2 == 0:
         ck.save(state.state_dict(), it)
         rep.replicate()
+# the serving plane's peer pull rides this world: rank 0's weights
+# (bf16 among them) reach every rank as host tensors
+import torch
+from chainermn_torch.serving.weights import pull_weights
+mine = {"w": torch.arange(6.0).reshape(2, 3) + r,
+        "h": torch.full((4,), 0.5 + r, dtype=torch.bfloat16)}
+got = pull_weights(comm, mine if r == 0 else None, root=0)
+assert torch.equal(got["w"], torch.arange(6.0).reshape(2, 3)), got
+assert got["h"].dtype == torch.bfloat16 and torch.equal(
+    got["h"], torch.full((4,), 0.5, dtype=torch.bfloat16)), got
 comm.host_barrier()
 print(f"RANK{r} OK", flush=True)
 os._exit(0)

@@ -3,8 +3,9 @@ forward and backward, the fused CE's forward, dh and dW) and of the
 training step on the card (the data-parallel step, a ZeRO-1 step against
 the same step on the CPU, and FSDP, plain and over the scanned stack,
 against the data-parallel step with their kernel launches, and a pipeline
-stage's remat backward through the flash kernels). A CUDA kernel has no CPU mode, so
-without a GPU every test here skips.
+stage's remat backward through the flash kernels) and of the serving
+engines (speculative and int8-page engines on the flash prefill). A CUDA
+kernel has no CPU mode, so without a GPU every test here skips.
 
 This file imports no JAX, so it runs on a GPU machine without the JAX
 package's test set-up:
@@ -900,3 +901,68 @@ def test_fsdp_step_on_the_card_launches_the_kernels_and_matches_dp(cuda,
         torch.testing.assert_close(params[k], v, rtol=1e-4, atol=1e-6,
                                    msg=k)
     assert state.gathered_bytes == 0 and state.gathered_bytes_peak > 0
+
+
+def _card_lm(cuda, n_layers, seed):
+    torch.manual_seed(seed)
+    model = TransformerLM(vocab=512, d_model=128, n_heads=4, n_layers=n_layers,
+                          d_ff=256, max_len=256, pos_emb="rope",
+                          dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        model.lm_head.weight.mul_(8.0)
+    return model
+
+
+def _card_serve(eng, prompts):
+    before = _cuda.launches()["flash_fwd"]
+    reqs = [eng.submit(p) for p in prompts]
+    eng.run_until_drained()
+    return [r.tokens for r in reqs], _cuda.launches()["flash_fwd"] - before
+
+
+def test_speculative_and_int8_engines_serve_on_the_card(cuda):
+    """An f32 LM (TF32 off, the LM head scaled 8x so greedy margins stay
+    far above the card's chunk-versus-decode difference of a few ulps)
+    on the card: the speculative engine (a 1-layer draft, and the target
+    as its own draft) gives the plain engine's greedy streams, the
+    self-draft pair accepts at least 0.9 of its proposals; an int8-page
+    engine serves every request, its decode logits within JAX's
+    calibrated bound (10 x half the coarsest resident scale) of an
+    f32-page step driven by the same tokens; every engine's prefill
+    launches flash_fwd."""
+    import numpy as np
+
+    from chainermn_torch.serving.engine import Engine, EngineConfig
+    from chainermn_torch.serving.kv_cache import ServingStep
+    from chainermn_torch.serving.speculative import SpeculativeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, draft = _card_lm(cuda, 2, 0), _card_lm(cuda, 1, 1)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 512, (n,)) for n in (17, 40, 9, 63, 25, 33)]
+    cfg = EngineConfig(n_slots=3, capacity=128, max_new_tokens=21,
+                       prefill_cohort=2, buckets=[16, 32, 64, 128])
+    want, n = _card_serve(Engine(model, cfg), prompts)
+    assert n > 0
+    for dm in (draft, model):
+        spec = SpeculativeEngine(model, dm, cfg, spec_k=4)
+        got, n = _card_serve(spec, prompts)
+        assert got == want and n > 0
+    assert spec.report.summary()["acceptance_rate"] >= 0.9
+    import dataclasses
+    q8 = Engine(model, dataclasses.replace(cfg, kv_dtype="int8-block"))
+    got, n = _card_serve(q8, prompts)
+    assert n > 0 and all(len(t) == 21 for t in got)
+    ctl = ServingStep(model, 1, 80)
+    q = ServingStep(model, 1, 80, kv_dtype="int8-block")
+    p = torch.as_tensor(prompts[3][None], device=cuda)
+    rows_c, rows_q = [ctl.prefill(p, [63], [0])], [q.prefill(p, [63], [0])]
+    for _ in range(8):
+        nxt = rows_c[-1].argmax(-1)
+        rows_c.append(ctl.decode(nxt))
+        rows_q.append(q.decode(nxt))
+    step = max(float(np.abs(page[leaf]).max()) / 2
+               for page in q.export_slot(0, int(q.cursors()[0])).values()
+               for leaf in ("k_s", "v_s"))
+    worst = max(float((a - b).abs().max()) for a, b in zip(rows_c, rows_q))
+    assert 0 < worst <= 10 * step, (worst, step)

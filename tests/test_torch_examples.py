@@ -1049,3 +1049,23 @@ def test_train_lm_trains_from_a_bpe_text_file(tmp_path, capsys):
     assert np.isfinite(trainer.observation["main/loss"])
     assert (tmp_path / "corpus.txt.bpe300.json").is_file()
     assert "BPE vocab" in capsys.readouterr().out
+
+
+def test_serve_transformer_lm_trains_publishes_and_serves(tmp_path,
+                                                           capsys):
+    """The serving example on the CPU at its own small size: a short
+    training run continues most prompts' strides, the published weights
+    verify, and the Frontend serves every request."""
+    from chainermn_torch.examples import serve_transformer_lm
+    from chainermn_torch.serving import load_weights
+
+    path = str(tmp_path / "w.npz")
+    hits = serve_transformer_lm.main(
+        ["--device", "cpu", "--train-steps", "80", "--requests", "3",
+         "--max-new-tokens", "6", "--publish", path])
+    out = capsys.readouterr().out
+    assert f"published weights to {path}" in out
+    assert '"completed": 3' in out and '"aborted": 0' in out
+    assert hits >= 9, out                  # of 18 tokens
+    flat, src = load_weights(path)
+    assert src == path and "lm_head.weight" in flat

@@ -75,7 +75,12 @@ def test_importing_the_port_loads_no_jax_module():
             "chainermn_torch.extensions.checkpoint, "
             "chainermn_torch.optimizers.zero, "
             "chainermn_torch.optimizers.large_batch, "
-            "chainermn_torch.examples.train_lm, chip_smoke; "
+            "chainermn_torch.examples.train_lm, "
+            "chainermn_torch.serving.speculative, "
+            "chainermn_torch.serving.weights, "
+            "chainermn_torch.serving.frontend, "
+            "chainermn_torch.examples.serve_transformer_lm, "
+            "chainermn_torch.tools.serve_lm, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -280,3 +285,33 @@ def test_the_zero_slice_raises_without_cuda_unless_asked_for_cpu(tmp_path):
          "--out", str(tmp_path)]))
     assert trainer.updater.comm.device == torch.device("cpu")
     trainer.updater.comm.finalize()
+
+
+def test_the_serving_slice_raises_without_cuda_unless_asked_for_cpu():
+    """The speculative engine, the example and the replica tool default
+    to the card; nothing of the rest of serving falls back on its own."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device works")
+    from chainermn_torch.examples import serve_transformer_lm
+    from chainermn_torch.serving.speculative import SpeculativeEngine
+    from chainermn_torch.tools import serve_lm
+
+    files = [p.relative_to(REPO).as_posix() for p in _port_files()]
+    for new in ("chainermn_torch/serving/speculative.py",
+                "chainermn_torch/serving/weights.py",
+                "chainermn_torch/serving/frontend.py",
+                "chainermn_torch/examples/serve_transformer_lm.py",
+                "chainermn_torch/tools/serve_lm.py"):
+        assert new in files       # covered by the import scan above
+    model = _tiny("cpu")
+    cfg = EngineConfig(n_slots=2, capacity=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SpeculativeEngine(model, model, cfg, spec_k=2)
+    assert SpeculativeEngine(model, model, cfg, spec_k=2,
+                             device="cpu").draft.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_transformer_lm.main(["--train-steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_lm.serve(serve_lm.argparse.Namespace(
+            vocab=16, d_model=16, n_heads=2, n_layers=1, capacity=8,
+            seed=0, device="cuda"))

@@ -207,6 +207,36 @@ def test_a_dead_store_host_fails_the_survivors_waits():
     assert rc1 == 0 and "RANK1 OK" in out1, out1[-3000:]
 
 
+_STORE_HOST_DIES_MID_ADD = r'''
+import os, time
+from chainermn_torch import create_communicator
+
+comm = create_communicator("naive", device="cpu")
+comm.host_barrier()
+if comm.rank == 0:
+    os._exit(0)             # the store's host is gone
+# the barrier's first store call (its add) waits until the host is
+# surely gone: the race the raw transport error came from, every time
+os.environ["CHAINERMN_TPU_CHAOS"] = "delay_rpc@op=barrier,ms=1500"
+t0 = time.monotonic()
+try:
+    comm.host_barrier()
+except RuntimeError as e:
+    took = time.monotonic() - t0
+    assert "unreachable" in str(e) and took < 10, (took, type(e), e)
+    print(f"RANK1 OK store loss raised after {took:.2f} s", flush=True)
+os._exit(0)
+'''
+
+
+def test_a_store_lost_inside_the_barriers_add_raises_the_planes_error():
+    """Rank 1 reaches ``_barrier``'s ``add`` only after rank 0 (the
+    store's host) has exited: the plane's "store unreachable" error, not
+    the transport's, within 10 s."""
+    (_, out0), (rc1, out1) = run_world(_STORE_HOST_DIES_MID_ADD, 2, 40)
+    assert rc1 == 0 and "RANK1 OK" in out1, out1[-3000:]
+
+
 _HOOK = r'''
 import os, sys, time
 from chainermn_torch import create_communicator

@@ -176,6 +176,38 @@ def test_serving_report_matches_the_jax_report():
     assert drive(ServingReport) == drive(JaxReport)
 
 
+def test_report_wire_envelope_is_the_jax_packages():
+    """``to_wire`` of the same events is JAX's envelope, JSON and all;
+    ``from_wire`` takes either package's envelope back to the same
+    ``raw()``, and refuses another kind or version with JAX's texts."""
+    import json
+
+    from chainermn_tpu.serving.reports import (
+        ServingReport as JaxWireReport)
+    from chainermn_torch.serving.reports import REPORT_WIRE_VERSION
+
+    def drive(report_cls):
+        clock = iter(np.arange(0.0, 100.0, 0.25).tolist())
+        rep = report_cls(lambda: next(clock))
+        rep.record_submit(0)
+        rep.record_token(0)
+        rep.record_spec_round(4, 2, 3)
+        rep.record_retire(0)
+        return rep
+
+    wire = drive(ServingReport).to_wire()
+    assert json.dumps(wire) == json.dumps(drive(JaxWireReport).to_wire())
+    back = ServingReport.from_wire(json.loads(json.dumps(wire)))
+    assert back.raw() == drive(ServingReport).raw()
+    with pytest.raises(ValueError, match="not a serving_report envelope"):
+        ServingReport.from_wire({"kind": "other"})
+    with pytest.raises(ValueError, match="mixed-version fleet"):
+        ServingReport.from_wire(dict(wire,
+                                     version=REPORT_WIRE_VERSION + 1))
+    with pytest.raises(ValueError, match="missing keys"):
+        ServingReport.from_wire(dict(wire, raw={}))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_engine_serves_a_snapshot_that_only_load_params_updates(dtype):
