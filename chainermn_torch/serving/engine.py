@@ -292,6 +292,12 @@ class Engine:
             "top_k": req.top_k,
             "seed": req.seed,
             "weights_version": self.weights_version,
+            # the handoff codec's cue: these f32 rows were widened from
+            # bf16 pages and cross the wire as bf16 (never in a manifest)
+            "page_dtype": ("bfloat16"
+                           if (self.steps.cache_dtype == torch.bfloat16
+                               and self.steps.kv_dtype != "int8-block")
+                           else None),
         }
 
     def export_session(self, req: Request) -> dict:
@@ -405,7 +411,7 @@ class Engine:
         # the handed-off key CONTINUES the stream (one draw consumed
         # per sampled token so far) — never re-derive from the seed
         self._keys[slot] = torch.as_tensor(
-            np.asarray(handoff["key"], np.int64), device=self.device)
+            np.array(handoff["key"], np.int64), device=self.device)
         # a wire-decoded handoff from an int8-resident source carries
         # the verbatim codes next to the dequantized pages — an int8
         # destination adopts those bytes directly (zero extra

@@ -34,6 +34,7 @@ from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Optional
 
 from chainermn_torch.comm.object_plane import JobAbortedError
+from chainermn_torch.device import bind_thread_device, cuda_index_of
 from chainermn_torch.resilience.policy import RpcPolicy, policy
 from chainermn_torch.resilience.watchdog import current_watchdog
 
@@ -80,13 +81,7 @@ class Frontend:
         self.error: Optional[BaseException] = None
         # the engine's card for the scheduler thread (torch.cuda's current
         # device is per thread): its index, or this thread's current one
-        dev = getattr(engine, "device", None)
-        self._cuda_index = None
-        if dev is not None and dev.type == "cuda":
-            import torch
-
-            self._cuda_index = (dev.index if dev.index is not None
-                                else torch.cuda.current_device())
+        self._cuda_index = cuda_index_of(engine)
         self._thread = threading.Thread(target=self._loop,
                                         name="serving-frontend",
                                         daemon=True)
@@ -210,10 +205,7 @@ class Frontend:
 
     def _loop(self) -> None:
         try:
-            if self._cuda_index is not None:
-                import torch
-
-                torch.cuda.set_device(self._cuda_index)
+            bind_thread_device(self._cuda_index)
             self._serve()
         except Exception as e:  # noqa: BLE001 — the thread's boundary
             # not swallowed: every pending future fails with it, and

@@ -75,7 +75,27 @@ the final line:
    int8-block, loaded and swapped into a drained engine (a busy one must
    refuse): its streams equal a fresh engine's on the loaded weights; (e)
    the 16 prompts through a ``Frontend`` from 4 threads, every future
-   the Engine's stream;
+   the Engine's stream; then the serving fleet on that model and config
+   (``fleet`` lines, each with its own launch counts, flash_fwd > 0 in
+   each; every stream held to the plain engine's, a divergence allowed
+   only at a top-2 margin under (c)'s gap): (a) the ``Router`` over 2
+   replicas with one killed by chaos (``kill_replica``: replicas_dead 1,
+   streams requeued and complete), then a replica drained mid-decode
+   (sessions migrated, ``DRAINED``, tokens emitted once), TTFT and
+   tokens/s beside the plain engine's; (b) a prefill engine feeding a
+   decode engine over ``InProcessTransport``: the f32 wire's bytes equal
+   to the fills' bf16 page bytes plus the key rows, ms a handoff,
+   int8-block's bytes and ratio and its logit error after a handoff
+   within 10 x half the coarsest block scale, the async conveyor's
+   overlap and stall against sync's; (c) ``RolloutController`` walks the
+   live router from the served weights to a seeded perturbation of
+   them: the canary passes, every replica ends on v2, every stream is
+   one version's, the relay's bytes beside the snapshot's; (d) two
+   ``fleet_lm`` processes (``--hosts 2 --transport socket --streamed``)
+   on the served model published once, started after (b) and run
+   beside (c): the merged JSONL against an in-process Engine, and a
+   second run with ``reset_conn`` on the prefill host heals to the same
+   JSONL;
 5. train — the same LM (f32 parameters, bf16 compute) trains through
    ``create_communicator("pure_nccl")`` (one rank, NCCL),
    ``create_multi_node_optimizer(AdamW(3e-4))`` and
@@ -178,9 +198,11 @@ the final line:
    momentum: ZeRO-1 and ZeRO-2 flat and bucketed and ZeRO-1 with
    int8-block error feedback, and ZeRO-1 with Adam, each held to one rank
    (a ``split`` of its own) running the data-parallel step on all eight
-   sequences; (c) ``train_imagenet --optimizer lars|lamb``: the first 2
-   steps of ResNet-50 (64², f32) and the ViT (32², f32) held to the CPU's,
-   then ResNet-50 ``--loader`` at batch 256, 224² and the ViT at batch 64,
+   sequences; these runs share the FSDP phase's 4-rank world (after its
+   FSDP runs, with their own launch counts) and print there; (c)
+   ``train_imagenet --optimizer lars|lamb``: the first 2 steps of
+   ResNet-50 (64², f32) and the ViT (32², f32) held to the CPU's, then
+   ResNet-50 ``--loader`` at batch 256, 224² and the ViT at batch 64,
    224², 8 iterations each between two SGD runs; (d) ``train_lm --zero 1
    --zero-bucket-kib 4096`` at full width (f32, seq 2048, batch 4);
 15. fsdp — FSDP (ZeRO-3), the scanned-stack LM loss, sharded
@@ -1836,7 +1858,7 @@ def _serve_speculative(model, prompts, streams, seed: int, plain_rate,
     if not (acc >= MIN_SELF_ACCEPT and tpd > 1):
         raise PhaseError(f"slice (c): the self-draft pair accepted {acc} "
                          f"at {tpd} tokens a dispatch")
-    return total
+    return total, gap
 
 
 def _serve_swap(model, prompts, seed: int, card: str):
@@ -1947,10 +1969,11 @@ def serving_rest(model, prompts, streams, seed: int, plain_rate: str,
                  card: str, mark):
     """The slice phase's (a)-(e) on the served model; ``streams`` are the
     plain engine's greedy streams of ``prompts``. Returns the flash_fwd
-    launches of all five (each counted from 0 around its own runs)."""
+    launches of all five (each counted from 0 around its own runs) and
+    the chunk-versus-decode logit gap (c) measured."""
     import torch
 
-    total = 0
+    total, gap = 0, None
     for name, run in (
             ("int8", lambda: _serve_int8(model, prompts, streams, card)),
             ("migration", lambda: _serve_migration(model, prompts, streams,
@@ -1960,9 +1983,601 @@ def serving_rest(model, prompts, streams, seed: int, plain_rate: str,
             ("swap", lambda: _serve_swap(model, prompts, seed, card)),
             ("frontend", lambda: _serve_frontend(model, prompts, streams,
                                                  card))):
-        total += run()["flash_fwd"]
+        got = run()
+        if name == "speculative":
+            got, gap = got
+        total += got["flash_fwd"]
         torch.cuda.empty_cache()
         mark(f"slice {name}")
+    return total, gap
+
+
+# the serving fleet on the served model: the fleet phase's (a)-(d)
+FLEET = dict(kill_step=3, drain_min_tokens=2, replicas=2, perturb=0.1,
+             relay_chunk_mib=8, walk_gap_s=0.5, disagg_prompts=8,
+             drain_prompts=8,
+             host_requests=4, host_prompt_len=512, host_new=32,
+             host_timeout=300, health_timeout_ms=300_000)
+
+# one fleet_lm host: its own entry point (its log lines stamped with
+# the seconds since the process started), then the launches it made
+_FLEET_HOST_SCRIPT = r"""
+import json, sys, time
+t0 = time.perf_counter()
+from chainermn_torch.ops import _cuda
+from chainermn_torch.tools import fleet_lm
+fleet_lm._log = lambda msg: print(
+    f'[{time.perf_counter() - t0:.2f}s] fleet_lm: {msg}', file=sys.stderr,
+    flush=True)
+rc = fleet_lm.main(sys.argv[1:])
+print('launches ' + json.dumps(_cuda.launches()), flush=True)
+print(f'host seconds {time.perf_counter() - t0:.2f}', flush=True)
+sys.exit(rc)
+"""
+
+
+def _host_times(text: str) -> str:
+    """A host log's start-up and total seconds: the stamp of its
+    ``queued`` line (the model built and its weights loaded) and the
+    process's own count."""
+    import re
+
+    loaded = re.search(r"\[([0-9.]+)s\] fleet_lm: warm weights", text)
+    up = re.search(r"\[([0-9.]+)s\] fleet_lm: queued", text)
+    total = re.search(r"host seconds ([0-9.]+)", text)
+    return (f"weights at {loaded.group(1) if loaded else '?'} s, up "
+            f"{up.group(1) if up else '?'} s, done "
+            f"{total.group(1) if total else '?'} s")
+
+
+def _fleet_host_argv(model, seed: int, rank: int, endpoints: str,
+                     weights: str, out: str, report: str):
+    """``fleet_lm``'s flags for one of two hosts serving the served
+    model at full width with ``engine_config()``'s slots and capacity."""
+    cfg, f = engine_config(), FLEET
+    return ["--hosts", "2", "--host-rank", str(rank), "--prefill-hosts",
+            "1", "--transport", "socket", "--endpoints", endpoints,
+            "--streamed", "--weights", weights, "--out", out, "--report",
+            report, "--vocab", str(model.vocab), "--d-model",
+            str(model.d_model), "--n-heads", str(model.n_heads),
+            "--n-layers", str(model.n_layers), "--d-ff", str(model.d_ff),
+            "--dtype", "bfloat16", "--attention", "flash", "--slots",
+            str(cfg.n_slots), "--capacity", str(cfg.capacity),
+            "--decode-k", str(cfg.decode_k), "--requests",
+            str(f["host_requests"]), "--prompt-len",
+            str(f["host_prompt_len"]), "--max-new-tokens",
+            str(f["host_new"]), "--seed", str(seed),
+            "--handoff-deadline-s", str(f["host_timeout"] - 60)]
+
+
+def _fleet_hosts_start(model, seed: int, work: str):
+    """(d)'s two runs of two ``fleet_lm`` hosts (the second with a
+    ``reset_conn`` fault on the prefill host), started in the background
+    on the served model published once; (a)-(c) run meanwhile."""
+    from chainermn_torch.comm.socket_plane import pick_free_endpoints
+    from chainermn_torch.serving.weights import publish_weights
+
+    weights = os.path.join(work, "weights.npz")
+    t0 = time.perf_counter()
+    publish_weights(model.state_dict(), weights)
+    publish_s = time.perf_counter() - t0
+    runs = {}
+    for name, fault in (("clean", None), ("reset_conn", "reset_conn@times=1")):
+        d = os.path.join(work, name)
+        os.makedirs(d)
+        eps = ",".join(pick_free_endpoints(2))
+        procs = []
+        for rank in (1, 0):
+            env = dict(os.environ, PYTHONPATH=HERE,
+                       CHAINERMN_TPU_RPC_PROBE_MS="30000")
+            env.pop("CHAINERMN_TPU_CHAOS", None)
+            if fault and rank == 0:
+                env["CHAINERMN_TPU_CHAOS"] = fault
+            log = open(os.path.join(d, f"h{rank}.log"), "w")
+            procs.append((rank, log, subprocess.Popen(
+                [sys.executable, "-c", _FLEET_HOST_SCRIPT,
+                 *_fleet_host_argv(model, seed, rank, eps, weights,
+                                   os.path.join(d, "s.jsonl"),
+                                   os.path.join(d, "report.json"))],
+                cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)))
+        runs[name] = (d, procs, time.perf_counter())
+    return runs, publish_s, os.path.getsize(weights)
+
+
+def _fleet_hosts_finish(model, runs, seed: int, gap: float, card: str,
+                        publish):
+    """(d): wait for both runs; each merged JSONL against an in-process
+    Engine on the same config and prompts (divergences under the gap),
+    the faulted run's JSONL equal to the clean one's, the transport
+    counters of the merged reports. Returns the hosts' launches."""
+    import glob
+
+    import numpy as np
+
+    from chainermn_torch.fleet import FleetReport
+    from chainermn_torch.serving.engine import Engine, EngineConfig
+
+    f, cfg = FLEET, engine_config()
+    rows, total, times = {}, {}, {}
+    for name, (d, procs, t0) in runs.items():
+        deadline = t0 + f["host_timeout"]
+        launched = {}
+        for rank, log, p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                for _r, _l, q in procs:
+                    q.kill()
+                raise PhaseError(f"fleet (d) {name}: host {rank} outlived "
+                                 f"{f['host_timeout']} s")
+            finally:
+                log.close()
+            text = open(os.path.join(d, f"h{rank}.log")).read()
+            if p.returncode != 0:
+                raise PhaseError(f"fleet (d) {name}: host {rank} exited "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+            got = json.loads([ln for ln in text.splitlines()
+                              if ln.startswith("launches ")][-1][9:])
+            launched[rank] = got
+            times[(name, rank)] = _host_times(text)
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+        wall = time.perf_counter() - t0
+        merged = {}
+        for path in sorted(glob.glob(os.path.join(d, "s.jsonl*"))):
+            with open(path) as fh:
+                for line in fh:
+                    if line.strip():
+                        r = json.loads(line)
+                        merged[r["request_id"]] = r
+        rep = FleetReport()
+        for rank in (0, 1):
+            with open(os.path.join(d, f"report.json.h{rank}")) as fh:
+                rep.absorb(FleetReport.from_wire(json.load(fh)["fleet"]))
+        rows[name] = (merged, rep.summary([])["fleet"]["transport"],
+                      launched, wall, rep)
+    merged, counters, launched, wall, rep = rows["clean"]
+    # the oracle: one in-process engine, the hosts' config and prompts
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, model.vocab, (f["host_prompt_len"],)).astype(
+        np.int32) for _ in range(f["host_requests"])]
+    eng = Engine(model, EngineConfig(
+        n_slots=cfg.n_slots, capacity=cfg.capacity,
+        max_new_tokens=f["host_new"], prefill_cohort=1,
+        buckets=[f["host_prompt_len"], cfg.capacity],
+        decode_k=cfg.decode_k))
+    reqs = [eng.submit(p, seed=seed + i) for i, p in enumerate(prompts)]
+    eng.run_until_drained()
+    want = [r.tokens for r in reqs]
+    complete = sorted(merged) == list(range(f["host_requests"]))
+    got = [merged.get(i, {}).get("tokens", []) for i in range(len(want))]
+    n, margin = _divergences(model, prompts, want, got, gap)
+    fmerged, fcounters, flaunched, fwall, frep = rows["reset_conn"]
+    healed = fmerged == merged
+    print(f"fleet (d) two hosts: python -m chainermn_torch.tools.fleet_lm "
+          f"--hosts 2 --transport socket --streamed on the served model "
+          f"(published once, {publish[1] / 1e6:.1f} MB in "
+          f"{publish[0] * 1e3:.1f} ms), {f['host_requests']} requests of "
+          f"{f['host_prompt_len']} tokens x {f['host_new']}, slots "
+          f"{cfg.n_slots}, capacity {cfg.capacity}: {len(merged)} streams "
+          f"in {wall:.1f} s (two runs of two processes on this card, "
+          f"started beside (c)), {n} divergences from an in-process "
+          f"Engine, worst "
+          f"top-2 margin at one {margin:.4f} against the gap {gap:.4f}; "
+          f"{rep.handoffs} handoffs, {rep.handoff_wire_bytes} wire bytes, "
+          f"transport {counters}, launches {launched}; under reset_conn on "
+          f"the prefill host: the same JSONL {healed}, transport "
+          f"{fcounters}, launches {flaunched}; hosts (prefill, decode) "
+          f"{ {n_: (times[(n_, 0)], times[(n_, 1)]) for n_ in rows} } "
+          f"({card})", flush=True)
+    for name, (_m, _c, lc, _w, _r) in rows.items():
+        # the prefill host prefills; the decode host adopts and decodes
+        _need_flash(lc[0], f"fleet (d) {name} prefill host")
+    if not complete or (n and margin >= gap) or not healed:
+        raise PhaseError(f"fleet (d): complete {complete}, {n} "
+                         f"divergences at margin {margin} (gap {gap}), "
+                         f"healed {healed}")
+    if fcounters["reconnects"] < 1:
+        raise PhaseError(f"fleet (d): reset_conn never reconnected "
+                         f"({fcounters})")
+    return total
+
+
+def _fleet_rate(summ) -> str:
+    done = summ["requests"]["completed"]
+    return (f"ttft p50 {summ['ttft_ms']['p50']:.2f} ms, decode tokens/s "
+            f"{(summ['tokens_emitted'] - done) / summ['wall_s']:.1f}")
+
+
+def _fleet_router(model, prompts, streams, gap: float, plain_rate: str,
+                  card: str):
+    """(a): 2 replicas behind the Router with one killed by chaos, then a
+    clean fleet with a replica drained mid-decode (live migration)."""
+    import torch
+
+    from chainermn_torch.fleet import Router
+    from chainermn_torch.ops import _cuda
+    from chainermn_torch.resilience import chaos
+    from chainermn_torch.serving.engine import Engine
+
+    f, total = FLEET, {}
+
+    def run(spec, drain, prompts, streams):
+        engines = [Engine(model, engine_config())
+                   for _ in range(f["replicas"])]
+        os.environ.pop(chaos.ENV_VAR, None)
+        if spec:
+            os.environ[chaos.ENV_VAR] = spec
+        chaos._plan, chaos._plan_spec = None, None
+        out = None
+        try:
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            with Router(engines, health_timeout_ms=f["health_timeout_ms"]
+                        ) as router:
+                futs = [router.submit(p) for p in prompts]
+                if drain:
+                    deadline = time.monotonic() + 120
+                    while not any(len(r.tokens) >= f["drain_min_tokens"]
+                                  for r in list(engines[1].active.values())):
+                        if time.monotonic() > deadline:
+                            raise PhaseError("fleet (a): nothing reached "
+                                             "decode on replica 1")
+                        time.sleep(0.001)
+                    out = router.drain(1, deadline_ms=120_000)
+                reqs = [router.result(fu, timeout_ms=300_000) for fu in futs]
+                summ = router.summary()
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop(chaos.ENV_VAR, None)
+            chaos._plan, chaos._plan_spec = None, None
+        counts = _cuda.launches()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        got = [r.tokens for r in reqs]
+        n, margin = _divergences(model, prompts, streams, got, gap)
+        return (time.perf_counter() - t0, got, summ, counts, n, margin, out)
+
+    spec = f"kill_replica@step={f['kill_step']},replica=1"
+    wall, got, summ, counts, n, margin, _ = run(spec, False, prompts,
+                                                streams)
+    fl = summ["fleet"]
+    print(f"fleet (a) router: {f['replicas']} replicas (engine_config()), "
+          f"16 requests, chaos {spec}: {sum(len(g) == 32 for g in got)}/16 "
+          f"streams of 32 tokens, replicas_dead {fl['replicas_dead']}, "
+          f"requeued {fl['requeued']}, wall {wall:.3f} s, "
+          f"{_fleet_rate(summ)} (plain engine: {plain_rate}); {n} "
+          f"divergences from the plain engine, worst top-2 margin at one "
+          f"{margin:.4f} against the gap {gap:.4f}; launches {counts} "
+          f"({card})", flush=True)
+    _need_flash(counts, "fleet (a) router")
+    if (not all(len(g) == 32 for g in got) or fl["replicas_dead"] != 1
+            or fl["requeued"] < 1 or (n and margin >= gap)):
+        raise PhaseError(f"fleet (a) router: {fl}, {n} divergences at "
+                         f"margin {margin} (gap {gap})")
+    k = f["drain_prompts"]
+    wall, got, summ, counts, n, margin, out = run(None, True, prompts[:k],
+                                                  streams[:k])
+    fl = summ["fleet"]
+    conserved = summ["tokens_emitted"] == sum(len(g) for g in got)
+    print(f"fleet (a) drain: {k} requests, replica 1 drained mid-decode: "
+          f"{out}, state "
+          f"{fl['replica_states']}, {fl['migrations']} sessions migrated "
+          f"({fl['migration_wire_bytes']} wire bytes), "
+          f"{fl['migration_fallbacks']} fallbacks, tokens emitted "
+          f"{summ['tokens_emitted']} = stream tokens "
+          f"{sum(len(g) for g in got)}: {conserved}; wall {wall:.3f} s, "
+          f"{_fleet_rate(summ)} (plain engine: {plain_rate}); {n} "
+          f"divergences, worst top-2 margin at one {margin:.4f} against "
+          f"the gap {gap:.4f}; launches {counts} ({card})", flush=True)
+    _need_flash(counts, "fleet (a) drain")
+    if (out["state"] != "DRAINED" or out["migrated"] < 1 or not conserved
+            or fl["replicas_drained"] != 1 or (n and margin >= gap)):
+        raise PhaseError(f"fleet (a) drain: {out}, {fl}, conserved "
+                         f"{conserved}, {n} divergences at {margin}")
+    return total
+
+
+def _fleet_disagg(model, prompts, streams, gap: float, card: str):
+    """(b): a prefill engine feeding a decode engine over
+    ``InProcessTransport``: the f32 wire (bf16 pages at 2 B an element),
+    int8-block (bytes, ratio, the calibrated logit bound), and the async
+    conveyor against sync."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from chainermn_torch.collectives.quantized import block_quantize
+    from chainermn_torch.fleet import (DisaggregatedFleet, FleetReport,
+                                       InProcessTransport, decode_handoff,
+                                       encode_handoff)
+    from chainermn_torch.ops import _cuda
+    from chainermn_torch.serving.engine import Engine
+    from chainermn_torch.serving.kv_cache import cache_bytes
+
+    cfg, total, res = engine_config(), {}, {}
+    n = FLEET["disagg_prompts"]
+    prompts, streams = prompts[:n], streams[:n]
+    for name, wf, asy in (("f32", "f32", False),
+                          ("int8-block", "int8-block", False),
+                          ("f32 async", "f32", True)):
+        report = FleetReport()
+        fleet = DisaggregatedFleet(Engine(model, cfg), Engine(model, cfg),
+                                   wire_format=wf, report=report,
+                                   transport=InProcessTransport(),
+                                   async_conveyor=asy)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        ss = [fleet.submit(p) for p in prompts]
+        fleet.run_until_drained()
+        fleet.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _cuda.launches()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        got = [s.tokens for s in ss]
+        ttft = fleet.prefill.engine.report.summary()["ttft_ms"]["p50"]
+        div, margin = _divergences(model, prompts, streams, got, gap)
+        res[name] = dict(bytes=report.handoff_wire_bytes[wf],
+                         handoffs=report.handoffs,
+                         fallbacks=report.handoff_fallbacks,
+                         stall=fleet.stats["stall_ms_total"],
+                         xfer=fleet.stats["transfer_ms_total"],
+                         overlap=fleet.overlap_fraction, n=div,
+                         margin=margin,
+                         wall=wall, counts=counts,
+                         done=all(len(g) == 32 for g in got),
+                         rate=(f"ttft p50 {ttft:.2f} ms, decode tokens/s "
+                               f"{(sum(map(len, got)) - len(got)) / wall:.1f}"
+                               f" (over the wall)"))
+        del fleet
+        torch.cuda.empty_cache()
+    # the f32 wire carries bf16 pages at their own width: each handoff
+    # is the fill's cache bytes plus the 16-byte key row
+    want = sum(cache_bytes(model, 1, len(p)) + 16 for p in prompts)
+    # the int8 logit error after a handoff against JAX's calibrated
+    # bound: 10 x half the coarsest per-block scale
+    one = dataclasses.replace(cfg, decode_k=1)
+    a = Engine(model, one)
+    held = [a.submit(p, max_new_tokens=1, hold=True) for p in prompts[:2]]
+    a.run_until_drained()
+    worst = step = 0.0
+    for req, p in zip(held, prompts[:2]):
+        h = a.export_handoff(req)
+        logits = {}
+        for wf in ("f32", "int8-block"):
+            d = Engine(model, one)
+            r = d.import_handoff(decode_handoff(*encode_handoff(h, wf)), p,
+                                 max_new_tokens=2)
+            d.step()
+            logits[wf] = d.last_logits[r.slot]
+            del d
+        worst = max(worst, float(np.abs(logits["int8-block"]
+                                        - logits["f32"]).max()))
+        for page in h["pages"].values():
+            for leaf in ("k", "v"):
+                _q, s = block_quantize(torch.from_numpy(
+                    page[leaf].reshape(-1)).to(torch.bfloat16))
+                step = max(step, float(s.float().max()) / 2)
+        a.release_held(req)
+    del a
+    r32, r8, ra = res["f32"], res["int8-block"], res["f32 async"]
+    print(f"fleet (b) disaggregated: prefill engine -> decode engine over "
+          f"InProcessTransport, {n} requests: f32 wire {r32['bytes']:,} B "
+          f"for {r32['handoffs']} handoffs (bf16 pages at 2 B an element "
+          f"plus the key row: {want:,} B), "
+          f"{r32['xfer'] / max(1, r32['handoffs']):.2f} ms a handoff "
+          f"(encode and send), {r32['rate']}, {r32['n']} divergences "
+          f"(worst margin {r32['margin']:.4f}); int8-block wire "
+          f"{r8['bytes']:,} B ({r8['bytes'] / r32['bytes']:.4f}x), "
+          f"{r8['rate']}, {r8['n']} divergences (worst margin "
+          f"{r8['margin']:.4f}), logit error after a handoff {worst:.4f} "
+          f"against {TOL_INT8_STEPS:g} x half the coarsest block scale "
+          f"{step:.5f} = {TOL_INT8_STEPS * step:.4f}; async conveyor: "
+          f"overlap {ra['overlap']:.4f}, stall {ra['stall']:.2f} ms "
+          f"against sync's {r32['stall']:.2f} ms, {ra['n']} divergences; "
+          f"gap {gap:.4f}; launches f32 {r32['counts']}, int8 "
+          f"{r8['counts']}, async {ra['counts']} ({card})", flush=True)
+    for name, r in res.items():
+        _need_flash(r["counts"], f"fleet (b) {name}")
+        if (not r["done"] or r["fallbacks"] or r["handoffs"] != n
+                or (name != "int8-block" and r["n"] and r["margin"] >= gap)):
+            raise PhaseError(f"fleet (b) {name}: {r}")
+    if r32["bytes"] != want or not 0 < worst <= TOL_INT8_STEPS * step:
+        raise PhaseError(f"fleet (b): f32 wire {r32['bytes']} B (want "
+                         f"{want}), int8 logit error {worst} (bound "
+                         f"{TOL_INT8_STEPS} x {step})")
+    if not ra["stall"] < r32["stall"]:
+        raise PhaseError(f"fleet (b): the async conveyor stalled "
+                         f"{ra['stall']} ms, sync {r32['stall']} ms")
+    return total
+
+
+def _fleet_rollout(model, prompts, streams, gap: float, seed: int,
+                   snapshot: int, card: str):
+    """(c): ``RolloutController`` walks the live router from the served
+    weights (v1) to a seeded perturbation of them (v2): the canary
+    passes, every stream is one version's, the relay's bytes against
+    ``snapshot``, the bytes of the served weights' published file (v2
+    has its shapes and dtypes, so its snapshot has as many)."""
+    import copy
+    import threading
+
+    import torch
+
+    from chainermn_torch.fleet import RolloutController, Router
+    from chainermn_torch.ops import _cuda
+    from chainermn_torch.serving.engine import Engine
+
+    f, cfg = FLEET, engine_config()
+    g = torch.Generator().manual_seed(seed + 3)
+    v1 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    # v2: the LM head moved by a seeded fraction of its spread
+    head = v1["lm_head.weight"]
+    v2 = dict(v1, **{"lm_head.weight": head + f["perturb"] * float(
+        head.std()) * torch.randn(head.shape, generator=g)})
+
+    def make(params, version):
+        eng = Engine(model, cfg, weights_version=version)
+        eng.steps.load_params(params)
+        return eng
+
+    # the v2 oracle: the canary's prompts alone (what the canary engine
+    # runs, bitwise), and all 16 for the one-version check
+    t_oracle = time.perf_counter()
+    canary = [(prompts[i], 0, 32) for i in range(2)]
+    ora = make(v2, "v2")
+    creqs = [ora.submit(p, max_new_tokens=n, seed=s) for p, s, n in canary]
+    ora.run_until_drained()
+    oreqs = [ora.submit(p) for p in prompts]
+    ora.run_until_drained()
+    del ora
+    streams2 = [r.tokens for r in oreqs]
+    engines = [Engine(model, cfg, weights_version="v1")
+               for _ in range(f["replicas"])]
+    half = len(prompts) // 2
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    t_oracle = t0 - t_oracle
+    with Router(engines, health_timeout_ms=f["health_timeout_ms"]) as router:
+        rc = RolloutController(router, make, like=v1,
+                               chunk_bytes=f["relay_chunk_mib"] << 20)
+        # traffic: half the prompts before the walk, the other half from
+        # a client thread during it, the first half again after it
+        futs = [(i, router.submit(prompts[i])) for i in range(half)]
+        walking = threading.Event()
+
+        def client():
+            # one prompt every walk_gap_s while the walk runs
+            for i in range(half, len(prompts)):
+                if not walking.is_set():
+                    return
+                futs.append((i, router.submit(prompts[i])))
+                time.sleep(f["walk_gap_s"])
+
+        walking.set()
+        th = threading.Thread(target=client)
+        th.start()
+        t_walk = time.perf_counter()
+        out = rc.rollout(v2, "v2", canary_prompts=canary,
+                         canary_oracle=[r.tokens for r in creqs])
+        t_walk = time.perf_counter() - t_walk
+        walking.clear()
+        th.join(timeout=600)
+        for i in range(len(prompts)):
+            if i not in dict(futs):
+                futs.append((i, router.submit(prompts[i])))
+        after = [(i, router.submit(prompts[i])) for i in range(half)]
+        reqs = [(i, router.result(fu, timeout_ms=300_000))
+                for i, fu in futs + after]
+        summ = router.summary()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launches()
+    idx = [i for i, _r in reqs]
+    got = [r.tokens for _i, r in reqs]
+    model2 = None
+    versions = []
+    for p, x, s1, s2 in zip([prompts[i] for i in idx], got,
+                            [streams[i] for i in idx],
+                            [streams2[i] for i in idx]):
+        if x == s1 or x == s2:
+            versions.append("both" if s1 == s2 else
+                            "v1" if x == s1 else "v2")
+            continue
+        # the version whose stream it follows longer: a divergence from
+        # it must sit at a near tie (under the gap)
+        pre = [next((j for j, (a, b) in enumerate(zip(x, s)) if a != b),
+                    len(s)) for s in (s1, s2)]
+        if pre[1] > pre[0] and model2 is None:
+            model2 = copy.deepcopy(model)
+            model2.load_state_dict(v2)
+        ver, m, s = (("v1", model, s1) if pre[0] >= pre[1]
+                     else ("v2", model2, s2))
+        n, margin = _divergences(m, [p], [s], [x], gap)
+        versions.append(ver if margin < gap else "mixed")
+    del model2
+    torch.cuda.empty_cache()
+    n_after = len(after)
+    after_v2 = sum(v in ("v2", "both") for v in versions[-n_after:])
+    print(f"fleet (c) rolling update: v1 (served) -> v2 (the LM head + "
+          f"{f['perturb']} x its std x N(0, 1), seed {seed + 3}) over "
+          f"{f['replicas']} live replicas under traffic: "
+          f"{out['status']} (canary of 2 prompts passed: "
+          f"{out['status'] != 'aborted'}), versions "
+          f"{summ['fleet']['weights_versions']}, {len(versions)} streams "
+          f"({half} before the walk, {len(prompts) - half} during it, "
+          f"{n_after} after it) by version "
+          f"{ {v: versions.count(v) for v in sorted(set(versions))} }, "
+          f"after it v2 {after_v2}/{n_after} "
+          f"(v1 and v2 streams differ on "
+          f"{sum(a != b for a, b in zip(streams, streams2))}/16 prompts), "
+          f"{summ['fleet']['migrations']} migrations, "
+          f"{summ['fleet']['migration_fallbacks']} skew fallbacks; relay "
+          f"publisher egress {out['publisher_egress_bytes']:,} B, all hops "
+          f"{out['relay_wire_bytes']:,} B against the snapshot's "
+          f"{snapshot:,} B (the served weights' published file; "
+          f"{out['relay_wire_bytes'] / snapshot:.3f}x); "
+          f"wall {wall:.3f} s (the walk {t_walk:.3f} s; the v2 oracles "
+          f"before it {t_oracle:.3f} s), launches {counts} ({card})",
+          flush=True)
+    _need_flash(counts, "fleet (c)")
+    if (out["status"] != "completed" or "mixed" in versions
+            or after_v2 != n_after
+            or set(summ["fleet"]["weights_versions"].values()) != {"v2"}
+            or out["publisher_egress_bytes"] < snapshot
+            or not all(len(x) == 32 for x in got)):
+        raise PhaseError(f"fleet (c): {out}, versions {versions}, "
+                         f"{summ['fleet']}")
+    return counts
+
+
+def fleet(model, prompts, streams, gap: float, seed: int, plain_rate: str,
+          card: str, mark):
+    """The fleet phase, (a)-(d) on the served model; ``streams`` are the
+    plain engine's greedy streams and ``gap`` the chunk-versus-decode
+    logit gap the slice phase measured. (a) and (b) run alone (their
+    times are held beside the plain engine's); (d)'s hosts start after
+    them and run beside (c), whose numbers are bytes and versions.
+    Returns the flash_fwd launches of all four."""
+    import tempfile
+
+    import torch
+
+    total = 0
+    for name, run in (
+            ("router", lambda: _fleet_router(model, prompts, streams, gap,
+                                            plain_rate, card)),
+            ("disaggregated", lambda: _fleet_disagg(model, prompts, streams,
+                                                   gap, card))):
+        total += run()["flash_fwd"]
+        torch.cuda.empty_cache()
+        mark(f"fleet {name}")
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        runs, *publish = _fleet_hosts_start(model, seed, d)
+        try:
+            for name, run in (
+                    ("rollout", lambda: _fleet_rollout(
+                        model, prompts, streams, gap, seed, publish[1],
+                        card)),
+                    ("hosts", lambda: _fleet_hosts_finish(
+                        model, runs, seed, gap, card, publish))):
+                total += run()["flash_fwd"]
+                torch.cuda.empty_cache()
+                mark(f"fleet {name}")
+        finally:
+            for _d, procs, _t in runs.values():
+                for _r, log, p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                    log.close()
     return total
 
 
@@ -3580,9 +4195,9 @@ def reducers(seed: int, card: str):
                          f"{counts}")
     return counts
 
-ZERO = dict(steps=4, bucket_mib=25, micro=2, world_ranks=4, world_layers=2,
-            world_seq=512, world_per_rank=2, world_steps=2,
-            world_bucket_mib=4, check_steps=2,
+# the ZeRO world runs inside the FSDP world (FSDP's world_* shape)
+ZERO = dict(steps=4, bucket_mib=25, micro=2, world_bucket_mib=4,
+            check_steps=2,
             r50_iterations=8, vit_iterations=8, lm_iterations=4, lm_batch=4,
             lm_bucket_kib=4096)
 # ZeRO on one rank against the data-parallel step, bf16 compute: the same
@@ -3617,87 +4232,49 @@ TOL_ZERO_QUANT_LOSS_REL = 5e-3
 # the second loss follows one trust-ratio step
 TOL_LARGE_BATCH_LOSS_REL = 1e-3
 
-_ZERO_WORLD_SCRIPT = r"""
-import json, sys, time, torch
-from chainermn_torch.collectives import QuantizedReducer
-from chainermn_torch.comm import create_communicator
-from chainermn_torch.models.transformer import TransformerLM
-from chainermn_torch.ops import _cuda
-from chainermn_torch.ops.fused_ce import fused_lm_loss
-from chainermn_torch.optimizers import (create_multi_node_optimizer,
-    make_zero1_train_step, make_zero2_train_step, zero1_params)
-from chainermn_torch.training.step import make_data_parallel_train_step
-torch.backends.cuda.matmul.allow_tf32 = False
-layers, seq, per, steps, bb = map(int, sys.argv[1:6])
-comm = create_communicator('non_cuda_aware')
-r, n = comm.rank, comm.size
-one = comm.split(('block', 1))       # this rank alone: the reference
-g = torch.Generator().manual_seed(1)
-toks = torch.randint(0, 32768, (steps, n * per, seq + 1), generator=g).to(
-    comm.device)
-def lm():
-    torch.manual_seed(0)
-    return TransformerLM(vocab=32768, d_model=768, n_heads=12,
-                         n_layers=layers, d_ff=3072, max_len=seq,
-                         pos_emb='rope', device=comm.device)
-OPTS = {'sgd': lambda params: torch.optim.SGD(params, lr=0.1, momentum=0.9),
-        'adam': lambda params: torch.optim.Adam(params, lr=3e-4, eps=1e-8)}
-def flat(params):
-    return torch.cat([params[k].detach().reshape(-1).float()
-                      for k in sorted(params)])
-refs = {}
-for opt, make in OPTS.items():
-    ref = lm()
-    p0 = flat(dict(ref.named_parameters()))
-    rstep = make_data_parallel_train_step(
-        ref, create_multi_node_optimizer(make(ref.parameters()), one), one,
-        loss_fn=fused_lm_loss)
-    losses = [rstep(toks[s, :, :-1], toks[s, :, 1:])['main/loss'].item()
-              for s in range(steps)]
-    refs[opt] = (losses, flat(dict(ref.named_parameters())))
-    del ref, rstep
+# (b)'s ZeRO runs, inside the FSDP world script (its comm, one, toks, lm,
+# OPTS and the references' named-parameter vectors zrefs): ZeRO-1/2 flat
+# and bucketed, int8-block error feedback and Adam's state bytes
+_ZERO_WORLD_RUNS = r"""
+from chainermn_torch.optimizers import make_zero2_train_step
 _cuda.reset_launches()
-out = {'ref': {k: v[0] for k, v in refs.items()}, 'runs': {},
-       'device': str(comm.device)}
-mine = slice(r * per, (r + 1) * per)
+staged0 = comm.staged_bytes
+zout = {'ref': {k: v[0] for k, v in zrefs.items()}, 'runs': {},
+        'device': str(comm.device)}
 for name, stage, bucket, wf, opt in (
         ('zero1-flat', 1, None, None, 'sgd'),
-        ('zero1-bucketed', 1, bb, None, 'sgd'),
+        ('zero1-bucketed', 1, zbb, None, 'sgd'),
         ('zero2-flat', 2, None, None, 'sgd'),
-        ('zero2-bucketed', 2, bb, None, 'sgd'),
+        ('zero2-bucketed', 2, zbb, None, 'sgd'),
         ('zero1-int8-block', 1, None, 'int8-block', 'sgd'),
         ('zero1-flat-adam', 1, None, None, 'adam')):
-    model = lm()
+    zmodel = lm()
     kw = dict(loss_fn=fused_lm_loss, bucket_bytes=bucket, grad_reducer=(
         None if wf is None else QuantizedReducer(comm, wire_format=wf)))
     if stage == 1:
-        step, st = make_zero1_train_step(model, OPTS[opt], comm, **kw)
+        step, st = make_zero1_train_step(zmodel, OPTS[opt], comm, **kw)
     else:
-        step, st = make_zero2_train_step(model, OPTS[opt], comm,
+        step, st = make_zero2_train_step(zmodel, OPTS[opt], comm,
                                          n_microbatches=per, **kw)
     comm.barrier()
     t0 = time.perf_counter()
     losses = [step(toks[s, mine, :-1], toks[s, mine, 1:])[
         'main/loss'].item() for s in range(steps)]
     ms = (time.perf_counter() - t0) / steps * 1e3
-    p = flat(zero1_params(st, model, bucket))
-    p_ref = refs[opt][1]
-    upd = ((p - p_ref).norm() / (p_ref - p0).norm()).item()
-    out['runs'][name] = dict(
+    p = flatn(zero1_params(st, zmodel, bucket))
+    _, p_ref, p0n = zrefs[opt]
+    upd = ((p - p_ref).norm() / (p_ref - p0n).norm()).item()
+    zout['runs'][name] = dict(
         opt=opt, stage=stage, losses=losses, ms=ms, update_rel=upd,
         state_bytes=st.optimizer_state_numel() * 4,
         padded=sum(st.layout.padded),
         fingerprint=[p.double().sum().item(), (p.double() ** 2).sum().item()])
-    del model, step, st, p
+    del zmodel, step, st, p
     torch.cuda.empty_cache()
-out['launches'] = _cuda.launches()
-out['launches_f32'] = _cuda.launches(torch.float32)
-out['staged_bytes'] = comm.staged_bytes
-outs = comm.allgather_obj(out)
-one.finalize()
-comm.finalize()
-if r == 0:
-    print('zero world ' + json.dumps(outs), flush=True)
+zout['launches'] = _cuda.launches()
+zout['launches_f32'] = _cuda.launches(torch.float32)
+zout['staged_bytes'] = comm.staged_bytes - staged0
+out['zero'] = zout
 """
 
 
@@ -3816,18 +4393,14 @@ def _zero_full_width(seed: int, card: str):
     return counts, {k: 0 for k in counts}
 
 
-def _zero_world(card: str):
-    """(b): 4 host-staged ranks of this card. Returns their launches, and
-    those of them on f32 inputs (all)."""
-    z = ZERO
+def _check_zero_world(world, card: str):
+    """(b): the ZeRO runs of 4 host-staged ranks of this card, run inside
+    the FSDP world (``_ZERO_WORLD_RUNS``); ``world`` is each rank's
+    record. Returns their launches, and those of them on f32 inputs
+    (all)."""
+    z = dict(ZERO, **{k: v for k, v in FSDP.items()
+                      if k.startswith("world_")})
     per = z["world_per_rank"]
-    outs = run_ranks([sys.executable, "-c", _ZERO_WORLD_SCRIPT,
-                      str(z["world_layers"]), str(z["world_seq"]), str(per),
-                      str(z["world_steps"]), str(z["world_bucket_mib"] << 20)],
-                     z["world_ranks"], timeout=420)
-    world = json.loads([ln for ln in outs[0].splitlines()
-                        if ln.startswith("zero world ")][-1][
-                            len("zero world "):])
     counts, f32 = {}, {}
     for w in world:
         for k, v in w["launches"].items():
@@ -4044,7 +4617,6 @@ def zero(seed: int, card: str):
 
     counts, f32 = {}, {}
     for part in (lambda: _zero_full_width(seed, card),
-                 lambda: _zero_world(card),
                  lambda: _zero_large_batch(card),
                  lambda: _zero_train_lm(card)):
         got, got_f32 = part()
@@ -4107,7 +4679,8 @@ ckdir = sys.argv[5]
 comm = create_communicator('non_cuda_aware')
 r, n = comm.rank, comm.size
 OPTS = {'sgd': lambda ps: torch.optim.SGD(ps, lr=0.1, momentum=0.9),
-        'lamb': lambda ps: LAMB(ps, 1e-2, weight_decay=1e-4)}
+        'lamb': lambda ps: LAMB(ps, 1e-2, weight_decay=1e-4),
+        'adam': lambda ps: torch.optim.Adam(ps, lr=3e-4, eps=1e-8)}
 def lm():
     torch.manual_seed(0)
     return TransformerLM(vocab=32768, d_model=768, n_heads=12,
@@ -4171,20 +4744,27 @@ def frame_mean(state):
 """
 
 _FSDP_WORLD_SCRIPT = _FSDP_COMMON + r"""
+zbb = int(sys.argv[6])               # the ZeRO runs' bucket bytes
 one = comm.split(('block', 1))       # this rank alone: the reference
 g = torch.Generator().manual_seed(1)
 toks = torch.randint(0, 32768, (steps, n * per, seq + 1), generator=g).to(
     comm.device)
-refs = {}
+def flatn(params):
+    # the ZeRO runs' vector: named parameters in sorted-name order
+    return torch.cat([params[k].detach().reshape(-1).float()
+                      for k in sorted(params)])
+refs, zrefs = {}, {}
 for opt, make in OPTS.items():
     ref = lm()
     p0 = flat(flax_params(ref))
+    p0n = flatn(dict(ref.named_parameters()))
     rstep = make_data_parallel_train_step(
         ref, create_multi_node_optimizer(make(ref.parameters()), one), one,
         loss_fn=fused_lm_loss)
     losses = [rstep(toks[s, :, :-1], toks[s, :, 1:])['main/loss'].item()
               for s in range(steps)]
     refs[opt] = (losses, flat(flax_params(ref)), p0)
+    zrefs[opt] = (losses, flatn(dict(ref.named_parameters())), p0n)
     del ref, rstep
 _cuda.reset_launches()
 out = {'ref': {k: v[0] for k, v in refs.items()}, 'runs': {},
@@ -4273,7 +4853,7 @@ for s in range(steps):
 out['launches'] = _cuda.launches()
 out['launches_f32'] = _cuda.launches(torch.float32)
 out['staged_bytes'] = comm.staged_bytes
-
+""" + _ZERO_WORLD_RUNS + r"""
 # (c): save both states on this world, restore them onto it
 saved, ck_ms = {}, {}
 scan = keep['scan']
@@ -4549,7 +5129,8 @@ def _fsdp_world(card: str):
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
         outs = run_ranks([sys.executable, "-c", _FSDP_WORLD_SCRIPT, *argv,
-                          d], n, timeout=600)
+                          d, str(ZERO["world_bucket_mib"] << 20)], n,
+                         timeout=600)
         world = json.loads([ln for ln in outs[0].splitlines()
                             if ln.startswith("fsdp world ")][-1][
                                 len("fsdp world "):])
@@ -4645,7 +5226,10 @@ def _fsdp_world(card: str):
     print(f"fsdp world: devices {sorted({w['device'] for w in world})}, "
           f"launches of the 4 ranks {counts} (all f32), host-staged bytes "
           f"(rank 0) {w0['staged_bytes']:,} ({card})", flush=True)
-    return counts, f32
+    # ZeRO's (b) ran in this world after FSDP's count: its own checks
+    zc, zf = _check_zero_world([w["zero"] for w in world], card)
+    return ({k: counts.get(k, 0) + zc.get(k, 0) for k in {*counts, *zc}},
+            {k: f32.get(k, 0) + zf.get(k, 0) for k in {*f32, *zf}})
 
 
 def _fsdp_plane(state, card: str):
@@ -6537,8 +7121,11 @@ def main(argv=None) -> int:
                   f"tokens/s {decode_tokens / summ['wall_s']:.1f}")
     del eng
     mark("slice")
-    serve_flash = serving_rest(model, prompts, [r.tokens for r in reqs],
-                               args.seed, plain_rate, card, mark)
+    streams = [r.tokens for r in reqs]
+    serve_flash, gap = serving_rest(model, prompts, streams, args.seed,
+                                    plain_rate, card, mark)
+    serve_flash += fleet(model, prompts, streams, gap, args.seed,
+                         plain_rate, card, mark)
     if args.profile:
         profile_serving(model, prompts, args.profile, card)
     del model

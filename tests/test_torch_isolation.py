@@ -80,7 +80,9 @@ def test_importing_the_port_loads_no_jax_module():
             "chainermn_torch.serving.weights, "
             "chainermn_torch.serving.frontend, "
             "chainermn_torch.examples.serve_transformer_lm, "
-            "chainermn_torch.tools.serve_lm, chip_smoke; "
+            "chainermn_torch.tools.serve_lm, chainermn_torch.fleet, "
+            "chainermn_torch.comm.socket_plane, "
+            "chainermn_torch.tools.fleet_lm, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -315,3 +317,45 @@ def test_the_serving_slice_raises_without_cuda_unless_asked_for_cpu():
         serve_lm.serve(serve_lm.argparse.Namespace(
             vocab=16, d_model=16, n_heads=2, n_layers=1, capacity=8,
             seed=0, device="cuda"))
+
+
+def test_the_fleet_slice_raises_without_cuda_unless_asked_for_cpu(tmp_path):
+    """The fleet (handoff codec, transports, socket plane, pools, router,
+    rollout) and ``fleet_lm`` are covered by the import scan; a Router
+    over engines built without a device, and ``fleet_lm`` without
+    ``--device cpu``, raise instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device works")
+    from chainermn_torch.fleet import DisaggregatedFleet, Router
+    from chainermn_torch.tools import fleet_lm
+
+    files = [p.relative_to(REPO).as_posix() for p in _port_files()]
+    for new in ("chainermn_torch/fleet/__init__.py",
+                "chainermn_torch/fleet/handoff.py",
+                "chainermn_torch/fleet/health.py",
+                "chainermn_torch/fleet/reports.py",
+                "chainermn_torch/fleet/transport.py",
+                "chainermn_torch/fleet/pools.py",
+                "chainermn_torch/fleet/router.py",
+                "chainermn_torch/fleet/rollout.py",
+                "chainermn_torch/comm/socket_plane.py",
+                "chainermn_torch/tools/fleet_lm.py"):
+        assert new in files       # covered by the import scan above
+    model = _tiny("cpu")
+    cfg = EngineConfig(n_slots=2, capacity=8, buckets=(8,))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Router([Engine(model, cfg), Engine(model, cfg)])
+    out = str(tmp_path / "s.jsonl")
+    for argv in ([], ["--disaggregate"], ["--hosts", "2", "--plane-dir",
+                                           str(tmp_path)]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fleet_lm.serve(fleet_lm.parse_args(["--out", out, *argv]))
+    engines = [Engine(model, cfg, device="cpu") for _ in range(2)]
+    with Router(engines) as router:
+        fut = router.submit(np.arange(3, dtype=np.int32), max_new_tokens=2)
+        assert len(router.result(fut, timeout_ms=60_000).tokens) == 2
+    fleet = DisaggregatedFleet(Engine(model, cfg, device="cpu"),
+                               Engine(model, cfg, device="cpu"))
+    stream = fleet.submit(np.arange(3, dtype=np.int32), max_new_tokens=2)
+    fleet.run_until_drained()
+    assert stream.finished and len(stream.tokens) == 2
