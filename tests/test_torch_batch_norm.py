@@ -13,6 +13,7 @@ and the running statistics are f32 sums of bf16 terms, rtol 1e-3 and
 atol 1e-3.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -23,6 +23,7 @@ rtol 2e-4 / atol 1e-6 (JAX's branching tests' bars); refusal texts are
 equal as strings.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import pickle
 import types
 

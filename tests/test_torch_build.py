@@ -1,6 +1,7 @@
 """The port's kernel build helpers (``chainermn_torch.ops._cuda``) that run
 without ``nvcc``: which headers name a library, and the ptxas report."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import re
 import shutil
 

@@ -16,6 +16,7 @@ Tolerance: 1e-5 absolute and relative (f32 products of width ≤ 16 in
 another order; the split and unsplit port models agree to the bit).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import inspect
 import pickle
 from types import SimpleNamespace

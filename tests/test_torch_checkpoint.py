@@ -19,6 +19,7 @@ slices.
 Restored values are compared exactly: a snapshot is a copy.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import hashlib
 import json
 import os

@@ -5,6 +5,7 @@ and ``reshard-dry-run`` as the tool reads the JAX package's, unedited.
 A damaged file fails ``verify``. The world also runs the serving
 plane's ``pull_weights`` (rank 0's weights reach rank 1)."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import os
 import subprocess
 import sys

@@ -7,6 +7,7 @@ Every flax parameter is redrawn at random (init gives zero biases and
 unit scales, which would hide a swapped pair). f32 layer outputs are held
 at rtol 1e-5, atol 1e-5 (summation order); state dicts exactly."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

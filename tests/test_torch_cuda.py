@@ -23,6 +23,7 @@ the last axis (:func:`_assert_bf16_close`; the reasoning is in
 bf16 lse and CE statistics at 2e-3 and 1e-3 absolute.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 import torch
 

@@ -7,6 +7,7 @@ native prefetching loader against the JAX package's. Everything here is
 integer indexing, exact file bytes or the same decode of the same files:
 compared exactly."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 import pickle
 from pathlib import Path

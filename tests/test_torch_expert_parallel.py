@@ -20,6 +20,7 @@
   2e-4 / atol 5e-5: the FSDP step tests' bounds, from JAX's).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import pickle
 
 import numpy as np

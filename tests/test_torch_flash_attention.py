@@ -9,6 +9,7 @@ softmax vs one dense pass); bf16 outputs at 2e-2 (one bf16 rounding of
 the output and of P apart).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -27,6 +27,7 @@ CONTINUES ``expected_tokens`` from the handed-off position, so the
 tier-1 transport/conveyor tests can pin bitwise adoption and clean
 re-prefill without a device."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import itertools
 import time
 import types

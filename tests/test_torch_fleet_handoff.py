@@ -16,6 +16,7 @@ the port's model with the LM head scaled 4x, as the port's serving tests
 do.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

@@ -19,6 +19,7 @@ so greedy margins stay far above the two frameworks' f32 disagreement
 (about 1e-6).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

@@ -9,6 +9,7 @@ swallowed by the scheduler thread.
 Small model (vocab 43, d 32, 1 layer, ``attention="reference"``); a
 torch model, no JAX."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 import threading
 from concurrent.futures import Future

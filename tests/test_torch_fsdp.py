@@ -29,6 +29,7 @@ half) and the LM's scanned-stack loss against the JAX package's.
   every block's gathered matrices at once.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 import pickle
 import types

@@ -18,6 +18,7 @@ orders of magnitude off), and at the element above within twice JAX's
 plus 1e-9 (a few f32 ulps of the leaf's largest gradient).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import torch
 

@@ -8,6 +8,7 @@ at rtol = atol = 1e-4 (the two sum in different orders); bf16 at 2e-2
 products and sums differ in order).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

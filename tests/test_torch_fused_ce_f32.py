@@ -8,6 +8,7 @@ Inputs are made with numpy from a seed and fed to both. Tolerance: rtol =
 atol = 1e-4 (the ranges and JAX sum in different orders); argmax exact.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

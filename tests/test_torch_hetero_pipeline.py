@@ -18,6 +18,7 @@ equal exactly; refusal texts are equal as strings, with JAX's
 ``jnp.float32`` named ``torch.float32`` in the port's.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import pickle
 import types
 

@@ -17,6 +17,7 @@ Small model (vocab 64, d 32, 2 layers, GQA); ``attention="reference"``
 except in the one flash case.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

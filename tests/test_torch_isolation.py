@@ -4,6 +4,7 @@ points (the MNIST, CIFAR and ImageNet examples, the ResNets, batch norm
 and the prefetching loader among them) refuse to fall back to the CPU
 when no GPU is present."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import ast
 import os
 import subprocess

@@ -5,6 +5,7 @@ resumes exactly from ``state_dict``; the multi-node and synchronized
 iterators run in a real 2-rank gloo world. Batches are sample indices:
 compared exactly."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import pickle
 
 import numpy as np

@@ -11,6 +11,7 @@ every step (the same f32 arithmetic, LAMB's bias correction rounded as
 optax rounds it; the norms sum in another order).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import copy
 
 import numpy as np

@@ -19,6 +19,7 @@ Small model (vocab 43, d 32, 1 layer); ``attention="reference"`` except
 in the cross-framework case, which runs flash on both sides.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

@@ -3,6 +3,7 @@ script as the ranks of one ``torch.distributed`` world on localhost (the
 port's counterpart of ``tests/mp_harness.py``, which serves the JAX
 package), plus its self-tests."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import os
 import socket
 import subprocess

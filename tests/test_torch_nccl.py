@@ -69,6 +69,7 @@ same blocks in logical order on this card, plain autograd
 (``PIPELINE_WORKER``; ``WORLD_DEVICE=cpu`` too).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 import torch
 

@@ -13,6 +13,7 @@ probe slice, the except hook posting it, and a dead store host failing
 the survivors' waits at once.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import os
 import subprocess
 import sys

@@ -5,6 +5,7 @@
 per-rank objects. Objects are compared exactly: they are pickled, not
 computed on."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import pickle
 import types
 

@@ -15,6 +15,7 @@ bits); all-reduced values and gradients ≤ 1e-6 absolute (sums of at most
 four f32 values of size ~1-10, in another order).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import collections
 import inspect
 import pickle

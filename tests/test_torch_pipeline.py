@@ -18,6 +18,7 @@ summed in another order). Schedule tables, ``T`` and depths are equal
 exactly; refusal texts are equal as strings.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import pickle
 
 import numpy as np

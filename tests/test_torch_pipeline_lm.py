@@ -31,6 +31,7 @@ atol 1e-6 and their round trips exactly; the flags' refusal texts equal
 as strings.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 import pickle
 import sys

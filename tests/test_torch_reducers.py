@@ -25,6 +25,7 @@ bf16 on the wire, by at most 2^-8 of its magnitude, which Σ|x| bounds),
 its residual at 1e-7; the auto strategy's choices exactly.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import inspect
 import json

@@ -22,6 +22,7 @@ Tolerances: none; every comparison is exact (the losses are sums of
 small integers in f32).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import os
 import signal
 import time

@@ -22,6 +22,7 @@ rounding of every activation, in other places by the two convolution
 libraries).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

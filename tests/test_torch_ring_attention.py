@@ -22,6 +22,7 @@ passing its first global position as ``pos_offset``): logits rtol 2e-4
 parameters.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import pickle
 
 import numpy as np

@@ -11,6 +11,7 @@ f32 cross entropy, reduced in another order), its mask exactly;
 the tokenizer exactly.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import itertools
 
 import numpy as np

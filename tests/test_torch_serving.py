@@ -8,6 +8,7 @@ be EQUAL: the LM head is scaled up 4x so the top-2 logit margins stay
 far above the f32 disagreement (about 1e-6) of the two frameworks.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

@@ -23,6 +23,7 @@ against the JAX package's.
   puts JAX's ``ckpt/*`` keys.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import os
 import pickle
 import threading

@@ -15,6 +15,7 @@ the same drills, run against ``chainermn_torch``'s modules and the
 port's fake engine.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 import os
 import subprocess

@@ -18,6 +18,7 @@ Small models (vocab 43, d 32; target 2 layers, draft 1);
 ``attention="reference"`` except in the one flash case.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

@@ -13,6 +13,7 @@ off its sub-mesh: the same members in the same order
 (sums of small integers; gathers copy).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import pickle
 
 import numpy as np

@@ -7,6 +7,7 @@ equals, token for token, what an unkilled serial ``generate`` gives on
 those weights. A second supervised run over the finished file adds
 nothing (the output is idempotent). On the CPU, a few seconds a run."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 import os
 import signal

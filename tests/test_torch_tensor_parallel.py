@@ -28,6 +28,7 @@ CE test); the TP LM's loss rtol 1e-5 and gradients rtol 1e-4 / atol
 replicated leaves bitwise equal after 3 Adam steps.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import pickle
 import types
 

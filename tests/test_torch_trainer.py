@@ -12,6 +12,7 @@ update at 1e-6; the 2-rank run against the 1-rank run at 1e-5 (one framework,
 the two half-batch means averaged instead of one mean). The first step
 is also checked piece by piece (see its test)."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import os
 import pickle
 import signal

@@ -10,6 +10,7 @@ given. The 2-rank tests run a real gloo world of two processes
 (``run_world`` in ``tests/test_torch_mp.py``).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 import pickle
 

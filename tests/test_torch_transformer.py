@@ -7,6 +7,7 @@ layers, d_model 32, vocab 64). Tolerance: f32 at rtol = atol = 1e-4 (the
 two frameworks sum in different orders); greedy tokens must be equal.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

@@ -20,6 +20,7 @@ parameters at 1e-5 absolute plus relative (f32 gradients in another
 summation order, times lr 0.1).
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 import pickle
 

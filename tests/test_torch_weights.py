@@ -12,6 +12,7 @@ payload for the same arrays holds JAX's codes and scales bit for bit.
 ``pull_weights`` runs in the two-rank world of
 ``tests/test_torch_ckpt_tool.py``."""
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 import os
 import time

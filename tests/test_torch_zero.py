@@ -39,6 +39,7 @@ the JAX package's (``chainermn_tpu/optimizers/zero.py``).
   ``param_wire`` and a model with batch statistics with JAX's texts.
 """
 
+import tests.torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 import pickle
 import types
