@@ -7,10 +7,11 @@ zoo as reduction algorithms over the port's communicators. Counterpart of
                                       grad_reducer=reducer)  # or the name
 
 Strategies: ``flat`` (the numerical reference), ``hierarchical``,
-``quantized`` (error feedback), ``auto`` (cost model). ``wire_format=``
+``quantized`` (error feedback), ``auto`` (cost model), ``synth`` (a
+synthesized per-tier program from :mod:`chainermn_torch.synthesis`;
+``make_grad_reducer("synth", comm, program=...)``). ``wire_format=``
 (``'f32' | 'bf16' | 'int8' | 'int8-block' | 'int4-block'``) selects what
-the compressing strategies put on the wire. ``synth`` (a synthesized
-per-tier program) waits for ROADMAP.md queue 1 item 13.
+the compressing strategies put on the wire.
 """
 
 from chainermn_torch.collectives.auto import (AutoReducer, CostModel,
@@ -38,4 +39,8 @@ __all__ = ["GradReducer", "make_grad_reducer", "register_reducer",
            "QUANT_BLOCK", "block_quantize", "block_dequantize", "pack_int4",
            "unpack_int4", "wire_ratio", "quantized_wire_bytes",
            "collective_wire_bytes", "AutoReducer", "CostModel",
-           "measure_strategies"]
+           "measure_strategies", "SynthesizedReducer"]
+
+# last: registers the 'synth' strategy (it imports collectives.base)
+from chainermn_torch.synthesis.compiler import (  # noqa: E402  # isort: skip
+    SynthesizedReducer)

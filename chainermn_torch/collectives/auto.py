@@ -15,15 +15,20 @@ The quantized candidate is priced on the bytes the port's collectives
 carry (:func:`~chainermn_torch.collectives.quantized.
 collective_wire_ratio`: int32 codes for the integer formats), so with
 ``lossy=True`` and an integer format the port may choose otherwise than
-JAX, which prices those formats at 1 or 0.5 B an element. For two tiers
-JAX's ``Topology`` estimates equal :meth:`CostModel.estimate_us` (its
-docstring says so), so :meth:`AutoReducer.choose` uses the latter.
+JAX, which prices those formats at 1 or 0.5 B an element.
+
+The estimates run on the explicit multi-tier
+:class:`~chainermn_torch.tuning.topology.Topology`
+(:meth:`CostModel.as_topology`, or ``AutoReducer(topology=...)``); for two
+tiers its numbers are :meth:`CostModel.estimate_us`'s, which stays as the
+parameter bag and the reference formulas.
 
 :func:`measure_strategies` times real reductions with CUDA events on the
 card; on the CPU it returns ``{}`` untimed (gloo "collectives" there are
-memcpys, and any number would mislead the picker). The tuning profile
-database and explicit multi-tier topologies (``topology=``, ``profile=``,
-``db=``) wait for ROADMAP.md queue 1 item 13.
+memcpys, and any number would mislead the picker). ``db=`` persists a
+non-empty sweep into the profile DB (:mod:`chainermn_torch.tuning.
+profile_db`) under the communicator's topology fingerprint, and
+``AutoReducer(profile=...)`` reads it back.
 
 Run ``python -m chainermn_torch.collectives.auto --ranks 4`` on a host
 with four GPUs to time the strategies over NCCL and fit the intra tier's
@@ -37,8 +42,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from chainermn_torch.collectives.base import (_ITEM13, GradReducer,
-                                              register_reducer)
+from chainermn_torch.collectives.base import GradReducer, register_reducer
 from chainermn_torch.collectives.hierarchical import HierTopology
 from chainermn_torch.collectives.quantized import (collective_wire_bytes,
                                                    collective_wire_ratio,
@@ -97,8 +101,34 @@ class CostModel:
                     + self._xfer_us(ring(wire, n), slow_bw))
         raise ValueError(f"unknown strategy {strategy!r}")
 
+    def as_topology(self, comm, intra: Optional[int] = None):
+        """This parameter set as an explicit multi-tier
+        :class:`~chainermn_torch.tuning.topology.Topology` over the
+        communicator (the same estimates for two tiers)."""
+        from chainermn_torch.tuning.topology import Topology
+
+        return Topology.from_comm(
+            comm, intra=intra,
+            ici_latency_us=self.ici_latency_us,
+            ici_bw_gbps=self.ici_bw_gbps,
+            dcn_latency_us=self.dcn_latency_us,
+            dcn_bw_gbps=self.dcn_bw_gbps,
+            quant_overhead_us=self.quant_overhead_us)
+
 
 _CACHE: Dict[tuple, Dict[Tuple[str, int], float]] = {}
+
+
+def _persist_measured(db, comm, intra, table) -> None:
+    """Write a non-empty measured sweep into the profile DB under the
+    communicator's topology fingerprint. ``db`` is a ProfileDB, a path,
+    or ``True`` for the default location."""
+    from chainermn_torch.tuning.profile_db import open_db
+    from chainermn_torch.tuning.topology import Topology
+
+    pdb = open_db(db)
+    pdb.put_measured(Topology.from_comm(comm, intra=intra), table)
+    pdb.save()
 
 
 def measure_strategies(
@@ -113,12 +143,19 @@ def measure_strategies(
     bf16), the slowest rank's time for each entry, so every rank holds
     the same table. Memoized per (ranks, axes, sizes, strategies,
     intra). Every rank calls it. On the CPU it returns ``{}`` untimed.
-    Feed the result to ``AutoReducer(measured=...)``."""
-    if db is not None:
-        raise NotImplementedError(f"measure_strategies(db=...) {_ITEM13}")
+    Feed the result to ``AutoReducer(measured=...)``.
+
+    ``db`` (a :class:`~chainermn_torch.tuning.profile_db.ProfileDB`, a
+    path, or ``True`` for the default location) persists a NON-EMPTY
+    sweep under the communicator's topology fingerprint
+    (``Topology.from_comm(comm, intra=intra)``; every rank writes the same
+    table, atomically), so ``AutoReducer(profile=...)`` and ``schedtune``
+    read it later. The CPU's ``{}`` is never written."""
     key = (comm.members, tuple(comm.axis_names), tuple(sizes),
            tuple(strategies), intra)
     if key in _CACHE:
+        if db is not None and _CACHE[key]:
+            _persist_measured(db, comm, intra, _CACHE[key])
         return _CACHE[key]
     if comm.device.type != "cuda":
         _CACHE[key] = {}
@@ -146,6 +183,8 @@ def measure_strategies(
             out[(s, nbytes)] = start.elapsed_time(end) / steps * 1e3
     out = comm.allreduce_obj(out, "max")
     _CACHE[key] = out
+    if db is not None and out:
+        _persist_measured(db, comm, intra, out)
     return out
 
 
@@ -158,9 +197,16 @@ class AutoReducer(GradReducer):
     without error feedback: this strategy is stateless); ``intra`` (as
     in the hierarchical reducer); ``wire_format`` (the quantized
     candidate's wire, ``'bf16'`` by default; ``'f32'`` turns the lossy
-    candidate off). Every rank must see the same ``cost``/``measured``,
-    so that all choose alike. ``topology``/``profile`` wait for queue 1
-    item 13."""
+    candidate off); ``topology`` (an explicit
+    :class:`~chainermn_torch.tuning.topology.Topology` for the estimates;
+    default: ``cost.as_topology(comm, intra)``); ``profile`` (a
+    :class:`~chainermn_torch.tuning.profile_db.ProfileDB`, a path, or
+    ``True`` for the default location) whose persisted
+    :func:`measure_strategies` sweep for the topology's fingerprint seeds
+    ``measured`` (an explicit ``measured=`` entry wins per key). Every
+    rank must see the same ``cost``/``measured``/``profile``, so that all
+    choose alike. The collectives still run on the two-tier
+    :class:`~chainermn_torch.collectives.hierarchical.HierTopology`."""
 
     name = "auto"
     wire_formats = ("f32", "bf16", "int8", "int8-block", "int4-block")
@@ -173,9 +219,6 @@ class AutoReducer(GradReducer):
                  lossy: bool = False, bucket_order: str = "emission",
                  topology=None, profile=None,
                  wire_format: Optional[str] = None):
-        if topology is not None or profile is not None:
-            raise NotImplementedError(
-                f"AutoReducer(topology=..., profile=...) {_ITEM13}")
         super().__init__(comm, op, bucket_bytes, bucket_order)
         if wire_format is not None and wire_format not in self.wire_formats:
             raise ValueError(f"unknown wire_format {wire_format!r}; "
@@ -186,7 +229,15 @@ class AutoReducer(GradReducer):
                             else "bf16")
         self.topology = HierTopology(comm, intra=intra)
         self.cost = cost or CostModel()
+        #: the multi-tier cost-side description
+        self.topo_desc = (topology if topology is not None
+                          else self.cost.as_topology(comm, intra=intra))
         self.measured = dict(measured or {})
+        if profile is not None:
+            from chainermn_torch.tuning.profile_db import open_db
+
+            persisted = open_db(profile).measured_for(self.topo_desc)
+            self.measured = {**persisted, **self.measured}
         self.lossy = lossy
 
     def _estimate(self, strategy: str, nbytes: int) -> float:
@@ -194,8 +245,8 @@ class AutoReducer(GradReducer):
                in self.measured.items() if s == strategy]
         if pts:  # the nearest measured size wins over the model
             return min(pts)[1]
-        return self.cost.estimate_us(strategy, nbytes, self.topology,
-                                     wire_format=self.wire_format)
+        return self.topo_desc.estimate_us(strategy, nbytes,
+                                          wire_format=self.wire_format)
 
     def choose(self, nbytes: int) -> str:
         cands = ["flat", "hierarchical"] + (

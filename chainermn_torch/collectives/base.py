@@ -16,6 +16,8 @@ all-gather). A :class:`GradReducer` owns that choice:
                 error-feedback residuals carried as reducer state
 ``auto``        a latency/bandwidth cost model picks one of the above
                 per bucket
+``synth``       a synthesized per-tier program
+                (:mod:`chainermn_torch.synthesis`)
 ==============  =====================================================
 
 Each process of the port is one rank holding its own gradient, so two
@@ -44,12 +46,6 @@ __all__ = ["GradReducer", "REDUCERS", "WIRE_FORMATS", "register_reducer",
 #: every wire format the registry understands ("f32" is the uncompressed
 #: reference wire)
 WIRE_FORMATS = ("f32", "bf16", "int8", "int8-block", "int4-block")
-
-#: the strategies that wait for ROADMAP.md queue 1 item 13 (the synthesis
-#: compiler and the schedule tuner)
-_ITEM13 = ("waits for the tuning/synthesis slice of the port (ROADMAP.md "
-           "queue 1 item 13)")
-
 
 def named_leaves(tree) -> List[Tuple[str, torch.Tensor]]:
     """``(key, tensor)`` of a module's parameters (its gradients'
@@ -232,20 +228,19 @@ def make_grad_reducer(spec, comm, op: str = "mean", **kwargs
                       ) -> Optional[GradReducer]:
     """Resolve a ``grad_reducer=`` argument: None (no reducer: callers
     keep ``allreduce_grad``), a :class:`GradReducer` (returned as is), or
-    a registered name (``'flat' | 'hierarchical' | 'quantized' |
-    'auto'``) with ``kwargs`` for its constructor.
+    a registered name (``'flat' | 'hierarchical' | 'quantized' | 'auto'
+    | 'synth'``) with ``kwargs`` for its constructor (``synth`` takes
+    ``program=``).
 
     ``wire_format`` (in ``kwargs``, one of :data:`WIRE_FORMATS`):
     ``'f32'``/None keep the uncompressed wire on any strategy; the narrow
     formats go to strategies that can carry them (``quantized``,
-    ``auto``) and are refused by strategies whose wire is f32. ``synth``
-    (a synthesized per-tier program) waits for queue 1 item 13."""
+    ``auto``, ``synth``, which checks it against its program) and are
+    refused by strategies whose wire is f32."""
     if spec is None:
         return None
     if isinstance(spec, GradReducer):
         return spec
-    if spec == "synth":
-        raise NotImplementedError(f"grad_reducer 'synth' {_ITEM13}")
     try:
         cls = REDUCERS[spec]
     except KeyError:

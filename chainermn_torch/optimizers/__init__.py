@@ -37,7 +37,6 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from chainermn_torch.collectives import make_grad_reducer
-from chainermn_torch.collectives.base import _ITEM13
 from chainermn_torch.comm.base import CommunicatorBase
 from chainermn_torch.optimizers.large_batch import LAMB, LARS
 from chainermn_torch.optimizers.zero import (fsdp_gather_params,
@@ -62,19 +61,20 @@ class MultiNodeOptimizer:
     use it as the inner optimizer (``zero_grad``, ``step``,
     ``param_groups``, ``state``). ``grad_reducer`` (a
     :class:`~chainermn_torch.collectives.GradReducer` or None) reduces in
-    place of ``allreduce_grad``; ``plan`` (a tuned schedule) is None until
-    the tuner is ported."""
+    place of ``allreduce_grad``; ``plan`` is the tuned
+    :class:`~chainermn_torch.tuning.profile_db.SchedulePlan` when
+    ``tune=`` chose the knobs, else None."""
 
     def __init__(self, actual_optimizer: torch.optim.Optimizer,
                  communicator: CommunicatorBase,
                  double_buffering: bool = False, op: str = "mean",
-                 grad_reducer=None):
+                 grad_reducer=None, plan=None):
         self.actual_optimizer = actual_optimizer
         self.communicator = communicator
         self.double_buffering = double_buffering
         self.op = op
         self.grad_reducer = grad_reducer
-        self.plan = None
+        self.plan = plan
         self._prev: Optional[List[torch.Tensor]] = None
         self.schedules: List[Any] = []
         self.reducer_state = (() if grad_reducer is None else
@@ -187,13 +187,70 @@ def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
     :class:`~chainermn_torch.collectives.GradReducer`. A stateful reducer
     (quantized with error feedback) keeps its residuals in this
     optimizer's ``state_dict``. ``wire_format`` (``'bf16' | 'int8' |
-    'int8-block' | 'int4-block'``) goes to a reducer built from a name;
-    ``'f32'``/None keep the strategy's default; a narrow format with no
-    reducer, or with one that cannot compress, raises ``ValueError``.
-    ``tune``/``model_key``/``topology`` (the schedule tuner) wait for
-    ROADMAP.md queue 1 item 13."""
-    if tune is not None or model_key is not None or topology is not None:
-        raise NotImplementedError(f"tune, model_key and topology {_ITEM13}")
+    'int8-block' | 'int4-block'``) goes to a reducer built from a name or
+    a tuned plan (an explicit value overrides the plan's recorded
+    format); ``'f32'``/None keep the strategy's default; a narrow format
+    with no reducer, or with one that cannot compress, raises
+    ``ValueError``.
+
+    ``tune`` injects a schedtune profile: a
+    :class:`~chainermn_torch.tuning.profile_db.SchedulePlan`, a
+    :class:`~chainermn_torch.tuning.profile_db.ProfileDB`, a DB path, or
+    ``True`` for the default DB location. The stored plan's strategy,
+    ``bucket_bytes``, ``bucket_order`` (and program, for ``'synth'``)
+    build the reducer, unless an explicit ``grad_reducer`` was passed,
+    which wins; its ``double_buffering`` ORs into ``double_buffering``;
+    the result carries it as ``.plan``. ``model_key`` selects among plans
+    stored for several model shapes (``tuning.model_key_for``; None
+    accepts a sole or ``'default'`` plan). A plan whose topology
+    fingerprint is not this communicator's raises ``ValueError``, and so
+    does a DB with no plan for it. ``topology`` is the explicit
+    :class:`~chainermn_torch.tuning.topology.Topology` the plan was tuned
+    for, instead of ``Topology.from_comm(communicator)``; its rank count
+    must be the communicator's."""
+    plan = None
+    if tune is not None:
+        from chainermn_torch.tuning import SchedulePlan, Topology
+        from chainermn_torch.tuning.profile_db import open_db
+
+        if topology is not None:
+            if topology.n != communicator.size:
+                raise ValueError(
+                    f"explicit topology has {topology.n} ranks but the "
+                    f"communicator has {communicator.size}")
+            topo = topology
+        else:
+            topo = Topology.from_comm(communicator)
+        if isinstance(tune, SchedulePlan):
+            plan = tune
+        else:
+            db = open_db(tune)
+            plan = db.plan_for(topo, model_key)
+            if plan is None:
+                raise ValueError(
+                    f"no tuned schedule for topology "
+                    f"{topo.fingerprint()!r} (model_key={model_key!r}) "
+                    f"in profile DB {db.path!r}; run "
+                    "python -m chainermn_torch.tools.schedtune on this "
+                    "machine first")
+        if plan.fingerprint and plan.fingerprint != topo.fingerprint():
+            raise ValueError(
+                f"stale schedule profile: plan was tuned for "
+                f"{plan.fingerprint!r} but this mesh is "
+                f"{topo.fingerprint()!r} — wrong-machine profiles "
+                "silently mis-tune; re-run "
+                "python -m chainermn_torch.tools.schedtune here")
+        if grad_reducer is None:
+            wf = wire_format or plan.wire_format
+            extra = {}
+            if plan.program is not None:
+                extra["program"] = plan.program  # 'synth' plans only
+            grad_reducer = make_grad_reducer(
+                plan.strategy, communicator, op=op,
+                bucket_bytes=plan.bucket_bytes,
+                bucket_order=plan.bucket_order,
+                wire_format=wf, **extra)
+        double_buffering = bool(double_buffering or plan.double_buffering)
     if isinstance(grad_reducer, str):
         reducer = make_grad_reducer(grad_reducer, communicator, op=op,
                                     wire_format=wire_format)
@@ -205,4 +262,5 @@ def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
                 "all-reduce carries f32")
         reducer = make_grad_reducer(grad_reducer, communicator, op=op)
     return MultiNodeOptimizer(actual_optimizer, communicator,
-                              double_buffering, op, grad_reducer=reducer)
+                              double_buffering, op, grad_reducer=reducer,
+                              plan=plan)

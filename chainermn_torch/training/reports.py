@@ -1,9 +1,9 @@
 """Log/print reporting extensions (reference: Chainer's LogReport /
 PrintReport, attached rank-0-only in every ChainerMN example).
 
-Counterpart of ``LogReport``, ``PrintReport``, ``ReductionReport`` and
-``CheckpointReport`` in ``chainermn_tpu/training/reports.py``; its
-``TuningReport`` waits for ROADMAP.md queue 1 item 13.
+Counterpart of ``LogReport``, ``PrintReport``, ``ReductionReport``,
+``TuningReport`` and ``CheckpointReport`` in
+``chainermn_tpu/training/reports.py``.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import json
 import os
 from typing import List, Optional
 
-__all__ = ["LogReport", "PrintReport", "ReductionReport",
+__all__ = ["LogReport", "PrintReport", "ReductionReport", "TuningReport",
            "CheckpointReport"]
 
 
@@ -81,6 +81,44 @@ class ReductionReport:
         trainer.observation["comm/wire_compression"] = round(
             self.wire_compression, 6)
         trainer.observation["comm/strategy"] = self.reducer.name
+
+
+class TuningReport:
+    """Surfaces the schedtune-chosen collective schedule beside
+    :class:`ReductionReport`.
+
+    ``plan`` is a :class:`~chainermn_torch.tuning.profile_db.SchedulePlan`
+    or anything carrying one as ``.plan`` (a tuned
+    ``create_multi_node_optimizer`` result works directly). On the first
+    call it prints the chosen schedule once; on every call it folds
+    ``tuning/overlap_frac``, ``tuning/bucket_bytes`` and
+    ``tuning/strategy`` into ``trainer.observation``. Nothing without a
+    plan (untuned runs keep their logs as they were).
+    """
+
+    def __init__(self, plan, quiet: bool = False):
+        self.plan = getattr(plan, "plan", plan)
+        self.quiet = quiet
+        self._printed = False
+
+    def __call__(self, trainer):
+        plan = self.plan
+        if plan is None:
+            return
+        if not self._printed and not self.quiet:
+            db = " +double_buffering" if plan.double_buffering else ""
+            wf = getattr(plan, "wire_format", "f32")
+            db = (f" wire={wf}" if wf != "f32" else "") + db
+            print(
+                f"schedtune: {plan.strategy} "
+                f"bucket_bytes={plan.bucket_bytes:,} "
+                f"order={plan.bucket_order}{db} "
+                f"overlap_frac={plan.overlap_fraction:.4f} "
+                f"[{plan.source}] ({plan.fingerprint})", flush=True)
+            self._printed = True
+        trainer.observation["tuning/overlap_frac"] = plan.overlap_fraction
+        trainer.observation["tuning/bucket_bytes"] = plan.bucket_bytes
+        trainer.observation["tuning/strategy"] = plan.strategy
 
 
 class PrintReport:

@@ -105,7 +105,14 @@ the final line:
    path (reference attention, unfused loss), then 3 warm-up and 3 timed
    calls run with launch counts zeroed just before and read just after
    (12 flash_fwd, 12 flash_bwd and one each of ce_fwd, ce_dh, ce_dw per
-   step), the losses must be finite and fall;
+   step), the losses must be finite and fall; then ``profile_lm`` (the
+   port's ``chainermn_torch.tools.profile_lm``, in this process) at
+   ``BENCH_r05.json``'s ``lm_config`` (fused loss, ``bhld``, batch 4):
+   warmed dispatches of 4 steps, then one under ``torch.profiler``,
+   printed as device ms by kernel family, the busy share of the
+   dispatch, the shapes' roofline and the traced dispatch's launches
+   (48 flash_fwd and flash_bwd, 4 each of ce_fwd, ce_dh and ce_dw); the
+   phase's launches join the kernels line;
 6. mnist — the port's MNIST example (``chainermn_torch.examples.
    train_mnist``, config #1: communicator ``naive``, IDX files,
    ``scatter_dataset``, Adam, ``Trainer`` with the multi-node evaluator
@@ -182,8 +189,21 @@ the final line:
    bit, the ``ReductionReport`` rows printed; (c) 4 ranks on this card
    through ``non_cuda_aware`` with ``LOCAL_WORLD_SIZE=2`` (two "nodes"):
    ``hierarchical`` bit for bit ``flat`` on integer-valued gradients and
-   ``int8-block`` within half a step of it, each rank on ``cuda:0``; no
-   hand-written kernel may launch;
+   ``int8-block`` within half a step of it, each rank on ``cuda:0``;
+   then in the same world the schedule tuner and the synthesized
+   reducer (``tuning`` line): ``Topology.from_comm(comm, intra=2)``'s
+   fingerprint, the canned plan for the MNIST MLP written to a DB under
+   ``build/``, every rank's ``create_multi_node_optimizer(tune=db)``
+   taking 3 MNIST steps bit for bit the flat reducer's (gradients
+   rounded to multiples of 2^-16, so every sum is exact),
+   ``measure_strategies(db=)`` persisting a CUDA-timed sweep that
+   ``AutoReducer(profile=)`` reads back, every lossless program of 2 x 2
+   through ``SynthesizedReducer`` bit for bit the flat sum with its ring
+   bytes at each tier's collectives equal to ``program_wire_bytes``, the
+   slow-tier int8-block program within ``TOL_QUANT_STEP`` of the flat
+   mean, and ``TuningReport``'s line; the world's times are host-staged
+   (gloo through host memory), not NVLink's; no hand-written kernel may
+   launch;
 14. zero — ZeRO-1/2 and the large-batch optimizers: (a) the 135M LM of
    ``train`` (bf16 over f32 parameters, seq 2048, batch 4,
    ``fused_lm_loss``) on one NCCL rank through ZeRO-1 flat, ZeRO-1
@@ -1382,6 +1402,64 @@ def time_f32_ce(gen, n, dm=768, vocab=32768):
     del h, wt, y, lse, hl, wl, wo, loss, loss_w
     torch.cuda.empty_cache()
     return rows
+
+
+def profile_lm_phase(card: str):
+    """``profile_lm`` at ``BENCH_r05.json``'s ``lm_config`` (fused loss,
+    ``bhld``, batch 4) in this process: warmed dispatches, then one
+    traced; prints device ms by kernel family, the busy share and the
+    traced dispatch's launches. Launch counts are zeroed just before and
+    read just after; returns them."""
+    import torch
+
+    from chainermn_torch.ops import _cuda
+    from chainermn_torch.tools import profile_lm
+
+    env = {"PROFILE_LOSS": "fused", "PROFILE_QKV_LAYOUT": "bhld",
+           "PROFILE_BATCH": str(TRAIN["batch"])}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        args = profile_lm.parse_args([])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = profile_lm.profile(args, warm=2, timed=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launches()
+    fams = {k: round(v, 4) for k, v in out["device_ms_by_family"].items()}
+    k = profile_lm.SCAN_K
+    bound = max(out["roofline_flops_ms"], out["roofline_hbm_ms"])
+    print(f"profile_lm: d 768, 12 layers, L 2048, batch {args.batch}, "
+          f"{args.loss} loss, {args.qkv_layout}, {k} steps a dispatch: "
+          f"{out['measured_step_s'] * 1e3:.3f} ms/step (host clock, 3 "
+          f"dispatches), traced dispatch {out['dispatch_wall_ms']:.3f} ms "
+          f"wall, device ms by family {fams} (sum "
+          f"{out['device_ms']:.3f}), busy share {out['busy_share']:.4f} "
+          f"of the traced dispatch (device ms over an unprofiled "
+          f"dispatch's wall {out['device_share_unprofiled']:.4f}), "
+          f"step bound {bound:.3f} ms ({out['flops_per_step'] / 1e12:.3f} "
+          f"TFLOP / 989 TFLOP/s {out['roofline_flops_ms']:.3f} ms, "
+          f"{out['bytes_per_step'] / 1e9:.3f} GB / 3.35 TB/s "
+          f"{out['roofline_hbm_ms']:.3f} ms), traced launches "
+          f"{out['launches']}, phase launches {counts}, loss "
+          f"{out['loss']:.4f}, phase {wall:.1f} s ({card})", flush=True)
+    want = {"flash_fwd": 12 * k, "flash_bwd": 12 * k, "ce_fwd": k,
+            "ce_dh": k, "ce_dw": k}
+    if any(out["launches"][name] != n for name, n in want.items()):
+        raise PhaseError(f"profile_lm's traced dispatch launched "
+                         f"{out['launches']}, expected {want}")
+    if not (math.isfinite(out["loss"]) and 0 < out["busy_share"] <= 1
+            and all(fams[name] > 0 for name in want)):
+        raise PhaseError(f"profile_lm: loss {out['loss']}, busy "
+                         f"{out['busy_share']}, families {fams}")
+    return counts
 
 
 def build_model(seed: int, dtype, attention: str):
@@ -4095,6 +4173,133 @@ def _reducers_mnist(card: str):
     return losses
 
 
+# the tuning runs of (c), spliced into the world script below after the
+# reducers' checks (one 4-process start, not two): names the script
+# defines (comm, r, n, every, mine, flat) are in scope; the DB path is
+# sys.argv[1]; rank 0's results go to out['tuning']
+_TUNING_WORLD_RUNS = r"""
+import sys, types
+from chainermn_torch.collectives import (AutoReducer, make_grad_reducer,
+                                         measure_strategies)
+from chainermn_torch.models import MLP
+from chainermn_torch.optimizers import create_multi_node_optimizer
+from chainermn_torch.synthesis import enumerate_programs, program_wire_bytes
+from chainermn_torch.training import TuningReport, classifier_loss
+from chainermn_torch.training.step import make_data_parallel_train_step
+from chainermn_torch.tuning import (ProfileDB, Topology, model_key_for,
+                                    tune_canned)
+
+db_path = sys.argv[1]
+tun = {}
+topo = Topology.from_comm(comm, intra=2)
+mlp = MLP(n_units=1000, device=comm.device)
+key = model_key_for(mlp)
+total = sum(p.numel() * p.element_size() for p in mlp.parameters())
+if r == 0:
+    res = tune_canned(topo, total, model_key=key)
+    pdb = ProfileDB(db_path)
+    pdb.put_plan(res.plan)
+    pdb.save()
+comm.barrier()
+
+
+def mnist_steps(**kw):
+    torch.manual_seed(0)
+    model = MLP(n_units=1000, device=comm.device)
+    for p in model.parameters():
+        # multiples of 2^-16 under 2^6: every sum of four is exact
+        p.register_hook(lambda g: torch.round(g * 65536) / 65536)
+    opt = create_multi_node_optimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1), comm, **kw)
+    step = make_data_parallel_train_step(model, opt, comm,
+                                         loss_fn=classifier_loss)
+    gen = torch.Generator().manual_seed(10 + r)
+    for _ in range(3):
+        x = torch.rand(256, 28, 28, generator=gen).to(comm.device)
+        y = torch.randint(0, 10, (256,), generator=gen).to(comm.device)
+        step(x, y)
+    torch.cuda.synchronize()
+    return opt, [p.detach().clone() for p in model.parameters()]
+
+
+_, want_p = mnist_steps(grad_reducer='flat')
+t0 = time.perf_counter()
+tuned, got_p = mnist_steps(tune=db_path, model_key=key)
+tun['tuned_s'] = time.perf_counter() - t0
+tun['fingerprint'] = topo.fingerprint()
+tun['plan'] = tuned.plan.to_dict()
+tun['reducer'] = tuned.grad_reducer.name
+tun['tuned_bitwise'] = all(torch.equal(a, b) for a, b in zip(got_p, want_p))
+obs = types.SimpleNamespace(observation={})
+TuningReport(tuned, quiet=True)(obs)
+tun['report'] = obs.observation
+
+table = measure_strategies(comm, intra=2, db=db_path)
+tun['sweep_us'] = {f'{s}@{b}': us for (s, b), us in sorted(table.items())}
+auto = AutoReducer(comm, intra=2, profile=db_path)
+tun['profile_read'] = auto.measured == table and len(table) > 0
+
+lossless = []
+for prog in enumerate_programs(topo):
+    red = make_grad_reducer('synth', comm, program=prog)
+    moved = {i: 0.0 for i in range(2)}
+    for i, c in enumerate(red.tiers.comms):
+        k = c.size
+        for name, factor in (('reduce_flat', 2 * (k - 1) / k),
+                             ('reduce_scatter_flat', (k - 1) / k),
+                             ('all_gather_flat', k - 1)):
+            def g(t, *a, fn=getattr(c, name), i=i, factor=factor, **kw):
+                moved[i] += t.numel() * t.element_size() * factor
+                return fn(t, *a, **kw)
+            setattr(c, name, g)
+    xs = [t.clone() for t in mine]
+    comm.barrier()
+    t0 = time.perf_counter()
+    xs, _ = red.reduce(xs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want_b = {i: 0.0 for i in range(2)}
+    for _, _, bucket in red._plan(mine):
+        nb = sum(mine[i].numel() * 4 for i in bucket)
+        for i, b in program_wire_bytes(prog, nb).items():
+            want_b[i] += b
+    lossless.append({'name': prog.name, 'ms': ms, 'moved': moved,
+                     'want': want_b,
+                     'bitwise': all(torch.equal(a, b)
+                                    for a, b in zip(xs, f))})
+tun['lossless'] = lossless
+
+prog = {p.name: p for p in enumerate_programs(topo, lossy=True)}[
+    'cascade-q@inter-int8-block']
+red = make_grad_reducer('synth', comm, program=prog)
+xs = [t.clone() for t in mine]
+xs, state = red.reduce(xs, red.init(mine))
+worst = 0.0
+for _, _, bucket in red._plan(mine):
+    v = torch.cat([every[i].reshape(n, -1) for i in bucket], 1)
+    L = v.shape[1] + v.shape[1] % 2
+    v = F.pad(v, (0, L - v.shape[1]))
+    # the intra tier's sums (ranks 2g and 2g + 1), then the inter tier's
+    # grid: each half (this rank's chunk) in 256-blocks, the MAX over g
+    part = torch.stack([v[0] + v[1], v[2] + v[3]])
+    step = torch.empty(L)
+    for c0 in range(2):
+        ch = part[:, c0 * L // 2:(c0 + 1) * L // 2].abs()
+        m = ch.shape[1]
+        blk = F.pad(ch, (0, (-m) % 256)).reshape(2, -1, 256).amax(2).amax(0)
+        step[c0 * L // 2:(c0 + 1) * L // 2] = (
+            blk[:, None].expand(-1, 256).reshape(-1)[:m] / 127.0)
+    got = torch.cat([xs[i].reshape(-1).cpu() for i in bucket])
+    want = torch.cat([f[i].reshape(-1).cpu() for i in bucket])
+    k = got.numel()
+    worst = max(worst, ((got - want).abs() / step[:k]).max().item())
+tun['int8_inter_worst_over_step'] = worst
+tun['int8_inter_residuals'] = [tuple(s.shape) for s in state]
+out['tuning'] = tun
+out['launches'] = _cuda.launches()
+"""
+
+
 # one rank of (c): 4 host-staged ranks on this card, two "nodes" of two;
 # the MNIST MLP's gradient shapes with integer values in [-8, 8) (every
 # rank makes every rank's from one seed); rank 0 prints the results
@@ -4146,6 +4351,7 @@ _REDUCER_WORLD_SCRIPT = (
     "                         for a, t in zip(f, every)),\n"
     "       'int8_worst_over_step': worst, 'launches': _cuda.launches(),\n"
     "       'staged_bytes': comm.staged_bytes}\n"
+    ) + _TUNING_WORLD_RUNS + (
     "outs = comm.allgather_obj(out)\n"
     "comm.finalize()\n"
     "if r == 0:\n"
@@ -4167,9 +4373,14 @@ def reducers(seed: int, card: str):
     _reducers_mnist(card)
     torch.cuda.synchronize()
     counts = _cuda.launches()
-    outs = run_ranks([sys.executable, "-c", _REDUCER_WORLD_SCRIPT],
-                     REDUCERS["world_ranks"], timeout=300,
-                     local=REDUCERS["world_local"])
+    import tempfile
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        db = os.path.join(d, "schedtune.json")
+        outs = run_ranks([sys.executable, "-c", _REDUCER_WORLD_SCRIPT, db],
+                         REDUCERS["world_ranks"], timeout=300,
+                         local=REDUCERS["world_local"])
     world = json.loads([ln for ln in outs[0].splitlines()
                         if ln.startswith("world ")][-1][len("world "):])
     w0 = world[0]
@@ -4190,10 +4401,55 @@ def reducers(seed: int, card: str):
                 and w["flat_exact"]
                 and w["int8_worst_over_step"] <= TOL_QUANT_STEP):
             raise PhaseError(f"reducers on 4 ranks of one card: {w}")
+    _check_tuning(world, card)
     if any(counts.values()):
         raise PhaseError(f"the reducers launched hand-written kernels: "
                          f"{counts}")
     return counts
+
+
+def _check_tuning(world, card: str) -> None:
+    """Print the ``tuning`` line of (c) and hold every rank's runs to the
+    flat reducer (module docstring)."""
+    import torch
+
+    t0 = world[0]["tuning"]
+    kind = torch.cuda.get_device_name(0).lower().replace(" ", "-")
+    plan = t0["plan"]
+    lossless = {row["name"]: round(row["ms"], 3) for row in t0["lossless"]}
+    print(f"tuning: 4 host-staged ranks as 2 nodes x 2 (gloo through host "
+          f"memory; no NVLink figure), fingerprint {t0['fingerprint']}, "
+          f"canned plan for the MNIST MLP {plan['strategy']}"
+          f"{':' + plan['program']['name'] if plan['program'] else ''} "
+          f"bucket_bytes {plan['bucket_bytes']:,} order "
+          f"{plan['bucket_order']} overlap {plan['overlap_fraction']}, "
+          f"tuned optimizer ({t0['reducer']}) 3 MNIST steps in "
+          f"{t0['tuned_s']:.3f} s bit for bit flat's "
+          f"{all(w['tuning']['tuned_bitwise'] for w in world)}, "
+          f"TuningReport {t0['report']}, measure_strategies sweep (µs, "
+          f"host-staged) {t0['sweep_us']} persisted and read back by "
+          f"AutoReducer(profile=) "
+          f"{all(w['tuning']['profile_read'] for w in world)}, lossless "
+          f"programs ms a reduction (rank 0) {lossless} bit for bit flat "
+          f"{all(r['bitwise'] for w in world for r in w['tuning']['lossless'])}"
+          f", ring bytes at the tiers (rank 0) "
+          f"{[[r['moved'][k] for k in sorted(r['moved'])] for r in t0['lossless']]}"
+          f" = program_wire_bytes "
+          f"{all(r['moved'] == r['want'] for w in world for r in w['tuning']['lossless'])}"
+          f", cascade-q@inter-int8-block worst |error| / step "
+          f"{max(w['tuning']['int8_inter_worst_over_step'] for w in world):.4f}"
+          f" ({card})", flush=True)
+    for w in world:
+        t = w["tuning"]
+        if not (t["fingerprint"] == f"gpu:{kind}/nvlink:2+net:2"
+                and t["plan"] == plan and t["tuned_bitwise"]
+                and t["report"]["tuning/strategy"] == plan["strategy"]
+                and t["profile_read"] and len(t["lossless"]) == 3
+                and all(r["bitwise"] and r["moved"] == r["want"]
+                        for r in t["lossless"])
+                and t["int8_inter_worst_over_step"] <= TOL_QUANT_STEP):
+            raise PhaseError(f"the tuner and the synthesized reducer on 4 "
+                             f"ranks of one card: {t}")
 
 # the ZeRO world runs inside the FSDP world (FSDP's world_* shape)
 ZERO = dict(steps=4, bucket_mib=25, micro=2, world_bucket_mib=4,
@@ -7136,6 +7392,9 @@ def main(argv=None) -> int:
         profile_training(args.seed, args.profile, card)
     torch.cuda.empty_cache()
     mark("train")
+    prof_counts = profile_lm_phase(card)
+    torch.cuda.empty_cache()
+    mark("profile_lm")
     mnist_counts = mnist(card, args.profile)
     mark("mnist")
     cifar_counts = cifar(card, args.profile)
@@ -7180,8 +7439,9 @@ def main(argv=None) -> int:
         name: worst[name] for name in sources if name != "flash_fwd"}}
     kernels = []
     for name, (src, tpu) in sources.items():
-        # serving, training, the ViT, its checkpoint runs, the ZeRO,
-        # FSDP, resilience, parallel and pipeline phases drive flash (and
+        # serving, training, profile_lm, the ViT, its checkpoint runs, the
+        # ZeRO, FSDP, resilience, parallel and pipeline phases drive flash
+        # (and
         # the ZeRO, FSDP and resilience phases the CE kernels): a count is
         # the sum
         # of the main-path runs (the MNIST, CIFAR, ResNet-50, seq2seq,
@@ -7189,7 +7449,7 @@ def main(argv=None) -> int:
         # ZeRO phase run bf16 models; the f32 runs' launches of the ZeRO,
         # FSDP, resilience and parallel phases go to the f32 bodies' own
         # rows
-        bf16 = (train_counts[name] + mnist_counts[name]
+        bf16 = (train_counts[name] + prof_counts[name] + mnist_counts[name]
                 + cifar_counts[name] + r50_counts[name] + s2s_counts[name]
                 + mp_counts.get(name, 0) + vit_counts[name]
                 + ckpt_counts[name] + red_counts.get(name, 0)

@@ -24,6 +24,8 @@ bf16 lse and CE statistics at 2e-3 and 1e-3 absolute.
 """
 
 import tests.torch_threads  # noqa: F401  (one torch thread a worker)
+import os
+
 import pytest
 import torch
 
@@ -621,6 +623,47 @@ def test_train_step_on_the_card_runs_the_kernels(cuda):
         assert m["main/loss"].shape == (2,)
         assert torch.isfinite(m["main/loss"]).all()
         assert all(p.dtype == torch.float32 for p in model.parameters())
+    finally:
+        comm.finalize()
+
+
+def test_profile_window_traces_the_cards_kernels(cuda, tmp_path):
+    """The Trainer's ``Profile`` window on the card: one Chrome trace for
+    iterations [2, 4) of a small bf16 LM with the fused loss, holding the
+    kernel launches of its steps by family (flash, the fused CE kernels,
+    GEMMs), and the busy share of the window in (0, 1]."""
+    from chainermn_torch.iterators import SerialIterator
+    from chainermn_torch.training import (Profile, StandardUpdater,
+                                          Trainer)
+    from chainermn_torch.training.profiling import (busy_share, family_ms,
+                                                    kernel_events)
+
+    comm = create_communicator("pure_nccl")
+    try:
+        torch.manual_seed(0)
+        model = TransformerLM(vocab=512, d_model=64, n_heads=4, n_layers=2,
+                              d_ff=128, max_len=64, pos_emb="rope",
+                              dtype=torch.bfloat16, device=cuda)
+        opt = create_multi_node_optimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-3,
+                              weight_decay=1e-4), comm)
+        step = make_data_parallel_train_step(model, opt, comm,
+                                             loss_fn=fused_lm_loss)
+        toks = torch.randint(0, 512, (64, 65)).numpy()
+        data = [(t[:-1], t[1:]) for t in toks]
+        trainer = Trainer(StandardUpdater(
+            SerialIterator(data, 4, shuffle=False), step, comm,
+            model=model, optimizer=opt), stop_trigger=(5, "iteration"))
+        prof = Profile(str(tmp_path), start=2, stop=4)
+        trainer.extend(prof, trigger=(1, "iteration"))
+        trainer.run()
+        assert os.listdir(tmp_path) == ["trace_iter2-4.json"]
+        events = kernel_events(prof.path)
+        fams = family_ms(events)
+        for name in ("flash_fwd", "flash_bwd", "ce_fwd", "ce_dh", "ce_dw",
+                     "GEMM"):
+            assert fams[name] > 0, (name, fams)
+        assert 0 < busy_share(events) <= 1
     finally:
         comm.finalize()
 

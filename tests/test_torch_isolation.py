@@ -83,7 +83,11 @@ def test_importing_the_port_loads_no_jax_module():
             "chainermn_torch.examples.serve_transformer_lm, "
             "chainermn_torch.tools.serve_lm, chainermn_torch.fleet, "
             "chainermn_torch.comm.socket_plane, "
-            "chainermn_torch.tools.fleet_lm, chip_smoke; "
+            "chainermn_torch.tools.fleet_lm, chainermn_torch.tuning, "
+            "chainermn_torch.synthesis, chainermn_torch.tuning.hlo, "
+            "chainermn_torch.training.profiling, "
+            "chainermn_torch.tools.schedtune, chainermn_torch.tools.synth, "
+            "chainermn_torch.tools.profile_lm, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -123,6 +127,11 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_mnist.main(["--epoch", "1", "--grad-reducer", "auto",
                           "--out", "unused"])
+    # the tuner's and the profiler's entry points
+    from chainermn_torch.tools import profile_lm
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_lm.build_step(profile_lm.parse_args([]))
 
 
 def test_the_resnet_slice_raises_without_cuda_unless_asked_for_cpu(tmp_path):

@@ -716,3 +716,157 @@ def test_pipelines_across_four_cards():
     orders; a message paired with another's payload is off by O(1))."""
     _four_cards()
     assert_ranks_ok(run_world(PIPELINE_WORKER, 4, timeout=300))
+
+
+TUNING_WORKER = r"""
+import json, os, sys
+import torch
+import torch.nn.functional as F
+from chainermn_torch.collectives import (AutoReducer, make_grad_reducer,
+                                         measure_strategies)
+from chainermn_torch.comm import create_communicator
+from chainermn_torch.synthesis import enumerate_programs, program_wire_bytes
+from chainermn_torch.tuning import ProfileDB, Topology
+
+DEV = os.environ.get("WORLD_DEVICE", "cuda")
+comm = create_communicator("pure_nccl", device=DEV)
+r, dev, n = comm.rank, comm.device, comm.size
+db = sys.argv[1]
+g = torch.Generator().manual_seed(0)
+every = torch.randint(-8, 9, (n, 40961), generator=g).float()
+want = every.sum(0) / n
+
+
+def counted(red, fn):
+    moved = {i: 0.0 for i in range(len(red.tiers.sizes))}
+    for i, c in enumerate(red.tiers.comms):
+        if c is None:
+            continue
+        k = c.size
+        for name, factor in (("reduce_flat", 2 * (k - 1) / k),
+                             ("reduce_scatter_flat", (k - 1) / k),
+                             ("all_gather_flat", k - 1)):
+            def wrap(t, *a, fn=getattr(c, name), i=i, factor=factor, **kw):
+                moved[i] += t.numel() * t.element_size() * factor
+                return fn(t, *a, **kw)
+            setattr(c, name, wrap)
+    return fn(), moved
+
+
+# every lossless program of 2 x 2 and of one tier of 4, over NCCL
+# subgroups: bitwise the flat mean, ring bytes = program_wire_bytes
+for intra in (2, 4):
+    for prog in enumerate_programs(Topology.from_comm(comm, intra=intra)):
+        red = make_grad_reducer("synth", comm, program=prog)
+        (got, _), moved = counted(
+            red, lambda: red.reduce([every[r].to(dev, copy=True)]))
+        assert torch.equal(got[0].cpu(), want), (intra, prog.name)
+        assert moved == program_wire_bytes(prog, 40961 * 4), (prog.name,
+                                                             moved)
+
+# the slow-tier int8-block program: within half a step of the inter
+# tier's grid of the flat mean (the intra sums of ranks 2g and 2g + 1)
+prog = {p.name: p for p in enumerate_programs(
+    Topology.from_comm(comm, intra=2), lossy=True)}[
+        "cascade-q@inter-int8-block"]
+red = make_grad_reducer("synth", comm, program=prog)
+x = [every[r].to(dev, copy=True)]
+(got, state), moved = counted(red, lambda: red.reduce(x, red.init(x)))
+assert moved == program_wire_bytes(prog, 40961 * 4, wire="collective")
+v = F.pad(every, (0, 1))
+part = torch.stack([v[0] + v[1], v[2] + v[3]])
+half = v.shape[1] // 2
+step = torch.empty(v.shape[1])
+for c0 in range(2):
+    ch = part[:, c0 * half:(c0 + 1) * half].abs()
+    blk = F.pad(ch, (0, (-half) % 256)).reshape(2, -1, 256).amax(2).amax(0)
+    step[c0 * half:(c0 + 1) * half] = blk[:, None].expand(
+        -1, 256).reshape(-1)[:half] / 127.0
+worst = ((got[0].cpu() - want).abs() / step[:40961]).max().item()
+assert worst <= 0.5 + 2 * 127 * 2 ** -24, worst
+
+# a measured sweep over NVLink into a profile DB, read back by auto
+out = {}
+for intra in (4, 2):
+    table = measure_strategies(comm, intra=intra, db=db)
+    if DEV == "cuda":
+        assert table and all(us > 0 for us in table.values())
+    else:
+        assert table == {}
+    auto = AutoReducer(comm, intra=intra, profile=db)
+    assert auto.measured == table
+    topo = Topology.from_comm(comm, intra=intra)
+    assert ProfileDB(db).measured_for(topo) == table
+    out[topo.fingerprint()] = {f"{s}@{b}": round(us, 3)
+                               for (s, b), us in sorted(table.items())}
+if r == 0:
+    print("SWEEP " + json.dumps(out), flush=True)
+comm.barrier()
+comm.finalize()
+print(f"RANK{r} OK", flush=True)
+"""
+
+
+def test_synthesis_and_sweeps_across_four_cards(tmp_path):
+    """Every lossless program of 2 x 2 and of one tier of 4 through
+    ``SynthesizedReducer`` on NCCL subgroups, bitwise the flat mean of
+    integer-valued floats, with the ring bytes at each tier's collectives
+    equal to ``program_wire_bytes``; the slow-tier int8-block program
+    within half a step of its grid; ``measure_strategies(db=)`` sweeps over
+    NVLink (one tier of 4, and 2 x 2) persisted into a profile DB and read
+    back by ``AutoReducer(profile=)`` (each sweep printed, in µs)."""
+    _four_cards()
+    res = run_world(TUNING_WORKER, 4, timeout=300,
+                    args=[str(tmp_path / "db.json")])
+    assert_ranks_ok(res)
+    print([ln for ln in res[0][1].splitlines() if ln.startswith("SWEEP ")])
+
+
+def test_schedtune_trace_across_four_cards(tmp_path):
+    """``schedtune --trace`` on four NCCL ranks, twice: every candidate's
+    overlap fraction and NCCL time come from a ``torch.profiler`` trace of
+    warmed data-parallel steps of JAX's ``--aot`` model, the plan's source
+    is ``trace``, the DB holds it under the card's fingerprint, and the
+    two runs' winners and rows are printed (their agreement is the
+    ranking's stability, reported, not asserted)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from tests.test_torch_mp import REPO
+
+    _four_cards()
+    runs = []
+    for i in range(2):
+        db = str(tmp_path / f"db{i}.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "chainermn_torch.tools.schedtune",
+             "--trace", "--ranks", "4", "--db", db],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+            capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert out["source"] == "trace" and out["chosen"]["source"] == "trace"
+        assert out["n_candidates"] >= 8
+        for row in out["candidates"]:
+            assert 0.0 <= row["overlap_fraction"] <= 1.0
+            assert row["comm_us"] > 0
+        from chainermn_torch.tuning import ProfileDB
+
+        assert ProfileDB(db).plan_for(out["topology"]).source == "trace"
+        assert out["topology"].startswith("gpu:")
+        runs.append(out)
+        print("TRACE " + json.dumps({
+            "chosen": {k: out["chosen"][k] for k in (
+                "strategy", "bucket_bytes", "bucket_order",
+                "overlap_fraction", "est_exposed_us")},
+            "rows": [(row["candidate"]["strategy"],
+                      row["candidate"]["bucket_bytes"],
+                      row["candidate"]["bucket_order"],
+                      row["overlap_fraction"], row["comm_us"],
+                      row["exposed_us"]) for row in out["candidates"]]}))
+    print("TRACE same winner in both runs:",
+          runs[0]["chosen"]["bucket_bytes"] == runs[1]["chosen"][
+              "bucket_bytes"] and runs[0]["chosen"]["bucket_order"] ==
+          runs[1]["chosen"]["bucket_order"])

@@ -549,10 +549,12 @@ def comm():
     c.finalize()
 
 
-def test_registry_and_refusals(comm):
+def test_registry_and_refusals(comm, tmp_path):
     """The registry, the wire-format refusals of ``make_grad_reducer`` and
-    ``create_multi_node_optimizer`` (JAX's rules), and the parts that
-    wait for ROADMAP.md queue 1 item 13."""
+    ``create_multi_node_optimizer`` (JAX's rules), and the tuner's entry
+    points on a DB with no entry: ``tune=`` is refused, ``synth`` needs a
+    program, ``AutoReducer(profile=)`` reads nothing and
+    ``measure_strategies(db=)`` on the CPU writes nothing."""
     from chainermn_torch.collectives import (REDUCERS, AutoReducer,
                                              FlatReducer, QuantizedReducer,
                                              make_grad_reducer,
@@ -584,15 +586,17 @@ def test_registry_and_refusals(comm):
     opt = create_multi_node_optimizer(sgd, comm, grad_reducer="quantized",
                                       wire_format="int8")
     assert opt.grad_reducer.mode == "int8" and opt.plan is None
-    for kw in ({"tune": True}, {"model_key": "m"}, {"topology": object()}):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            create_multi_node_optimizer(sgd, comm, **kw)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    empty = str(tmp_path / "empty.json")
+    with pytest.raises(ValueError, match="no tuned schedule"):
+        create_multi_node_optimizer(sgd, comm, tune=empty)
+    for kw in ({"model_key": "m"}, {"topology": object()}):
+        assert create_multi_node_optimizer(sgd, comm, **kw).plan is None
+    assert "synth" in REDUCERS
+    with pytest.raises(ValueError, match="program="):
         make_grad_reducer("synth", comm)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        AutoReducer(comm, profile=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        measure_strategies(comm, db=True)
+    assert AutoReducer(comm, profile=empty).measured == {}
+    assert measure_strategies(comm, db=empty) == {}
+    assert not (tmp_path / "empty.json").exists()
 
 
 def test_plans_and_report(comm, capsys):

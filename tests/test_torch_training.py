@@ -295,11 +295,14 @@ def test_two_rank_gloo_world():
 
 @pytest.mark.parametrize("double_buffering", [False, True])
 def test_multi_node_optimizer_against_the_jax_wrapper(comm,
-                                                      double_buffering):
+                                                      double_buffering,
+                                                      tmp_path):
     """SGD with momentum through each package's wrapper, fed the same
     gradient sequence: the port's step() equals the JAX update, with
     double buffering's one-step lag (step 1 applies zeros, step t the
-    gradients of step t-1). f32 at 1e-6."""
+    gradients of step t-1). f32 at 1e-6. An unknown reducer is refused,
+    and so is ``tune=`` with a profile DB that has no plan for this
+    communicator, with JAX's text."""
     # one rank on each side: a one-device mesh
     comm_j = chainermn_tpu.create_communicator(
         "xla", mesh=Mesh(np.array(jax.devices()[:1]), ("r",)))
@@ -334,9 +337,9 @@ def test_multi_node_optimizer_against_the_jax_wrapper(comm,
     with pytest.raises(ValueError, match="unknown grad_reducer"):
         create_multi_node_optimizer(torch.optim.SGD([w], lr=0.1), comm,
                                     grad_reducer=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no tuned schedule for topology"):
         create_multi_node_optimizer(torch.optim.SGD([w], lr=0.1), comm,
-                                    tune=True)
+                                    tune=str(tmp_path / "empty.json"))
 
 
 # -- the data-parallel train step -----------------------------------------
