@@ -319,6 +319,7 @@ def _train_loop(model, args, M, device, talk: bool) -> List[float]:
     t0 = t1 = time.perf_counter()
     for step in range(args.steps):
         toks, tgts = next(data)
+        # dlint: disable=DL104 — step returns loss.item(), a host float
         losses.append(model.step(toks, tgts))
         if step == 0:
             t1 = time.perf_counter()

@@ -439,6 +439,7 @@ class MultiNodeCheckpointer:
         while True:
             # same-process producer, sentinel-terminated: close() always
             # delivers the None wake-up
+            # dlint: disable=DL111 — close() always sends the None sentinel
             item = self._queue.get()
             try:
                 if item is None:

@@ -133,6 +133,7 @@ def greedy_translate(model: Seq2Seq, src, src_len, max_len: int = 64):
     done = torch.zeros(b, dtype=torch.bool, device=model.device)
     out = []
     for _ in range(max_len):
+        # dlint: disable=DL104 — one card's decode: no collective waits on it
         carries, logits = model.decode_step(carries, token)
         token = torch.where(done, PAD, logits.argmax(-1))
         done = done | (token == EOS)

@@ -696,6 +696,6 @@ class Engine:
             if n >= max_steps:
                 raise RuntimeError(
                     f"engine failed to drain within {max_steps} steps")
-            self.step()
+            self.step()  # dlint: disable=DL104
             n += 1
         return n

@@ -234,6 +234,7 @@ class Frontend:
                 if not self.engine.idle():
                     # Engine.step() syncs internally (one [n_slots, k]
                     # token pull — sampling stays on device)
+                    # dlint: disable=DL104 — Engine.step pulls its tokens
                     self.engine.step()
                     worked = True
                     for rid, (fut, req) in list(self._futures.items()):

@@ -536,10 +536,12 @@ class ServingStep:
         want = (cursor, spec["n_kv_heads"], spec["d_head"])
         for name, page in self.cache.items():
             if resident:
+                # dlint: disable=DL121 — handoff pages are host arrays
                 rows = {leaf: torch.from_numpy(
                     np.array(pages[name][leaf])).to(dev)
                     for leaf in _QUANT_LEAVES}
             else:
+                # dlint: disable=DL121 — handoff pages are host arrays
                 rows = {kv: torch.from_numpy(
                     np.array(pages[name][kv], np.float32)).to(dev)
                     for kv in ("k", "v")}

@@ -100,6 +100,7 @@ def propose_apply(model, cache, prev, cur, valid, starts, keys, temps,
     for _ in range(spec_k - 1):
         logits, cache = decode_apply(model, cache, tok)
         tok, shadow = sample_tokens(logits, shadow, temps, top_ks)
+        # dlint: disable=DL125 — drafts go to verify_apply, no stream
         drafts.append(tok)
     # ride-along rows: cursors back to their real fill, like decode_k
     for page in cache.values():

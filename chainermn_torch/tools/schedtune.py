@@ -140,11 +140,13 @@ def _trace_compile_fn(comm, model, steps: int):
         step = make_data_parallel_train_step(model, opt, comm,
                                              loss_fn=classifier_loss)
         for _ in range(TRACE_WARMUP):
+            # dlint: disable=DL104 — warm-up, synced after it
             step(x, y)
         torch.cuda.synchronize(comm.device)
         comm.barrier()
         with capture(comm.device) as rec:
             for _ in range(steps):
+                # dlint: disable=DL104 — traced; capture() syncs at its end
                 step(x, y)
         frac, nccl_us = nccl_overlap(kernel_events(rec["trace"]))
         # an NCCL kernel also spins while its peers' hosts catch up: the

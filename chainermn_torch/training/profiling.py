@@ -12,11 +12,15 @@ shared by ``python -m chainermn_torch.tools.profile_lm`` (device time by
 kernel family and the busy share) and ``python -m
 chainermn_torch.tools.schedtune --trace`` (:func:`nccl_overlap`: the share
 of NCCL kernel time that ran concurrently with compute kernels, the
-device-side counterpart of the JAX tuner's DL201 overlap fraction).
+device-side counterpart of the JAX tuner's DL201 overlap fraction), and
+by the port's dlint trace passes (``chainermn_torch/analysis/
+trace_passes.py``: DL201 reads :func:`backward_events` beside the NCCL
+kernels, DL202 counts NCCL kernels per :func:`profiler_steps`).
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import os
@@ -26,7 +30,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 __all__ = ["Profile", "capture", "kernel_events", "kernel_family",
-           "family_ms", "busy_share", "nccl_overlap", "FAMILIES"]
+           "family_ms", "busy_share", "nccl_overlap", "backward_events",
+           "profiler_steps", "FAMILIES"]
 
 #: the kernel families :func:`kernel_family` sorts device time into
 FAMILIES = ("flash_fwd", "flash_bwd", "ce_fwd", "ce_dh", "ce_dw", "GEMM",
@@ -128,17 +133,70 @@ def capture(device=None):
         os.unlink(path)
 
 
-def kernel_events(trace: Union[str, dict]) -> List[Tuple[str, float, float]]:
-    """``(name, start_us, duration_us)`` of every device event (kernels,
-    copies, fills) of a Chrome trace (a path or its dict)."""
+def _trace_events(trace: Union[str, dict, list]) -> List[dict]:
     if isinstance(trace, str):
         with open(trace) as f:
             trace = json.load(f)
-    events = trace.get("traceEvents", trace) if isinstance(trace, dict) \
+    return trace.get("traceEvents", trace) if isinstance(trace, dict) \
         else trace
+
+
+def kernel_events(trace: Union[str, dict]) -> List[Tuple[str, float, float]]:
+    """``(name, start_us, duration_us)`` of every device event (kernels,
+    copies, fills) of a Chrome trace (a path or its dict)."""
     return [(e.get("name", ""), float(e["ts"]), float(e.get("dur", 0.0)))
-            for e in events
+            for e in _trace_events(trace)
             if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS]
+
+
+#: the host span the autograd engine records around each backward function
+_BACKWARD_SPAN = "autograd::engine::evaluate_function"
+
+
+def backward_events(trace: Union[str, dict]
+                    ) -> List[Tuple[str, float, float]]:
+    """The device events of :func:`kernel_events` that a backward function
+    launched: those whose launch (the runtime call of the same
+    ``correlation``) lies inside an ``autograd::engine::evaluate_function``
+    span of the launching thread."""
+    events = _trace_events(trace)
+    spans: Dict[Tuple, List[Tuple[float, float]]] = {}
+    launches: Dict[int, Tuple[Tuple, float]] = {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        where = (e.get("pid"), e.get("tid"))
+        if e.get("name", "").startswith(_BACKWARD_SPAN):
+            t0 = float(e["ts"])
+            spans.setdefault(where, []).append(
+                (t0, t0 + float(e.get("dur", 0.0))))
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            corr = (e.get("args") or {}).get("correlation")
+            if corr is not None:
+                launches[corr] = (where, float(e["ts"]))
+    merged = {where: _union(iv) for where, iv in spans.items()}
+    starts = {where: [a for a, _ in iv] for where, iv in merged.items()}
+    out = []
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in _DEVICE_CATS:
+            continue
+        launch = launches.get((e.get("args") or {}).get("correlation"))
+        if launch is None or launch[0] not in merged:
+            continue
+        where, t = launch
+        i = bisect.bisect_right(starts[where], t) - 1
+        if i >= 0 and t <= merged[where][i][1]:
+            out.append((e.get("name", ""), float(e["ts"]),
+                        float(e.get("dur", 0.0))))
+    return out
+
+
+def profiler_steps(trace: Union[str, dict]) -> int:
+    """How many ``ProfilerStep#N`` spans the trace holds (a
+    ``torch.profiler`` schedule marks each step so)."""
+    return len({e.get("name") for e in _trace_events(trace)
+                if e.get("ph") == "X"
+                and str(e.get("name", "")).startswith("ProfilerStep#")})
 
 
 def kernel_family(name: str) -> str:

@@ -112,7 +112,11 @@ the final line:
    printed as device ms by kernel family, the busy share of the
    dispatch, the shapes' roofline and the traced dispatch's launches
    (48 flash_fwd and flash_bwd, 4 each of ce_fwd, ce_dh and ce_dw); the
-   phase's launches join the kernels line;
+   phase's launches join the kernels line. The port's dlint trace passes
+   (``chainermn_torch/analysis/trace_passes.py``) then read that trace:
+   the ``dlint trace:`` line gives DL202's NCCL kernels a step (0 on one
+   card), DL201's verdict (``skip`` without NCCL) and the device events
+   the reader took, by family; a trace with no device event fails;
 6. mnist — the port's MNIST example (``chainermn_torch.examples.
    train_mnist``, config #1: communicator ``naive``, IDX files,
    ``scatter_dataset``, Adam, ``Trainer`` with the multi-node evaluator
@@ -1408,8 +1412,11 @@ def profile_lm_phase(card: str):
     """``profile_lm`` at ``BENCH_r05.json``'s ``lm_config`` (fused loss,
     ``bhld``, batch 4) in this process: warmed dispatches, then one
     traced; prints device ms by kernel family, the busy share and the
-    traced dispatch's launches. Launch counts are zeroed just before and
-    read just after; returns them."""
+    traced dispatch's launches, then the ``dlint trace:`` line of the
+    port's trace passes over the trace it wrote. Launch counts are zeroed
+    just before and read just after; returns them."""
+    import tempfile
+
     import torch
 
     from chainermn_torch.ops import _cuda
@@ -1427,12 +1434,19 @@ def profile_lm_phase(card: str):
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
+    trace_dir = tempfile.TemporaryDirectory()
+    args.trace_dir = trace_dir.name
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    out = profile_lm.profile(args, warm=2, timed=3)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _cuda.launches()
+    try:
+        out = profile_lm.profile(args, warm=2, timed=3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _cuda.launches()
+        with open(os.path.join(trace_dir.name, "profile_lm.json")) as f:
+            trace = json.load(f)
+    finally:
+        trace_dir.cleanup()
     fams = {k: round(v, 4) for k, v in out["device_ms_by_family"].items()}
     k = profile_lm.SCAN_K
     bound = max(out["roofline_flops_ms"], out["roofline_hbm_ms"])
@@ -1459,7 +1473,40 @@ def profile_lm_phase(card: str):
             and all(fams[name] > 0 for name in want)):
         raise PhaseError(f"profile_lm: loss {out['loss']}, busy "
                          f"{out['busy_share']}, families {fams}")
+    dlint_trace(trace, k, card)
     return counts
+
+
+def dlint_trace(trace, steps: int, card: str) -> None:
+    """The port's dlint trace passes over ``profile_lm``'s trace of
+    ``steps`` steps: DL202 (NCCL kernels a step, against a budget of 0 on
+    one card), DL201 (``skip`` where no NCCL kernel ran) and the device
+    events the reader took, by family. Fails if it took none: the passes
+    would have read nothing."""
+    from chainermn_torch.analysis import trace_passes
+    from chainermn_torch.training.profiling import (kernel_events,
+                                                    kernel_family)
+
+    t0 = time.perf_counter()
+    dl201 = trace_passes.check_dp_overlap(trace)
+    dl202 = trace_passes.check_collective_budget(trace, 0, steps=steps)
+    events = kernel_events(trace)
+    by_family = {}
+    for name, _, _ in events:
+        fam = kernel_family(name)
+        by_family[fam] = by_family.get(fam, 0) + 1
+    took = time.perf_counter() - t0
+    verdict = "skip" if dl201["ok"] is None else dl201["ok"]
+    print(f"dlint trace: profile_lm's trace of {steps} steps: "
+          f"{dl202.get('per_step')} NCCL kernels a step (DL202 budget 0, "
+          f"ok {dl202['ok']}, by kind {dl202.get('by_kind')}), DL201 "
+          f"{verdict} ({dl201.get('skip') or dl201.get('overlap_fraction')})"
+          f", {len(events)} device events by family "
+          f"{dict(sorted(by_family.items()))}, read in {took:.3f} s "
+          f"({card})", flush=True)
+    if not events:
+        raise PhaseError("dlint trace: the reader found no device event in "
+                         "profile_lm's trace")
 
 
 def build_model(seed: int, dtype, attention: str):
@@ -1805,6 +1852,7 @@ def _serve_migration(model, prompts, streams, card: str):
     t2 = time.perf_counter()
     moved = adopted[0]
     while len(moved.tokens) < SERVE_REST["session_min_tokens"]:
+        # dlint: disable=DL104 — Engine.step pulls its tokens to the host
         b.step()
     session = b.export_session(moved)
     t3 = time.perf_counter()
@@ -2431,6 +2479,7 @@ def _fleet_disagg(model, prompts, streams, gap: float, card: str):
             d = Engine(model, one)
             r = d.import_handoff(decode_handoff(*encode_handoff(h, wf)), p,
                                  max_new_tokens=2)
+            # dlint: disable=DL104 — Engine.step pulls its tokens to the host
             d.step()
             logits[wf] = d.last_logits[r.slot]
             del d
@@ -2762,12 +2811,14 @@ def train(seed: int, card: str):
         k, -1, -1).contiguous()
     losses = []
     for _ in range(TRAIN["warmup_calls"]):
+        # dlint: disable=DL104 — warm-up, synced after it
         losses.append(step(xs, ys)["main/loss"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
     t0 = time.perf_counter()
     for _ in range(TRAIN["timed_calls"]):
+        # dlint: disable=DL104 — timed loop, synced once after it
         m = step(xs, ys)
         losses.append(m["main/loss"])
     torch.cuda.synchronize()
@@ -3378,6 +3429,7 @@ def seq2seq(card: str, profile_dir=None):
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for arrays in batches:
+                # dlint: disable=DL104 — profiled loop, synced once after it
                 run.step(*(torch.from_numpy(a) for a in arrays))
             torch.cuda.synchronize()
             pwall = time.perf_counter() - t0
@@ -3832,6 +3884,7 @@ def vit(seed: int, card: str, profile_dir=None):
         _cuda.reset_launches()
         t0 = time.perf_counter()
         for _ in range(v["fixed_calls"]):
+            # dlint: disable=DL104 — timed loop; float(loss) after it syncs
             m = step(x, y)
         last = float(m["main/loss"])
         fixed = (time.perf_counter() - t0) / v["fixed_calls"]
@@ -4591,6 +4644,7 @@ def _zero_full_width(seed: int, card: str):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(z["steps"] - 1):
+            # dlint: disable=DL104 — timed loop, synced once after it
             losses.append(step(x, y)["main/loss"])
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / (z["steps"] - 1)
@@ -5296,6 +5350,7 @@ def _fsdp_full_width(seed: int, card: str):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(f["steps"] - 1):
+            # dlint: disable=DL104 — timed loop, synced once after it
             losses.append(step(x, y)["main/loss"])
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / (f["steps"] - 1)

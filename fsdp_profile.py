@@ -51,10 +51,12 @@ def main(argv=None) -> int:
                                                 weight_decay=1e-4),
             comm, loss_fn=fused_lm_loss)
         for _ in range(3):
+            # dlint: disable=DL104 — warm-up, synced after it
             step(x, y)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
+            # dlint: disable=DL104 — timed loop, synced once after it
             step(x, y)
         torch.cuda.synchronize()
         print(f"fsdp step: {(time.perf_counter() - t0) / 3 * 1e3:.3f} "
@@ -62,6 +64,7 @@ def main(argv=None) -> int:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(args.steps):
+                # dlint: disable=DL104 — profiled loop, synced once after it
                 step(x, y)
             torch.cuda.synchronize()
         ka = prof.key_averages()

@@ -36,6 +36,9 @@ from chainermn_torch.resilience.policy import RpcPolicy
 from tests.test_torch_fleet_fake import FakeEngine
 
 _FAST = RpcPolicy(timeout_ms=2000, probe_ms=100)
+#: the tag of a frame sent to an endpoint nobody listens on: it has no
+#: receiver by design
+_DEAD_PEER_TAG = 22
 
 
 @pytest.fixture(autouse=True)
@@ -217,7 +220,7 @@ def test_connect_to_dead_peer_drops_not_hangs():
                           pol=RpcPolicy(timeout_ms=500, probe_ms=50))
     try:
         t0 = time.monotonic()
-        a.send_obj({"n": 1}, 1, tag=22)
+        a.send_obj({"n": 1}, 1, tag=_DEAD_PEER_TAG)
         assert time.monotonic() - t0 < 10.0
         assert a.stats["send_dropped"] == 1
     finally:
