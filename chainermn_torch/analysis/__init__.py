@@ -24,14 +24,15 @@ One CLI, ``python -m chainermn_torch.tools.dlint``:
   (set iteration feeding collectives or ``new_group``), DL121 (host sync
   in decode) and DL125 (draft/target key confusion).
 * **Trace passes** (:mod:`.trace_passes`) read a ``torch.profiler``
-  trace taken on the card, where the JAX package reads compiled HLO:
-  DL201 (gradient all-reduce overlaps backward) and DL202 (NCCL
-  collectives per step).
+  trace, where the JAX package reads compiled HLO: DL201 (gradient
+  all-reduce overlaps backward), DL202 (NCCL collectives per step),
+  DL203 (pipeline hops hide compute), DL204 (co-live FSDP gathers, from
+  the memory events) and DL205 (the quantized wire's dtype).
 
 Not registered (:data:`.core.NOT_APPLICABLE`, with reasons): DL108 and
 DL122 (the port compiles and traces nothing) and DL119 (nothing donates a
-buffer). DL203-DL205 are trace passes still to port
-(:data:`.core.NOT_YET_PORTED`). docs/static_analysis_torch.md gives each
+buffer). :data:`.core.NOT_YET_PORTED` is empty: every HLO pass has its
+trace form. docs/static_analysis_torch.md gives each
 rule's port form with a minimal failing example. Suppress an intentional
 finding with ``# dlint: disable=RULE — rationale`` on the flagged line,
 the line above, or the first line of the enclosing statement.
@@ -77,6 +78,11 @@ from chainermn_torch.analysis.dataflow import (  # noqa: F401
 from chainermn_torch.analysis.trace_passes import (  # noqa: F401
     check_collective_budget,
     check_dp_overlap,
+    check_fsdp_gather_liveness,
+    check_pipeline_permute_overlap,
+    check_quantized_wire_dtype,
+    collective_records,
     dp_overlap_fraction,
+    nccl_dtype,
     nccl_kind,
 )

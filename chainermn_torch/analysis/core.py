@@ -18,7 +18,7 @@ Three pass shapes share one registry:
 
 The rules of the JAX package that have no port form are not registered:
 :data:`NOT_APPLICABLE` names each with its reason,
-:data:`NOT_YET_PORTED` the trace passes still to write, and
+:data:`NOT_YET_PORTED` the trace passes still to write (none now), and
 ``chainermn_torch/tools/dlint.py --list-rules`` prints them beside the
 registered ones.
 
@@ -101,22 +101,10 @@ NOT_APPLICABLE: Dict[str, Tuple[str, str]] = {
               "eagerly, once per call, and retrace nothing"),
 }
 
-#: rule_id -> (name, what it needs) for the JAX package's HLO passes whose
-#: trace counterpart is still to be written; not registered either
-NOT_YET_PORTED: Dict[str, Tuple[str, str]] = {
-    "DL203": ("pipeline-permute-overlap",
-              "needs the pipeline's p2p "
-              "kernels (NCCL SendRecv) matched against compute kernels "
-              "in a four-card trace"),
-    "DL204": ("fsdp-gather-liveness",
-              "needs the profiler's memory "
-              "events (profile_memory=True) to count co-live gathered "
-              "layers"),
-    "DL205": ("quantized-wire-dtype",
-              "needs the dtype that NCCL's "
-              "kernel name carries (e.g. _i8/_f32) of the dominant "
-              "collective"),
-}
+#: rule_id -> (name, what it needs) for a JAX HLO pass whose trace
+#: counterpart is still to be written; every one is ported (DL201-DL205
+#: are :mod:`.trace_passes`), so the table is empty
+NOT_YET_PORTED: Dict[str, Tuple[str, str]] = {}
 
 
 def register(rule: Rule) -> Rule:

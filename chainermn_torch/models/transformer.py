@@ -53,6 +53,7 @@ from __future__ import annotations
 import copy
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -70,7 +71,7 @@ from chainermn_torch.parallel.tensor_parallel import (
     pmax_stop_gradient, vocab_parallel_cross_entropy)
 from chainermn_torch.parallel.ulysses import ulysses_attention
 
-__all__ = ["TransformerBlock", "TransformerLM", "generate",
+__all__ = ["TransformerBlock", "TransformerLM", "KVHeadShard", "generate",
            "dense_attention", "compute_copy", "lm_loss_with_aux",
            "tp_lm_loss",
            "stack_lm_blocks", "unstack_lm_blocks",
@@ -289,12 +290,19 @@ class TransformerBlock(nn.Module):
         return self.forward_with_aux(x, pos_offset)[0]
 
     def forward_cached(self, x, page: Dict[str, torch.Tensor],
-                       chunked: bool = False):
+                       chunked: bool = False,
+                       heads: Optional["KVHeadShard"] = None):
         """KV-cache forward of a slab of l new tokens starting at the
         page cursor ``page["idx"]`` (scalar, or ``[b]`` per slot). Writes
-        K/V into ``page`` and advances its cursor, in place."""
+        K/V into ``page`` and advances its cursor, in place. With
+        ``heads``, the page holds only this rank's KV heads: q, k and v
+        are projected whole and sliced to them, attention runs on them,
+        and the heads' outputs are all-gathered before the output
+        projection (which, with the FFN, runs replicated)."""
         b, l, _ = x.shape
         q, k, v = self._project(x)
+        if heads is not None:
+            q, k, v = heads.local(q, k, v, self.n_heads // self.n_kv_heads)
         pos = page["idx"]
         per_slot = pos.dim() == 1
         ar = torch.arange(l, device=x.device)
@@ -327,6 +335,8 @@ class TransformerBlock(nn.Module):
             att = self._slab_attention(q, k, v)
         else:
             att = self._decode_attention(q, kc, vc, rows, per_slot)
+        if heads is not None:
+            att = heads.gather(att)
         return self._tail(x, att)[0]
 
     def _grouped_scores(self, q, kc):
@@ -335,13 +345,13 @@ class TransformerBlock(nn.Module):
         head h // g, as ``jnp.repeat`` over the head axis does."""
         b, l = q.shape[:2]
         g = self.n_heads // self.n_kv_heads
-        qf = q.float().reshape(b, l, self.n_kv_heads, g, self.d_head)
+        qf = q.float().reshape(b, l, kc.shape[2], g, self.d_head)
         return (torch.einsum("bqkgd,bckd->bkgqc", qf, kc.float())
                 * self.d_head ** -0.5)
 
     def _grouped_values(self, p, vc, b, l):
         o = torch.einsum("bkgqc,bckd->bqkgd", p, vc.float())
-        return o.reshape(b, l, self.n_heads, self.d_head)
+        return o.reshape(b, l, -1, self.d_head)
 
     def _chunk_attention(self, q, kc, vc, rows, per_slot):
         b, l = q.shape[:2]
@@ -374,6 +384,33 @@ class TransformerBlock(nn.Module):
                else visible[None, None, None, None])
         s = s.masked_fill(~vis, float("-inf"))
         return self._grouped_values(torch.softmax(s, dim=-1), vc, b, 1)
+
+
+class KVHeadShard:
+    """This rank's share of the KV heads of a head-sharded serving cache
+    over ``comm`` (``n_kv_heads`` split in ``comm.size`` equal, contiguous
+    parts, rank ``r`` the ``r``-th): JAX's pages at ``P(None, None, axis,
+    None)``. :meth:`local` slices projected q, k, v to this rank's KV
+    heads (query head ``h`` reads KV head ``h // g``); :meth:`gather`
+    all-gathers the heads' attention outputs in head order."""
+
+    def __init__(self, comm, n_kv_heads: int):
+        if n_kv_heads % comm.size:
+            raise ValueError(f"n_kv_heads ({n_kv_heads}) must divide by "
+                             f"the axis size ({comm.size})")
+        self.comm = comm
+        self.kv_heads = n_kv_heads // comm.size
+        self.start = comm.rank * self.kv_heads
+
+    def local(self, q, k, v, g: int):
+        a, b = self.start, self.start + self.kv_heads
+        return (q[:, :, a * g:b * g].contiguous(),
+                k[:, :, a:b].contiguous(), v[:, :, a:b].contiguous())
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``[..., local heads, d]`` of every rank → ``[..., heads, d]``."""
+        parts = self.comm.allgather(t.contiguous())
+        return torch.cat(parts.unbind(0), dim=-2)
 
 
 def _positions(pos_offset, l: int, device) -> torch.Tensor:
@@ -438,6 +475,9 @@ class TransformerLM(nn.Module):
         self.expert_axis = expert_axis
         self.capacity_factor, self.moe_top_k = capacity_factor, moe_top_k
         self.comms = dict(comms or {})
+        #: this rank's KV heads in a head-sharded serving cache (None:
+        #: every head; set on a ServingStep's served copy)
+        self.kv_head_shard: Optional[KVHeadShard] = None
         self.tok_emb = nn.Embedding(vocab, d_model, device=dev)
         if pos_emb == "learned":
             self.pos_embedding = nn.Parameter(
@@ -510,10 +550,14 @@ class TransformerLM(nn.Module):
 
     def forward_cached(self, tokens, cache, chunked: bool = False):
         """The decode twin: tokens ``[B, l]`` at each row's cache cursor;
-        ``cache`` is updated in place (see the module docstring)."""
+        ``cache`` is updated in place (see the module docstring). A model
+        whose :attr:`kv_head_shard` is set (a head-sharded
+        ``ServingStep``'s served copy) holds only this rank's KV heads in
+        ``cache``."""
         x = self._embed(tokens, cache["block_0"]["idx"])
         for i, blk in enumerate(self.blocks):
-            x = blk.forward_cached(x, cache[f"block_{i}"], chunked=chunked)
+            x = blk.forward_cached(x, cache[f"block_{i}"], chunked=chunked,
+                                   heads=self.kv_head_shard)
         return self._head(x)
 
 
@@ -590,15 +634,17 @@ def generate(model: TransformerLM, prompt, max_new_tokens: int,
     recomputes the whole prefix each step (the audit path, same draws).
 
     ``rng=None`` → greedy argmax (first index on ties, as
-    ``jnp.argmax``); else an integer seed of this package's sampling
-    stream (``serving/sampling.py``: one draw per token, row ``i``
-    keyed by the seed and ``i``; not ``jax.random``'s bits), sampling at
-    ``temperature``, truncated to the ``top_k`` highest logits when
-    given. ``eos_id``: once a row emits it, later positions emit
-    ``pad_id``."""
+    ``jnp.argmax``); else an integer seed (``jax.random.PRNGKey(seed)``)
+    or a raw key ``[2]``, threaded as JAX's ``generate`` threads it: one
+    ``split`` before each token and one ``categorical`` over the whole
+    ``[B, vocab]`` (``serving/sampling.py``, ``jax.random``'s stream),
+    sampling at ``temperature``, truncated to the ``top_k`` highest
+    logits when given. ``eos_id``: once a row emits it, later positions
+    emit ``pad_id``."""
     from chainermn_torch.serving.kv_cache import (decode_apply, init_cache,
                                                   prefill_apply)
-    from chainermn_torch.serving.sampling import _row_keys, sample_tokens
+    from chainermn_torch.serving.sampling import (categorical,
+                                                  request_key, split)
 
     prompt = torch.as_tensor(prompt, device=model.device).long()
     b, lp = prompt.shape
@@ -608,16 +654,26 @@ def generate(model: TransformerLM, prompt, max_new_tokens: int,
                          f"max_len ({model.max_len})")
     if max_new_tokens == 0:
         return prompt
-    keys = None if rng is None else _row_keys(int(rng), b, prompt.device)
-    temps = torch.full((b,), float(temperature), device=prompt.device)
-    top_ks = torch.full((b,), int(top_k or 0), device=prompt.device)
+    if rng is None:
+        key = None
+    elif np.ndim(rng) == 0:
+        key = request_key(int(rng), prompt.device)
+    else:
+        key = torch.as_tensor(np.asarray(rng, np.int64),
+                              device=prompt.device)
+    scale = torch.tensor(max(float(temperature), 1e-6),
+                         dtype=torch.float32, device=prompt.device)
 
     def sample(logits):
-        nonlocal keys
-        if keys is None:
+        nonlocal key
+        if key is None:
             return logits.argmax(-1)
-        tok, keys = sample_tokens(logits, keys, temps, top_ks)
-        return tok
+        key, sub = split(key, 2)
+        scaled = logits.float() / scale
+        if top_k is not None:
+            kth = scaled.topk(top_k, dim=-1).values[:, -1:]
+            scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+        return categorical(sub, scaled)
 
     if use_cache:
         cache = init_cache(model, b, total)
@@ -645,8 +701,6 @@ def generate(model: TransformerLM, prompt, max_new_tokens: int,
 def _stack(leaves):
     if isinstance(leaves[0], torch.Tensor):
         return torch.stack(leaves)
-    import numpy as np
-
     return np.stack(leaves)
 
 

@@ -825,6 +825,11 @@ class _FsdpLeaf:
         self.perm, self.shard = perm, shard
 
 
+#: the profiler span around each FSDP all-gather (dlint's DL204 reads it;
+#: ``chainermn_torch/analysis/trace_passes.py`` keeps the same name)
+GATHER_SPAN = "fsdp::gather"
+
+
 class _Gather(torch.autograd.Function):
     """Forward: leaf ``j`` (or its layer ``i``) all-gathered in flax's
     layout. Backward: the full gradient reduced onto this rank's shard,
@@ -980,7 +985,23 @@ class FsdpState:
     def _gather(self, j: int, i: Optional[int],
                 wire: Optional[str]) -> torch.Tensor:
         """Leaf ``j`` (its layer ``i``) all-gathered in flax's layout,
-        through ``wire`` (None: uncompressed)."""
+        through ``wire`` (None: uncompressed), inside a profiler span
+        (``fsdp::gather``, ``fsdp::gather/layer=i``) whose allocations
+        that outlive it are the gathered buffer (dlint's DL204); the
+        temporaries die with :meth:`_gathered`'s frame, inside it."""
+        span = GATHER_SPAN if i is None else f"{GATHER_SPAN}/layer={i}"
+        with torch.profiler.record_function(span):
+            out = self._gathered(j, i, wire)
+        nbytes = out.numel() * out.element_size()
+        self._track(nbytes)
+        weakref.finalize(out, self._track, -nbytes)
+        if i is not None:
+            self._track_layer(nbytes)
+            weakref.finalize(out, self._track_layer, -nbytes)
+        return out
+
+    def _gathered(self, j: int, i: Optional[int],
+                  wire: Optional[str]) -> torch.Tensor:
         leaf = self.leaves[j]
         s = leaf.shard.detach()
         k = leaf.dim
@@ -1015,12 +1036,6 @@ class FsdpState:
                 for r in range(n)])
         if parts is not None:
             out = torch.cat(parts.unbind(0), dim=k)
-        nbytes = out.numel() * out.element_size()
-        self._track(nbytes)
-        weakref.finalize(out, self._track, -nbytes)
-        if i is not None:
-            self._track_layer(nbytes)
-            weakref.finalize(out, self._track_layer, -nbytes)
         return out
 
     @torch.no_grad()

@@ -116,10 +116,14 @@ class Engine:
     ``model`` must already live on ``device`` (default ``cuda``). The
     engine serves a snapshot of its weights taken at construction; later
     updates reach it only through :meth:`swap_weights` (or
-    ``engine.steps.load_params``)."""
+    ``engine.steps.load_params``). ``mesh``/``axis`` give head-sharded
+    pages (:class:`~chainermn_torch.serving.kv_cache.ServingStep`); the
+    engine is then SPMD: every rank is given the same requests in the
+    same order, and every rank emits the same tokens."""
 
     def __init__(self, model, config: EngineConfig = EngineConfig(), *,
-                 device=None, report: Optional[ServingReport] = None,
+                 device=None, mesh=None, axis: Optional[str] = None,
+                 report: Optional[ServingReport] = None,
                  time_fn=None, weights_version: Optional[str] = None):
         self.config = config
         #: which published weights this engine serves (None: unversioned,
@@ -131,7 +135,8 @@ class Engine:
             raise ValueError("prefill_chunk must be >= 1")
         self.steps = ServingStep(model, config.n_slots, config.capacity,
                                  cache_dtype=config.cache_dtype,
-                                 device=device, kv_dtype=config.kv_dtype)
+                                 device=device, kv_dtype=config.kv_dtype,
+                                 mesh=mesh, axis=axis)
         self.device = self.steps.device
         self.report = report or (ServingReport(time_fn) if time_fn
                                  else ServingReport())

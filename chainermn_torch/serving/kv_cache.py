@@ -44,7 +44,7 @@ import torch
 from chainermn_torch.collectives.quantized import QUANT_BLOCK, _scale
 from chainermn_torch.device import resolve_device
 from chainermn_torch.models.transformer import compute_copy
-from chainermn_torch.serving.sampling import sample_tokens
+from chainermn_torch.serving.sampling import any_sampling, sample_tokens
 
 __all__ = ["cache_spec", "cache_bytes", "init_cache", "decode_apply",
            "prefill_apply", "prefill_chunk_apply", "decode_k_apply",
@@ -94,18 +94,21 @@ def cache_bytes(model, n_slots: int, capacity: int,
 
 def init_cache(model, n_slots: int, capacity: int,
                dtype: Optional[torch.dtype] = None, device=None,
-               kv_dtype: Optional[str] = None):
+               kv_dtype: Optional[str] = None,
+               n_kv_heads: Optional[int] = None):
     """Zeroed pages and cursors on ``device`` (default: the model's).
     int8-block pages hold ``k_q``/``v_q`` codes and ``k_s``/``v_s``
     scales initialised to 1.0, what the codec emits for an all-zero
-    block."""
+    block. ``n_kv_heads``: the heads a page holds (default: the model's
+    all; a head-sharded step's pages hold this rank's)."""
     dt = dtype or model.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"page dtype {dt} not in "
                          f"{(torch.float32, torch.bfloat16)}")
     dev = model.device if device is None else torch.device(device)
     spec = cache_spec(model)
-    shape = (n_slots, capacity, spec["n_kv_heads"], spec["d_head"])
+    shape = (n_slots, capacity, n_kv_heads or spec["n_kv_heads"],
+             spec["d_head"])
     if _normalize_kv_dtype(kv_dtype) == "int8-block":
         s_shape = (n_slots, capacity,
                    spec["n_kv_heads"] * spec["d_head"] // page_block(model))
@@ -313,6 +316,7 @@ def decode_k_apply(model, cache, tokens, keys, temps, top_ks, eos_ids,
     Returns ``(toks [n, k] — -1 where the slot did not sample,
     last_logits [n, vocab], keys, cache)``."""
     dev = model.device
+    noise = any_sampling(temps, live)
     tok = torch.as_tensor(tokens, device=dev).long()
     live = torch.as_tensor(live, device=dev, dtype=torch.bool)
     park = torch.as_tensor(park, device=dev).long()
@@ -331,7 +335,7 @@ def decode_k_apply(model, cache, tokens, keys, temps, top_ks, eos_ids,
     last = None
     for _ in range(k):
         last, _ = decode_apply(model, cache, tok)
-        nxt, keys2 = sample_tokens(last, keys, temps, top_ks)
+        nxt, keys2 = sample_tokens(last, keys, temps, top_ks, noise)
         # only rows that really sampled advance their key
         keys = torch.where(alive[:, None], keys2, keys)
         valid = alive
@@ -348,6 +352,26 @@ def _as(x, dtype, device):
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
+def _head_shard(model, mesh, axis: Optional[str]):
+    """The :class:`~chainermn_torch.models.transformer.KVHeadShard` of a
+    step over ``mesh``'s ``axis`` (JAX's ``_shardings``: pages split on
+    the KV-head axis when ``n_kv_heads`` divides by the axis size), or
+    None: no mesh, or pages kept whole on every rank (JAX's ``P()``)."""
+    from chainermn_torch.models.transformer import KVHeadShard
+
+    if mesh is None:
+        return None
+    names = tuple(mesh.axis_names)
+    axis = axis or names[0]
+    if axis not in names:
+        raise ValueError(f"axis {axis!r} not in the mesh axes {names}")
+    comm = mesh if names == (axis,) else mesh.over_mesh(mesh.mesh,
+                                                         axes=(axis,))
+    if comm.size == 1 or model.n_kv_heads % comm.size:
+        return None
+    return KVHeadShard(comm, model.n_kv_heads)
+
+
 class ServingStep:
     """The prefill/decode dispatches of one engine, owning its pages.
 
@@ -361,27 +385,49 @@ class ServingStep:
     eagerly and returns device tensors; the engine pulls only integer
     token ids to the host. ``kv_dtype="int8-block"`` keeps the pages as
     int8 codes + f32 scales between dispatches (module docstring).
+
+    ``mesh``/``axis`` (JAX's names): head-sharded pages. ``mesh`` is a
+    communicator (``comm``, or one from ``comm.over_mesh(...)``) and
+    ``axis`` one of its axis names (default its first); the pages split
+    over the communicator on that axis by KV head when ``n_kv_heads``
+    divides by its size, and stay whole on every rank otherwise. The
+    parameters and cursors are replicated. Each rank projects q, k and v
+    whole, attends over its own heads (prefill through the flash
+    kernel), and all-gathers the heads' outputs before the output
+    projection, so the logits, the sampled tokens and the streams are the
+    same on every rank and equal to the one-rank step's. The step is
+    SPMD: every rank makes every call, in one order. ``cache_bytes()`` is
+    one rank's. int8-block pages do not compose with a mesh.
     """
 
     def __init__(self, model, n_slots: int, capacity: int, *,
                  cache_dtype: Optional[torch.dtype] = None, device=None,
-                 kv_dtype: Optional[str] = None):
+                 kv_dtype: Optional[str] = None, mesh=None,
+                 axis: Optional[str] = None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, the serving "
                              f"step on {self.device}")
         self.kv_dtype = _normalize_kv_dtype(kv_dtype)
+        if self.kv_dtype == "int8-block" and mesh is not None:
+            raise ValueError(
+                "kv_dtype='int8-block' does not compose with mesh-sharded "
+                "pages: the blockwise scales span the head axis; serve "
+                "int8 pages unsharded or keep f32 pages under the mesh")
         self.model = compute_copy(model)
+        self.model.kv_head_shard = self.heads = _head_shard(model, mesh,
+                                                            axis)
         self.n_slots = int(n_slots)
         self.capacity = int(capacity)
         self.cache_dtype = cache_dtype or model.dtype
-        self.cache = init_cache(model, self.n_slots, self.capacity,
-                                self.cache_dtype, kv_dtype=self.kv_dtype)
+        self.reset()
         self.last_decode_logits: Optional[torch.Tensor] = None
 
     def cache_bytes(self) -> int:
-        return cache_bytes(self.model, self.n_slots, self.capacity,
-                           self.cache_dtype, kv_dtype=self.kv_dtype)
+        """The pages' resident bytes on this rank."""
+        whole = cache_bytes(self.model, self.n_slots, self.capacity,
+                            self.cache_dtype, kv_dtype=self.kv_dtype)
+        return whole // self.heads.comm.size if self.heads else whole
 
     def cursors(self) -> np.ndarray:
         """Device→host pull of the per-slot fill levels (debug/report)."""
@@ -428,9 +474,11 @@ class ServingStep:
     def _sample_rows(self, last, slot_ids, keys, temps, top_ks):
         sid = _as(slot_ids, torch.int64, self.device)
         gid = sid.clamp(0, self.n_slots - 1)
+        noise = any_sampling(temps)
         temps = _as(temps, torch.float32, self.device)
         top_ks = _as(top_ks, torch.int64, self.device)
-        tok, newk = sample_tokens(last, keys[gid], temps[gid], top_ks[gid])
+        tok, newk = sample_tokens(last, keys[gid], temps[gid], top_ks[gid],
+                                  noise)
         return sid, gid, tok, newk
 
     def prefill_sampled(self, tokens, lengths, slot_ids, keys, temps,
@@ -486,7 +534,9 @@ class ServingStep:
 
     def export_slot(self, slot: int, fill: int) -> Dict[str, Dict]:
         """Pull one slot's populated KV rows to the host: ``{"block_i":
-        {"k", "v"}}``, each ``[fill, n_kv_heads, d_head]`` numpy, f32 for
+        {"k", "v"}}``, each ``[fill, n_kv_heads, d_head]`` numpy (a
+        head-sharded step gathers every rank's heads: a collective, and
+        the one-rank format, so any engine imports it), f32 for
         f32 pages and for bf16 pages (numpy has no bf16; the widening is
         exact, so a bf16 import round-trips bitwise). ``fill`` must not
         exceed the page (a wrapped ring has overwritten its prefix).
@@ -506,6 +556,8 @@ class ServingStep:
 
         def host(t):
             t = t[slot, :fill]
+            if self.heads is not None:   # every rank's heads, in order
+                t = self.heads.gather(t)
             return (t.float() if t.dtype == torch.bfloat16 else t
                     ).cpu().numpy()
 
@@ -534,6 +586,9 @@ class ServingStep:
         dev = self.device
         spec = cache_spec(self.model)
         want = (cursor, spec["n_kv_heads"], spec["d_head"])
+        mine = (slice(None) if self.heads is None else
+                slice(self.heads.start, self.heads.start
+                      + self.heads.kv_heads))
         for name, page in self.cache.items():
             if resident:
                 # dlint: disable=DL121 — handoff pages are host arrays
@@ -562,7 +617,8 @@ class ServingStep:
                     rows["k"] = _dequant_rows(rows["k_q"], rows["k_s"])
                     rows["v"] = _dequant_rows(rows["v_q"], rows["v_s"])
                 for kv in ("k", "v"):
-                    page[kv][slot, :cursor] = rows[kv].to(page[kv].dtype)
+                    page[kv][slot, :cursor] = rows[kv][:, mine].to(
+                        page[kv].dtype)
             page["idx"][slot] = int(cursor)
 
     def load_params(self, state_dict) -> None:
@@ -573,5 +629,7 @@ class ServingStep:
 
     def reset(self) -> None:
         """Zero every page and cursor (all slots freed)."""
-        self.cache = init_cache(self.model, self.n_slots, self.capacity,
-                                self.cache_dtype, kv_dtype=self.kv_dtype)
+        self.cache = init_cache(
+            self.model, self.n_slots, self.capacity, self.cache_dtype,
+            kv_dtype=self.kv_dtype,
+            n_kv_heads=self.heads.kv_heads if self.heads else None)

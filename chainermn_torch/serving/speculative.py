@@ -60,7 +60,9 @@ from chainermn_torch.serving.kv_cache import (
     repack_cache,
     unpack_cache,
 )
-from chainermn_torch.serving.sampling import draft_shadow_keys, sample_tokens
+from chainermn_torch.serving.sampling import (any_sampling,
+                                             draft_shadow_keys,
+                                             sample_tokens)
 
 __all__ = ["DraftStep", "SpeculativeEngine", "propose_apply",
            "verify_apply"]
@@ -83,6 +85,7 @@ def propose_apply(model, cache, prev, cur, valid, starts, keys, temps,
     fill)``, as the target's do, so the catch-up never needs more than
     width 2."""
     dev = model.device
+    noise = any_sampling(temps, live)
     cur = _as(cur, torch.int64, dev)
     prev = _as(prev, torch.int64, dev)
     valid = _as(valid, torch.int64, dev)
@@ -95,11 +98,11 @@ def propose_apply(model, cache, prev, cur, valid, starts, keys, temps,
     last, cache = prefill_chunk_apply(model, cache, chunk, starts, valid,
                                       torch.arange(n, device=dev))
     shadow = draft_shadow_keys(keys)
-    tok, shadow = sample_tokens(last, shadow, temps, top_ks)
+    tok, shadow = sample_tokens(last, shadow, temps, top_ks, noise)
     drafts = [tok]
     for _ in range(spec_k - 1):
         logits, cache = decode_apply(model, cache, tok)
-        tok, shadow = sample_tokens(logits, shadow, temps, top_ks)
+        tok, shadow = sample_tokens(logits, shadow, temps, top_ks, noise)
         # dlint: disable=DL125 — drafts go to verify_apply, no stream
         drafts.append(tok)
     # ride-along rows: cursors back to their real fill, like decode_k
@@ -125,6 +128,7 @@ def verify_apply(model, cache, cur, drafts, keys, temps, top_ks, eos_ids,
     stay parked."""
     dev = model.device
     w = spec_k + 1
+    noise = any_sampling(temps, live)
     cur = _as(cur, torch.int64, dev)
     drafts = _as(drafts, torch.int64, dev)
     live = _as(live, torch.bool, dev)
@@ -149,7 +153,7 @@ def verify_apply(model, cache, cur, drafts, keys, temps, top_ks, eos_ids,
     m = torch.zeros(n, dtype=torch.int64, device=dev)
     outs = []
     for j in range(w):
-        s, keys2 = sample_tokens(logits[:, j], keys, temps, top_ks)
+        s, keys2 = sample_tokens(logits[:, j], keys, temps, top_ks, noise)
         emit = accepting & alive
         # only emitting rows consume a draw
         keys = torch.where(emit[:, None], keys2, keys)

@@ -32,11 +32,12 @@ and the port's scripts at the repo's root (:data:`REPO_FILES`).
 ``--changed [REF]`` lints only the port's files changed vs REF (default
 HEAD) while the whole-program passes still see every root.
 
-The trace passes (DL201, DL202) take a ``torch.profiler`` Chrome trace
-taken on the card, not source files: call them through
+The trace passes (DL201-DL205) take a ``torch.profiler`` Chrome trace,
+not source files: call them through
 :mod:`chainermn_torch.analysis.trace_passes`, or point ``--trace FILE``
-at a saved trace to run the argument-free one (DL201), which prints one
-JSON line; a failed check counts as a finding.
+at a saved trace to run the argument-free ones (DL201, DL203, DL204,
+DL205; DL202 needs a budget), each of which prints one JSON line; a
+failed check counts as a finding.
 
 Suppress an intentional finding with ``# dlint: disable=RULE —
 rationale`` on the flagged line, the line above, or the first line of
@@ -62,7 +63,7 @@ REPO_ROOTS = ("chainermn_torch",)
 REPO_FILES = ("tests/test_torch_*.py", "tests/torch_threads.py",
               "chip_smoke.py", "chip_smoke_times.py", "ce_f32_traffic.py",
               "flash_bwd_f32_probe.py", "fsdp_profile.py",
-              "fsdp_lamb_oracle.py")
+              "fsdp_lamb_oracle.py", "serve_greedy_probe.py")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BASELINE = os.path.join(HERE, "dlint_baseline.json")
@@ -139,8 +140,9 @@ def main(argv=None):
                     help="write per-pass wall-time JSON to FILE "
                          "('-' for stderr)")
     ap.add_argument("--trace", metavar="FILE", default=None,
-                    help="also run DL201 on a torch.profiler Chrome "
-                         "trace taken on the card")
+                    help="also run the argument-free trace passes "
+                         "(DL201, DL203, DL204, DL205) on a "
+                         "torch.profiler Chrome trace")
     args = ap.parse_args(argv)
 
     from chainermn_torch.analysis import (NOT_APPLICABLE, NOT_YET_PORTED,
@@ -232,11 +234,15 @@ def main(argv=None):
     if args.trace:
         from chainermn_torch.analysis import trace_passes
 
-        out = trace_passes.check_dp_overlap(args.trace)
-        if rules is None or out["rule"] in rules:
-            print(json.dumps(out, sort_keys=True))
-            if out["ok"] is False:
-                trace_bad += 1
+        for check in (trace_passes.check_dp_overlap,
+                      trace_passes.check_pipeline_permute_overlap,
+                      trace_passes.check_fsdp_gather_liveness,
+                      trace_passes.check_quantized_wire_dtype):
+            out = check(args.trace)
+            if rules is None or out["rule"] in rules:
+                print(json.dumps(out, sort_keys=True))
+                if out["ok"] is False:
+                    trace_bad += 1
 
     n = len(gated) + trace_bad
     if args.report_suppressions:

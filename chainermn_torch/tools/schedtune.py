@@ -16,15 +16,23 @@ the synthesized programs. Two schedule sources:
 * ``--trace``: on N ≥ 2 CUDA ranks over NCCL, each candidate runs warmed
   data-parallel steps of the model JAX's ``--aot`` compiles (three
   ``Linear(4096)`` and a ``Linear(10)`` on 28×28 inputs, batch 64 a rank,
-  SGD) under ``torch.profiler``. The overlap fraction is the share of
-  NCCL kernel time that ran concurrently with compute kernels, the
-  measured NCCL time per step (``--steps``, 20 by default, after 5 warm
-  ones; the rank whose NCCL kernels took least, as the others' also
-  spin while their peers' hosts catch up) replaces the modeled one, and
-  the plan's ``source`` is ``"trace"``. Without ``RANK`` in the environment it
-  starts ``--ranks`` processes itself (default: every visible GPU);
-  ``--intra`` factors the ranks into tiers. It refuses a CPU or
-  one-rank world.
+  SGD) under ``torch.profiler``. Before each measured step every rank
+  synchronizes its card and meets the others at a host barrier (the
+  store's, which launches no NCCL kernel), so the ranks enter the
+  reductions together. A candidate is measured 5 times, each time over
+  ``--steps`` steps (4 by default, after 5 warm ones): a sample is the
+  NCCL time per step of the rank whose NCCL kernels took least. The
+  median sample replaces the modeled NCCL time, the overlap fraction
+  (the share of NCCL kernel time that ran concurrently with compute
+  kernels) is the median of the repeats', and the plan's ``source`` is
+  ``"trace"``. A candidate is ordered before the least median only
+  where their spreads (the samples' interquartile ranges) do not
+  overlap: of the candidates whose spread overlaps the leader's, the one
+  the canned search ranks first wins. When every candidate ties so, the
+  trace decided nothing: the plan is the canned pick and its ``source``
+  is ``"canned"``. Without ``RANK`` in the environment it starts
+  ``--ranks`` processes itself (default: every visible GPU); ``--intra``
+  factors the ranks into tiers. It refuses a CPU or one-rank world.
 
 ``--aot`` has no counterpart: the port compiles no HLO. It refuses and
 names ``--trace``.
@@ -38,17 +46,20 @@ Usage::
       [--intra N] [--steps N] [--lossy] [--db PATH] [--no-write]
 
 Prints one JSON line (rank 0 under ``--trace``): the chosen plan, the
-untuned-default score row, and the full candidate table. Exit 0 (a tuner
-that found no improvement still found the answer). A run whose winner
-strictly beats the default's overlap fraction sets
-``"improves_overlap": true``. Without ``--intra``/``--inter`` the canned
-search describes the local communicator (``--device``, ``cuda`` unless
-``cpu`` is asked for).
+untuned-default score row, and the full candidate table (under
+``--trace`` each row also holds its ``samples_us``, its
+``score_spread`` and its ``tie_set``, and the line the leader's
+``tie_set`` and ``decided_by_trace``). Exit 0 (a tuner that found no
+improvement still found the answer). A run whose winner strictly beats
+the default's overlap fraction sets ``"improves_overlap": true``.
+Without ``--intra``/``--inter`` the canned search describes the local
+communicator (``--device``, ``cuda`` unless ``cpu`` is asked for).
 """
 
 import json
 import math
 import os
+import statistics
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -61,6 +72,8 @@ DEFAULT_GRAD_BYTES = 51 << 20
 TRACE_BATCH, TRACE_IMAGE = 64, 28
 #: warm-up steps before a candidate's traced steps
 TRACE_WARMUP = 5
+#: measurements of each candidate under --trace, and steps in each
+TRACE_REPEATS, TRACE_STEPS = 5, 4
 
 
 def _flag(argv, name, default=None, has_value=True):
@@ -93,12 +106,14 @@ def trace_model(device):
     return nn.Sequential(*layers).to(device)
 
 
-def _trace_compile_fn(comm, model, steps: int):
-    """A ``compile_fn`` that runs ``steps`` traced data-parallel steps of
-    ``model`` per candidate after :data:`TRACE_WARMUP` warm ones and
-    returns the :class:`~chainermn_torch.tuning.TraceEvidence` of the rank
-    whose NCCL kernels took least (every rank calls it in the same
-    order). Reducers are built once per
+def _trace_compile_fn(comm, model, steps: int, repeats: int):
+    """A ``compile_fn`` that measures each candidate ``repeats`` times,
+    each time over ``steps`` traced data-parallel steps of ``model``
+    (after :data:`TRACE_WARMUP` warm ones; a card sync and a host barrier
+    before every step), and returns the
+    :class:`~chainermn_torch.tuning.TraceEvidence` of the samples: each
+    the NCCL time a step of the rank whose NCCL kernels took least (every
+    rank calls it in the same order). Reducers are built once per
     (strategy, wire, program) and re-knobbed per candidate, so the
     sub-communicators of a structure are made once."""
     import torch
@@ -144,17 +159,24 @@ def _trace_compile_fn(comm, model, steps: int):
             step(x, y)
         torch.cuda.synchronize(comm.device)
         comm.barrier()
-        with capture(comm.device) as rec:
-            for _ in range(steps):
-                # dlint: disable=DL104 — traced; capture() syncs at its end
-                step(x, y)
-        frac, nccl_us = nccl_overlap(kernel_events(rec["trace"]))
-        # an NCCL kernel also spins while its peers' hosts catch up: the
-        # rank whose kernels waited least (the last to arrive) shows the
-        # transfer, so every rank takes that rank's evidence
-        ranks = comm.allgather_obj((nccl_us / steps, frac))
-        us, frac = min(ranks)
-        return TraceEvidence(overlap_fraction=frac, comm_us=us)
+        samples, fracs = [], []
+        for _ in range(repeats):
+            with capture(comm.device) as rec:
+                for _ in range(steps):
+                    # the ranks enter each step's reductions together
+                    torch.cuda.synchronize(comm.device)
+                    comm.host_barrier()
+                    step(x, y)
+            frac, nccl_us = nccl_overlap(kernel_events(rec["trace"]))
+            # an NCCL kernel also spins while its peers catch up: the
+            # rank whose kernels waited least shows the transfer, so
+            # every rank takes that rank's sample
+            us, frac = min(comm.allgather_obj((nccl_us / steps, frac)))
+            samples.append(us)
+            fracs.append(frac)
+        return TraceEvidence(overlap_fraction=statistics.median(fracs),
+                             comm_us=statistics.median(samples),
+                             samples=tuple(samples))
 
     return compile_fn
 
@@ -198,7 +220,7 @@ def _trace(intra, steps, lossy, allow_stale, model_key):
         total = sum(p.numel() * p.element_size()
                     for p in model.parameters())
         result = tune(topology, total,
-                      _trace_compile_fn(comm, model, steps),
+                      _trace_compile_fn(comm, model, steps, TRACE_REPEATS),
                       lossy=lossy, allow_stale=allow_stale,
                       model_key=model_key, source="trace")
         torch.cuda.synchronize(comm.device)
@@ -216,7 +238,7 @@ def main():
     inter = _flag(argv, "--inter")
     device = _flag(argv, "--device")
     ranks = _flag(argv, "--ranks")
-    steps = int(_flag(argv, "--steps", 20))
+    steps = int(_flag(argv, "--steps", TRACE_STEPS))
     lossy = bool(_flag(argv, "--lossy", False, has_value=False))
     allow_stale = bool(_flag(argv, "--allow-stale", False,
                              has_value=False))
@@ -282,7 +304,7 @@ def main():
     print(f"overlap fraction : {plan.overlap_fraction:.4f} (default "
           f"flat: {result.default['overlap_fraction']:.4f})",
           file=sys.stderr)
-    print(json.dumps({
+    line = {
         "ok": True,
         "source": source,
         "topology": plan.fingerprint,
@@ -293,7 +315,11 @@ def main():
         "n_candidates": len(result.rows),
         "candidates": result.rows,
         "db": written,
-    }), flush=True)
+    }
+    if source == "trace":
+        line["tie_set"] = result.tie_set
+        line["decided_by_trace"] = result.decided
+    print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

@@ -110,12 +110,20 @@ class Profile:
 
 
 @contextlib.contextmanager
-def capture(device=None):
+def capture(device=None, memory: bool = False, shapes: bool = False):
     """Record the body under ``torch.profiler`` (CUDA activity when
     ``device`` is a CUDA device, or None with CUDA available); yields a
-    dict that holds the Chrome trace (``"trace"``) once the body ends."""
+    dict that holds the Chrome trace (``"trace"``) once the body ends.
+    ``memory`` records allocations and frees (``profile_memory``, for
+    dlint's DL204), ``shapes`` the operands' shapes and dtypes
+    (``record_shapes``, for DL205 on a gloo trace). A gloo send still
+    unwaited when the window ends (the communicator keeps some, e.g. a
+    pipeline exchange's headers) corrupts the heap when it completes:
+    end the body with ``comm.barrier()``, which drains them."""
     out: Dict = {}
-    prof = torch.profiler.profile(activities=_activities(device))
+    prof = torch.profiler.profile(activities=_activities(device),
+                                  profile_memory=memory,
+                                  record_shapes=shapes)
     prof.start()
     try:
         yield out

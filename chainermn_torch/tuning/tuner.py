@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import statistics
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from chainermn_torch.tuning.profile_db import SchedulePlan
@@ -183,10 +184,14 @@ class TraceEvidence:
     """A candidate's schedule as a device trace measured it (the
     ``--trace`` source): ``overlap_fraction`` is the share of NCCL kernel
     time that ran concurrently with compute kernels, ``comm_us`` the NCCL
-    kernel time of one step (microseconds)."""
+    kernel time of one step (microseconds). ``samples``: the NCCL time a
+    step of each repeated measurement, when there were several;
+    ``comm_us`` is then their median, and the score's spread (their
+    interquartile range) decides which candidates tie (:func:`tune`)."""
 
     overlap_fraction: float
     comm_us: float
+    samples: tuple = ()
 
 
 def score_candidate(topology: Topology, candidate: Candidate,
@@ -211,16 +216,51 @@ def score_candidate(topology: Topology, candidate: Candidate,
     permute_penalty_us = (
         comm_us if (d203.get("n_permute_pairs") or d203.get(
             "sync_permutes")) and not d203.get("ok") else 0.0)
-    return {
+    fixed = permute_penalty_us + LAUNCH_EPSILON_US * n_buckets
+    row = {
         "candidate": dataclasses.asdict(candidate),
         "overlap_fraction": round(frac, 6),
         "comm_us": round(comm_us, 3),
         "exposed_us": round(exposed_us, 3),
         "permute_penalty_us": round(permute_penalty_us, 3),
         "n_buckets": n_buckets,
-        "score": (exposed_us + permute_penalty_us
-                  + LAUNCH_EPSILON_US * n_buckets),
+        "score": exposed_us + fixed,
     }
+    samples = getattr(hlo_text, "samples", ())
+    if len(samples) > 1:
+        # the interquartile range: one stray sample moves neither end
+        q1, _, q3 = statistics.quantiles(samples, n=4, method="inclusive")
+        row["samples_us"] = [round(x, 3) for x in samples]
+        row["score_spread"] = [q1 * (1.0 - frac) + fixed,
+                               q3 * (1.0 - frac) + fixed]
+    return row
+
+
+def _pick(topology: Topology, scored, total_bytes: int,
+          measured: Optional[Dict]):
+    """The winner of ``scored`` (``(score, index, candidate, row)``) and
+    the leader's tie set. The leader is the least ``(score, index)``;
+    without spreads it wins and the tie set is None. With spreads
+    (``score_spread``) the candidates whose spread overlaps the leader's
+    tie with it, and the first of them in the canned search's ranking
+    (its ``(score, index)``) wins. Every row gets its ``tie_set``: the
+    indices, among the scored rows, of the rows whose spread overlaps
+    its own."""
+    lead = min(scored, key=lambda t: (t[0], t[1]))
+    if not all("score_spread" in t[3] for t in scored):
+        return lead, None
+    spreads = [t[3]["score_spread"] for t in scored]
+    for (_, _, _, row), (lo, hi) in zip(scored, spreads):
+        row["tie_set"] = [j for j, (lo_j, hi_j) in enumerate(spreads)
+                          if lo_j <= hi and lo <= hi_j]
+    tie_set = lead[3]["tie_set"]
+    from chainermn_torch.tuning.canned import canned_compile_fn
+
+    canned = canned_compile_fn(total_bytes)
+    best = min((scored[j] for j in tie_set), key=lambda t: (
+        score_candidate(topology, t[2], canned(t[2]), total_bytes,
+                        measured)["score"], t[1]))
+    return best, tie_set
 
 
 @dataclasses.dataclass
@@ -230,6 +270,16 @@ class TuningResult:
     plan: SchedulePlan
     rows: List[dict]
     default: dict  # the untuned flat configuration's score row
+    #: measured spreads only: the indices, among ``rows``, of the
+    #: candidates that tie with the least median
+    tie_set: Optional[List[int]] = None
+
+    @property
+    def decided(self) -> bool:
+        """False when the least median ties with every candidate: the
+        measurement ordered none of them, and the plan is the canned
+        search's pick (its ``source`` says ``canned``)."""
+        return self.tie_set is None or len(self.tie_set) < len(self.rows)
 
     @property
     def improves_overlap(self) -> bool:
@@ -249,6 +299,13 @@ def tune(topology: Topology, total_bytes: int,
          source: str = "canned") -> TuningResult:
     """Run the search: compile + score every candidate, pick the
     minimum (score, declaration order) — deterministic on canned HLO.
+    Evidence measured several times (:class:`TraceEvidence` ``samples``)
+    orders a candidate before the least median only where their spreads
+    (interquartile ranges) do not overlap: the candidates whose spread
+    overlaps the leader's tie with it and go by the canned search's
+    ranking, so the choice does not follow the noise inside the spreads.
+    When every candidate ties, the plan is the canned pick and its
+    ``source`` is ``"canned"``.
 
     ``compile_fn(candidate)`` returns scheduled-HLO text or a
     :class:`TraceEvidence`, or ``None`` to skip a candidate the builder
@@ -272,7 +329,10 @@ def tune(topology: Topology, total_bytes: int,
         scored.append((row["score"], idx, cand, row))
     if not scored:
         raise ValueError("no candidate compiled — nothing to tune")
-    _, _, best, best_row = min(scored, key=lambda t: (t[0], t[1]))
+    (_, _, best, best_row), tie_set = _pick(topology, scored,
+                                            total_bytes, measured)
+    if tie_set is not None and len(tie_set) == len(scored):
+        source = "canned"
     default_row = next(r for r in rows
                        if r["candidate"] == dataclasses.asdict(base))
     plan = SchedulePlan(
@@ -290,7 +350,8 @@ def tune(topology: Topology, total_bytes: int,
         program=(best.program.to_dict()
                  if best.program is not None else None),
     )
-    return TuningResult(plan=plan, rows=rows, default=default_row)
+    return TuningResult(plan=plan, rows=rows, default=default_row,
+                        tie_set=tie_set)
 
 
 def tune_canned(topology: Topology, total_bytes: int,

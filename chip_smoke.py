@@ -75,7 +75,15 @@ the final line:
    int8-block, loaded and swapped into a drained engine (a busy one must
    refuse): its streams equal a fresh engine's on the loaded weights; (e)
    the 16 prompts through a ``Frontend`` from 4 threads, every future
-   the Engine's stream; then the serving fleet on that model and config
+   the Engine's stream; then 4 sampled requests (temperature 0.8, top-k
+   40, seeds 0-3) on ``jax.random``'s stream (``slice sampled``): the key
+   splits of 8 rows and the random bits [8, 32768] on the card equal the
+   CPU's bit for bit, the noise within rtol 1e-6 + atol 1e-6, every
+   sampled token equal to argmax(scaled + noise) recomputed on the CPU
+   from the card's logits, top-2 margins under 1e-5 counted and not
+   compared, and a ``decode_k`` dispatch timed sampled beside greedy
+   (whose rows split their keys and draw no noise);
+   then the serving fleet on that model and config
    (``fleet`` lines, each with its own launch counts, flash_fwd > 0 in
    each; every stream held to the plain engine's, a divergence allowed
    only at a top-2 margin under (c)'s gap): (a) the ``Router`` over 2
@@ -114,9 +122,11 @@ the final line:
    (48 flash_fwd and flash_bwd, 4 each of ce_fwd, ce_dh and ce_dw); the
    phase's launches join the kernels line. The port's dlint trace passes
    (``chainermn_torch/analysis/trace_passes.py``) then read that trace:
-   the ``dlint trace:`` line gives DL202's NCCL kernels a step (0 on one
-   card), DL201's verdict (``skip`` without NCCL) and the device events
-   the reader took, by family; a trace with no device event fails;
+   the ``dlint trace:`` line (printed after the fsdp phase, with DL204's
+   verdicts on that phase's 4-rank world) gives DL202's NCCL kernels a
+   step (0 on one card), DL201's, DL203's and DL205's verdicts (``skip``
+   without NCCL) and the device events the reader took, by family; a
+   trace with no device event fails;
 6. mnist — the port's MNIST example (``chainermn_torch.examples.
    train_mnist``, config #1: communicator ``naive``, IDX files,
    ``scatter_dataset``, Adam, ``Trainer`` with the multi-node evaluator
@@ -130,7 +140,7 @@ the final line:
    (``chainermn_torch.examples.train_cifar``: CifarResNet-20 with
    cross-replica batch norm over a one-rank NCCL group, CIFAR-100 binary
    batches, per-rank batch 256, f32 with TF32 off, SGD 0.05 momentum 0.9,
-   ``Trainer``) for 3 epochs of 50,000 synthetic samples: its first 8
+   ``Trainer``) for 2 epochs of 50,000 synthetic samples: its first 8
    losses must match the same steps on the CPU, the loss must fall, the
    final training accuracy must pass 0.9, and no hand-written kernel may
    launch;
@@ -156,9 +166,10 @@ the final line:
    ``create_communicator("non_cuda_aware")`` (the example's widths, 4
    stages); its first losses must equal the unsplit MLP's on the card,
    the loss must fall, and no rank may launch a hand-written kernel
-   (ms/step, host-staged bytes per step); then one activation's round
-   trip between two host-staged ranks beside raw gloo and the copies
-   alone; ``train_mnist_eager_p2p`` on 2 ranks, and two ranks that ask
+   (ms/step, host-staged bytes per step); then, in the same world (as 2
+   nodes x 2), one activation's round trip between two of its ranks
+   beside raw gloo and the copies alone, and the reducers phase's (c)
+   and tuner runs; ``train_mnist_eager_p2p`` on 2 ranks, and two ranks that ask
    for NCCL on one card must refuse and name ``non_cuda_aware`` (these
    two worlds time nothing and run beside the build); a failed rank
    fails the run;
@@ -171,7 +182,7 @@ the final line:
    ms/step, images/s per chip and peak memory, finite losses and whether
    they fall; the step alone on a fixed batch on the card; 3 iterations
    with ``--dropout 0.1`` (the step's dropout keys on the card);
-12. checkpoint — the same ViT in one process, uninterrupted, with
+12. checkpoint — the same ViT in this process, uninterrupted, with
    ``--snapshot-every k``: snapshot bytes, the async save's stall on the
    training thread and synchronous saves in ms, and the losses; the
    restore of snapshot k in a new process is resilience (a)'s second
@@ -191,7 +202,8 @@ the final line:
    int8-block|auto`` at ``--unit 1000`` for one epoch of 8,192: losses
    finite and falling, hierarchical's and auto's equal to flat's bit for
    bit, the ``ReductionReport`` rows printed; (c) 4 ranks on this card
-   through ``non_cuda_aware`` with ``LOCAL_WORLD_SIZE=2`` (two "nodes"):
+   through ``non_cuda_aware`` with ``LOCAL_WORLD_SIZE=2`` (two "nodes";
+   the model_parallel phase's world runs them, this phase checks them):
    ``hierarchical`` bit for bit ``flat`` on integer-valued gradients and
    ``int8-block`` within half a step of it, each rank on ``cuda:0``;
    then in the same world the schedule tuner and the synthesized
@@ -251,7 +263,12 @@ the final line:
    for bit onto 4 and onto 2 (the residual frame regrouped, its mean
    kept); (d) ``train_lm --zero 3`` and ``--fsdp-scan`` at full width
    (f32, seq 2048, batch 4): ms/step, peak GiB, losses finite and falling;
-16. resilience — fault tolerance, every run a subprocess with a timeout:
+   in (b)'s world, one more step of FSDP and of FSDP-scan each, rank 0's
+   traced with the memory events, gives dlint DL204's verdicts for the
+   ``dlint trace:`` line; resilience (a) and (c) run beside (b)'s world;
+16. resilience — fault tolerance, every run a subprocess with a timeout
+   ((a) and (c), single processes that mostly wait on the host, started
+   beside the fsdp phase's 4-rank world and read here):
    (a) the checkpoint phase's ViT under the port's supervisor
    (``python -m chainermn_torch.tools.supervise`` around
    ``train_imagenet --snapshot-every k --resume``) with a chaos SIGKILL
@@ -273,12 +290,12 @@ the final line:
    losses finite and falling;
 17. parallel — the TransformerLM's intra-layer parallelism
    (``chainermn_torch.parallel``) on 4 host-staged ranks of this card
-   (``non_cuda_aware``), the 135M LM at full width and depth (bf16 over
-   f32 parameters, rope, weights from ``--seed``): (a) one sequence of
+   (``non_cuda_aware``), the 135M LM at full width and 4 layers (bf16
+   over f32 parameters, rope, weights from ``--seed``): (a) one sequence of
    2048 split over the ranks through ``ring``, ``ring_flash`` and
    ``ulysses`` attention: logits, loss and the gradients summed over the
    ranks held to the one-rank flash model's, launches per rank (ring_flash
-   12·(r+1) of each flash kernel, Ulysses 12, the plain ring none), the
+   4·(r+1) of each flash kernel, Ulysses 4, the plain ring none), the
    attention alone at [1, 2048, 12, 64] beside one-rank flash; (b) tensor
    parallelism over the 4 (3 heads, d_ff 768, a vocabulary slice of 8192
    a rank, ``lm_head_tp``, ``tp_lm_loss``): the loss and every gradient,
@@ -289,9 +306,17 @@ the final line:
    rank: one f32 step (TF32 off) held to the one-process oracle (every
    expert on one rank, each rank's tokens run apart), then 4 bf16 steps
    (ms/step, falling losses, shared leaves bitwise equal and expert
-   leaves differing across ranks, 12 launches of each flash kernel a step
+   leaves differing across ranks, 4 launches of each flash kernel a step
    and no CE kernel), then the share of tokens dropped in one no-grad
-   forward of the trained weights, outside the timed steps; (d)
+   forward of the trained weights, outside the timed steps; (e) the
+   135M LM at full depth (12 layers) served with head-sharded pages
+   (``Engine(mesh=comm)``, 3 KV heads a rank) and the slice's
+   ``EngineConfig``, 4 greedy requests of at most 512 tokens and 8 new
+   each: every rank's streams the same and equal to the one-card
+   engine's on rank 0 except at a divergence whose top-2 margin lies under
+   the slice's chunk/decode gap, each rank's page bytes 1/4 of the
+   one-card engine's, 12 flash_fwd a prefill dispatch on every rank and
+   no other kernel, TTFT and tokens/s beside the one-card engine's; (d)
    ``train_lm --ring --seq-impl ring|ring_flash|ulysses`` and ``--moe 2
    --moe-top-k 1|2`` at full width but 2 layers (f32, seq 2048), 2
    iterations each, the ring runs printing the trained weights' next-token
@@ -1412,9 +1437,9 @@ def profile_lm_phase(card: str):
     """``profile_lm`` at ``BENCH_r05.json``'s ``lm_config`` (fused loss,
     ``bhld``, batch 4) in this process: warmed dispatches, then one
     traced; prints device ms by kernel family, the busy share and the
-    traced dispatch's launches, then the ``dlint trace:`` line of the
-    port's trace passes over the trace it wrote. Launch counts are zeroed
-    just before and read just after; returns them."""
+    traced dispatch's launches; the port's trace passes read the trace it
+    wrote (:func:`dlint_trace`). Launch counts are zeroed just before and
+    read just after; returns them and the passes' text."""
     import tempfile
 
     import torch
@@ -1473,16 +1498,17 @@ def profile_lm_phase(card: str):
             and all(fams[name] > 0 for name in want)):
         raise PhaseError(f"profile_lm: loss {out['loss']}, busy "
                          f"{out['busy_share']}, families {fams}")
-    dlint_trace(trace, k, card)
-    return counts
+    return counts, dlint_trace(trace, k, card)
 
 
-def dlint_trace(trace, steps: int, card: str) -> None:
+def dlint_trace(trace, steps: int, card: str) -> str:
     """The port's dlint trace passes over ``profile_lm``'s trace of
     ``steps`` steps: DL202 (NCCL kernels a step, against a budget of 0 on
-    one card), DL201 (``skip`` where no NCCL kernel ran) and the device
-    events the reader took, by family. Fails if it took none: the passes
-    would have read nothing."""
+    one card), DL201, DL203 and DL205 (``skip`` where no NCCL kernel or
+    collective ran) and the device events the reader took, by family.
+    Fails if it took none: the passes would have read nothing. Returns
+    the ``dlint trace:`` line's text; the line is printed after the fsdp
+    phase, with DL204's verdicts (:func:`dlint_line`)."""
     from chainermn_torch.analysis import trace_passes
     from chainermn_torch.training.profiling import (kernel_events,
                                                     kernel_family)
@@ -1490,23 +1516,49 @@ def dlint_trace(trace, steps: int, card: str) -> None:
     t0 = time.perf_counter()
     dl201 = trace_passes.check_dp_overlap(trace)
     dl202 = trace_passes.check_collective_budget(trace, 0, steps=steps)
+    dl203 = trace_passes.check_pipeline_permute_overlap(trace)
+    dl205 = trace_passes.check_quantized_wire_dtype(trace)
     events = kernel_events(trace)
     by_family = {}
     for name, _, _ in events:
         fam = kernel_family(name)
         by_family[fam] = by_family.get(fam, 0) + 1
     took = time.perf_counter() - t0
-    verdict = "skip" if dl201["ok"] is None else dl201["ok"]
-    print(f"dlint trace: profile_lm's trace of {steps} steps: "
-          f"{dl202.get('per_step')} NCCL kernels a step (DL202 budget 0, "
-          f"ok {dl202['ok']}, by kind {dl202.get('by_kind')}), DL201 "
-          f"{verdict} ({dl201.get('skip') or dl201.get('overlap_fraction')})"
-          f", {len(events)} device events by family "
-          f"{dict(sorted(by_family.items()))}, read in {took:.3f} s "
-          f"({card})", flush=True)
+    def verdict(out):
+        return "skip" if out["ok"] is None else out["ok"]
+
     if not events:
         raise PhaseError("dlint trace: the reader found no device event in "
                          "profile_lm's trace")
+    return (f"profile_lm's trace of {steps} steps: "
+            f"{dl202.get('per_step')} NCCL kernels a step (DL202 budget 0, "
+            f"ok {dl202['ok']}, by kind {dl202.get('by_kind')}), DL201 "
+            f"{verdict(dl201)} "
+            f"({dl201.get('skip') or dl201.get('overlap_fraction')}), DL203 "
+            f"{verdict(dl203)}, DL205 {verdict(dl205)} "
+            f"({dl205.get('skip') or dl205.get('fix')}), {len(events)} "
+            f"device events by family {dict(sorted(by_family.items()))}, "
+            f"read in {took:.3f} s")
+
+
+def dlint_line(profile_text: str, dl204, card: str) -> None:
+    """The ``dlint trace:`` line: ``profile_lm``'s passes and DL204 on
+    the fsdp world's traced steps (rank 0's trace with the memory
+    events), plain FSDP and the scan. Their verdicts are reported as
+    found (JAX's: plain FSDP keeps its gathers live, the scan pins them
+    to a layer); a pass that read no gather fails the run."""
+    rows = "; ".join(
+        f"{name} ({d.get('computation')} gathers): DL204 "
+        f"{'skip' if d['ok'] is None else d['ok']}, peak "
+        f"{d.get('peak_live_gathers')} co-live of {d.get('n_gathers')} "
+        f"(max_live {d.get('max_live')}), read in {d['read_s']:.3f} s"
+        for name, d in dl204.items())
+    print(f"dlint trace: {profile_text}; the fsdp world's traced steps "
+          f"(rank 0, d 768 x 2 layers, f32, 4 host-staged ranks): {rows} "
+          f"({card})", flush=True)
+    if any(d["ok"] is None or not d.get("n_gathers")
+           for d in dl204.values()):
+        raise PhaseError(f"dlint trace: DL204 read no gather: {dl204}")
 
 
 def build_model(seed: int, dtype, attention: str):
@@ -1719,6 +1771,124 @@ def check_streams(model, reqs, prompts, seed: int) -> float:
                     f"{TOL_LOGIT_GAP})")
     del ref
     return worst
+
+
+# sampled serving on jax.random's stream (item 11): 4 requests at
+# temperature 0.8, top-k 40, seeds 0-3; the card's key splits and bits
+# held bit for bit to the CPU's; each sampled token held to argmax(scaled
+# + noise) recomputed on the CPU from the card's logits, except at rows
+# whose top-2 margin there is a near-tie (the noise passes through log,
+# whose last bit the CPU and CUDA may round apart)
+SAMPLED = dict(requests=4, temperature=0.8, top_k=40, near_tie=1e-5,
+               key_rows=8, timed_calls=5)
+
+
+def serve_sampled(model, prompts, card: str) -> None:
+    """The ``slice sampled`` line (module docstring)."""
+    import numpy as np
+    import torch
+
+    from chainermn_torch.serving import kv_cache, sampling
+    from chainermn_torch.serving.engine import Engine
+
+    c = SAMPLED
+    dev = torch.device("cuda")
+    keys = torch.stack([sampling.request_key(s, dev)
+                        for s in range(c["key_rows"])])
+    new, sub = sampling.split_keys(keys)
+    bits = sampling.random_bits(sub, (model.vocab,))
+    cnew, csub = sampling.split_keys(keys.cpu())
+    keys_equal = torch.equal(new.cpu(), cnew) and torch.equal(sub.cpu(),
+                                                              csub)
+    bits_equal = torch.equal(bits.cpu(), sampling.random_bits(
+        csub, (model.vocab,)))
+    noise = sampling.gumbel(sub, (model.vocab,)).cpu()
+    cpu_noise = sampling.gumbel(csub, (model.vocab,))
+    noise_err = float((noise - cpu_noise).abs().max())
+    noise_ok = torch.allclose(noise, cpu_noise, rtol=1e-6, atol=1e-6)
+
+    # every sampling call of the served run, its inputs and tokens pulled
+    # to the host (a check run: the pulls sync the card)
+    plain, calls = kv_cache.sample_tokens, []
+
+    def recording(logits, keys, temps, top_ks, noise=True):
+        tok, nk = plain(logits, keys, temps, top_ks, noise)
+        calls.append([t.detach().cpu() for t in (
+            logits.float(), keys, torch.as_tensor(temps),
+            torch.as_tensor(top_ks), tok)])
+        return tok, nk
+
+    kv_cache.sample_tokens = recording
+    try:
+        eng = Engine(model, engine_config())
+        reqs = [eng.submit(p, temperature=c["temperature"],
+                           top_k=c["top_k"], seed=i)
+                for i, p in enumerate(prompts[:c["requests"]])]
+        eng.run_until_drained()
+    finally:
+        kv_cache.sample_tokens = plain
+    rows = ties = wrong = 0
+    for logits, k_, temps, topks, tok in calls:
+        live = temps > 0
+        if not live.any():
+            continue
+        want, _ = sampling.sample_tokens(logits, k_, temps, topks)
+        scaled = logits / temps.clamp_min(1e-6)[:, None]
+        kth = scaled.sort(-1, descending=True).values.gather(
+            -1, (topks - 1).clamp(0, logits.shape[1] - 1)[:, None])
+        scaled = torch.where((topks > 0)[:, None],
+                             scaled.masked_fill(scaled < kth, float("-inf")),
+                             scaled)
+        # dlint: disable=DL118 — the recorded key, recomputed on the CPU
+        top2 = (sampling.gumbel(sampling.split_keys(k_)[1],
+                                (logits.shape[1],)) + scaled).topk(2).values
+        near = (top2[:, 0] - top2[:, 1]) <= c["near_tie"]
+        for i in np.flatnonzero(live.numpy()):
+            rows += 1
+            if near[i]:
+                ties += 1
+            elif tok[i] != want[i]:
+                wrong += 1
+    streams = [r.tokens for r in reqs]
+
+    # a sampled decode_k dispatch beside a greedy one, on the run's pages
+    st = eng.steps
+    n = st.n_slots
+    k = engine_config().decode_k
+    ids = torch.stack([sampling.request_key(s, dev) for s in range(n)])
+    args = dict(tokens=np.zeros(n, np.int64), keys=ids,
+                top_ks=np.full(n, c["top_k"], np.int64),
+                eos_ids=np.full(n, -1, np.int64),
+                remaining=np.full(n, 1 << 20, np.int64),
+                live=np.ones(n, bool), park=np.zeros(n, np.int64), k=k)
+    ms = {}
+    for name, t in (("greedy", 0.0), ("sampled", c["temperature"])):
+        temps = np.full(n, t, np.float32)
+        ms[name] = cuda_time_ms(lambda: st.decode_k(temps=temps, **args),
+                                iters=1, warmup=2, runs=c["timed_calls"])
+    del eng
+    print(f"slice sampled: {c['requests']} requests at temperature "
+          f"{c['temperature']}, top-k {c['top_k']}, seeds 0-"
+          f"{c['requests'] - 1} on jax.random's stream: key splits of "
+          f"{c['key_rows']} rows and random bits [{c['key_rows']}, "
+          f"{model.vocab}] on the card equal the CPU's {keys_equal} / "
+          f"{bits_equal}, Gumbel noise within {noise_err:.3e} of the CPU's "
+          f"(rtol 1e-6 + atol 1e-6: {noise_ok}); "
+          f"{rows} sampled tokens over {len(calls)} sampling calls held to "
+          f"argmax(scaled + noise) recomputed on the CPU from the card's "
+          f"logits: {wrong} differ, {ties} near-ties (top-2 margin <= "
+          f"{c['near_tie']}) not compared; streams' lengths "
+          f"{[len(t) for t in streams]}; a decode_k={k} dispatch of {n} "
+          f"slots {ms['greedy']:.3f} ms greedy, {ms['sampled']:.3f} ms "
+          f"sampled (every row's key splits in both; greedy rows draw no "
+          f"noise) ({card})", flush=True)
+    if not (keys_equal and bits_equal) or wrong or not rows:
+        raise PhaseError(f"slice sampled: keys {keys_equal}, bits "
+                         f"{bits_equal}, {wrong} of {rows} sampled tokens "
+                         "differ from the CPU's recompute")
+    if not noise_ok or any(len(t) != 32 for t in streams):
+        raise PhaseError(f"slice sampled: noise error {noise_err}, streams "
+                         f"{[len(t) for t in streams]}")
 
 
 # the rest of serving at full width: the slice phase's (a)-(e)
@@ -2979,7 +3149,7 @@ def mnist(card: str, profile_dir=None):
     return counts
 
 
-CIFAR = dict(n_train=50000, epochs=3, batch=256, depth=20, check_steps=8)
+CIFAR = dict(n_train=50000, epochs=2, batch=256, depth=20, check_steps=8)
 # config #3's first 8 steps on the card vs the same steps on the CPU from
 # the same parameters and batches, f32 in f32 on both (TF32 off, the
 # example's choice): cuDNN may run a f32 3x3 convolution as Winograd or
@@ -3077,7 +3247,7 @@ def cifar(card: str, profile_dir=None):
     """Config #3 through :func:`run_example`: ``train_cifar``
     (CifarResNet-20, CIFAR-100 layout, cross-replica batch norm over a
     one-rank NCCL group, per-rank batch 256, f32, SGD 0.05 with momentum
-    0.9, binary batches parsed by ``load_cifar``) for 3 epochs of 50,000
+    0.9, binary batches parsed by ``load_cifar``) for 2 epochs of 50,000
     synthetic samples (the CIFAR example's generator)."""
     import tempfile
 
@@ -3489,56 +3659,62 @@ TOL_MODEL_PARALLEL_REL = 1e-5
 
 # one rank of the model-parallel world: the example's main, its launch
 # counts (zeroed just before) on its last line
+# the model_parallel phase's world of 4 host-staged ranks, as 2 nodes x 2
+# (LOCAL_WORLD_SIZE=2, the reducers' tiers): the example on this world's
+# communicator, then one activation's round trips between ranks 0 and 1
+# (256 x 200 f32) through comm.send/recv (header, staging, gloo), beside
+# raw gloo round trips of the same bytes from page-locked host memory and
+# the device-host copies alone (ranks 2 and 3 wait at the barriers), then
+# the reducers phase's world runs (_REDUCER_WORLD_RUNS). Rank 0 prints
+# each part's line
 _RANK_SCRIPT = (
-    "import json, sys\n"
+    "import json, sys, time, torch, torch.distributed as dist\n"
+    "from chainermn_torch.comm import create_communicator\n"
     "from chainermn_torch.examples import train_mnist_model_parallel as m\n"
     "from chainermn_torch.ops import _cuda\n"
-    "_cuda.reset_launches()\n"
-    "m.main(sys.argv[1:])\n"
-    "print('launches ' + json.dumps(_cuda.launches()), flush=True)\n")
-
-# two host-staged ranks on one card: round trips of one activation (256 x
-# 200 f32) through comm.send/recv (header, staging, gloo), beside raw gloo
-# round trips of the same bytes from page-locked host memory and the
-# device-host copies alone; rank 0 prints the ms of each
-_PINGPONG_SCRIPT = (
-    "import json, time, torch, torch.distributed as dist\n"
-    "from chainermn_torch.comm import create_communicator\n"
     "comm = create_communicator('non_cuda_aware')\n"
-    "r, n = comm.rank, 50\n"
+    "finalize, comm.finalize = comm.finalize, lambda: None\n"
+    "m.create_communicator = lambda *a, **kw: comm\n"
+    "r = comm.rank\n"
+    "t_world = time.perf_counter()\n"
+    "_cuda.reset_launches()\n"
+    "m.main(sys.argv[2:])\n"
+    "print('launches ' + json.dumps(_cuda.launches()), flush=True)\n"
+    "rt = 50\n"
     "x = torch.randn(256, 200, device=comm.device)\n"
     "h = torch.empty(256, 200, pin_memory=True)\n"
     "def comm_rt():\n"
     "    if r == 0:\n"
     "        comm.send(x, 1)\n"
     "        comm.recv(1)\n"
-    "    else:\n"
+    "    elif r == 1:\n"
     "        comm.send(comm.recv(0), 0)\n"
     "def gloo_rt():\n"
     "    if r == 0:\n"
     "        dist.send(h, 1)\n"
     "        dist.recv(h, 1)\n"
-    "    else:\n"
+    "    elif r == 1:\n"
     "        dist.recv(h, 0)\n"
     "        dist.send(h, 0)\n"
     "def copies():\n"
     "    h.copy_(x)\n"
     "    x.copy_(h)\n"
     "    torch.cuda.synchronize()\n"
-    "out = {}\n"
+    "pp = {}\n"
     "for name, fn in (('comm', comm_rt), ('gloo', gloo_rt),\n"
     "                 ('copies', copies)):\n"
     "    for _ in range(5):\n"
     "        fn()\n"
     "    comm.barrier()\n"
     "    t0 = time.perf_counter()\n"
-    "    for _ in range(n):\n"
+    "    for _ in range(rt):\n"
     "        fn()\n"
-    "    out[name] = (time.perf_counter() - t0) / n * 1e3\n"
+    "    pp[name] = (time.perf_counter() - t0) / rt * 1e3\n"
     "comm.barrier()\n"
-    "comm.finalize()\n"
     "if r == 0:\n"
-    "    print('pingpong ' + json.dumps(out), flush=True)\n")
+    "    print('pingpong ' + json.dumps(pp), flush=True)\n"
+    "    print('example wall ' + json.dumps(time.perf_counter() - t_world),\n"
+    "          flush=True)\n")
 
 # two ranks that ask for NCCL on one card: each must refuse, naming the
 # host-staged communicator
@@ -3597,10 +3773,14 @@ def model_parallel(card: str, beside_build):
     epochs of 2,048, Adam 1e-3); its first losses are held to the unsplit
     MLP's on the card (the same parameters and batches). Then
     ``train_mnist_eager_p2p`` on 2 ranks, a point-to-point round trip
-    between 2 host-staged ranks beside raw gloo and the copies alone, and
+    between 2 host-staged ranks of the example's world beside raw gloo and
+    the copies alone, and
     2 ranks that ask for NCCL on this card must refuse and name
     ``non_cuda_aware`` (those two worlds ran beside the build:
-    ``beside_build`` is :func:`model_parallel_beside_build`'s result)."""
+    ``beside_build`` is :func:`model_parallel_beside_build`'s result).
+    The example's world, as 2 nodes x 2, also runs the round trip and
+    the reducers phase's world runs; returns the launches and that
+    world's outputs (the reducers phase reads its ``world`` line)."""
     import tempfile
 
     import torch
@@ -3616,13 +3796,19 @@ def model_parallel(card: str, beside_build):
                 str(c["batch"]), "--epoch", str(c["epochs"]), "--n-train",
                 str(c["n_train"]), "--out", d]
         t0 = time.perf_counter()
-        outs = run_ranks([sys.executable, "-c", _RANK_SCRIPT, *argv],
-                         c["ranks"], timeout=300)
+        world = run_ranks([sys.executable, "-c",
+                           _RANK_SCRIPT + _REDUCER_WORLD_RUNS,
+                           os.path.join(d, "schedtune.json"), *argv],
+                          c["ranks"], timeout=420,
+                          local=REDUCERS["world_local"])
         world_s = time.perf_counter() - t0
         with open(os.path.join(d, "log.json")) as f:
             log = json.load(f)
+    example_s = json.loads([ln for ln in world[0].splitlines()
+                            if ln.startswith("example wall ")][-1][
+                                len("example wall "):])
     counts = {}
-    for out in outs:
+    for out in world:
         line = [ln for ln in out.splitlines() if ln.startswith("launches ")]
         for name, n in json.loads(line[-1][len("launches "):]).items():
             counts[name] = counts.get(name, 0) + n
@@ -3650,8 +3836,10 @@ def model_parallel(card: str, beside_build):
           f"(non_cuda_aware), batch {c['batch']}, {len(losses)} steps, "
           f"{log['ms_per_step']:.3f} ms/step, host-staged bytes per step "
           f"(each rank's copies, rank 0) "
-          f"{log['staged_bytes_per_step']:.0f}, world wall {world_s:.2f} s "
-          f"(process start included), first loss {losses[0]:.6g}, final "
+          f"{log['staged_bytes_per_step']:.0f}, the example's wall "
+          f"{example_s:.2f} s in a world of {world_s:.2f} s (process start "
+          f"and the reducers' runs included), first loss {losses[0]:.6g}, "
+          f"final "
           f"loss {losses[-1]:.6g}, first {k} losses split "
           f"{[round(x, 6) for x in losses[:k]]} unsplit "
           f"{[round(x, 6) for x in unsplit]} worst relative difference "
@@ -3676,9 +3864,7 @@ def model_parallel(card: str, beside_build):
         raise PhaseError(f"train_mnist_eager_p2p did not finish:\n"
                          f"{outs[1][-3000:]}")
 
-    outs = run_ranks([sys.executable, "-c", _PINGPONG_SCRIPT], 2,
-                     timeout=120)
-    pp = json.loads([ln for ln in outs[0].splitlines()
+    pp = json.loads([ln for ln in world[0].splitlines()
                      if ln.startswith("pingpong ")][-1][len("pingpong "):])
     print(f"model_parallel p2p: one activation (204,800 bytes) there and "
           f"back between two host-staged ranks of one card: comm.send/recv "
@@ -3692,7 +3878,7 @@ def model_parallel(card: str, beside_build):
     print(f"model_parallel nccl: two pure_nccl ranks on one card refused, "
           f"naming non_cuda_aware (run beside the build) ({card})",
           flush=True)
-    return counts
+    return counts, world
 
 
 def model_parallel_beside_build():
@@ -3958,72 +4144,73 @@ def vit(seed: int, card: str, profile_dir=None):
     return total
 
 
-_CKPT_SCRIPT = r"""
-import json, os, sys, time
-import torch
-from chainermn_torch.examples import train_imagenet
-from chainermn_torch.extensions import checkpoint as ck_mod
+def _checkpoint_run(k: int, argv):
+    """The checkpoint phase's ViT run in this process: ``train_imagenet``
+    with ``argv`` (a snapshot every ``k`` iterations), each snapshot's
+    stall on the training thread timed around the checkpointer's call,
+    then three synchronous saves of the final state. Returns the run's
+    numbers."""
+    import torch
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-report, k = sys.argv[1], int(sys.argv[2])
-argv = sys.argv[3:]
-res = {}
-Ck = ck_mod.MultiNodeCheckpointer
-plain_call, stalls = Ck.__call__, []
+    from chainermn_torch.examples import train_imagenet
+    from chainermn_torch.extensions import checkpoint as ck_mod
+    from chainermn_torch.ops import _cuda
 
+    res = {}
+    Ck = ck_mod.MultiNodeCheckpointer
+    plain_call, stalls = Ck.__call__, []
 
-def timed_call(self, trainer):
-    torch.cuda.synchronize()   # the step's own work is not the stall
-    t0 = time.perf_counter()
-    plain_call(self, trainer)
-    stalls.append((time.perf_counter() - t0) * 1e3)
+    def timed_call(self, trainer):
+        torch.cuda.synchronize()   # the step's own work is not the stall
+        t0 = time.perf_counter()
+        plain_call(self, trainer)
+        stalls.append((time.perf_counter() - t0) * 1e3)
 
+    Ck.__call__ = timed_call
+    try:
+        trainer, _ = train_imagenet.build_trainer(
+            train_imagenet.parse_args(argv))
+        up = trainer.updater
+        losses, step = [], up.step_fn
 
-Ck.__call__ = timed_call
-trainer, model = train_imagenet.build_trainer(
-    train_imagenet.parse_args(argv))
-up = trainer.updater
-losses, step = [], up.step_fn
+        def recording(*arrays):
+            m = step(*arrays)
+            losses.append(m["main/loss"])
+            return m
 
-def recording(*arrays):
-    m = step(*arrays)
-    losses.append(m["main/loss"])
-    return m
-
-up.step_fn = recording
-from chainermn_torch.ops import _cuda
-start = up.iteration
-torch.cuda.synchronize()
-_cuda.reset_launches()
-trainer.run()
-torch.cuda.synchronize()
-res["launches"] = _cuda.launches()
-res["steps"] = up.iteration - start
-res["iterations"] = up.iteration
-res["losses"] = [float(l) for l in losses]
-res["async_stall_ms"] = stalls
-fn = os.path.join(trainer.out, "imagenet", f"snapshot_iter_{k}.0")
-res["bytes"] = os.path.getsize(fn)
-sync = Ck("sync", up.comm, path=trainer.out)
-times = []
-for i in range(3):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sync.save(up.state, 100 + i)
-    times.append((time.perf_counter() - t0) * 1e3)
-res["sync_save_ms"] = times
-up.comm.finalize()
-with open(report, "w") as f:
-    json.dump(res, f)
-print("checkpoint run OK", flush=True)
-"""
+        up.step_fn = recording
+        start = up.iteration
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        trainer.run()
+        torch.cuda.synchronize()
+    finally:
+        Ck.__call__ = plain_call
+    res["launches"] = _cuda.launches()
+    res["steps"] = up.iteration - start
+    res["iterations"] = up.iteration
+    res["losses"] = [float(l) for l in losses]
+    res["async_stall_ms"] = stalls
+    fn = os.path.join(trainer.out, "imagenet", f"snapshot_iter_{k}.0")
+    res["bytes"] = os.path.getsize(fn)
+    sync = Ck("sync", up.comm, path=trainer.out)
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync.save(up.state, 100 + i)
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["sync_save_ms"] = times
+    up.comm.finalize()
+    del trainer, up, sync
+    torch.cuda.empty_cache()
+    return res
 
 
 def checkpoint(card: str):
     """The ViT through ``train_imagenet --model vit`` with a snapshot
     every ``k = VIT["ckpt_every"]`` iterations, uninterrupted for
-    ``VIT["ckpt_iterations"]``, in one process on this card, with a
+    ``VIT["ckpt_iterations"]``, in this process on this card, with a
     warm-up schedule (so the state holds its ``LambdaLR``). Prints the
     snapshot bytes, the async save's stall on the training thread and
     three synchronous saves in ms. The restore of snapshot k in a new
@@ -4037,19 +4224,10 @@ def checkpoint(card: str):
     n, k = v["ckpt_iterations"], v["ckpt_every"]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
-        report = os.path.join(d, "full.json")
         argv = _vit_argv(os.path.join(d, "full"), n, v["ckpt_n_train"],
                          "--warmup-epochs", str(v["ckpt_warmup_epochs"]),
                          "--snapshot-every", str(k))
-        proc = subprocess.run(
-            [sys.executable, "-c", _CKPT_SCRIPT, report, str(k), *argv],
-            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
-            capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0 or not os.path.exists(report):
-            raise PhaseError(f"checkpoint run exited {proc.returncode}:\n"
-                             f"{(proc.stdout + proc.stderr)[-3000:]}")
-        with open(report) as f:
-            full = json.load(f)
+        full = _checkpoint_run(k, argv)
     print(f"checkpoint: ViT-S/16 bf16, train_imagenet --model vit "
           f"--warmup-epochs {v['ckpt_warmup_epochs']}, batch {v['batch']}, "
           f"{n} iterations uninterrupted with --snapshot-every {k}: "
@@ -4356,15 +4534,16 @@ out['launches'] = _cuda.launches()
 # one rank of (c): 4 host-staged ranks on this card, two "nodes" of two;
 # the MNIST MLP's gradient shapes with integer values in [-8, 8) (every
 # rank makes every rank's from one seed); rank 0 prints the results
-_REDUCER_WORLD_SCRIPT = (
-    "import json, time, torch\n"
+# the reducers phase's runs on the model_parallel world's communicator
+# (``comm``, 4 ranks as 2 nodes x 2): flat, hierarchical and int8-block
+# on integer-valued MNIST-MLP gradients, then the tuner and the
+# synthesized reducer (_TUNING_WORLD_RUNS); rank 0 prints the ``world``
+# line
+_REDUCER_WORLD_RUNS = (
     "import torch.nn.functional as F\n"
     "from chainermn_torch.collectives import (FlatReducer,\n"
     "    HierarchicalReducer, QuantizedReducer)\n"
-    "from chainermn_torch.comm import create_communicator\n"
-    "from chainermn_torch.ops import _cuda\n"
     "_cuda.reset_launches()\n"
-    "comm = create_communicator('non_cuda_aware')\n"
     "r, n = comm.rank, comm.size\n"
     "g = torch.Generator().manual_seed(0)\n"
     "shapes = [(1000, 784), (1000,), (1000, 1000), (1000,), (10, 1000),\n"
@@ -4406,16 +4585,17 @@ _REDUCER_WORLD_SCRIPT = (
     "       'staged_bytes': comm.staged_bytes}\n"
     ) + _TUNING_WORLD_RUNS + (
     "outs = comm.allgather_obj(out)\n"
-    "comm.finalize()\n"
+    "finalize()\n"
     "if r == 0:\n"
     "    print('world ' + json.dumps(outs), flush=True)\n")
 
 
-def reducers(seed: int, card: str):
+def reducers(seed: int, card: str, world_outs):
     """The gradient reducers: (a) ResNet-50's gradient tree on one NCCL
     rank, (b) ``train_mnist --grad-reducer``, (c) 4 host-staged ranks on
-    this card as two nodes of two (module docstring). Launch counts are
-    zeroed just before and read just after; returns them."""
+    this card as two nodes of two (module docstring; the model_parallel
+    phase's world ran them: ``world_outs`` is its ranks' output). Launch
+    counts are zeroed just before and read just after; returns them."""
     import torch
 
     from chainermn_torch.ops import _cuda
@@ -4426,15 +4606,7 @@ def reducers(seed: int, card: str):
     _reducers_mnist(card)
     torch.cuda.synchronize()
     counts = _cuda.launches()
-    import tempfile
-
-    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
-        db = os.path.join(d, "schedtune.json")
-        outs = run_ranks([sys.executable, "-c", _REDUCER_WORLD_SCRIPT, db],
-                         REDUCERS["world_ranks"], timeout=300,
-                         local=REDUCERS["world_local"])
-    world = json.loads([ln for ln in outs[0].splitlines()
+    world = json.loads([ln for ln in world_outs[0].splitlines()
                         if ln.startswith("world ")][-1][len("world "):])
     w0 = world[0]
     print(f"reducers world: 4 host-staged ranks of one card as 2 nodes x 2 "
@@ -5151,6 +5323,25 @@ for name, form, wire, red, opt in (
         layer_peak=st.layer_bytes_peak,
         fingerprint=[p.double().sum().item(), (p.double() ** 2).sum().item()],
         **quant)
+    if name in ('fsdp', 'fsdp-scan'):
+        # dlint DL204 on one more step of this form, rank 0's traced with
+        # the memory events (every rank takes the step)
+        trace = None
+        if r == 0:
+            from chainermn_torch.training.profiling import capture
+            with capture(comm.device, memory=True) as rec:
+                step(toks[0, mine, :-1], toks[0, mine, 1:])
+            trace = rec['trace']
+        else:
+            step(toks[0, mine, :-1], toks[0, mine, 1:])
+        if trace is not None:
+            from chainermn_torch.analysis.trace_passes import (
+                check_fsdp_gather_liveness)
+            t_ = time.perf_counter()
+            dl = check_fsdp_gather_liveness(trace)
+            dl['read_s'] = time.perf_counter() - t_
+            out.setdefault('dl204', {})[name] = dl
+            del trace, rec
     if name == 'fsdp-scan':
         keep['scan'] = st
     del step, st, p, tree
@@ -5527,10 +5718,12 @@ def _fsdp_world(card: str):
     # each rank's forward-backward passes (steps: of all 4 ranks): five
     # FSDP runs, the scan's flash_fwd twice a layer, and the ZeRO-1 run
     # whose state (c) saves: 7 flash_fwd a layer, 6 flash_bwd, 6 of each
-    # CE kernel
+    # CE kernel; and DL204's one more step of FSDP and of the scan on
+    # every rank: 3 flash_fwd a layer, 2 flash_bwd, 2 of each CE kernel
     layers = f["world_layers"]
-    want = {"flash_fwd": 7 * layers * steps, "flash_bwd": 6 * layers * steps,
-            "ce_fwd": 6 * steps, "ce_dh": 6 * steps, "ce_dw": 6 * steps}
+    want = {"flash_fwd": 7 * layers * steps + 3 * layers * n,
+            "flash_bwd": 6 * layers * steps + 2 * layers * n,
+            **{k: 6 * steps + 2 * n for k in ("ce_fwd", "ce_dh", "ce_dw")}}
     if counts != want or f32 != want:
         raise PhaseError(f"fsdp world: launches {counts} (f32 {f32}), "
                          f"expected {want}, all f32")
@@ -5540,7 +5733,8 @@ def _fsdp_world(card: str):
     # ZeRO's (b) ran in this world after FSDP's count: its own checks
     zc, zf = _check_zero_world([w["zero"] for w in world], card)
     return ({k: counts.get(k, 0) + zc.get(k, 0) for k in {*counts, *zc}},
-            {k: f32.get(k, 0) + zf.get(k, 0) for k in {*f32, *zf}})
+            {k: f32.get(k, 0) + zf.get(k, 0) for k in {*f32, *zf}},
+            w0["dl204"])
 
 
 def _fsdp_plane(state, card: str):
@@ -5678,10 +5872,15 @@ def _fsdp_train_lm(card: str):
     return counts, f32
 
 
-def fsdp(seed: int, card: str):
+def fsdp(seed: int, card: str, beside=None):
     """FSDP, the scanned stack, sharded checkpoints and the snapshot
     plane, (a)-(d) of the module docstring. Returns the launches of the
-    phase's main-path runs, and those of them on f32 inputs."""
+    phase's main-path runs, those of them on f32 inputs, and dlint
+    DL204's verdicts on the 4-rank world's traced FSDP and scan steps.
+    ``beside`` is called just before the 4-rank world starts and returns
+    the processes it started to run beside the world (the resilience
+    phase's, :class:`_Started`); the phase waits for them to end before
+    its timed ``train_lm`` runs."""
     import torch
 
     counts, scan_state = _fsdp_full_width(seed, card)
@@ -5689,14 +5888,19 @@ def fsdp(seed: int, card: str):
     del scan_state
     torch.cuda.empty_cache()
     f32 = {k: 0 for k in counts}
-    for part in (lambda: _fsdp_world(card), lambda: _fsdp_train_lm(card)):
-        got, got_f32 = part()
-        for k, n in got.items():
+    started = beside() if beside is not None else ()
+    got, got_f32, dl204 = _fsdp_world(card)
+    torch.cuda.empty_cache()
+    for proc in started:
+        proc.join(600)
+    got_lm, got_lm_f32 = _fsdp_train_lm(card)
+    torch.cuda.empty_cache()
+    for part, part_f32 in ((got, got_f32), (got_lm, got_lm_f32)):
+        for k, n in part.items():
             counts[k] = counts.get(k, 0) + n
-        for k, n in got_f32.items():
+        for k, n in part_f32.items():
             f32[k] = f32.get(k, 0) + n
-        torch.cuda.empty_cache()
-    return counts, f32
+    return counts, f32, dl204
 
 
 RESIL = dict(kill_step=6, corrupt_iteration=8, sigterm_step=3,
@@ -6037,31 +6241,91 @@ def _read_jsonl(path):
         return [json.loads(ln) for ln in f if ln.strip()]
 
 
-def _resil_supervised(card: str, d: str, full_losses):
-    """(a) and (b): the supervised ViT, killed at k+2 in its first
-    incarnation, resumed from k in its second (whose snapshot 2k chaos
-    corrupts). Returns the launches of both incarnations."""
+class _Started:
+    """A process the smoke started to run beside a phase: its own
+    session (so :meth:`stop` ends its children too) and its output in
+    files under the phase's directory."""
+
+    def __init__(self, argv, env: dict, d: str, name: str):
+        self.out = open(os.path.join(d, name + ".out"), "w+")
+        self.err = open(os.path.join(d, name + ".err"), "w+")
+        self.proc = subprocess.Popen(
+            argv, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE, **env),
+            stdout=self.out, stderr=self.err, text=True,
+            start_new_session=True)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            import signal
+
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+    def join(self, timeout: float) -> None:
+        """Wait up to ``timeout`` s for the process to end; one still
+        running is left to :meth:`finish`."""
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pass
+
+    def finish(self, timeout: float):
+        """Wait up to ``timeout`` s → (returncode, stdout, stderr)."""
+        try:
+            self.join(timeout)
+        finally:
+            self.stop()
+        texts = []
+        for f in (self.out, self.err):
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        return (self.proc.returncode, *texts)
+
+
+def resilience_start(d: str):
+    """Start resilience (a)'s supervisor and (c)'s process in ``d``, to
+    run beside the fsdp phase's 4-rank world (single processes that
+    mostly wait on the host; the world's ms/step and their recovery
+    times are printed, not held to a limit, and are taken under each
+    other's load)."""
     v, r = VIT, RESIL
     k, n = v["ckpt_every"], v["ckpt_iterations"]
-    log = os.path.join(d, "vit")
     argv = _vit_argv(os.path.join(d, "vit_out"), n, v["ckpt_n_train"],
                      "--warmup-epochs", str(v["ckpt_warmup_epochs"]),
                      "--snapshot-every", str(k), "--resume")
     spec = (f"kill@step={r['kill_step']},signal=SIGKILL,run=0;"
             f"corrupt@match=snapshot_iter_{r['corrupt_iteration']},run=1")
-    proc = subprocess.run(
-        [sys.executable, "-m", "chainermn_torch.tools.supervise",
-         "--max-restarts", "2", "--", sys.executable, "-c",
-         _RESIL_VIT_SCRIPT, log, str(k), *argv],
-        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE,
-                           CHAINERMN_TPU_CHAOS=spec),
-        capture_output=True, text=True, timeout=600)
+    sup = _Started([sys.executable, "-m", "chainermn_torch.tools.supervise",
+                    "--max-restarts", "2", "--", sys.executable, "-c",
+                    _RESIL_VIT_SCRIPT, os.path.join(d, "vit"), str(k),
+                    *argv], {"CHAINERMN_TPU_CHAOS": spec}, d, "vit")
+    argv = _vit_argv(os.path.join(d, "sigterm_out"),
+                     r["sigterm_iterations"], v["ckpt_n_train"],
+                     "--snapshot-every", "1000", "--resume")
+    pre = _Started([sys.executable, "-c", _RESIL_VIT_SCRIPT,
+                    os.path.join(d, "sigterm"), "1000", *argv],
+                   {"CHAINERMN_TPU_PREEMPTION_GRACE_S": str(r["grace_s"]),
+                    "CHAINERMN_TPU_CHAOS": f"kill@step={r['sigterm_step']},"
+                                           "signal=SIGTERM"}, d, "sigterm")
+    return sup, pre
+
+
+def _resil_supervised(card: str, d: str, started, full_losses):
+    """(a) and (b): the supervised ViT, killed at k+2 in its first
+    incarnation, resumed from k in its second (whose snapshot 2k chaos
+    corrupts); ``started`` is its supervisor (:func:`resilience_start`).
+    Returns the launches of both incarnations."""
+    v, r = VIT, RESIL
+    k, n = v["ckpt_every"], v["ckpt_iterations"]
+    log = os.path.join(d, "vit")
+    code, out, err = started.finish(600)
     inc0, inc1 = _read_jsonl(log + ".0"), _read_jsonl(log + ".1")
-    text = (proc.stdout + proc.stderr)[-3000:]
-    if proc.returncode != 0 or not inc1:
+    text = (out + err)[-3000:]
+    if code != 0 or not inc1:
         raise PhaseError(f"resilience (a): the supervisor exited "
-                         f"{proc.returncode}:\n{text}")
-    if "(crash)" not in proc.stderr or "(clean)" not in proc.stderr:
+                         f"{code}:\n{text}")
+    if "(crash)" not in err or "(clean)" not in err:
         raise PhaseError(f"resilience (a): the supervisor saw no crash and "
                          f"clean finish:\n{text}")
     kill_t = [e["t"] for e in inc0 if e["event"] == "pre"][-1]
@@ -6117,35 +6381,25 @@ def _resil_supervised(card: str, d: str, full_losses):
     return total
 
 
-def _resil_preemption(card: str, d: str):
+def _resil_preemption(card: str, d: str, started):
     """(c): a chaos SIGTERM; the emergency snapshot within the grace
-    window, exit 143. Returns the run's launches."""
-    v, r = VIT, RESIL
+    window, exit 143. ``started``: its process (:func:`resilience_start`).
+    Returns the run's launches."""
+    r = RESIL
     log = os.path.join(d, "sigterm")
-    argv = _vit_argv(os.path.join(d, "sigterm_out"),
-                     r["sigterm_iterations"], v["ckpt_n_train"],
-                     "--snapshot-every", "1000", "--resume")
-    proc = subprocess.run(
-        [sys.executable, "-c", _RESIL_VIT_SCRIPT, log, "1000", *argv],
-        cwd=HERE, env=dict(
-            os.environ, PYTHONPATH=HERE, CHAINERMN_TPU_PREEMPTION_GRACE_S=str(
-                r["grace_s"]),
-            CHAINERMN_TPU_CHAOS=f"kill@step={r['sigterm_step']},"
-                                "signal=SIGTERM"),
-        capture_output=True, text=True, timeout=300)
+    code, out, err = started.finish(300)
     ev = _read_jsonl(log + ".0")
     em = [e for e in ev if e["event"] == "emergency"]
     steps = [e for e in ev if e["event"] == "step"]
-    if proc.returncode != 143 or not em:
-        raise PhaseError(f"resilience (c): exit {proc.returncode}, "
-                         f"emergency saves {em}:\n"
-                         f"{(proc.stdout + proc.stderr)[-3000:]}")
+    if code != 143 or not em:
+        raise PhaseError(f"resilience (c): exit {code}, "
+                         f"emergency saves {em}:\n{(out + err)[-3000:]}")
     e = em[0]
     print(f"resilience (c): chaos SIGTERM at step {r['sigterm_step']}: "
           f"emergency snapshot {os.path.basename(e['file'] or '-')} in "
           f"{e['ms']:.1f} ms against the {e['grace_s']:.0f} s grace "
           f"(CHAINERMN_TPU_PREEMPTION_GRACE_S; {e['left_s']:.3f} s left), "
-          f"valid {e['valid']}, exit {proc.returncode} after "
+          f"valid {e['valid']}, exit {code} after "
           f"{len(steps)} steps ({card})", flush=True)
     if not e["valid"] or e["left_s"] is None or e["left_s"] < 0:
         raise PhaseError("resilience (c): no valid emergency snapshot "
@@ -6274,16 +6528,22 @@ def _resil_world(card: str, d: str):
     return counts, f32
 
 
-def resilience(card: str, full_losses):
-    """(a)-(d) of the module docstring, each a subprocess with a timeout.
-    Returns the launches of their runs, and those on f32 inputs."""
+def resilience(card: str, full_losses, d: str, started):
+    """(a)-(d) of the module docstring, each a subprocess with a timeout:
+    (a) and (c) were started in ``d`` beside the fsdp phase's world
+    (``started``: :func:`resilience_start`'s processes) and are read
+    here. Returns the launches of their runs, and those on f32
+    inputs."""
     import tempfile
 
+    sup, pre = started
+    try:
+        counts = _resil_supervised(card, d, sup, full_losses)
+    finally:
+        pre_counts = _resil_preemption(card, d, pre)
+    for name, c in pre_counts.items():
+        counts[name] = counts.get(name, 0) + c
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
-        counts = _resil_supervised(card, d, full_losses)
-        for name, c in _resil_preemption(card, d).items():
-            counts[name] = counts.get(name, 0) + c
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
         world, f32 = _resil_world(card, d)
     for name, c in world.items():
@@ -6291,13 +6551,13 @@ def resilience(card: str, full_losses):
     return counts, f32
 
 
-PARALLEL = dict(ranks=4, seq=2048, layers=12, moe_experts=2, moe_steps=4,
+PARALLEL = dict(ranks=4, seq=2048, layers=4, moe_experts=2, moe_steps=4,
                 tp_steps=4, lr=3e-4, attn_iters=5, lm_layers=2,
                 lm_iterations=2)
 # the expert-parallel step in f32 (TF32 off) against the one-process
 # oracle (all 8 experts on one rank, each rank's tokens run apart, so the
 # capacities are the same): the same f32 products in other batch shapes
-# and orders over 12 layers; a routing flip would be off by O(1)
+# and orders over the layers; a routing flip would be off by O(1)
 TOL_MOE_ORACLE_LOSS_REL = 1e-4
 TOL_MOE_ORACLE_GRAD = 1e-3
 # the pipeline phase: (a) and (b) against the one-rank sequential oracle
@@ -6310,6 +6570,9 @@ TOL_MOE_ORACLE_GRAD = 1e-3
 TOL_PIPE_LOSS_REL = 1e-5
 TOL_PIPE_GRAD = 1e-4
 PIPE_STEPS = 4
+# (e) head-sharded serving pages in the parallel world: greedy requests of
+# [64, max_len] tokens, new tokens each
+PARALLEL_SERVE = dict(requests=4, max_len=512, new=8)
 
 _PARALLEL_WORLD_SCRIPT = r"""
 import hashlib, json, os, sys, time, torch
@@ -6580,6 +6843,75 @@ for k in (1, 2):
     out['moe'][k] = res
     del model, opt, step
     torch.cuda.empty_cache()
+# (e) head-sharded serving pages over this world (item 11): the 135M LM
+# at full depth (bf16 over f32, 12 layers; (a)-(c)'s CFG is the phase's
+# cut depth), the slice's EngineConfig, greedy requests of at most 512
+# tokens; the one-card engine on rank 0 alone is the reference. Neither
+# engine is warmed: their TTFT and tokens/s include first calls and are
+# check-level figures (the four-card test measures the sharded engine)
+from chainermn_torch.serving.engine import Engine, EngineConfig
+sv = json.loads(sys.argv[13])
+torch.manual_seed(seed)
+smodel = TransformerLM(**dict(CFG, n_layers=12, max_len=2048),
+                       dtype=torch.bfloat16)
+scfg = EngineConfig(n_slots=8, capacity=2048,
+                    buckets=(128, 256, 512, 1024, 2048), prefill_cohort=2,
+                    decode_k=4, max_new_tokens=sv['new'])
+grng = torch.Generator().manual_seed(seed + 7)
+sprompts = [torch.randint(0, 32768, (int(k),), generator=grng).tolist()
+            for k in torch.randint(64, sv['max_len'] + 1, (sv['requests'],),
+                                   generator=grng)]
+
+
+def served(engine):
+    reqs = [engine.submit(q) for q in sprompts]
+    engine.run_until_drained()
+    summ = engine.report.summary()
+    return ([q.tokens for q in reqs], summ['ttft_ms']['p50'],
+            (summ['tokens_emitted'] - len(reqs)) / summ['wall_s'])
+
+
+segment()
+comm.barrier()
+one = None
+if r == 0:
+    eng1 = Engine(smodel, scfg)
+    one = served(eng1) + (eng1.steps.cache_bytes(),)
+    del eng1
+one = comm.bcast_obj(one)
+segment()
+eng = Engine(smodel, scfg, mesh=comm)
+prefills = [0]
+plain_prefill = eng.steps.prefill_sampled
+
+
+def counted(*a, **kw):
+    prefills[0] += 1
+    return plain_prefill(*a, **kw)
+
+
+eng.steps.prefill_sampled = counted
+comm.barrier()
+segment()
+streams, ttft, rate = served(eng)
+got = segment()
+# at a stream's first divergence from the one-card engine's, the top-2
+# margin of the full forward there
+margins = []
+with torch.no_grad():
+    for q, w, g_ in zip(sprompts, one[0], streams):
+        if w != g_:
+            j = next(i for i, (a, b) in enumerate(zip(w, g_)) if a != b)
+            seq_ = torch.tensor(q + w[:j], device=dev)[None]
+            top = smodel(seq_)[0, -1].float().topk(2).values
+            margins.append(float(top[0] - top[1]))
+out['serve'] = dict(
+    streams=streams, one_streams=one[0], ttft=ttft, rate=rate,
+    one_ttft=one[1], one_rate=one[2], bytes=eng.steps.cache_bytes(),
+    one_bytes=one[3], kv_heads=eng.steps.cache['block_0']['k'].shape[2],
+    prefills=prefills[0], launches=got, margins=margins)
+del eng, smodel
+torch.cuda.empty_cache()
 out['launches'], out['launches_f32'] = totals['all'], totals['f32']
 out['staged_bytes'] = comm.staged_bytes
 outs = comm.allgather_obj(out)
@@ -6949,8 +7281,9 @@ def _check_parallel_world(world, card: str):
                for row in rows]
         gap = abs(a["loss"] - a["ref_loss"])
         lw = max(row["logits_rel"] for row in rows)
-        print(f"parallel (a) {impl}: the 135M LM (bf16 over f32, 12 "
-              f"layers, rope), one sequence of {p['seq']} split over {n} "
+        print(f"parallel (a) {impl}: the 135M LM's widths (bf16 over "
+              f"f32, {layers} layers, rope), one sequence of {p['seq']} split "
+              f"over {n} "
               f"host-staged ranks of one card ({p['seq'] // n} a rank): "
               f"loss {a['loss']:.6f} vs the one-rank flash model's "
               f"{a['ref_loss']:.6f} (gap {gap:.6f}, tolerance "
@@ -7041,6 +7374,46 @@ def _check_parallel_world(world, card: str):
             raise PhaseError(f"parallel (c) top-{k}: losses {losses}, "
                              f"shared equal {same}, experts differ "
                              f"{differ}")
+
+
+def _check_sharded_serving(world, card: str, gap: float):
+    """(e): every rank's head-sharded engine against the one-card
+    engine."""
+    p, c = PARALLEL, PARALLEL_SERVE
+    n = p["ranks"]
+    rows = [w["serve"] for w in world]
+    s0 = rows[0]
+    same = all(row["streams"] == s0["streams"] for row in rows)
+    div = sum(a != b for a, b in zip(s0["streams"], s0["one_streams"]))
+    worst = max((m for row in rows for m in row["margins"]), default=0.0)
+    per = [{k: v / max(1, row["prefills"]) for k, v in
+            row["launches"].items() if v} for row in rows]
+    print(f"parallel (e) head-sharded serving: the 135M LM (bf16, 12 "
+          f"layers, 12 KV heads, {s0['kv_heads']} a rank) on {n} "
+          f"host-staged ranks of one card, EngineConfig(n_slots=8, "
+          f"capacity=2048, decode_k=4), {c['requests']} greedy requests of "
+          f"at most {c['max_len']} tokens, {c['new']} new each: streams "
+          f"equal on every rank {same}, {div} of {c['requests']} differ "
+          f"from the one-card engine's (worst top-2 margin at a divergence "
+          f"{worst:.4f}, allowed below the chunk/decode gap {gap:.4f}); "
+          f"page bytes a rank {s0['bytes']:,} against the one-card "
+          f"engine's {s0['one_bytes']:,} ({s0['bytes'] / s0['one_bytes']:.4f}"
+          f"x); launches a prefill dispatch on every rank {per} over "
+          f"{[row['prefills'] for row in rows]} prefill dispatches; ttft "
+          f"p50 {s0['ttft']:.2f} ms and decode tokens/s {s0['rate']:.1f} "
+          f"(rank 0) beside the one-card engine's {s0['one_ttft']:.2f} ms "
+          f"and {s0['one_rate']:.1f} ({card})", flush=True)
+    if not same or worst >= gap or s0["bytes"] * n != s0["one_bytes"]:
+        raise PhaseError("parallel (e): the sharded engine's streams or "
+                         "page bytes are off")
+    for row, pr in zip(rows, per):
+        if row["launches"].get("flash_fwd", 0) != 12 * row["prefills"] or (
+                not row["prefills"]) or any(
+                    v for k, v in row["launches"].items()
+                    if k != "flash_fwd"):
+            raise PhaseError(f"parallel (e): launches {row['launches']} "
+                             f"over {row['prefills']} prefill dispatches, "
+                             f"expected 12 flash_fwd each and nothing else")
 
 
 def _check_parallel_lm(runs, card: str):
@@ -7199,10 +7572,11 @@ def _check_pipeline(world, card: str):
           f"{d0['depth']} ({card})", flush=True)
 
 
-def parallel(seed: int, card: str):
-    """The ``parallel`` phase: (a)-(d) in one world of 4 host-staged
-    ranks. Returns the main path's launches summed over the ranks, and
-    those on f32 inputs."""
+def parallel(seed: int, card: str, gap: float):
+    """The ``parallel`` phase: (a)-(e) in one world of 4 host-staged
+    ranks (``gap``: the slice's chunk/decode logit gap, below which (e)
+    allows a stream to diverge). Returns the main path's launches summed
+    over the ranks, and those on f32 inputs."""
     import tempfile
 
     p = PARALLEL
@@ -7214,13 +7588,15 @@ def parallel(seed: int, card: str):
                           str(p["moe_experts"]), str(p["moe_steps"]),
                           str(p["tp_steps"]), str(p["attn_iters"]),
                           str(p["lr"]), str(p["lm_layers"]),
-                          str(p["lm_iterations"]), d, str(PIPE_STEPS)],
+                          str(p["lm_iterations"]), d, str(PIPE_STEPS),
+                          json.dumps(PARALLEL_SERVE)],
                          p["ranks"], timeout=900)
     world_s = time.perf_counter() - t0
     world = json.loads([ln for ln in outs[0].splitlines()
                         if ln.startswith("parallel world ")][-1][
                             len("parallel world "):])
     _check_parallel_world(world, card)
+    _check_sharded_serving(world, card, gap)
     lm = json.loads([ln for ln in outs[0].splitlines()
                      if ln.startswith("parallel train_lm ")][-1][
                          len("parallel train_lm "):])
@@ -7431,6 +7807,7 @@ def main(argv=None) -> int:
     plain_rate = (f"ttft p50 {summ['ttft_ms']['p50']:.2f} ms, decode "
                   f"tokens/s {decode_tokens / summ['wall_s']:.1f}")
     del eng
+    serve_sampled(model, prompts, card)
     mark("slice")
     streams = [r.tokens for r in reqs]
     serve_flash, gap = serving_rest(model, prompts, streams, args.seed,
@@ -7447,7 +7824,7 @@ def main(argv=None) -> int:
         profile_training(args.seed, args.profile, card)
     torch.cuda.empty_cache()
     mark("train")
-    prof_counts = profile_lm_phase(card)
+    prof_counts, dlint_text = profile_lm_phase(card)
     torch.cuda.empty_cache()
     mark("profile_lm")
     mnist_counts = mnist(card, args.profile)
@@ -7460,24 +7837,43 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     s2s_counts = seq2seq(card, args.profile)
     mark("seq2seq")
-    mp_counts = model_parallel(card, beside_build)
+    mp_counts, mp_world = model_parallel(card, beside_build)
     mark("model_parallel")
     torch.cuda.empty_cache()
     vit_counts = vit(args.seed, card, args.profile)
     mark("vit")
     ckpt_counts, full_losses = checkpoint(card)
     mark("checkpoint")
-    red_counts = reducers(args.seed, card)
+    red_counts = reducers(args.seed, card, mp_world)
     mark("reducers")
     zero_counts, zero_f32 = zero(args.seed, card)
     mark("zero")
-    fsdp_counts, fsdp_f32 = fsdp(args.seed, card)
-    mark("fsdp")
-    torch.cuda.empty_cache()
-    res_counts, res_f32 = resilience(card, full_losses)
+    # resilience (a) and (c) run beside the fsdp phase's 4-rank world
+    # and end before its timed train_lm; the resilience phase reads them
+    import tempfile
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    res_dir = tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"))
+    res_started = []
+
+    def beside():
+        res_started.extend(resilience_start(res_dir.name))
+        return res_started
+
+    try:
+        fsdp_counts, fsdp_f32, dl204 = fsdp(args.seed, card, beside=beside)
+        dlint_line(dlint_text, dl204, card)
+        mark("fsdp")
+        torch.cuda.empty_cache()
+        res_counts, res_f32 = resilience(card, full_losses, res_dir.name,
+                                         res_started)
+    finally:
+        for started in res_started:
+            started.stop()
+        res_dir.cleanup()
     mark("resilience")
     torch.cuda.empty_cache()
-    par_counts, par_f32, pipe_s = parallel(args.seed, card)
+    par_counts, par_f32, pipe_s = parallel(args.seed, card, gap)
     mark("parallel")
     print("phases (s of wall): " + json.dumps(
         {**{name: round(t - marks[i][1], 1)

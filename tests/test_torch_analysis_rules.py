@@ -485,5 +485,7 @@ def test_cli_trace_runs_dl201_and_counts_a_failure(tmp_path, reduce_at,
          str(path)],
         capture_output=True, text=True, timeout=120, cwd=_REPO)
     rows = [json.loads(ln) for ln in out.stdout.splitlines()]
-    assert [(r["rule"], r["ok"]) for r in rows] == [("DL201", ok)]
+    # DL203-DL205 run too and find nothing of theirs in a DP trace
+    assert [(r["rule"], r["ok"]) for r in rows] == [
+        ("DL201", ok), ("DL203", None), ("DL204", None), ("DL205", None)]
     assert out.returncode == rc

@@ -329,6 +329,32 @@ def test_the_serving_slice_raises_without_cuda_unless_asked_for_cpu():
             seed=0, device="cuda"))
 
 
+def test_sharded_serving_and_the_dataset_scripts_stay_on_the_port(tmp_path):
+    """The head-sharded engine defaults to the card like the rest of
+    serving; JAX's sampling stream runs on the tensors it is given; the
+    dataset scripts are covered by the import scan."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device works")
+    from chainermn_torch.models.transformer import generate
+
+    files = [p.relative_to(REPO).as_posix() for p in _port_files()]
+    for new in ("make_mnist_dataset", "make_cifar_dataset",
+                "make_jpeg_dataset", "make_corpus"):
+        assert f"chainermn_torch/examples/{new}.py" in files
+    model = _tiny("cpu")
+    comm = create_communicator("pure_nccl", device="cpu")
+    try:
+        cfg = EngineConfig(n_slots=2, capacity=8)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Engine(model, cfg, mesh=comm)
+        eng = Engine(model, cfg, device="cpu", mesh=comm)
+        assert eng.steps.cache["block_0"]["k"].device.type == "cpu"
+    finally:
+        comm.finalize()
+    out = generate(model, np.zeros((1, 2), np.int64), 2, rng=0)
+    assert out.device.type == "cpu"
+
+
 def test_the_fleet_slice_raises_without_cuda_unless_asked_for_cpu(tmp_path):
     """The fleet (handoff codec, transports, socket plane, pools, router,
     rollout) and ``fleet_lm`` are covered by the import scan; a Router

@@ -9,11 +9,12 @@ greedy and sampled; a prefill handoff (``hold=True`` →
 round trips are bitwise, and all four page-mode crossings (raw→raw,
 int8→int8 adopting the codes verbatim, int8→raw dequantizing once,
 raw→int8 quantizing once) write the bytes they promise. Every misuse is
-refused with the JAX package's text. One case crosses frameworks: pages
+refused with the JAX package's text. Two cases cross frameworks: pages
 that JAX's engine exported, imported by the port's engine on converted
-parameters, continue JAX's greedy stream. Streams are compared exactly;
-the LM head is scaled 4x so greedy margins stay far above the f32
-disagreement of the two frameworks (about 1e-6).
+parameters, continue JAX's stream, greedy and sampled (the key row is
+JAX's). Streams are compared exactly; the LM head is scaled 4x so greedy
+margins stay far above the f32 disagreement of the two frameworks (about
+1e-6).
 
 Small model (vocab 43, d 32, 1 layer); ``attention="reference"`` except
 in the cross-framework case, which runs flash on both sides.
@@ -416,3 +417,33 @@ def test_jax_handoff_pages_continue_jaxs_stream_on_the_port():
     got = dst.import_handoff(handoff, prompt, max_new_tokens=N_NEW)
     dst.run_until_drained()
     assert got.tokens == ref.tokens
+
+
+def test_jax_sampled_session_continues_jaxs_stream_on_the_port():
+    """The sampled twin of the case above: JAX's engine samples a stream
+    (temperature 0.8, top-k 5) and freezes it mid-decode; the port's
+    engine adopts the session, JAX's uint32 key row included, and emits
+    the tokens JAX's unmigrated engine emits."""
+    jm, params, tm = _setup("flash")
+    prompt = _prompts(seed=8)[1]
+    knobs = dict(temperature=0.8, top_k=5, seed=11)
+    jcfg = dict(n_slots=2, capacity=32, max_new_tokens=N_NEW,
+                prefill_cohort=1, buckets=[8, 32])
+    full = JaxEngine(jm, params, JaxEngineConfig(**jcfg))
+    ref = full.submit(prompt, **knobs)
+    full.run_until_drained()
+    src = JaxEngine(jm, params, JaxEngineConfig(**jcfg))
+    req = src.submit(prompt, **knobs)
+    while len(req.tokens) < 3:
+        src.step()  # dlint: disable=DL104 — pulls its token ids
+    session = src.export_session(req)
+    assert np.asarray(session["key"]).dtype == np.uint32
+    dst = Engine(tm, EngineConfig(**jcfg), device="cpu")
+    got = dst.import_session(session, prompt)
+    dst.run_until_drained()
+    assert got.tokens == ref.tokens
+    # the port's own unmigrated stream is JAX's too
+    own = Engine(tm, EngineConfig(**jcfg), device="cpu")
+    mine = own.submit(prompt, **knobs)
+    own.run_until_drained()
+    assert mine.tokens == ref.tokens

@@ -69,13 +69,19 @@ same blocks in logical order on this card, plain autograd
 (``PIPELINE_WORKER``; ``WORLD_DEVICE=cpu`` too).
 
 A sixth 4-rank world runs the port's dlint trace passes
-(``chainermn_torch/analysis/trace_passes.py``) on a ``torch.profiler``
-trace of four data-parallel steps of the ``schedtune --trace`` model:
-DL202's NCCL kernels a step equal ``plan_buckets``' bucket count of
+(``chainermn_torch/analysis/trace_passes.py``) on ``torch.profiler``
+traces: four data-parallel steps of the ``schedtune --trace`` model
+(DL202's NCCL kernels a step equal ``plan_buckets``' bucket count of
 ``allreduce_grad`` plus the step's metrics all-reduce, and
 ``allreduce_grad`` alone launches exactly its buckets; DL201's verdict
-and score are printed (``TRACE_PASSES_WORKER``; ``WORLD_DEVICE=cpu``
+and score are printed), DL205 on the quantized and flat reducers' wires,
+DL204 on plain FSDP and the scanned stack, and DL203 on the pipeline LM
+example's interleaved 1F1B (``TRACE_PASSES_WORKER``; ``WORLD_DEVICE=cpu``
 checks the plumbing on gloo, where the trace holds no device event).
+
+A seventh 4-rank world serves the 135M LM at full width with
+head-sharded pages (``Engine(mesh=comm)``, 3 KV heads a card) against
+the one-card engine (``SERVE_WORKER``).
 """
 
 import tests.torch_threads  # noqa: F401  (one torch thread a worker)
@@ -833,11 +839,15 @@ def test_synthesis_and_sweeps_across_four_cards(tmp_path):
 
 def test_schedtune_trace_across_four_cards(tmp_path):
     """``schedtune --trace`` on four NCCL ranks, twice: every candidate's
-    overlap fraction and NCCL time come from a ``torch.profiler`` trace of
-    warmed data-parallel steps of JAX's ``--aot`` model, the plan's source
-    is ``trace``, the DB holds it under the card's fingerprint, and the
-    two runs' winners and rows are printed (their agreement is the
-    ranking's stability, reported, not asserted)."""
+    overlap fraction and NCCL time come from ``torch.profiler`` traces of
+    warmed data-parallel steps of JAX's ``--aot`` model, measured five
+    times with the ranks meeting at a barrier before each step; every row
+    lists its samples, spread and tie set, the winner lies in the
+    leader's tie set, the plan's source is ``trace`` when the measurement
+    ordered some candidate out of the tie and ``canned`` when every
+    candidate tied, and the DB holds it under the card's fingerprint.
+    Whether the two runs choose one plan is printed (their agreement is
+    the ranking's stability, reported, not asserted)."""
     import json
     import os
     import subprocess
@@ -856,29 +866,46 @@ def test_schedtune_trace_across_four_cards(tmp_path):
             capture_output=True, text=True, timeout=600)
         assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
         out = json.loads(proc.stdout.strip().splitlines()[-1])
-        assert out["source"] == "trace" and out["chosen"]["source"] == "trace"
+        assert out["source"] == "trace"
+        assert out["chosen"]["source"] == (
+            "trace" if out["decided_by_trace"] else "canned")
         assert out["n_candidates"] >= 8
         for row in out["candidates"]:
             assert 0.0 <= row["overlap_fraction"] <= 1.0
-            assert row["comm_us"] > 0
+            assert row["comm_us"] > 0 and len(row["samples_us"]) == 5
+            lo, hi = row["score_spread"]
+            assert lo <= hi and row["tie_set"]
+        won = [j for j, row in enumerate(out["candidates"])
+               if all(row["candidate"][k] == out["chosen"][k] for k in (
+                   "strategy", "bucket_bytes", "bucket_order",
+                   "wire_format", "double_buffering"))]
+        assert won and won[0] in out["tie_set"]
+        assert out["decided_by_trace"] == (
+            len(out["tie_set"]) < out["n_candidates"])
         from chainermn_torch.tuning import ProfileDB
 
-        assert ProfileDB(db).plan_for(out["topology"]).source == "trace"
+        assert (ProfileDB(db).plan_for(out["topology"]).source
+                == out["chosen"]["source"])
         assert out["topology"].startswith("gpu:")
         runs.append(out)
         print("TRACE " + json.dumps({
             "chosen": {k: out["chosen"][k] for k in (
-                "strategy", "bucket_bytes", "bucket_order",
-                "overlap_fraction", "est_exposed_us")},
+                "strategy", "bucket_bytes", "bucket_order", "wire_format",
+                "overlap_fraction", "est_exposed_us", "source")},
+            "tie_set": out["tie_set"],
+            "decided_by_trace": out["decided_by_trace"],
             "rows": [(row["candidate"]["strategy"],
                       row["candidate"]["bucket_bytes"],
                       row["candidate"]["bucket_order"],
+                      row["candidate"]["wire_format"],
                       row["overlap_fraction"], row["comm_us"],
-                      row["exposed_us"]) for row in out["candidates"]]}))
-    print("TRACE same winner in both runs:",
-          runs[0]["chosen"]["bucket_bytes"] == runs[1]["chosen"][
-              "bucket_bytes"] and runs[0]["chosen"]["bucket_order"] ==
-          runs[1]["chosen"]["bucket_order"])
+                      [round(x, 1) for x in row["score_spread"]],
+                      row["tie_set"]) for row in out["candidates"]]}))
+    plans = [{k: out["chosen"][k] for k in (
+        "strategy", "bucket_bytes", "bucket_order", "wire_format",
+        "double_buffering", "program")} for out in runs]
+    print("TRACE same plan in both runs:", plans[0] == plans[1],
+          "decided by the trace:", [out["decided_by_trace"] for out in runs])
 
 
 TRACE_PASSES_WORKER = r"""
@@ -939,6 +966,89 @@ if DEV == "cuda":
 else:
     # gloo: no device event, and a pass that reads nothing fails
     assert not events and dl202["ok"] is False and dl201["ok"] is False
+
+# DL205: a quantized reducer's wire and the flat reducer's, on the same
+# gradients (record_shapes for the backend's operand types)
+from chainermn_torch.analysis import check_quantized_wire_dtype
+from chainermn_torch.collectives import QuantizedReducer
+grads = [p.grad.detach().clone() for p in model.parameters()]
+dl205 = {}
+for wire in ("flat", "int8-block"):
+    with capture(dev, shapes=True) as w_rec:
+        if wire == "flat":
+            comm.allreduce_grad([g.clone() for g in grads])
+        else:
+            q = QuantizedReducer(comm, wire_format=wire, ef=False)
+            q.reduce([g.clone() for g in grads], q.init(grads))
+    dl205[wire] = [check_quantized_wire_dtype(w_rec["trace"]),
+                   check_quantized_wire_dtype(w_rec["trace"],
+                                              expect_quantized=True)]
+assert dl205["int8-block"][0]["ok"] is True, dl205
+assert dl205["flat"][0]["ok"] is None and dl205["flat"][1]["ok"] is False
+if DEV == "cuda":
+    # NCCL's kernel names carry the records' 32-bit integer codes (NCCL
+    # sums int32 with its u32 kernels: the same bits)
+    got = dl205["int8-block"][0]["kernel_dtypes"].get("AllReduce", {})
+    assert {"s32", "u32"} & set(got), dl205
+
+# DL204: plain FSDP and the scanned stack, one step each traced with the
+# memory events, on a 4-layer LM
+from chainermn_torch.analysis import check_fsdp_gather_liveness
+from chainermn_torch.models.convert import flax_params
+from chainermn_torch.models.transformer import (TransformerLM,
+    make_lm_fsdp_scan_loss, stack_lm_blocks)
+from chainermn_torch.ops.fused_ce import fused_lm_loss
+from chainermn_torch.optimizers import (fsdp_shardings,
+    fsdp_stack_shardings, make_fsdp_train_step)
+sgd = lambda ps: torch.optim.SGD(ps, lr=0.1)
+torch.manual_seed(0)
+lm = TransformerLM(vocab=256, d_model=128, n_heads=4, n_layers=4,
+                   d_ff=512, max_len=64, device=dev)
+toks = torch.randint(0, 256, (2, 65),
+                     generator=torch.Generator().manual_seed(r)).to(dev)
+# the stacked tree first: the module form parametrizes lm in place
+packed = stack_lm_blocks(flax_params(lm))
+fstep, _ = make_fsdp_train_step(lm, sgd, comm, loss_fn=fused_lm_loss)
+sh = dict(fsdp_shardings(packed, comm),
+          blocks=fsdp_stack_shardings(packed, comm)["blocks"])
+sstep, _ = make_fsdp_train_step(None, sgd, comm, packed,
+                                loss_fn=make_lm_fsdp_scan_loss(lm),
+                                param_shardings=sh)
+dl204 = {}
+for name, st in (("fsdp", fstep), ("fsdp-scan", sstep)):
+    st(toks[:, :-1], toks[:, 1:])
+    with capture(dev, memory=True) as m_rec:
+        st(toks[:, :-1], toks[:, 1:])
+    dl204[name] = check_fsdp_gather_liveness(m_rec["trace"])
+assert dl204["fsdp"]["ok"] is False and dl204["fsdp-scan"]["ok"] is True, \
+    dl204
+
+# DL203: the pipeline LM example's interleaved 1F1B (S 4 x V 2) over the
+# four cards, one step traced on each rank
+from chainermn_torch.analysis import check_pipeline_permute_overlap
+from chainermn_torch.examples import train_pipeline_lm as tpl
+pargs = tpl.parse_args(["--vocab", "4096", "--d-model", "512", "--n-heads",
+                        "8", "--d-ff", "2048", "-L", "256", "--mb-size",
+                        "2", "-M", "8", "-V", "2", "--device", DEV])
+ptoks, ptgts = next(tpl.batches(pargs, 4, dev))
+pipe = tpl.PipelineLM(pargs, comm, seed=0)
+pipe.value_and_grad(ptoks, ptgts)
+comm.barrier()
+with capture(dev) as p_rec:
+    pipe.value_and_grad(ptoks, ptgts)
+    # the exchange's unwaited gloo sends (the headers) must finish inside
+    # the profiler's window: one that completes after it corrupts the
+    # heap at exit
+    comm.barrier()
+dl203 = check_pipeline_permute_overlap(p_rec["trace"])
+if DEV == "cuda":
+    assert dl203["ok"] is not None and dl203["n_permute_pairs"] > 0, dl203
+else:
+    assert dl203["ok"] is False and dl203["n_device_events"] == 0, dl203
+dl203s = comm.allgather_obj({k: dl203.get(k) for k in (
+    "ok", "n_permute_pairs", "min_compute_inside_any_pair",
+    "sync_permutes", "n_compute")})
+
 if r == 0:
     import subprocess
     card = (subprocess.run(
@@ -954,6 +1064,16 @@ if r == 0:
             "n_allreduce")},
         "DL202": {k: dl202.get(k) for k in (
             "ok", "per_step", "by_kind", "steps")},
+        "DL203 (per rank)": dl203s,
+        "DL204": {k: {q: v.get(q) for q in (
+            "ok", "computation", "n_gathers", "peak_live_gathers")}
+            for k, v in dl204.items()},
+        "DL205": {k: {"ok": v[0]["ok"], "expect_quantized": v[1]["ok"],
+                      "dominant": {f: (d["dtype"], d["elements"])
+                                   for f, d in v[0].get(
+                                       "dominant", {}).items()},
+                      "kernel_dtypes": v[0].get("kernel_dtypes")}
+                  for k, v in dl205.items()},
         "allreduce_grad_alone": alone.get("n_collectives"),
         "device_events": len(events)}), flush=True)
 comm.barrier()
@@ -963,14 +1083,152 @@ print(f"RANK{r} OK", flush=True)
 
 
 def test_trace_passes_across_four_cards():
-    """The port's dlint trace passes on a four-rank data-parallel step's
-    ``torch.profiler`` trace (the ``schedtune --trace`` model, ``allreduce_
-    grad``'s default buckets): DL202's NCCL kernels a step equal
-    ``plan_buckets``' bucket count plus the step's one metrics all-reduce,
-    and ``allreduce_grad`` alone after a backward launches exactly the
-    buckets; DL201's verdict and overlap score are printed (the port
-    reduces after the backward), not asserted."""
+    """The port's dlint trace passes on four ranks' ``torch.profiler``
+    traces. The data-parallel step of the ``schedtune --trace`` model
+    (``allreduce_grad``'s default buckets): DL202's NCCL kernels a step
+    equal ``plan_buckets``' bucket count plus the step's one metrics
+    all-reduce, and ``allreduce_grad`` alone after a backward launches
+    exactly the buckets; DL201's verdict and overlap score are printed
+    (the port reduces after the backward), not asserted. DL205 on that
+    model's gradients: the int8-block reducer's wire is narrow (its int32
+    code sums dominate, and NCCL's AllReduce kernel names carry a 32-bit
+    integer type),
+    the flat reducer's shows no evidence (skip; a failure when
+    quantization is expected; NCCL runs the int32 sums with its ``u32``
+    kernels). DL204 on one traced step of a 4-layer LM:
+    plain FSDP keeps its gathers live (fails), the scanned stack holds one
+    layer (passes), JAX's verdicts. DL203 on one traced step of the
+    pipeline LM example's interleaved 1F1B (S 4 x V 2): every rank's
+    SendRecv kernels against the compute kernels inside them, printed as
+    found."""
     _four_cards()
-    res = run_world(TRACE_PASSES_WORKER, 4, timeout=300)
+    res = run_world(TRACE_PASSES_WORKER, 4, timeout=420)
     assert_ranks_ok(res)
     print([ln for ln in res[0][1].splitlines() if ln.startswith("DLINT ")])
+
+
+SERVE_WORKER = r"""
+import json, os, subprocess, time
+import numpy as np
+import torch
+from chainermn_torch.comm import create_communicator
+from chainermn_torch.models.transformer import TransformerLM
+from chainermn_torch.ops import _cuda
+from chainermn_torch.serving.engine import Engine, EngineConfig
+from chainermn_torch.serving.kv_cache import ServingStep
+
+comm = create_communicator("pure_nccl")
+r, dev = comm.rank, comm.device
+torch.manual_seed(0)
+model = TransformerLM(vocab=32768, d_model=768, n_heads=12, n_layers=12,
+                      d_ff=3072, max_len=2048, pos_emb="rope",
+                      attention="flash", dtype=torch.bfloat16, device=dev)
+cfg = EngineConfig(n_slots=8, capacity=2048,
+                   buckets=(128, 256, 512, 1024, 2048), prefill_cohort=2,
+                   decode_k=4, max_new_tokens=32)
+rng = np.random.RandomState(0)
+lengths = rng.randint(64, 2001, size=16)
+prompts = [rng.randint(0, 32768, size=n).astype(np.int32) for n in lengths]
+
+
+def served(eng):
+    reqs = [eng.submit(p) for p in prompts]
+    eng.run_until_drained()
+    summ = eng.report.summary()
+    return ([q.tokens for q in reqs], summ["ttft_ms"]["p50"],
+            (summ["tokens_emitted"] - len(reqs)) / summ["wall_s"])
+
+
+def gap():
+    # the chunk/decode logit gap of this card (chip_smoke's measure)
+    worst = 0.0
+    for p in prompts[:2]:
+        steps = [ServingStep(model, 1, len(p) + 5) for _ in range(2)]
+        toks = [steps[0].prefill(p[None], [len(p)], [0]).argmax(-1)]
+        steps[1].prefill(p[None], [len(p)], [0])
+        dec = []
+        for _ in range(5):
+            dec.append(steps[0].decode(toks[-1]))
+            toks.append(dec[-1].argmax(-1))
+        with torch.no_grad():
+            ver = steps[1].model.forward_cached(
+                torch.stack(toks[:5], dim=1), steps[1].cache, chunked=True)
+        worst = max(worst, float((ver[0] - torch.cat(dec)).abs().max()))
+    return worst
+
+
+one = None
+if r == 0:
+    served(Engine(model, cfg))
+    eng = Engine(model, cfg)
+    one = served(eng) + (eng.steps.cache_bytes(), gap())
+    del eng
+one = comm.bcast_obj(one)
+served(Engine(model, cfg, mesh=comm))
+eng = Engine(model, cfg, mesh=comm)
+prefills = [0]
+plain = eng.steps.prefill_sampled
+
+
+def counted(*a, **kw):
+    prefills[0] += 1
+    return plain(*a, **kw)
+
+
+eng.steps.prefill_sampled = counted
+comm.barrier()
+_cuda.reset_launches()
+streams, ttft, rate = served(eng)
+launches = _cuda.launches()
+margins = []
+with torch.no_grad():
+    for p, w, g in zip(prompts, one[0], streams):
+        if w != g:
+            j = next(i for i, (a, b) in enumerate(zip(w, g)) if a != b)
+            seq = torch.tensor(list(p) + w[:j], device=dev)[None]
+            top = model(seq)[0, -1].float().topk(2).values
+            margins.append(float(top[0] - top[1]))
+rows = comm.allgather_obj(dict(
+    streams=streams, launches=launches, prefills=prefills[0],
+    bytes=eng.steps.cache_bytes(), margins=margins, ttft=ttft, rate=rate))
+assert all(row["streams"] == rows[0]["streams"] for row in rows)
+assert all(row["launches"]["flash_fwd"] == 12 * row["prefills"] > 0
+           for row in rows), rows
+# one: the one-card engine's streams, ttft, tokens/s, page bytes, gap
+assert all(row["bytes"] * 4 == one[3] for row in rows), (rows, one[3])
+assert all(m < one[4] for row in rows for m in row["margins"]), (rows, one)
+if r == 0:
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip().splitlines()
+    print("SERVE " + json.dumps({
+        "cards": card, "requests": len(prompts),
+        "diverged": sum(a != b for a, b in zip(one[0], streams)),
+        "margins": [m for row in rows for m in row["margins"]],
+        "gap": one[4], "page_bytes": [rows[0]["bytes"], one[3]],
+        "flash_fwd_per_prefill": [row["launches"]["flash_fwd"]
+                                  / row["prefills"] for row in rows],
+        "prefills": [row["prefills"] for row in rows],
+        "ttft_p50_ms": [ttft, one[1]], "tokens_per_s": [rate, one[2]]}),
+          flush=True)
+comm.barrier()
+comm.finalize()
+print(f"RANK{r} OK", flush=True)
+"""
+
+
+def test_sharded_serving_across_four_cards():
+    """The 135M LM at full width (12 KV heads, 3 a card) served by
+    ``Engine(mesh=comm)`` over four NCCL ranks with the slice's
+    ``EngineConfig`` and its 16 greedy requests of [64, 2000] tokens, 32
+    new each: every rank emits the same streams; they equal the one-card
+    engine's except where the first divergence's top-2 margin lies below
+    the card's chunk/decode logit gap; each rank's pages are 1/4 of the
+    one-card engine's; every prefill dispatch launches 12 flash_fwd on
+    every rank. TTFT p50 and tokens/s are printed beside the one-card
+    engine's."""
+    _four_cards()
+    res = run_world(SERVE_WORKER, 4, timeout=420)
+    assert_ranks_ok(res)
+    print([ln for ln in res[0][1].splitlines() if ln.startswith("SERVE ")])

@@ -28,7 +28,7 @@ from chainermn_torch.models.transformer import TransformerLM
 from chainermn_torch.serving import kv_cache as tkv
 from chainermn_torch.serving.engine import Engine, EngineConfig
 from chainermn_torch.serving.reports import ServingReport
-from chainermn_torch.serving.sampling import (gumbel_noise, request_key,
+from chainermn_torch.serving.sampling import (gumbel, request_key,
                                               sample_tokens)
 
 CFG = dict(vocab=64, d_model=32, n_heads=4, n_kv_heads=2, n_layers=2,
@@ -96,6 +96,31 @@ def test_last_decode_logits_match_the_jax_engine():
                                rtol=1e-4, atol=1e-4)
 
 
+def test_a_greedy_engine_draws_no_noise_on_the_same_key_stream(
+        monkeypatch):
+    """An engine whose live rows are all greedy skips the Gumbel draw
+    (the temperatures are on the host) and still splits every row's key
+    once a token: its tokens and key rows equal a run that draws the
+    noise for every row."""
+    import chainermn_torch.serving.kv_cache as kvc
+    import chainermn_torch.serving.sampling as samp
+
+    _, _, tm = _models()
+    prompts = _prompts(3)
+    cfg = EngineConfig(**BASE, decode_k=2, prefill_chunk=4)
+    with monkeypatch.context() as m:
+        m.setattr(kvc, "any_sampling", lambda *a, **k: True)
+        drawn, drawn_reqs = _serve_torch(tm, cfg, prompts)
+
+    def no_draw(*a, **k):
+        raise AssertionError("a greedy engine drew Gumbel noise")
+
+    monkeypatch.setattr(samp, "gumbel", no_draw)
+    eng, reqs = _serve_torch(tm, cfg, prompts)
+    assert [r.tokens for r in reqs] == [r.tokens for r in drawn_reqs]
+    np.testing.assert_array_equal(eng._keys.numpy(), drawn._keys.numpy())
+
+
 @pytest.mark.parametrize("extra", [dict(), dict(prefill_chunk=4)],
                          ids=["mono", "chunked"])
 def test_sampled_stream_is_independent_of_decode_k(extra):
@@ -125,20 +150,21 @@ def test_sampled_stream_is_independent_of_decode_k(extra):
 
 def test_sampling_encoding():
     """temp <= 0 is greedy (first index on ties), top_k = 1 is greedy
-    too, every row advances its key by exactly one draw, and the noise
-    is a pure function of the key."""
+    too, every row advances its key by exactly one split (JAX's), and
+    the noise is a pure function of the key."""
     logits = torch.tensor([[1.0, 3.0, 3.0, 0.0], [0.5, 0.1, 0.2, 0.4],
                            [0.0, 0.0, 5.0, 0.0]])
     keys = torch.stack([request_key(s) for s in (1, 2, 3)])
     tok, new = sample_tokens(logits, keys, torch.tensor([0.0, 1.0, 2.0]),
                              torch.tensor([0, 1, 0]))
     assert tok[0] == 1 and tok[1] == 0
-    assert torch.equal(new[:, 1], keys[:, 1] + 1)
-    assert torch.equal(gumbel_noise(keys, 8), gumbel_noise(keys, 8))
-    assert not torch.equal(gumbel_noise(keys, 8), gumbel_noise(new, 8))
+    jkeys = jnp.stack([jax.random.PRNGKey(s) for s in (1, 2, 3)])
+    want = jax.vmap(lambda k: jax.random.split(k, 2))(jkeys)[:, 0]
+    np.testing.assert_array_equal(new.numpy(), np.asarray(want))
+    assert torch.equal(gumbel(keys, (8,)), gumbel(keys, (8,)))
+    assert not torch.equal(gumbel(keys, (8,)), gumbel(new, (8,)))
     # a categorical draw, not an argmax: frequencies follow softmax
-    many = torch.stack([request_key(0)] * 4000)
-    many[:, 1] = torch.arange(4000)
+    many = torch.stack([request_key(s) for s in range(4000)])
     p = torch.tensor([[0.0, 1.0, 2.0]]).expand(4000, 3)
     draws, _ = sample_tokens(p, many, torch.ones(4000),
                              torch.zeros(4000, dtype=torch.int64))

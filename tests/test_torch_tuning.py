@@ -635,3 +635,82 @@ def test_tuned_optimizer_steps_equal_flat_and_dbs_cross_packages(
         model_key="mnist", topology=topo)
     assert opt.plan.to_dict() == plan
     assert opt.grad_reducer.bucket_bytes == plan["bucket_bytes"]
+
+
+def _measured(samples):
+    """A compile_fn returning each candidate's canned measurements
+    (NCCL µs a step of five repeats, by bucket size; overlap 0.0)."""
+    def fn(cand):
+        s = samples.get(cand.bucket_bytes)
+        if s is None:
+            return None
+        return tt.TraceEvidence(0.0, float(np.median(s)), tuple(s))
+    return fn
+
+
+def test_trace_ranking_orders_only_outside_the_spread():
+    """``--trace``'s ranking: candidates measured several times tie where
+    their spreads (interquartile ranges of the samples) overlap the least
+    median's spread; the tie goes to the first of them in the canned
+    search's ranking (here 1 MiB, 4 MiB, 16 MiB), whatever the noise
+    inside the spreads or the stray samples outside them; a gap between
+    spreads orders them by median; a candidate that overlaps only a tied
+    one does not tie; when every candidate ties the trace decided
+    nothing, and the plan is the canned pick with ``source`` canned.
+    Every row lists its samples, its spread and its tie set."""
+    topo = port_topology(jt.single_tier(4))
+    mib = 1 << 20
+    cands = [tt.Candidate("flat", b * mib) for b in (1, 4, 16)]
+
+    def run(samples):
+        return tt.tune(topo, GRAD_BYTES, _measured(samples),
+                       candidates=cands, source="trace")
+
+    noisy = {mib: (90.0, 104.0, 108.0, 112.0, 160.0),
+             4 * mib: (60.0, 95.0, 100.0, 105.0, 150.0),
+             16 * mib: (300.0, 305.0, 310.0, 315.0, 320.0)}
+    res = run(noisy)
+    # 4 MiB has the least median and 1 MiB's spread [104, 112] overlaps
+    # its [95, 105]; 16 MiB's does not; the canned ranking names 1 MiB
+    assert res.plan.bucket_bytes == mib and res.plan.source == "trace"
+    assert res.decided and res.tie_set == [0, 1]
+    by = {r["candidate"]["bucket_bytes"]: r for r in res.rows}
+    assert by[4 * mib]["comm_us"] == 100.0
+    assert by[mib]["samples_us"] == list(noisy[mib])
+    # the spread in score terms: the quartiles plus the buckets' launches
+    assert by[mib]["score_spread"][0] == pytest.approx(104.0, abs=0.1)
+    assert by[mib]["score_spread"][1] == pytest.approx(112.0, abs=0.1)
+    assert by[4 * mib]["tie_set"] == by[mib]["tie_set"] == [0, 1]
+    assert by[16 * mib]["tie_set"] == [2]
+    # other noise inside the same spreads, and strays outside: one plan
+    shuffled = {k: tuple(reversed(v)) for k, v in noisy.items()}
+    shuffled[4 * mib] = (400.0, 95.0, 105.0, 10.0, 100.0)
+    assert run(shuffled).plan.bucket_bytes == mib
+    # a gap between the spreads orders by median, the canned rank aside
+    apart = dict(noisy)
+    apart[mib] = (200.0, 210.0, 205.0, 220.0, 215.0)
+    res = run(apart)
+    assert res.plan.bucket_bytes == 4 * mib and res.tie_set == [1]
+    # no chains: 16 MiB leads and ties with 4 MiB, whose spread also
+    # overlaps 1 MiB's; 1 MiB does not overlap 16 MiB, so it is no tie
+    # and 4 MiB, the first of the tie in the canned ranking, wins
+    chain = {mib: (100.0, 115.0, 120.0, 125.0, 150.0),
+             4 * mib: (90.0, 103.0, 110.0, 118.0, 130.0),
+             16 * mib: (95.0, 100.0, 102.0, 104.0, 110.0)}
+    res = run(chain)
+    assert res.plan.bucket_bytes == 4 * mib and res.decided
+    assert res.tie_set == [1, 2]
+    by = {r["candidate"]["bucket_bytes"]: r for r in res.rows}
+    assert by[mib]["tie_set"] == [0, 1]
+    assert by[4 * mib]["tie_set"] == [0, 1, 2]
+    # every candidate ties with the leader: the canned pick, not a trace's
+    flat = {mib: (100.0, 105.0, 110.0, 115.0, 120.0),
+            4 * mib: (100.0, 104.0, 108.0, 112.0, 120.0),
+            16 * mib: (95.0, 100.0, 106.0, 110.0, 130.0)}
+    res = run(flat)
+    assert res.tie_set == [0, 1, 2] and not res.decided
+    assert res.plan.bucket_bytes == mib and res.plan.source == "canned"
+    # one measurement a candidate: no spread, the least score wins
+    res = run({k: (v[2],) for k, v in noisy.items()})
+    assert res.plan.bucket_bytes == 4 * mib and res.tie_set is None
+    assert res.decided and res.plan.source == "trace"
